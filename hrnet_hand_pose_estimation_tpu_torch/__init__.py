@@ -1,0 +1,17 @@
+"""PyTorch/CUDA port of ``hrnet_hand_pose_estimation_tpu``.
+
+The port imports torch and never jax, flax or the JAX package; it keeps its
+own copies of what it needs.  Entry points run on ``cuda`` unless the
+caller passes ``device="cpu"``.
+
+Layout
+------
+- ``config``       frozen config tree; loads ``experiments/*.yaml`` like the JAX package
+- ``models``       PyTorch HRNet with the reference module names, behind a registry
+- ``ops``          upsampling, decoding, and the hand-written CUDA kernels (``ops/kernels``)
+- ``csrc``         CUDA C++ sources of the kernels, built with nvcc at first use
+- ``core``         the bf16 serving path ``make_fast_infer``
+- ``utils``        weights from the JAX variable tree, seeded random weights
+"""
+
+__version__ = "0.1.0"

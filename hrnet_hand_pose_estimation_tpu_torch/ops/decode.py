@@ -1,0 +1,35 @@
+"""Heatmap -> keypoint decoding, in PyTorch.
+
+Port of the JAX package's ``ops/decode.py:24-50``.  Heatmaps are NHWK
+``(batch, height, width, joints)``; coordinates are ``(batch, joints, 2)``
+ordered ``[u, v]`` = [column, row] in heatmap pixels.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def spatial_softmax(logits: torch.Tensor, temperature: torch.Tensor | float = 1.0) -> torch.Tensor:
+    """Softmax over the H*W plane per joint (reference pose_hrnet_softmax.py:520-528).
+
+    ``temperature`` multiplies the logits before the softmax.
+    """
+    b, h, w, k = logits.shape
+    x = (logits.float() * temperature).reshape(b, h * w, k)
+    return torch.softmax(x, dim=1).reshape(b, h, w, k)
+
+
+def soft_argmax(probs: torch.Tensor) -> torch.Tensor:
+    """Spatial expectation of per-joint probability maps.
+
+    probs: (B, H, W, K), each plane summing to 1 over H*W.
+    returns: (B, K, 2) [u, v] float32.
+    """
+    _, h, w, _ = probs.shape
+    p = probs.float()
+    us = torch.arange(w, dtype=torch.float32, device=p.device)
+    vs = torch.arange(h, dtype=torch.float32, device=p.device)
+    eu = torch.einsum("bhwk,w->bk", p, us)
+    ev = torch.einsum("bhwk,h->bk", p, vs)
+    return torch.stack([eu, ev], dim=-1)

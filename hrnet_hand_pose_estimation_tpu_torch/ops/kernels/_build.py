@@ -1,0 +1,129 @@
+"""Build and load the port's CUDA kernels.
+
+Every ``csrc/*.cu`` is compiled by one ``nvcc`` call into one shared
+library with a plain C interface, ``build/kernels/libhrnet_kernels.so``
+beside the package, and loaded with ``ctypes``.  No PyTorch header is
+included, so the build takes seconds, not minutes.  The build runs at the
+first use of a kernel and again only when a source or a flag changes: a
+stamp file beside the library holds the hash of both.
+
+Each C entry point returns ``cudaGetLastError()`` after its launches; the
+wrappers call :func:`check` on it, so a launch the card refuses raises at
+once instead of leaving the output unwritten.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parents[2]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "kernels"
+LIB_NAME = "libhrnet_kernels.so"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# C signature of every entry point: (argtypes), all returning cudaError_t as int
+SIGNATURES = {
+    # x, out, w1, b1, w2, b2, w3, b3, ws, bs, B, H, W, Cin, Cm, Cout, stream
+    "hrnet_bottleneck_block": (_P,) * 10 + (_I,) * 6 + (_P,),
+    # x1, x2, x3, w1, w2, w3, y1, y2, y3, M1, M2, M3, C1, C2, C3, N, stream
+    "hrnet_head_branch_conv": (_P,) * 9 + (_I,) * 7 + (_P,),
+    # x0, w0, y1, y2, y3, taps, b_head, w_final, b_final, temp, logits,
+    # B, H0, W0, C0, h1, w1, h2, w2, h3, w3, N, K, L, stream
+    "hrnet_head_logits": (_P,) * 11 + (_I,) * 13 + (_P,),
+    # logits, out, B, K, H0, W0, stream
+    "hrnet_softmax_decode": (_P, _P) + (_I,) * 4 + (_P,),
+}
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    for cand in (shutil.which("nvcc"), os.path.join(cuda_home, "bin", "nvcc")):
+        if cand and os.access(cand, os.X_OK):
+            return cand
+    raise RuntimeError(
+        "nvcc not found (looked on PATH and in $CUDA_HOME/bin): the port's "
+        "CUDA kernels cannot be built")
+
+
+def sources() -> list[Path]:
+    srcs = sorted(CSRC.glob("*.cu"))
+    if not srcs:
+        raise RuntimeError(f"no CUDA sources under {CSRC}")
+    return srcs
+
+
+def source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh")):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    return h.hexdigest()
+
+
+def build(verbose: bool = False) -> Path:
+    """Compile the kernels unless the library on disk matches the sources.
+    Returns the library's path; raises if nvcc is missing or fails."""
+    lib_path = BUILD_DIR / LIB_NAME
+    stamp = BUILD_DIR / (LIB_NAME + ".sha256")
+    digest = source_hash()
+    if lib_path.exists() and stamp.exists() and stamp.read_text().strip() == digest:
+        return lib_path
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources())]
+    if verbose:
+        cmd.insert(1, "-Xptxas=-v")
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                           f"{proc.stdout}\n{proc.stderr}")
+    if verbose:
+        print(proc.stdout + proc.stderr, flush=True)
+    os.replace(tmp, lib_path)      # atomic: concurrent builders never see half a file
+    stamp.write_text(digest)
+    return lib_path
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library, built on first call."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            handle = ctypes.CDLL(str(build()))
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(handle, name)
+                fn.argtypes = list(argtypes)
+                fn.restype = ctypes.c_int
+            handle.hrnet_error_string.argtypes = [ctypes.c_int]
+            handle.hrnet_error_string.restype = ctypes.c_char_p
+            _lib = handle
+    return _lib
+
+
+def check(err: int, name: str) -> None:
+    """Raise if a C entry point reported a CUDA error."""
+    if err != 0:
+        msg = lib().hrnet_error_string(err).decode()
+        raise RuntimeError(f"{name}: CUDA error {err} at launch: {msg}")
+
+
+def stream_ptr(device) -> int:
+    import torch
+
+    return torch.cuda.current_stream(device).cuda_stream
