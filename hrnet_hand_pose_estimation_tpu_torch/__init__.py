@@ -10,7 +10,7 @@ Layout
 - ``models``       PyTorch HRNet with the reference module names, behind a registry
 - ``ops``          upsampling, decoding, and the hand-written CUDA kernels (``ops/kernels``)
 - ``csrc``         CUDA C++ sources of the kernels, built with nvcc at first use
-- ``core``         the bf16 serving path ``make_fast_infer``
+- ``core``         the serving paths: bf16 ``make_fast_infer``, int8 W8A8 ``make_quant_infer``
 - ``utils``        weights from the JAX variable tree, seeded random weights
 """
 

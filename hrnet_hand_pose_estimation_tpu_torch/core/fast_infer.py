@@ -75,8 +75,9 @@ def precast_variables(cfg, state: Mapping[str, torch.Tensor], device="cuda") -> 
     state = {k: v.to(device) for k, v in model.state_dict().items()}
     layer1 = fold_layer1_params(state)
     head = prepare_head_params(state)
-    head = head._replace(w_head=head.w_head.to(torch.bfloat16),
-                         w_final=head.w_final.to(torch.bfloat16))
+    # w_head stays float32: the int8 serving path folds its input scales
+    # into it before the bf16 cast (core/quant_infer.py)
+    head = head._replace(w_final=head.w_final.to(torch.bfloat16))
     served = _fold_model(model).to(device=device, dtype=torch.bfloat16,
                                    memory_format=torch.channels_last).eval()
     return ServingWeights(served, layer1, head)

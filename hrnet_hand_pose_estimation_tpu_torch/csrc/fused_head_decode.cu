@@ -25,7 +25,15 @@
 // sample), and (b) gathers 12 bf16 samples per output element from L1/L2,
 // so memory traffic, not the tensor cores, is what this first version pays;
 // fusing (b) and (c) and a separable upsample in shared memory are later work.
+//
+// int8-input mode (the int8 serving path's HEAD_SCALES_KEY, the TPU kernel's
+// input_scales): the four branches arrive as int8 (B, h, w, C_i) with
+// x_i ~= sa_i * xq_i; the wrapper folds sa_i into W_i in f32 before the bf16
+// cast, and (a) and (b) cast the int8 values to bf16 on load, which is exact
+// for |v| <= 127.  The branch tensors are then half the bytes.
 #include <math.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -35,8 +43,23 @@ namespace {
 constexpr int kRows = 64;   // rows of x per block in (a), output pixels per block in (b)
 constexpr int kKPad = 32;   // final-conv columns held in shared memory
 
+// A 16x16 tile of a row-major input of type T as a bf16 WMMA fragment:
+// bf16 straight from memory, int8 through the warp's bf16 staging tile.
+template <typename T>
+__device__ inline void load_a_tile(FragA& fa, const T* src, int ld, bf16* tile, int lane) {
+  if constexpr (std::is_same<T, bf16>::value) {
+    wmma::load_matrix_sync(fa, src, ld);
+  } else {
+    for (int e = lane; e < 256; e += 32)
+      tile[e] = __float2bfloat16((float)src[(size_t)(e / 16) * ld + e % 16]);
+    __syncwarp();
+    wmma::load_matrix_sync(fa, tile, 16);
+    __syncwarp();
+  }
+}
+
 struct BranchConvArgs {
-  const bf16* x[3];       // (M_i, C_i) = branch i+1 flattened NHWC
+  const void* x[3];       // (M_i, C_i) = branch i+1 flattened NHWC, bf16 or int8
   const bf16* w[3];       // (C_i, N)
   bf16* y[3];             // (M_i, N)
   int M[3], C[3];
@@ -44,8 +67,10 @@ struct BranchConvArgs {
   int N;
 };
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads) branch_conv_kernel(BranchConvArgs a) {
   __shared__ __align__(32) float scratch_all[kWarps][256];
+  __shared__ __align__(32) bf16 tile_all[kWarps][256];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   float* scratch = scratch_all[warp];
   const int br = blockIdx.x >= a.first_block[2] ? 2 : (blockIdx.x >= a.first_block[1] ? 1 : 0);
@@ -53,14 +78,14 @@ __global__ void __launch_bounds__(kThreads) branch_conv_kernel(BranchConvArgs a)
   const int n0 = blockIdx.y * 32 + (warp % 2) * 16;
   const int M = a.M[br], C = a.C[br], N = a.N;
   if (m0 >= M || n0 >= N) return;
-  const bf16* x = a.x[br];
+  const T* x = static_cast<const T*>(a.x[br]);
   const bf16* w = a.w[br];
   FragA fa;
   FragB fb;
   FragC acc;
   wmma::fill_fragment(acc, 0.0f);
   for (int k = 0; k < C; k += 16) {
-    wmma::load_matrix_sync(fa, x + (size_t)m0 * C + k, C);
+    load_a_tile(fa, x + (size_t)m0 * C + k, C, tile_all[warp], lane);
     wmma::load_matrix_sync(fb, w + (size_t)k * N + n0, N);
     wmma::mma_sync(acc, fa, fb, acc);
   }
@@ -72,7 +97,7 @@ __global__ void __launch_bounds__(kThreads) branch_conv_kernel(BranchConvArgs a)
 }
 
 struct LogitsArgs {
-  const bf16* x0;        // (B, H0*W0, C0)
+  const void* x0;        // (B, H0*W0, C0), bf16 or int8
   const bf16* w0;        // (C0, N)
   const bf16* y[3];      // (B, h_i*w_i, N)
   const float* taps;     // (3 branches, 2 axes, 3 fields {lo, a, b}, L)
@@ -91,6 +116,7 @@ __host__ __device__ inline size_t logits_smem_bytes(int c0, int n) {
          (size_t)kWarps * 256 * sizeof(float);
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads) head_logits_kernel(LogitsArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int ldx = a.C0 + kRowPad, ldh = a.N + kRowPad;
@@ -105,8 +131,16 @@ __global__ void __launch_bounds__(kThreads) head_logits_kernel(LogitsArgs a) {
   for (int i = threadIdx.x; i < kRows * vec_per_row; i += kThreads) {
     const int r = i / vec_per_row, v = i % vec_per_row;
     uint4 val = make_uint4(0, 0, 0, 0);
-    if (p0 + r < HW)
-      val = *reinterpret_cast<const uint4*>(a.x0 + ((size_t)b * HW + p0 + r) * a.C0 + v * 8);
+    const size_t off = ((size_t)b * HW + p0 + r) * a.C0 + v * 8;
+    if (p0 + r < HW) {
+      if constexpr (std::is_same<T, bf16>::value) {
+        val = *reinterpret_cast<const uint4*>(static_cast<const bf16*>(a.x0) + off);
+      } else {   // 8 int8 values -> 8 bf16, exact
+        const signed char* q = static_cast<const signed char*>(a.x0) + off;
+        __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&val);
+        for (int j = 0; j < 4; ++j) h[j] = __floats2bfloat162_rn((float)q[2 * j], (float)q[2 * j + 1]);
+      }
+    }
     *reinterpret_cast<uint4*>(xs + r * ldx + v * 8) = val;
   }
   for (int i = threadIdx.x; i < a.N * kKPad; i += kThreads) {
@@ -220,11 +254,12 @@ __global__ void __launch_bounds__(kThreads) softmax_decode_kernel(const float* l
 
 using namespace hrnet;
 
-// (a): M_i % 16 == 0, C_i % 16 == 0, N % 16 == 0 (the wrapper checks).
+// (a): M_i % 16 == 0, C_i % 16 == 0, N % 16 == 0 (the wrapper checks);
+// in_int8 selects int8 branch inputs.
 extern "C" int hrnet_head_branch_conv(const void* x1, const void* x2, const void* x3,
                                       const void* w1, const void* w2, const void* w3, void* y1,
                                       void* y2, void* y3, int M1, int M2, int M3, int C1,
-                                      int C2, int C3, int N, void* stream) {
+                                      int C2, int C3, int N, int in_int8, void* stream) {
   BranchConvArgs a{};
   const void* xs[3] = {x1, x2, x3};
   const void* ws[3] = {w1, w2, w3};
@@ -232,7 +267,7 @@ extern "C" int hrnet_head_branch_conv(const void* x1, const void* x2, const void
   const int Ms[3] = {M1, M2, M3}, Cs[3] = {C1, C2, C3};
   a.first_block[0] = 0;
   for (int i = 0; i < 3; ++i) {
-    a.x[i] = static_cast<const bf16*>(xs[i]);
+    a.x[i] = xs[i];
     a.w[i] = static_cast<const bf16*>(ws[i]);
     a.y[i] = static_cast<bf16*>(ys[i]);
     a.M[i] = Ms[i];
@@ -241,18 +276,22 @@ extern "C" int hrnet_head_branch_conv(const void* x1, const void* x2, const void
   }
   a.N = N;
   const dim3 grid(a.first_block[3], (N + 31) / 32);
-  branch_conv_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  if (in_int8)
+    branch_conv_kernel<signed char><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  else
+    branch_conv_kernel<bf16><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();
 }
 
-// (b): C0 % 16 == 0, N % 16 == 0, K <= 32, every h_i, w_i >= 2 (the wrapper checks).
+// (b): C0 % 16 == 0, N % 16 == 0, K <= 32, every h_i, w_i >= 2 (the wrapper
+// checks); in_int8 selects an int8 branch 0.
 extern "C" int hrnet_head_logits(const void* x0, const void* w0, const void* y1, const void* y2,
                                  const void* y3, const void* taps, const void* b_head,
                                  const void* w_final, const void* b_final, const void* temp,
                                  void* logits, int B, int H0, int W0, int C0, int h1, int w1,
                                  int h2, int w2, int h3, int w3, int N, int K, int L,
-                                 void* stream) {
-  LogitsArgs a{static_cast<const bf16*>(x0),
+                                 int in_int8, void* stream) {
+  LogitsArgs a{x0,
                static_cast<const bf16*>(w0),
                {static_cast<const bf16*>(y1), static_cast<const bf16*>(y2),
                 static_cast<const bf16*>(y3)},
@@ -267,11 +306,12 @@ extern "C" int hrnet_head_logits(const void* x0, const void* w0, const void* y1,
                {w1, w2, w3},
                N, K, L};
   const size_t smem = logits_smem_bytes(C0, N);
-  cudaError_t err = cudaFuncSetAttribute(head_logits_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const auto kernel = in_int8 ? head_logits_kernel<signed char> : head_logits_kernel<bf16>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((H0 * W0 + kRows - 1) / kRows, B);
-  head_logits_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
+  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();
 }
 

@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
-Every ``csrc/*.cu`` is compiled by one ``nvcc`` call into one shared
-library with a plain C interface, ``build/kernels/libhrnet_kernels.so``
-beside the package, and loaded with ``ctypes``.  No PyTorch header is
+Every ``csrc/*.cu`` is compiled by its own ``nvcc`` process, all started
+together, and the objects are linked into one shared library with a plain
+C interface, ``build/kernels/libhrnet_kernels.so`` beside the package,
+loaded with ``ctypes``.  No PyTorch header is
 included, so the build takes seconds, not minutes.  The build runs at the
 first use of a kernel and again only when a source or a flag changes: a
 stamp file beside the library holds the hash of both.
@@ -28,7 +29,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 LIB_NAME = "libhrnet_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -36,13 +37,18 @@ _I = ctypes.c_int
 SIGNATURES = {
     # x, out, w1, b1, w2, b2, w3, b3, ws, bs, B, H, W, Cin, Cm, Cout, stream
     "hrnet_bottleneck_block": (_P,) * 10 + (_I,) * 6 + (_P,),
-    # x1, x2, x3, w1, w2, w3, y1, y2, y3, M1, M2, M3, C1, C2, C3, N, stream
-    "hrnet_head_branch_conv": (_P,) * 9 + (_I,) * 7 + (_P,),
+    # x1, x2, x3, w1, w2, w3, y1, y2, y3, M1, M2, M3, C1, C2, C3, N, in_int8, stream
+    "hrnet_head_branch_conv": (_P,) * 9 + (_I,) * 8 + (_P,),
     # x0, w0, y1, y2, y3, taps, b_head, w_final, b_final, temp, logits,
-    # B, H0, W0, C0, h1, w1, h2, w2, h3, w3, N, K, L, stream
-    "hrnet_head_logits": (_P,) * 11 + (_I,) * 13 + (_P,),
+    # B, H0, W0, C0, h1, w1, h2, w2, h3, w3, N, K, L, in_int8, stream
+    "hrnet_head_logits": (_P,) * 11 + (_I,) * 14 + (_P,),
     # logits, out, B, K, H0, W0, stream
     "hrnet_softmax_decode": (_P, _P) + (_I,) * 4 + (_P,),
+    # x, out, w, scale, bias, sa, B, H, W, Cin, Ho, Wo, Cout, KH, KW, stride, pad, relu, stream
+    "hrnet_conv_int8": (_P,) * 6 + (_I,) * 12 + (_P,),
+    # x, out, inv1, kq1, a1, c1, kq2, a2, c2, kq3, a3, c3, kqs, as, cs,
+    # B, H, W, Cin, Cm, Cout, stream
+    "hrnet_bottleneck_int8_block": (_P,) * 15 + (_I,) * 6 + (_P,),
 }
 
 _lock = threading.Lock()
@@ -83,19 +89,25 @@ def build(verbose: bool = False) -> Path:
     if lib_path.exists() and stamp.exists() and stamp.read_text().strip() == digest:
         return lib_path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources())]
-    if verbose:
-        cmd.insert(1, "-Xptxas=-v")
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    if verbose:
-        print(proc.stdout + proc.stderr, flush=True)
-    os.replace(tmp, lib_path)      # atomic: concurrent builders never see half a file
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        tmp = os.path.join(tmpdir, LIB_NAME)
+        objs = [os.path.join(tmpdir, src.stem + ".o") for src in sources()]
+        cmds = [[nvcc, *(("-Xptxas=-v",) if verbose else ()), *NVCC_FLAGS, "-c", "-o", obj,
+                 str(src)] for src, obj in zip(sources(), objs)]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                  text=True) for cmd in cmds]
+        cmds.append([nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs])
+        outs = [(cmd, proc.communicate()[0], proc.returncode) for cmd, proc in zip(cmds, procs)]
+        if all(rc == 0 for _, _, rc in outs):
+            link = subprocess.run(cmds[-1], capture_output=True, text=True)
+            outs.append((cmds[-1], link.stdout + link.stderr, link.returncode))
+        for cmd, out, rc in outs:
+            if rc != 0:
+                raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{out}")
+            if verbose:
+                print(out, end="", flush=True)
+        os.replace(tmp, lib_path)      # atomic: concurrent builders never see half a file
     stamp.write_text(digest)
     return lib_path
 

@@ -1,10 +1,9 @@
 """HRNet head + spatial softmax + soft-argmax, fused.
 
 Port of the TPU kernel ``ops/pallas/fused_head_decode.py::fused_head_decode_v2``
-of the JAX package (bf16 inputs; its int8-input mode belongs to the int8
-serving path).  ``fused_head_decode_v2`` runs the three launches of
-``csrc/fused_head_decode.cu`` for tensors on the card and the plain PyTorch
-twin ``head_decode_reference`` for tensors on the CPU.  Both compute the
+of the JAX package, with its int8-input mode.  ``fused_head_decode_v2`` runs
+the three launches of ``csrc/fused_head_decode.cu`` for tensors on the card
+and the plain PyTorch twin ``head_decode_reference`` for tensors on the CPU.  Both compute the
 head with the 1x1 conv commuted ahead of the upsample, as the TPU kernel:
 
     acc    = x0 @ W0 + sum_i up_i(bf16(x_i @ W_i))      (W_i: rows of w_head)
@@ -14,12 +13,18 @@ head with the 1x1 conv commuted ahead of the upsample, as the TPU kernel:
 
 where ``up_i`` is the separable align-corners bilinear upsample with its
 W-mix weights rounded to bf16 and its H-mix taps in f32.
+
+With ``input_scales`` (the int8 serving path's ``HEAD_SCALES_KEY``), the
+branches are int8 ``(B, h, w, C_i)`` with ``x_i ~= sa_i * xq_i``: the scale
+folds into the weight slice in f32 before the bf16 cast,
+``W_i = bf16(w_head[rows_i] * sa_i)``, and the int8 values enter the
+products as bf16 (exact for |v| <= 127), as in the TPU kernel.
 """
 
 from __future__ import annotations
 
 from functools import lru_cache
-from typing import Mapping, NamedTuple, Sequence, Tuple
+from typing import Mapping, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -30,8 +35,10 @@ from .fused_bottleneck import fold_conv_bn
 
 
 class HeadParams(NamedTuple):
-    """Folded head weights.  ``w_head``/``w_final`` are float32, or bfloat16
-    once cast for serving; the kernel and its twin use them in bf16."""
+    """Folded head weights.  ``w_head``/``w_final`` are float32, or
+    ``w_final`` bfloat16 once cast for serving; the kernel and its twin use
+    them in bf16.  The int8-input mode needs ``w_head`` in float32: the
+    scales fold into it before the cast."""
 
     w_head: torch.Tensor    # (C, C) folded head conv, (in, out)
     b_head: torch.Tensor    # (C,) f32
@@ -59,15 +66,22 @@ def _offsets(xs: Sequence[torch.Tensor]) -> list[int]:
     return np.cumsum([0] + [x.shape[3] for x in xs]).tolist()
 
 
-def _validate(xs: Sequence[torch.Tensor], params: HeadParams) -> None:
+def _validate(xs: Sequence[torch.Tensor], params: HeadParams,
+              input_scales: Optional[Sequence] = None) -> None:
     if len(xs) != 4:
         raise ValueError(f"the head takes 4 branch tensors, got {len(xs)}")
+    want_dtype = torch.bfloat16 if input_scales is None else torch.int8
+    if input_scales is not None:
+        if len(input_scales) != 4:
+            raise ValueError(f"input_scales: want 4 scales, got {len(input_scales)}")
+        if params.w_head.dtype != torch.float32:
+            raise ValueError("int8 inputs need w_head in float32 (the scales fold into it)")
     b = xs[0].shape[0]
     for i, x in enumerate(xs):
         if x.dim() != 4 or x.shape[0] != b:
             raise ValueError(f"branch {i}: want (B={b}, h, w, C), got {tuple(x.shape)}")
-        if x.dtype != torch.bfloat16:
-            raise ValueError(f"branch {i} must be bfloat16, got {x.dtype}")
+        if x.dtype != want_dtype:
+            raise ValueError(f"branch {i} must be {want_dtype}, got {x.dtype}")
         if x.device != xs[0].device:
             raise ValueError(f"branch {i} on {x.device}, branch 0 on {xs[0].device}")
         if i and min(x.shape[1:3]) < 2:
@@ -86,19 +100,33 @@ def _validate(xs: Sequence[torch.Tensor], params: HeadParams) -> None:
             raise ValueError(f"{name} must be float32")
 
 
-def head_decode_reference(xs: Sequence[torch.Tensor], params: HeadParams) -> torch.Tensor:
-    """Plain PyTorch twin of the kernel: 4 NHWC bf16 branches -> (B, K, 2) f32.
+def branch_weights(xs: Sequence[torch.Tensor], params: HeadParams,
+                   input_scales: Optional[Sequence] = None) -> list[torch.Tensor]:
+    """The four bf16 row slices of ``w_head`` the branches multiply, each
+    scaled by its branch's int8 scale in f32 first when ``input_scales``
+    is given (as the TPU kernel's wrapper does)."""
+    offs = _offsets(xs)
+    slices = [params.w_head[offs[i]:offs[i + 1]] for i in range(4)]
+    if input_scales is not None:
+        slices = [w.float() * torch.as_tensor(sa, dtype=torch.float32, device=w.device)
+                  for w, sa in zip(slices, input_scales)]
+    return [w.to(torch.bfloat16).contiguous() for w in slices]
+
+
+def head_decode_reference(xs: Sequence[torch.Tensor], params: HeadParams,
+                          input_scales: Optional[Sequence] = None) -> torch.Tensor:
+    """Plain PyTorch twin of the kernel: 4 NHWC bf16 branches (or int8 ones
+    with ``input_scales``) -> (B, K, 2) f32.
 
     On a card, disable TF32 (``torch.backends.cuda.matmul.allow_tf32``)
     for a float32 reference.
     """
     _, h0, w0, _ = xs[0].shape
-    offs = _offsets(xs)
-    w_head = params.w_head.to(torch.bfloat16).float()
-    acc = xs[0].float() @ w_head[offs[0]:offs[1]]
+    w_slices = [w.float() for w in branch_weights(xs, params, input_scales)]
+    acc = xs[0].float() @ w_slices[0]
     for i, x in enumerate(xs[1:], start=1):
         h, w = x.shape[1:3]
-        y = (x.float() @ w_head[offs[i]:offs[i + 1]]).to(torch.bfloat16).float()
+        y = (x.float() @ w_slices[i]).to(torch.bfloat16).float()
         uw = torch.from_numpy(align_corners_matrix(w, w0).copy()).to(x.device)
         uh = torch.from_numpy(align_corners_matrix(h, h0).copy()).to(x.device)
         t = torch.einsum("Ww,bhwn->bhWn", uw.to(torch.bfloat16).float(), y)
@@ -133,17 +161,20 @@ def _taps(shapes: Tuple[Tuple[int, int], ...], h0: int, w0: int, device: str) ->
     return torch.from_numpy(taps).to(device)
 
 
-def fused_head_decode_v2(xs: Sequence[torch.Tensor], params: HeadParams) -> torch.Tensor:
-    """xs: 4 NHWC bf16 branch tensors (B, h0/2^i, w0/2^i, C_i) -> (B, K, 2) f32.
+def fused_head_decode_v2(xs: Sequence[torch.Tensor], params: HeadParams,
+                         input_scales: Optional[Sequence] = None) -> torch.Tensor:
+    """xs: 4 NHWC bf16 branch tensors (B, h0/2^i, w0/2^i, C_i) -> (B, K, 2) f32;
+    with ``input_scales`` (4 scales, float or 0-dim float32 tensors) the
+    branches are int8 and ``x_i ~= sa_i * xs[i]``.
 
     CUDA tensors run the kernel (three launches) and CPU tensors the plain
     twin; any other device raises.  ``launches`` counts the kernel's
     launches (3 per call).
     """
-    _validate(xs, params)
+    _validate(xs, params, input_scales)
     dev = xs[0].device
     if dev.type == "cpu":
-        return head_decode_reference(xs, params)
+        return head_decode_reference(xs, params, input_scales)
     if dev.type != "cuda":
         raise ValueError(f"fused_head_decode_v2 runs on cuda or cpu, not {dev}")
     b, h0, w0, c0 = xs[0].shape
@@ -156,9 +187,8 @@ def fused_head_decode_v2(xs: Sequence[torch.Tensor], params: HeadParams) -> torc
     if n % 16 or k > 32:
         raise ValueError(f"the kernel needs head width % 16 == 0 and K <= 32, got {n}, {k}")
 
-    offs = _offsets(xs)
-    w_head = params.w_head.to(torch.bfloat16).contiguous()
-    w_slices = [w_head[offs[i]:offs[i + 1]] for i in range(4)]
+    w_slices = branch_weights(xs, params, input_scales)
+    in_int8 = int(input_scales is not None)
     w_final = params.w_final.to(torch.bfloat16).contiguous()
     b_head = params.b_head.contiguous()
     b_final = params.b_final.contiguous()
@@ -174,14 +204,14 @@ def fused_head_decode_v2(xs: Sequence[torch.Tensor], params: HeadParams) -> torc
     err = lib.hrnet_head_branch_conv(
         *(x.data_ptr() for x in xs[1:]), *(w.data_ptr() for w in w_slices[1:]),
         *(y.data_ptr() for y in ys), *(b * h * w for h, w in shapes),
-        *(x.shape[3] for x in xs[1:]), n, stream)
+        *(x.shape[3] for x in xs[1:]), n, in_int8, stream)
     _build.check(err, "hrnet_head_branch_conv")
     fused_head_decode_v2.launches += 1
     err = lib.hrnet_head_logits(
         xs[0].data_ptr(), w_slices[0].data_ptr(), *(y.data_ptr() for y in ys),
         taps.data_ptr(), b_head.data_ptr(), w_final.data_ptr(), b_final.data_ptr(),
         temp.data_ptr(), logits.data_ptr(), b, h0, w0, c0,
-        *(d for hw in shapes for d in hw), n, k, taps.shape[-1], stream)
+        *(d for hw in shapes for d in hw), n, k, taps.shape[-1], in_int8, stream)
     _build.check(err, "hrnet_head_logits")
     fused_head_decode_v2.launches += 1
     err = lib.hrnet_softmax_decode(logits.data_ptr(), out.data_ptr(), b, k, h0, w0, stream)

@@ -70,6 +70,9 @@ def test_port_imports_no_jax():
         "for mod in pkgutil.walk_packages(port.__path__, port.__name__ + '.'):\n"
         "    importlib.import_module(mod.name)\n"
         "import chip_smoke, chip_conditioning\n"
+        "for name in ('core.quant_infer', 'ops.kernels.conv_int8', 'ops.kernels.int8_chain',\n"
+        "             'ops.kernels.fused_head_decode', 'core.fast_infer'):\n"
+        "    assert port.__name__ + '.' + name in sys.modules, name\n"
         "assert not any(m.split('.')[0] in ('jax', 'flax') for m in sys.modules"
         " if sys.modules[m] is not None)\n"
     )
