@@ -67,7 +67,7 @@ def gap(a, b):
 def measure(cfg, state, images, dev):
     weights = precast_variables(cfg, state, device=dev)
     got = make_fast_infer(cfg, device=dev)(weights, images)
-    plain = cs.twin_forward(weights, images, cs.nchw(layer1_reference, weights))
+    plain = cs.twin_forward(weights, images, layer1=cs.nchw(layer1_reference, weights))
     model = hrnet_from_cfg(cfg).to(dev)
     model.load_state_dict(state)
 
@@ -81,8 +81,8 @@ def measure(cfg, state, images, dev):
     return {
         "spread": round(got.std(dim=(0, 1)).min().item(), 4),
         "kernel": gap(got, plain),
-        "witness": gap(cs.twin_forward(weights, images, weights.model.layer1), plain),
-        "padding_fault": gap(cs.twin_forward(weights, images, cs.nchw(padding_fault, weights)),
+        "witness": gap(cs.twin_forward(weights, images, layer1=weights.model.layer1), plain),
+        "padding_fault": gap(cs.twin_forward(weights, images, layer1=cs.nchw(padding_fault, weights)),
                              plain),
         "f32_after_layer1": {"kernel": gap(f32_after(fused_bottleneck_chain), f32_twin),
                              "padding_fault": gap(f32_after(padding_fault), f32_twin)},

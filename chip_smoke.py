@@ -1,15 +1,16 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA card.
 
-Drives the port's two serving paths for pose_hrnet_w32 with the softmax
-head at 256x256 (random weights from a numpy seed): the bf16 path
-(``core/fast_infer.make_fast_infer``) and the shipped int8 W8A8 path
-(``core/quant_infer``: calibrate, ``prepare_serving_qparams``,
-``make_quant_infer`` on raw uint8 images).  It builds the hand-written CUDA
-kernels with nvcc, holds each kernel against its plain PyTorch twin at the
-inputs its path gives it, checks at batch 32 that each path went through
-its kernels and agrees with the same forward through the twins, and times
-both paths at batch 128.
+Drives the port's serving paths for pose_hrnet_w32 with the softmax head
+at 256x256 (random weights from a numpy seed): the bf16 path
+(``core/fast_infer.make_fast_infer``) with its defaults and with
+``pallas_branches=True, fuse_stem_layer1=True`` (and once with
+``s2d_stem=True``), and the shipped int8 W8A8 path (``core/quant_infer``:
+calibrate, ``prepare_serving_qparams``, ``make_quant_infer`` on raw uint8
+images).  It builds the hand-written CUDA kernels with nvcc, holds each
+kernel against its plain PyTorch twin at the inputs its path gives it,
+checks at batch 32 that each path went through its kernels and agrees with
+the same forward through the twins, and times the paths at batch 128.
 
     python3 chip_smoke.py
 
@@ -35,20 +36,23 @@ import torch
 
 from hrnet_hand_pose_estimation_tpu_torch.config import (POSE_HIGH_RESOLUTION_NET_EXTRA,
                                                          load_config)
+from hrnet_hand_pose_estimation_tpu_torch.core import fast_infer as FI
 from hrnet_hand_pose_estimation_tpu_torch.core import quant_infer as Q
 from hrnet_hand_pose_estimation_tpu_torch.core.fast_infer import (make_fast_infer,
                                                                   precast_variables)
 from hrnet_hand_pose_estimation_tpu_torch.models.hrnet import hrnet_from_cfg
 from hrnet_hand_pose_estimation_tpu_torch.ops.decode import soft_argmax
 from hrnet_hand_pose_estimation_tpu_torch.ops.kernels import _build
-from hrnet_hand_pose_estimation_tpu_torch.ops.kernels.conv_int8 import (conv_int8,
+from hrnet_hand_pose_estimation_tpu_torch.ops.kernels.conv_int8 import (SiteQ, conv_int8,
                                                                         conv_int8_reference)
 from hrnet_hand_pose_estimation_tpu_torch.ops.kernels.fused_bottleneck import (
-    fused_bottleneck_chain, layer1_reference)
+    basic_chain_reference, fused_basic_chain, fused_bottleneck_chain, fused_stem_layer1,
+    layer1_reference, stem_layer1_reference)
 from hrnet_hand_pose_estimation_tpu_torch.ops.kernels.fused_head_decode import (
     fused_head_decode_v2, head_decode_reference)
 from hrnet_hand_pose_estimation_tpu_torch.ops.kernels.int8_chain import (
     bottleneck_chain_int8_reference, fused_bottleneck_chain_int8)
+from hrnet_hand_pose_estimation_tpu_torch.ops.s2d import space_to_depth
 from hrnet_hand_pose_estimation_tpu_torch.utils.weights import init_variables
 
 CHECK_BATCH = 32
@@ -124,7 +128,7 @@ def nbytes(tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def layer1_work(x, params, flags, out):
+def layer1_flops(x, params, flags):
     b, h, w, _ = x.shape
     flops, i = 0, 0
     for has_sc in flags:
@@ -133,7 +137,11 @@ def layer1_work(x, params, flags, out):
         cout = w3.shape[1]
         flops += 2 * b * h * w * (cin * cm + 9 * cm * cm + cm * cout + (cin * cout if has_sc else 0))
         i += 8 if has_sc else 6
-    return bound(flops, 0, nbytes([x, out, *params]))
+    return flops
+
+
+def layer1_work(x, params, flags, out):
+    return bound(layer1_flops(x, params, flags), 0, nbytes([x, out, *params]))
 
 
 def head_work(xs, head, out):
@@ -186,13 +194,239 @@ def nchw(layer1_nhwc, weights):
                                  *weights.layer1).permute(0, 3, 1, 2)
 
 
-def twin_forward(weights, images, layer1):
-    """The serving forward with ``layer1`` (NCHW -> NCHW) in place of the
-    chain kernel and the head kernel's plain twin."""
+def twin_forward(weights, images, **parts):
+    """The serving forward with ``parts`` (forward_backbone's NCHW hooks:
+    ``layer1``, ``stem``, ``branch``) and the head kernel's plain twin."""
     with torch.inference_mode():
-        xs = weights.model.forward_backbone(to_input(images), layer1=layer1)
+        xs = weights.model.forward_backbone(to_input(images), **parts)
         return head_decode_reference([t.permute(0, 2, 3, 1).contiguous() for t in xs],
                                      weights.head)
+
+
+# -- make_fast_infer(pallas_branches=True, fuse_stem_layer1=True) ------------
+
+NEW_CONFIG = dict(pallas_branches=True, fuse_stem_layer1=True)
+
+
+def new_parts(weights, twin: bool):
+    """forward_backbone's hooks in NEW_CONFIG, as make_fast_infer builds them,
+    through the kernels or through their plain twins."""
+    stem_fn = stem_layer1_reference if twin else fused_stem_layer1
+    chain_fn = basic_chain_reference if twin else fused_basic_chain
+    nhwc = lambda t: t.permute(0, 2, 3, 1).contiguous()
+
+    def stem(t):
+        return stem_fn(space_to_depth(nhwc(t)), weights.stem_flat, *weights.layer1).permute(0, 3, 1, 2)
+
+    def branch(name, t):
+        params = weights.branches[name]
+        return chain_fn(nhwc(t), params, len(params) // 4).permute(0, 3, 1, 2)
+
+    return dict(stem=stem, layer1=torch.nn.Identity(), branch=branch)
+
+
+def record_branches(infer, weights, images):
+    """One forward of ``infer`` with every fused_basic_chain call recorded by
+    shape class: {(H, W, C): [count, x NHWC, params, ResLayer name]}."""
+    classes, real = {}, FI.fused_basic_chain
+    names = {id(p): n for n, p in weights.branches.items()}
+
+    def rec(x, params, n_blocks):
+        key = tuple(x.shape[1:])
+        if key in classes:
+            classes[key][0] += 1
+        else:
+            classes[key] = [1, x, params, names[id(params)]]
+        return real(x, params, n_blocks)
+
+    FI.fused_basic_chain = rec
+    try:
+        infer(weights, images)
+    finally:
+        FI.fused_basic_chain = real
+    return classes
+
+
+def basic_chain_work(x, params):
+    """Bound of a BasicBlock chain: two 3x3 convs per block; x, the output
+    and the weights once."""
+    b, h, w, c = x.shape
+    flops = (len(params) // 4) * 2 * 2 * b * h * w * 9 * c * c
+    return bound(flops, 0, 2 * nbytes([x]) + nbytes(params))
+
+
+def stem_layer1_work(x_s2d, stem_flat, params, flags):
+    """Bound of the s2d stem1 (K = 48), stem2 (K = 576) and layer1; x_s2d,
+    the output and the weights once."""
+    b, hs, ws, _ = x_s2d.shape
+    y2 = torch.empty((b, hs // 2, ws // 2, 64), dtype=torch.bfloat16, device="meta")
+    out = torch.empty((b, hs // 2, ws // 2, 256), dtype=torch.bfloat16, device="meta")
+    flops = 2 * b * hs * ws * 48 * 64 + 2 * b * (hs // 2) * (ws // 2) * 576 * 64
+    return bound(flops + layer1_flops(y2, params, flags), 0,
+                 nbytes([x_s2d, out, *stem_flat, *params]))
+
+
+def new_config_phases(cfg, weights, smi, kernels, images, default_plain):
+    """make_fast_infer(**NEW_CONFIG): the branch-chain and stem + layer1
+    kernels against their twins at the path's B=32 inputs, the path's
+    launches and its decode gate at B=32, the s2d_stem path once, and the
+    B=128 step with its breakdown.  Appends two entries to ``kernels``."""
+    dev = images.device
+    infer = make_fast_infer(cfg, device=dev, **NEW_CONFIG)
+    model = weights.model
+    params, flags = weights.layer1
+    with phase("new-config kernel checks"), torch.inference_mode():
+        classes = record_branches(infer, weights, images)
+        tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
+        t_ops = t_bytes = worst = 0.0
+        for (h, w, c), (count, x, p, name) in sorted(classes.items(), reverse=True):
+            got = fused_basic_chain(x, p, len(p) // 4)
+            want = basic_chain_reference(x, p, len(p) // 4)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            limit = 0.02 * max(1.0, want.float().abs().max().item())
+            if not err <= limit:
+                raise AssertionError(f"fused_basic_chain {h}x{w}x{c}: |kernel - plain| "
+                                     f"{err} > {limit}")
+            worst = max(worst, err)
+            layer = model.get_submodule(name)
+            x_nchw = x.permute(0, 3, 1, 2)
+            ms = time_ms(lambda: fused_basic_chain(x, p, len(p) // 4), 10)
+            plain = time_ms(lambda: basic_chain_reference(x, p, len(p) // 4), 2, warmup=1)
+            lib = time_ms(lambda: layer(x_nchw), 10)
+            b_ms, b_by = basic_chain_work(x, p)
+            t_ops, t_bytes = (t_ops + count * b_ms, t_bytes) if b_by == "operations" else (
+                t_ops, t_bytes + count * b_ms)
+            for key, val in (("ms", ms), ("plain_ms", plain), ("bound_ms", b_ms),
+                             ("library_ms", lib)):
+                tot[key] += count * val
+            print(f"fused_basic_chain {h}x{w}x{c}, {len(p) // 4} blocks, x{count} chains: "
+                  f"max|kernel - plain| {err:.4g} (limit {limit:.4g}); {ms:.4f} ms, plain "
+                  f"{plain:.3f} ms, cuDNN bf16 ResLayer {lib:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        chain_entry = dict(
+            name="fused_basic_chain", route="cuda",
+            source="hrnet_hand_pose_estimation_tpu_torch/csrc/basic_chain.cu",
+            replaces="hrnet_hand_pose_estimation_tpu/ops/pallas/fused_bottleneck.py:319",
+            max_abs_err=worst, bound_by="operations" if t_ops >= t_bytes else "bytes",
+            shape_classes=len(classes), **tot)
+
+        x_s2d = space_to_depth(images.to(torch.bfloat16))
+        got = fused_stem_layer1(x_s2d, weights.stem_flat, params, flags)
+        want = stem_layer1_reference(x_s2d, weights.stem_flat, params, flags)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        limit = 0.02 * max(1.0, want.float().abs().max().item())
+        print(f"stem + layer1: max|kernel - plain| = {err:.5f} (limit {limit:.5f})")
+        if not err <= limit:
+            raise AssertionError(f"fused_stem_layer1 disagrees with its plain twin: {err} > {limit}")
+        xin = to_input(images)
+        b_ms, b_by = stem_layer1_work(x_s2d, weights.stem_flat, params, flags)
+        stem_entry = dict(
+            name="fused_stem_layer1", route="cuda",
+            source="hrnet_hand_pose_estimation_tpu_torch/csrc/stem_layer1.cu",
+            layer1_source="hrnet_hand_pose_estimation_tpu_torch/csrc/fused_bottleneck.cu",
+            replaces="hrnet_hand_pose_estimation_tpu/ops/pallas/fused_bottleneck.py:235",
+            max_abs_err=err,
+            ms=time_ms(lambda: fused_stem_layer1(x_s2d, weights.stem_flat, params, flags), 10),
+            plain_ms=time_ms(lambda: stem_layer1_reference(x_s2d, weights.stem_flat, params,
+                                                           flags), 2, warmup=1),
+            bound_ms=b_ms, bound_by=b_by,
+            # yardstick: cuDNN's bf16 stem and layer1 (the folded served model's)
+            library_ms=time_ms(lambda: model.layer1(stem(model, xin)), 10))
+        for kern in (chain_entry, stem_entry):
+            print(f"{kern['name']} at B={CHECK_BATCH}: {kern['ms']:.3f} ms, plain "
+                  f"{kern['plain_ms']:.3f} ms, library {kern['library_ms']:.3f} ms, bound "
+                  f"{kern['bound_ms']:.4f} ms ({kern['bound_by']}) on {smi}")
+
+    with phase("new-config main path"):
+        zero_counters()
+        coords = infer(weights, images)
+        torch.cuda.synchronize()
+        launches = counters()
+        print(f"make_fast_infer({NEW_CONFIG}): CUDA launches on the main path: {launches}")
+        # one launch per BasicBlock of every stage 2-4 branch (104 for w32)
+        n_blocks = sum(int(cfg.MODEL.EXTRA[f"STAGE{n}"]["NUM_MODULES"])
+                       * sum(int(b) for b in cfg.MODEL.EXTRA[f"STAGE{n}"]["NUM_BLOCKS"])
+                       for n in (2, 3, 4))
+        want = {"conv_int8": 0, "fused_bottleneck_chain_int8": 0, "fused_head_decode_v2": 3,
+                "fused_bottleneck_chain": 0, "fused_basic_chain": n_blocks,
+                "fused_stem_layer1": 1 + len(flags)}
+        if launches != want:
+            raise AssertionError(f"launches {launches}, want {want}")
+        chain_entry["launches"] = launches["fused_basic_chain"]
+        stem_entry["launches"] = launches["fused_stem_layer1"]
+        if coords.shape != (CHECK_BATCH, 21, 2) or not torch.isfinite(coords).all():
+            raise AssertionError(f"bad output: shape {tuple(coords.shape)}")
+        # the twin path runs the same forward through the four kernels'
+        # twins; the witness is the default configuration's twin forward
+        # (cuDNN stem and branch chains): how far a legitimate change of
+        # rounding moves the decode
+        plain = twin_forward(weights, images, **new_parts(weights, twin=True))
+        diff = (coords - plain).abs()
+        witness = (default_plain - plain).abs()
+        limit = max(0.25, witness.max().item())
+        spread = coords.std(dim=(0, 1)).min().item()
+        print(f"new configuration vs its plain-twin path: max |d| = {diff.max().item():.4f} px "
+              f"(limit {limit:.4f}), mean {diff.mean().item():.5f} px (limit: witness mean "
+              f"{witness.mean().item():.4f}); witness (default configuration's twins) vs plain: "
+              f"max {witness.max().item():.4f} px; spread {spread:.3f} px (> 1)")
+        if not diff.max().item() <= limit:
+            raise AssertionError("new configuration disagrees with its plain path")
+        if not diff.mean().item() <= witness.mean().item():
+            raise AssertionError(f"new configuration farther from its plain path than the "
+                                 f"witness: {diff.mean()} > {witness.mean()}")
+        if not spread > 1.0:
+            raise AssertionError(f"coordinates barely spread ({spread} px)")
+        s2d = make_fast_infer(cfg, device=dev, s2d_stem=True)(weights, images)
+        torch.cuda.synchronize()
+        if s2d.shape != (CHECK_BATCH, 21, 2) or not torch.isfinite(s2d).all():
+            raise AssertionError(f"s2d_stem path: bad output, shape {tuple(s2d.shape)}")
+        print(f"s2d_stem path: shape {tuple(s2d.shape)}, finite; vs the default path max "
+              f"|d| {(s2d - default_plain).abs().max().item():.4f} px (information)")
+
+    with phase("new-config timing"), torch.inference_mode():
+        big = torch.from_numpy(np.random.default_rng(1).normal(
+            size=(TIME_BATCH, 256, 256, 3)).astype(np.float32)).to(dev)
+        step_ms = time_ms(lambda: infer(weights, big), 10, warmup=3)
+        print(f"make_fast_infer({NEW_CONFIG}) B={TIME_BATCH}: {step_ms:.3f} ms/step, "
+              f"{TIME_BATCH / step_ms * 1e3:.1f} images/s on {smi}")
+        classes = record_branches(infer, weights, big)
+        parts = new_parts(weights, twin=False)
+        xin = to_input(big)
+        x_s2d = space_to_depth(big.to(torch.bfloat16))
+        stem_ms = time_ms(lambda: parts["stem"](xin), 10)
+        branches_ms = sum(count * time_ms(lambda: parts["branch"](name, x.permute(0, 3, 1, 2)), 5)
+                          for count, x, _, name in classes.values())
+        backbone_ms = time_ms(lambda: model.forward_backbone(xin, **parts), 5)
+        xs = [t.permute(0, 2, 3, 1).contiguous() for t in model.forward_backbone(xin, **parts)]
+        head_ms = time_ms(lambda: fused_head_decode_v2(xs, weights.head), 10)
+        split = {"input cast": time_ms(lambda: to_input(big), 10),
+                 "stem + layer1 kernel as served (s2d, 5 launches)": stem_ms,
+                 f"branch chains (fused_basic_chain, {chain_entry['launches']} launches, "
+                 "summed)": branches_ms,
+                 "rest of stages 2-4 (cuDNN transitions and fuse convs, adds)":
+                     backbone_ms - stem_ms - branches_ms,
+                 "head as served": head_ms}
+        print(f"new-config step breakdown B={TIME_BATCH} (ms, CUDA events, parts timed alone): "
+              + json.dumps({k: round(v, 3) for k, v in split.items()})
+              + f"; sum {sum(split.values()):.3f}")
+        chain_entry["ms_b128"] = sum(count * time_ms(lambda: fused_basic_chain(x, p, len(p) // 4), 5)
+                                     for count, x, p, _ in classes.values())
+        chain_entry["bound_ms_b128"] = sum(count * basic_chain_work(x, p)[0]
+                                           for count, x, p, _ in classes.values())
+        chain_entry["library_ms_b128"] = sum(
+            count * time_ms(lambda: model.get_submodule(name)(x.permute(0, 3, 1, 2)), 5)
+            for count, x, _, name in classes.values())
+        stem_entry["ms_b128"] = time_ms(
+            lambda: fused_stem_layer1(x_s2d, weights.stem_flat, params, flags), 10)
+        stem_entry["bound_ms_b128"] = stem_layer1_work(x_s2d, weights.stem_flat, params, flags)[0]
+        stem_entry["library_ms_b128"] = time_ms(lambda: model.layer1(stem(model, xin)), 10)
+        for kern in (chain_entry, stem_entry):
+            print(f"{kern['name']} at B={TIME_BATCH}: {kern['ms_b128']:.3f} ms, library "
+                  f"{kern['library_ms_b128']:.3f} ms, bound {kern['bound_ms_b128']:.4f} ms on {smi}")
+        del classes
+    kernels += [chain_entry, stem_entry]
+    return infer
 
 
 # -- the int8 path --------------------------------------------------------
@@ -216,15 +450,17 @@ def twins():
             setattr(Q, n, fn)
 
 
+COUNTED = (conv_int8, fused_bottleneck_chain_int8, fused_head_decode_v2, fused_bottleneck_chain,
+           fused_basic_chain, fused_stem_layer1)
+
+
 def zero_counters():
-    for fn in (conv_int8, fused_bottleneck_chain_int8, fused_head_decode_v2,
-               fused_bottleneck_chain):
+    for fn in COUNTED:
         fn.launches = 0
 
 
 def counters():
-    return {fn.__name__: fn.launches for fn in (conv_int8, fused_bottleneck_chain_int8,
-                                                 fused_head_decode_v2, fused_bottleneck_chain)}
+    return {fn.__name__: fn.launches for fn in COUNTED}
 
 
 def uint8_images(seed: int, batch: int, device):
@@ -347,6 +583,29 @@ def check_conv_classes(classes):
                 int_mm_sites_missing=int_mm_missing, **tot)
 
 
+def check_conv_w48(dev):
+    """conv_int8 at a w48 branch site (3x3, 48 -> 48 at 64x64, B=32): Cin % 32
+    == 16 takes a 16-channel last K slice.  Bit-equal to its twin or raises."""
+    rng = np.random.default_rng(48)
+    kq, wscale = Q.quantize_weight(rng.normal(size=(48, 48, 3, 3)).astype(np.float32) * 0.1)
+    sa = torch.tensor(0.05, device=dev)
+    wscale = torch.from_numpy(wscale).to(dev)
+    q = SiteQ(kq=torch.from_numpy(np.ascontiguousarray(kq.transpose(0, 2, 3, 1))).to(dev),
+              wscale=wscale, sa=sa, scale=sa * wscale,
+              bias=torch.from_numpy(rng.normal(size=48).astype(np.float32) * 0.3).to(dev))
+    x = torch.from_numpy(np.abs(rng.normal(size=(CHECK_BATCH, 64, 64, 48))).astype(
+        np.float32) * 3).to(dev, torch.bfloat16)
+    got = conv_int8(x, q)
+    want = conv_int8_reference(x, q)
+    torch.cuda.synchronize()
+    equal = torch.equal(got, want)
+    print(f"conv_int8 3x3 48->48 at 64x64 (a w48 branch site): bit-equal to its twin: {equal}; "
+          f"max |out| {want.float().abs().max().item():.3f}")
+    if not equal:
+        raise AssertionError("conv_int8 at Cin 48 differs from its twin")
+    return equal
+
+
 def chain_work(x, params, flags):
     b, h, w, _ = x.shape
     ops, i = 0, 0
@@ -375,7 +634,7 @@ def quant_forward_gate(label, infer, weights, qparams, witness_qparams, images, 
     launches = counters()
     print(f"{label}: CUDA launches on the main path: {launches}")
     want = {"conv_int8": sites, "fused_bottleneck_chain_int8": 4, "fused_head_decode_v2": 3,
-            "fused_bottleneck_chain": 0}
+            "fused_bottleneck_chain": 0, "fused_basic_chain": 0, "fused_stem_layer1": 0}
     if launches != want:
         raise AssertionError(f"{label}: launches {launches}, want {want}")
     if coords.shape != (images.shape[0], 21, 2) or not torch.isfinite(coords).all():
@@ -400,9 +659,10 @@ def quant_forward_gate(label, infer, weights, qparams, witness_qparams, images, 
     return coords, launches
 
 
-def int8_phases(cfg, state, weights, smi, kernels):
+def int8_phases(cfg, state, weights, smi, kernels, new_infer):
     """Calibrate, prepare, check the int8 kernels, gate the int8 main path
-    at B=32 and time it at B=128.  Appends to ``kernels``."""
+    at B=32 and time it at B=128, then profile the bf16 paths (the default
+    and ``new_infer``) and the int8 path.  Appends to ``kernels``."""
     dev = weights.model.conv1.weight.device
     infer = Q.make_quant_infer(cfg, device=dev, input_norm=NORM)
     with phase("int8 weights"):
@@ -431,6 +691,7 @@ def int8_phases(cfg, state, weights, smi, kernels):
     with phase("int8 kernel checks"), torch.inference_mode():
         classes = record_sites(infer, weights, qparams, images)
         conv_entry = check_conv_classes(classes)
+        conv_entry["cin48_bit_equal"] = check_conv_w48(dev)
         rest = {k: v for k, v in qparams.items() if k != Q.LAYER1_CHAIN_KEY}
         model = weights.model
         x0 = Q._nhwc(Q._stem(model, Q._to_input(normalize(images).to(torch.bfloat16), dev),
@@ -555,6 +816,7 @@ def int8_phases(cfg, state, weights, smi, kernels):
     with phase("profile"), torch.inference_mode():
         bf16_infer, big_f32 = make_fast_infer(cfg, device=dev), normalize(big)
         for label, fn in (("bf16 path", lambda: bf16_infer(weights, big_f32)),
+                          (f"bf16 path {NEW_CONFIG}", lambda: new_infer(weights, big_f32)),
                           ("int8 path", lambda: infer(weights, qparams, big))):
             wall, busy, top = device_busy(fn)
             print(f"{label} B={TIME_BATCH} under torch.profiler: {wall:.3f} ms/step wall, "
@@ -660,9 +922,9 @@ def main() -> int:
         # The plain path runs both twins.  The witness runs cuDNN's bf16
         # layer1 (another right bf16 layer1, rounding its residual sum once
         # more) with the head twin: how far rounding alone moves the decode.
-        plain = twin_forward(weights, images, nchw(layer1_reference, weights))
+        plain = twin_forward(weights, images, layer1=nchw(layer1_reference, weights))
         diff = (coords - plain).abs()
-        witness = (twin_forward(weights, images, weights.model.layer1) - plain).abs()
+        witness = (twin_forward(weights, images, layer1=weights.model.layer1) - plain).abs()
         limit = max(0.25, witness.max().item())
         spread = coords.std(dim=(0, 1)).min().item()
         print(f"kernel path vs plain-twin path: max |d| = {diff.max().item():.4f} px "
@@ -731,7 +993,8 @@ def main() -> int:
             print(f"step breakdown B={TIME_BATCH} (ms, CUDA events, parts timed alone): "
                   + json.dumps({k: round(v, 3) for k, v in split.items()}))
 
-    int8_phases(cfg, state, weights, smi, kernels)
+    new_infer = new_config_phases(cfg, weights, smi, kernels, images, plain)
+    int8_phases(cfg, state, weights, smi, kernels, new_infer)
 
     print(json.dumps({"kernels": kernels}))
     print(smi)

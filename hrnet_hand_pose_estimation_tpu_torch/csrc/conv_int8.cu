@@ -9,7 +9,11 @@
 //   y = bf16(relu?(float(acc) * (sa * wscale[c]) + bias[c])).
 // One kernel serves every site of the 'exchange' scope: 3x3 stride 1 and 2
 // (branch, transition and downsampling fuse convs, stem2) and 1x1 stride 1
-// (upsampling fuse convs), Cin % 32 == 0, Cout % 8 == 0.
+// (upsampling fuse convs), Cin % 16 == 0, Cout % 8 == 0.  The K loop steps
+// 32 channels at a time; where Cin % 32 == 16 (the w48 widths 48, 96, 192,
+// 384) a last 16-channel slice runs with the upper half of its A and B
+// fragments set to 0, so the exact int32 sum is unchanged and nothing past
+// channel Cin is read.
 //
 // Bit parity with JAX (each a trap of the port):
 // - x / sa is a division (__fdiv_rn), not a multiply by 1/sa;
@@ -107,24 +111,28 @@ __global__ void __launch_bounds__(kThreads) conv_int8_kernel(ConvArgs a) {
     for (int kx = 0; kx < a.KW; ++kx) {
       const int tap_off = (ky * a.HC + kx) * ldh;
       const int kbase = (ky * a.KW + kx) * a.Cin;
-      for (int c0 = 0; c0 < a.Cin; c0 += 32) {
+      // one 32-channel K slice; full == false: channels c0..c0+15 only
+      auto slice = [&](int c0, bool full) {
         unsigned fa[4], fb[2];
         const signed char* p0 = halo + off[0] + tap_off + c0;
         const signed char* p1 = halo + off[1] + tap_off + c0;
         fa[0] = *reinterpret_cast<const unsigned*>(p0);
         fa[1] = *reinterpret_cast<const unsigned*>(p1);
-        fa[2] = *reinterpret_cast<const unsigned*>(p0 + 16);
-        fa[3] = *reinterpret_cast<const unsigned*>(p1 + 16);
+        fa[2] = full ? *reinterpret_cast<const unsigned*>(p0 + 16) : 0u;
+        fa[3] = full ? *reinterpret_cast<const unsigned*>(p1 + 16) : 0u;
 #pragma unroll
         for (int j = 0; j < NJ; ++j) {
           const int n = n_base + j * 8;
           if (n >= a.Cout) continue;
           const signed char* wp = a.w + (size_t)(n + g) * K + kbase + c0 + t * 4;
           fb[0] = __ldg(reinterpret_cast<const unsigned*>(wp));
-          fb[1] = __ldg(reinterpret_cast<const unsigned*>(wp + 16));
+          fb[1] = full ? __ldg(reinterpret_cast<const unsigned*>(wp + 16)) : 0u;
           mma_s8(acc[j], fa, fb);
         }
-      }
+      };
+      int c0 = 0;
+      for (; c0 + 32 <= a.Cin; c0 += 32) slice(c0, true);
+      if (c0 < a.Cin) slice(c0, false);
     }
   }
 
@@ -154,7 +162,7 @@ __global__ void __launch_bounds__(kThreads) conv_int8_kernel(ConvArgs a) {
 
 using namespace hrnet;
 
-// One int8 site conv on PyTorch's stream.  Cin % 32 == 0, Cout % 8 == 0,
+// One int8 site conv on PyTorch's stream.  Cin % 16 == 0, Cout % 8 == 0,
 // pointers 16-byte aligned (the wrapper checks).  Returns cudaGetLastError().
 extern "C" int hrnet_conv_int8(const void* x, void* out, const void* w, const void* scale,
                                const void* bias, const void* sa, int B, int H, int W, int Cin,

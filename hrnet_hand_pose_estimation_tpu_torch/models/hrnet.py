@@ -53,6 +53,11 @@ def _nchw(fn: Callable, x: torch.Tensor, *args) -> torch.Tensor:
     return fn(x.permute(0, 2, 3, 1), *args).permute(0, 3, 1, 2)
 
 
+# A branch hook: (module name of the branch's ResLayer, e.g.
+# "stage3.1.branches.2", the NCHW input) -> the branch's NCHW output.
+BranchHook = Callable[[str, torch.Tensor], torch.Tensor]
+
+
 class HRModule(nn.Module):
     """One HighResolutionModule: per-branch residual blocks + exchange fusion
     (reference pose_hrnet.py:101-266)."""
@@ -62,6 +67,9 @@ class HRModule(nn.Module):
         s = stage
         out_ch = s.out_channels
         self.num_branches = s.num_branches
+        self.block = s.block
+        self.in_channels = tuple(in_channels)
+        self.out_channels = out_ch
         self.branches = nn.ModuleList(
             ResLayer(s.block, in_channels[i], s.num_channels[i], s.num_blocks[i])
             for i in range(s.num_branches))
@@ -88,8 +96,16 @@ class HRModule(nn.Module):
             fuse.append(row)
         self.fuse_layers = fuse
 
-    def forward(self, xs: List[torch.Tensor]) -> List[torch.Tensor]:
-        ys = [branch(x) for branch, x in zip(self.branches, xs)]
+    def forward(self, xs: List[torch.Tensor], branch: Optional[BranchHook] = None,
+                name: str = "") -> List[torch.Tensor]:
+        """``branch`` runs each branch that is a plain BasicBlock chain
+        (eval mode, BASIC blocks, in == out channels: the JAX package's
+        condition for its fused branch kernel) in place of the ResLayer;
+        ``name`` is this module's name, which prefixes the branch's."""
+        hook = branch is not None and not self.training and self.block == "BASIC"
+        ys = [branch(f"{name}.branches.{i}", x)
+              if hook and self.in_channels[i] == self.out_channels[i] else layer(x)
+              for i, (layer, x) in enumerate(zip(self.branches, xs))]
         if self.fuse_layers is None:
             return ys
         fused = []
@@ -194,18 +210,24 @@ class PoseHRNet(nn.Module):
                                                requires_grad=trainable_softmax)
 
     def forward_backbone(self, x: torch.Tensor,
-                         layer1: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
-                         ) -> List[torch.Tensor]:
-        """NCHW image -> the four NCHW branch tensors.  ``layer1`` replaces
-        the bottleneck chain (the serving path runs it as one kernel)."""
-        x = torch.relu(self.bn1(self.conv1(x)))
-        x = torch.relu(self.bn2(self.conv2(x)))
+                         layer1: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+                         stem: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+                         branch: Optional[BranchHook] = None) -> List[torch.Tensor]:
+        """NCHW image -> the four NCHW branch tensors.  The serving paths
+        replace parts with kernels: ``stem`` the two stem convs, ``layer1``
+        the bottleneck chain, ``branch`` the stage 2-4 BasicBlock branch
+        chains (see ``HRModule.forward``)."""
+        if stem is None:
+            x = torch.relu(self.bn1(self.conv1(x)))
+            x = torch.relu(self.bn2(self.conv2(x)))
+        else:
+            x = stem(x)
         x = (layer1 or self.layer1)(x)
         xs = [x]
         for idx in (1, 2, 3):
             xs = _apply_transition(getattr(self, f"transition{idx}"), xs)
-            for module in getattr(self, f"stage{idx + 1}"):
-                xs = module(xs)
+            for m, module in enumerate(getattr(self, f"stage{idx + 1}")):
+                xs = module(xs, branch=branch, name=f"stage{idx + 1}.{m}")
         return xs
 
     def forward(self, x: torch.Tensor,

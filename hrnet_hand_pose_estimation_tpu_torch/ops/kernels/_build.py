@@ -49,6 +49,10 @@ SIGNATURES = {
     # x, out, inv1, kq1, a1, c1, kq2, a2, c2, kq3, a3, c3, kqs, as, cs,
     # B, H, W, Cin, Cm, Cout, stream
     "hrnet_bottleneck_int8_block": (_P,) * 15 + (_I,) * 6 + (_P,),
+    # x, out, w1, b1, w2, b2, B, H, W, C, stream
+    "hrnet_basic_block": (_P,) * 6 + (_I,) * 4 + (_P,),
+    # x_s2d, y, ws1, bs1, ws2, bs2, B, Hs, Ws, stream
+    "hrnet_stem_s2d": (_P,) * 6 + (_I,) * 3 + (_P,),
 }
 
 _lock = threading.Lock()

@@ -89,8 +89,8 @@ def conv_int8(x: torch.Tensor, q: SiteQ, stride: int = 1, relu: bool = True) -> 
     if x.device.type != "cuda":
         raise ValueError(f"conv_int8 runs on cuda or cpu, not {x.device}")
     cout, k, _, cin = q.kq.shape
-    if cin % 32 or cout % 8:
-        raise ValueError(f"the kernel needs Cin % 32 == 0 and Cout % 8 == 0, got {cin}, {cout}")
+    if cin % 16 or cout % 8:
+        raise ValueError(f"the kernel needs Cin % 16 == 0 and Cout % 8 == 0, got {cin}, {cout}")
     if not (x.is_contiguous() and all(t.is_contiguous() for t in q)):
         raise ValueError("x and the site's tensors must be contiguous")
     b, h, w, _ = x.shape

@@ -1,20 +1,30 @@
-"""HRNet layer1 as a chain of fused, BN-folded bottleneck blocks.
+"""HRNet's fused residual chains: layer1, the stem + layer1, and the
+BasicBlock branch chains of stages 2-4, all BN-folded.
 
-Port of the TPU kernel ``ops/pallas/fused_bottleneck.py::fused_bottleneck_chain``
-of the JAX package.  ``fused_bottleneck_chain`` launches the CUDA kernel of
-``csrc/fused_bottleneck.cu`` once per block for a tensor on the card, and
-runs the plain PyTorch twin ``layer1_reference`` for a tensor on the CPU.
-Both compute, per block,
+Ports of the TPU kernels of the JAX package's ``ops/pallas/fused_bottleneck.py``.
+Each wrapper launches its CUDA kernel for a tensor on the card and runs its
+plain PyTorch twin for a tensor on the CPU.  Activations are bf16,
+accumulation f32, and intermediates are rounded to bf16 where the TPU kernel
+rounds them.
 
-    y = relu(conv1x1_3(relu(conv3x3_2(relu(conv1x1_1(x))))) + shortcut(x))
-
-with bf16 activations, f32 accumulation and the two intermediates rounded to
-bf16, as the TPU kernel does.  ``fold_layer1_params`` folds eval-mode BN
-into the convs (the JAX package's ``models/hrnet.py::_pallas_layer1_apply``).
-
-Weight layout per block, in ``params_flat`` order: w1 (Cin, Cm) bf16,
-b1 (Cm,) f32, w2 (3, 3, Cm, Cm) bf16, b2, w3 (Cm, Cout) bf16, b3, and for a
-projection shortcut ws (Cin, Cout) bf16, bs (Cout,) f32.
+- ``fused_bottleneck_chain`` (``fused_bottleneck_chain``, ``csrc/fused_bottleneck.cu``,
+  one launch per block; twin ``layer1_reference``), per block
+  ``y = relu(conv1x1_3(relu(conv3x3_2(relu(conv1x1_1(x))))) + shortcut(x))``.
+  ``fold_layer1_params`` folds eval-mode BN into the convs (the JAX
+  package's ``models/hrnet.py::_pallas_layer1_apply``).  Weight layout per
+  block, in ``params_flat`` order: w1 (Cin, Cm) bf16, b1 (Cm,) f32,
+  w2 (3, 3, Cm, Cm) bf16, b2, w3 (Cm, Cout) bf16, b3, and for a projection
+  shortcut ws (Cin, Cout) bf16, bs (Cout,) f32.
+- ``fused_stem_layer1`` (``fused_stem_layer1``, ``csrc/stem_layer1.cu`` then
+  the layer1 kernel; twin ``stem_layer1_reference``): the space-to-depth
+  stem1, the 3x3/s2 stem2 and the layer1 chain.  ``prepare_stem_params``
+  folds the stem.
+- ``fused_basic_chain`` (``fused_basic_chain``, ``csrc/basic_chain.cu``, one
+  launch per block; twin ``basic_chain_reference``), per block
+  ``y = relu((conv3x3_2(relu(conv3x3_1(x) + b1)) + b2) + x)``.
+  ``fold_branch_params`` folds a branch (the JAX package's
+  ``models/hrnet.py::_pallas_basic_branch_apply``): per block w1 (3, 3, C, C)
+  bf16 HWIO, b1 (C,) f32, w2, b2.
 """
 
 from __future__ import annotations
@@ -25,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from ...models.layers import fold_bn
+from ..s2d import s2d_kernel
 from . import _build
 
 _NAMES = ("w1", "b1", "w2", "b2", "w3", "b3")
@@ -137,34 +148,225 @@ def fused_bottleneck_chain(x: torch.Tensor, params_flat: Sequence[torch.Tensor],
     _validate(x, blocks)
     if x.device.type == "cpu":
         return layer1_reference(x, params_flat, shortcut_flags)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_bottleneck_chain runs on cuda or cpu, not {x.device}")
-    if not x.is_contiguous():
-        raise ValueError("x must be contiguous NHWC")
-    for p in blocks:
-        for name, t in p.items():
-            if not t.is_contiguous():
-                raise ValueError(f"{name} must be contiguous")
-    for c in [x.shape[3]] + [d for p in blocks for d in (p["w1"].shape[1], p["w3"].shape[1])]:
-        if c % 16:
-            raise ValueError(f"the kernel needs channel counts % 16 == 0, got {c}")
-
-    lib = _build.lib()
-    stream = _build.stream_ptr(x.device)
-    b, h, w, _ = x.shape
+    _check_cuda("fused_bottleneck_chain", x, params_flat,
+                [x.shape[3]] + [d for p in blocks for d in (p["w1"].shape[1], p["w3"].shape[1])])
     y = x
     for p in blocks:
-        cin, cm = p["w1"].shape
-        out = torch.empty((b, h, w, p["w3"].shape[1]), dtype=torch.bfloat16, device=x.device)
-        ws, bs = (p["ws"].data_ptr(), p["bs"].data_ptr()) if "ws" in p else (None, None)
-        err = lib.hrnet_bottleneck_block(
-            y.data_ptr(), out.data_ptr(), p["w1"].data_ptr(), p["b1"].data_ptr(),
-            p["w2"].data_ptr(), p["b2"].data_ptr(), p["w3"].data_ptr(), p["b3"].data_ptr(),
-            ws, bs, b, h, w, cin, cm, p["w3"].shape[1], stream)
-        _build.check(err, "hrnet_bottleneck_block")
+        y = _launch_bottleneck(y, p)
         fused_bottleneck_chain.launches += 1
-        y = out
     return y
 
 
 fused_bottleneck_chain.launches = 0
+
+
+def _check_cuda(name: str, x: torch.Tensor, tensors: Sequence[torch.Tensor],
+                channels: Sequence[int]) -> None:
+    """What every kernel of this module needs of a CUDA input."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{name} runs on cuda or cpu, not {x.device}")
+    if not x.is_contiguous() or not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name}: x and every weight must be contiguous")
+    for c in channels:
+        if c % 16:
+            raise ValueError(f"{name}: the kernel needs channel counts % 16 == 0, got {c}")
+
+
+def _launch_bottleneck(y: torch.Tensor, p) -> torch.Tensor:
+    """One launch of the layer1 block kernel on PyTorch's stream."""
+    b, h, w, _ = y.shape
+    cin, cm = p["w1"].shape
+    out = torch.empty((b, h, w, p["w3"].shape[1]), dtype=torch.bfloat16, device=y.device)
+    ws, bs = (p["ws"].data_ptr(), p["bs"].data_ptr()) if "ws" in p else (None, None)
+    err = _build.lib().hrnet_bottleneck_block(
+        y.data_ptr(), out.data_ptr(), p["w1"].data_ptr(), p["b1"].data_ptr(),
+        p["w2"].data_ptr(), p["b2"].data_ptr(), p["w3"].data_ptr(), p["b3"].data_ptr(),
+        ws, bs, b, h, w, cin, cm, p["w3"].shape[1], _build.stream_ptr(y.device))
+    _build.check(err, "hrnet_bottleneck_block")
+    return out
+
+
+# --------------------------------------------------------------------------
+# stem + layer1 (TPU kernel fused_stem_layer1)
+# --------------------------------------------------------------------------
+
+def prepare_stem_params(state: Mapping[str, torch.Tensor]) -> Tuple[torch.Tensor, ...]:
+    """The folded stem as ``fused_stem_layer1`` takes it, from a PoseHRNet
+    state_dict (unfolded, folded here in float32): ws1 (4, 12, 64) bf16, the
+    space-to-depth stem1 kernel as one (12, 64) slab per 2x2 tap (tap
+    di*2 + dj); bs1 (64,) f32; ws2 (576, 64) bf16, stem2's (3, 3, 64, 64)
+    HWIO kernel with rows (kh*3 + kw)*64 + cin; bs2 (64,) f32."""
+    k1, b1 = fold_conv_bn(state, "conv1", "bn1")
+    k2, b2 = fold_conv_bn(state, "conv2", "bn2")
+    ws1 = s2d_kernel(k1.permute(3, 2, 0, 1)).permute(2, 3, 1, 0).reshape(4, -1, k1.shape[3])
+    return (ws1.to(torch.bfloat16).contiguous(), b1.contiguous(),
+            k2.reshape(-1, k2.shape[3]).to(torch.bfloat16).contiguous(), b2.contiguous())
+
+
+def _validate_stem(x: torch.Tensor, stem_flat: Sequence[torch.Tensor]) -> None:
+    if x.dim() != 4 or x.dtype != torch.bfloat16 or x.shape[3] != 12:
+        raise ValueError(f"x_s2d must be (B, H/2, W/2, 12) bfloat16, got "
+                         f"{tuple(x.shape)} {x.dtype}")
+    if x.shape[1] % 2 or x.shape[2] % 2:
+        raise ValueError(f"x_s2d needs even height and width, got {tuple(x.shape[1:3])}")
+    if len(stem_flat) != 4:
+        raise ValueError(f"stem_flat holds (ws1, bs1, ws2, bs2), got {len(stem_flat)} tensors")
+    want = ((4, 12, 64), (64,), (576, 64), (64,))
+    for name, t, shape in zip(("ws1", "bs1", "ws2", "bs2"), stem_flat, want):
+        dtype = torch.bfloat16 if name.startswith("w") else torch.float32
+        if tuple(t.shape) != shape or t.dtype != dtype:
+            raise ValueError(f"{name}: want {shape} {dtype}, got {tuple(t.shape)} {t.dtype}")
+        if t.device != x.device:
+            raise ValueError(f"{name} on {t.device}, x on {x.device}")
+
+
+def _stem_reference(x_s2d: torch.Tensor, stem_flat: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The stem of ``stem_layer1_reference``: (B, H/2, W/2, 12) -> (B, H/4, W/4, 64) bf16.
+
+    y1 = bf16(relu(2x2 conv of the s2d input, padded at the top and left, + bs1));
+    y2 = bf16(relu(3x3/s2 conv of y1, zero-padded, + bs2)); f32 sums."""
+    ws1, bs1, ws2, bs2 = stem_flat
+    x = F.pad(x_s2d.float().permute(0, 3, 1, 2), (1, 0, 1, 0))
+    w1 = ws1.float().reshape(2, 2, 12, -1).permute(3, 2, 0, 1)
+    y1 = torch.relu(F.conv2d(x, w1) + bs1[:, None, None]).to(torch.bfloat16)
+    w2 = ws2.float().reshape(3, 3, 64, -1).permute(3, 2, 0, 1)
+    y2 = F.conv2d(y1.float(), w2, stride=2, padding=1)
+    y2 = torch.relu(y2 + bs2[:, None, None]).to(torch.bfloat16)
+    return y2.permute(0, 2, 3, 1).contiguous()
+
+
+def stem_layer1_reference(x_s2d: torch.Tensor, stem_flat: Sequence[torch.Tensor],
+                          params_flat: Sequence[torch.Tensor],
+                          shortcut_flags: Sequence[bool] = (True, False, False, False)
+                          ) -> torch.Tensor:
+    """Plain PyTorch twin of ``fused_stem_layer1``: the stem, each conv
+    rounded once to bf16, then ``layer1_reference``."""
+    return layer1_reference(_stem_reference(x_s2d, stem_flat), params_flat, shortcut_flags)
+
+
+def fused_stem_layer1(x_s2d: torch.Tensor, stem_flat: Sequence[torch.Tensor],
+                      params_flat: Sequence[torch.Tensor],
+                      shortcut_flags: Sequence[bool] = (True, False, False, False)
+                      ) -> torch.Tensor:
+    """x_s2d: (B, H/2, W/2, 12) bf16 space-to-depth image -> (B, H/4, W/4, Cout) bf16.
+
+    ``stem_flat`` from ``prepare_stem_params``, ``params_flat`` and
+    ``shortcut_flags`` the layer1 chain's (``fold_layer1_params``).  A CUDA
+    tensor runs the stem kernel and then the layer1 block kernel once per
+    block, and counts each launch in ``launches`` (5 for layer1's 4 blocks);
+    a CPU tensor runs the plain twin; any other device raises.
+    """
+    _validate_stem(x_s2d, stem_flat)
+    blocks = _split(params_flat, shortcut_flags)
+    b, hs, ws, _ = x_s2d.shape
+    _validate(x_s2d.new_empty((0, hs // 2, ws // 2, 64)), blocks)
+    if x_s2d.device.type == "cpu":
+        return stem_layer1_reference(x_s2d, stem_flat, params_flat, shortcut_flags)
+    _check_cuda("fused_stem_layer1", x_s2d, [*stem_flat, *params_flat],
+                [d for p in blocks for d in (p["w1"].shape[1], p["w3"].shape[1])])
+    y = torch.empty((b, hs // 2, ws // 2, 64), dtype=torch.bfloat16, device=x_s2d.device)
+    err = _build.lib().hrnet_stem_s2d(
+        x_s2d.data_ptr(), y.data_ptr(), *(t.data_ptr() for t in stem_flat), b, hs, ws,
+        _build.stream_ptr(x_s2d.device))
+    _build.check(err, "hrnet_stem_s2d")
+    fused_stem_layer1.launches += 1
+    for p in blocks:
+        y = _launch_bottleneck(y, p)
+        fused_stem_layer1.launches += 1
+    return y
+
+
+fused_stem_layer1.launches = 0
+
+
+# --------------------------------------------------------------------------
+# BasicBlock branch chains (TPU kernel fused_basic_chain)
+# --------------------------------------------------------------------------
+
+def fold_branch_params(state: Mapping[str, torch.Tensor], prefix: str
+                       ) -> Tuple[torch.Tensor, ...]:
+    """BN-folded kernel params of the BasicBlock chain at ``prefix``
+    (``stage3.1.branches.2``) of a PoseHRNet state_dict: per block
+    (w1 (3, 3, C, C) bf16 HWIO, b1 (C,) f32, w2, b2), folded in float32 before
+    the cast.  The chain has ``len(result) // 4`` blocks."""
+    flat = []
+    b = 0
+    while f"{prefix}.{b}.conv1.weight" in state:
+        blk = f"{prefix}.{b}"
+        if f"{blk}.downsample.0.weight" in state:
+            raise ValueError(f"{blk} has a projection shortcut: not a plain BasicBlock chain")
+        for n in (1, 2):
+            k, bias = fold_conv_bn(state, f"{blk}.conv{n}", f"{blk}.bn{n}")
+            flat += [k.to(torch.bfloat16).contiguous(), bias.contiguous()]
+        b += 1
+    if not b:
+        raise KeyError(f"no BasicBlocks under {prefix!r}")
+    return tuple(flat)
+
+
+def _validate_basic(x: torch.Tensor, params_flat: Sequence[torch.Tensor], n_blocks: int) -> None:
+    if x.dim() != 4 or x.dtype != torch.bfloat16:
+        raise ValueError(f"x must be (B, H, W, C) bfloat16, got {tuple(x.shape)} {x.dtype}")
+    if len(params_flat) != 4 * n_blocks:
+        raise ValueError(f"params_flat has {len(params_flat)} tensors, {n_blocks} blocks "
+                         f"take {4 * n_blocks}")
+    c = x.shape[3]
+    for i, t in enumerate(params_flat):
+        shape, dtype = ((3, 3, c, c), torch.bfloat16) if i % 2 == 0 else ((c,), torch.float32)
+        if tuple(t.shape) != shape or t.dtype != dtype:
+            raise ValueError(f"block {i // 4} tensor {i % 4}: want {shape} {dtype}, got "
+                             f"{tuple(t.shape)} {t.dtype}")
+        if t.device != x.device:
+            raise ValueError(f"block {i // 4} tensor {i % 4} on {t.device}, x on {x.device}")
+
+
+def _conv3x3(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """float32 NHWC 3x3 conv, zero padding 1, of an HWIO kernel -> float32 NCHW."""
+    return F.conv2d(x.float().permute(0, 3, 1, 2), w.float().permute(3, 2, 0, 1), padding=1)
+
+
+def basic_chain_reference(x: torch.Tensor, params_flat: Sequence[torch.Tensor],
+                          n_blocks: int) -> torch.Tensor:
+    """Plain PyTorch twin of the kernel: (B, H, W, C) bf16 -> (B, H, W, C) bf16.
+
+    Per block, as the TPU kernel rounds: h = bf16(relu(conv1(x) + b1)), then
+    y = bf16(relu((conv2(h) + b2) + float(x))), each conv summed in float32.
+    On a card, disable TF32 (``torch.backends.cudnn.allow_tf32``) for a
+    float32 reference."""
+    y = x
+    for b in range(n_blocks):
+        w1, b1, w2, b2 = params_flat[4 * b:4 * b + 4]
+        h = torch.relu(_conv3x3(y, w1) + b1[:, None, None]).to(torch.bfloat16)
+        out = (_conv3x3(h.permute(0, 2, 3, 1), w2) + b2[:, None, None]
+               + y.float().permute(0, 3, 1, 2))
+        y = torch.relu(out).to(torch.bfloat16).permute(0, 2, 3, 1).contiguous()
+    return y
+
+
+def fused_basic_chain(x: torch.Tensor, params_flat: Sequence[torch.Tensor],
+                      n_blocks: int) -> torch.Tensor:
+    """x: (B, H, W, C) bf16 -> (B, H, W, C) bf16 through ``n_blocks`` folded
+    BasicBlocks (params from ``fold_branch_params``).
+
+    A CUDA tensor runs the kernel (one launch per block, each counted in
+    ``launches``) and a CPU tensor the plain twin; any other device raises.
+    """
+    _validate_basic(x, params_flat, n_blocks)
+    if x.device.type == "cpu":
+        return basic_chain_reference(x, params_flat, n_blocks)
+    _check_cuda("fused_basic_chain", x, params_flat, [x.shape[3]])
+    b, h, w, c = x.shape
+    lib, stream = _build.lib(), _build.stream_ptr(x.device)
+    y = x
+    for i in range(n_blocks):
+        out = torch.empty_like(x)
+        err = lib.hrnet_basic_block(y.data_ptr(), out.data_ptr(),
+                                    *(t.data_ptr() for t in params_flat[4 * i:4 * i + 4]),
+                                    b, h, w, c, stream)
+        _build.check(err, "hrnet_basic_block")
+        fused_basic_chain.launches += 1
+        y = out
+    return y
+
+
+fused_basic_chain.launches = 0

@@ -17,11 +17,13 @@ from hrnet_hand_pose_estimation_tpu_torch.core.fast_infer import make_fast_infer
 from hrnet_hand_pose_estimation_tpu_torch.ops.kernels.conv_int8 import (
     SiteQ, conv_int8, conv_int8_reference)
 from hrnet_hand_pose_estimation_tpu_torch.ops.kernels.fused_bottleneck import (
-    fused_bottleneck_chain, layer1_reference)
+    basic_chain_reference, fused_basic_chain, fused_bottleneck_chain, fused_stem_layer1,
+    layer1_reference, stem_layer1_reference)
 from hrnet_hand_pose_estimation_tpu_torch.ops.kernels.fused_head_decode import (
     HeadParams, fused_head_decode_v2, head_decode_reference)
 from hrnet_hand_pose_estimation_tpu_torch.ops.kernels.int8_chain import (
     bottleneck_chain_int8_reference, fused_bottleneck_chain_int8)
+from hrnet_hand_pose_estimation_tpu_torch.ops import s2d
 from hrnet_hand_pose_estimation_tpu_torch.utils.weights import init_variables
 
 pytestmark = pytest.mark.cuda
@@ -133,6 +135,11 @@ def site_q(rng, cout, k, cin, device):
     (3, 2, False, 32, 128, (9, 9)),
     (1, 1, False, 256, 32, (7, 9)),
     (3, 1, True, 256, 32, (20, 36)),
+    # the w48 widths: Cin % 32 == 16 takes a 16-channel last K slice
+    (3, 1, True, 48, 48, (13, 21)),
+    (3, 2, True, 48, 96, (17, 17)),
+    (1, 1, False, 96, 48, (9, 7)),
+    (3, 1, False, 96, 96, (8, 8)),
 ])
 def test_conv_int8_kernel_matches_twin(cuda, k, stride, relu, cin, cout, hw):
     """Every site class of the int8 trunk, at ragged sizes; the kernel's
@@ -195,7 +202,16 @@ def test_small_int8_slice_on_card(cuda, monkeypatch):
     """The int8 serving path on the card launches every kernel (one
     conv_int8 launch per int8 site) and agrees with the same forward on
     the card through the plain twins."""
-    cfg = small_cfg((32, 64, 96, 128))
+    int8_slice_on_card(cuda, monkeypatch, small_cfg((32, 64, 96, 128)))
+
+
+def test_small_w48_int8_slice_on_card(cuda, monkeypatch):
+    """The same at the w48 stage widths (48/96/192/384), whose sites read
+    tensors with Cin % 32 == 16."""
+    int8_slice_on_card(cuda, monkeypatch, small_cfg((48, 96, 192, 384)))
+
+
+def int8_slice_on_card(cuda, monkeypatch, cfg):
     state = init_variables(cfg, seed=3)
     weights = precast_variables(cfg, state)
     rng = np.random.default_rng(0)
@@ -220,3 +236,110 @@ def test_small_int8_slice_on_card(cuda, monkeypatch):
             m.setattr(Q, "fused_head_decode_v2", head_decode_reference)
             want = infer(weights, qparams, u8)
         assert got.shape == (4, 21, 2) and (got - want).abs().max().item() <= 0.25
+
+
+def basic_params(rng, c, n_blocks, device):
+    params = []
+    for _ in range(n_blocks):
+        for _ in range(2):
+            params += [bf16(rng.normal(size=(3, 3, c, c)) * (0.6 / np.sqrt(9 * c)), device),
+                       f32(rng.normal(size=c) * 0.1, device)]
+    return tuple(params)
+
+
+@pytest.mark.parametrize("batch,h,w,c", [
+    (2, 64, 64, 32), (2, 32, 32, 64), (2, 16, 16, 128), (2, 8, 8, 256),      # w32 branches
+    (2, 64, 64, 48), (2, 32, 32, 96), (2, 16, 16, 192), (2, 8, 8, 384),      # w48 branches
+    (3, 8, 8, 256), (5, 16, 16, 32),                                         # ragged batches
+    (2, 13, 21, 64), (1, 37, 70, 32),                                        # ragged tiles
+])
+def test_basic_chain_kernel_matches_twin(cuda, batch, h, w, c):
+    """Every branch shape of w32 and w48, ragged batches and ragged spatial
+    sizes; one launch per block."""
+    rng = np.random.default_rng(c + h)
+    params = basic_params(rng, c, 2, cuda)
+    x = bf16(np.abs(rng.normal(size=(batch, h, w, c))), cuda)
+    before = fused_basic_chain.launches
+    got = fused_basic_chain(x, params, 2)
+    torch.cuda.synchronize()
+    assert fused_basic_chain.launches == before + 2
+    want = basic_chain_reference(x, params, 2)
+    limit = 0.02 * max(1.0, want.float().abs().max().item())
+    assert got.shape == want.shape == (batch, h, w, c) and want.float().std().item() > 0.1
+    assert (got.float() - want.float()).abs().max().item() <= limit
+
+
+def layer1_params(rng, device):
+    flags, params, cin = (True, False, False, False), [], 64
+    for has_sc in flags:
+        params += [bf16(rng.normal(size=(cin, 64)) * 0.1, device), f32(rng.normal(size=64) * 0.1, device),
+                   bf16(rng.normal(size=(3, 3, 64, 64)) * 0.05, device), f32(rng.normal(size=64) * 0.1, device),
+                   bf16(rng.normal(size=(64, 256)) * 0.1, device), f32(rng.normal(size=256) * 0.1, device)]
+        if has_sc:
+            params += [bf16(rng.normal(size=(cin, 256)) * 0.1, device),
+                       f32(rng.normal(size=256) * 0.1, device)]
+        cin = 256
+    return tuple(params), flags
+
+
+@pytest.mark.parametrize("hs,ws", [(64, 64), (20, 36), (6, 38)])
+def test_stem_layer1_kernel_matches_twin(cuda, hs, ws):
+    """The s2d stem kernel + the layer1 launches against their twin, with
+    ragged tiles; one stem launch and one per layer1 block."""
+    rng = np.random.default_rng(hs + ws)
+    stem = (bf16(rng.normal(size=(4, 12, 64)) * 0.3, cuda), f32(rng.normal(size=64) * 0.1, cuda),
+            bf16(rng.normal(size=(576, 64)) * 0.06, cuda), f32(rng.normal(size=64) * 0.1, cuda))
+    params, flags = layer1_params(rng, cuda)
+    x = bf16(rng.normal(size=(2, hs, ws, 12)), cuda)
+    before = fused_stem_layer1.launches
+    got = fused_stem_layer1(x, stem, params, flags)
+    torch.cuda.synchronize()
+    assert fused_stem_layer1.launches == before + 5
+    want = stem_layer1_reference(x, stem, params, flags)
+    limit = 0.02 * max(1.0, want.float().abs().max().item())
+    assert got.shape == want.shape == (2, hs // 2, ws // 2, 256)
+    assert (got.float() - want.float()).abs().max().item() <= limit
+
+
+def twin_parts(weights, fuse: bool, branches: bool):
+    """forward_backbone hooks of make_fast_infer's kernels, through their twins."""
+    nhwc = lambda fn: lambda t: fn(t.permute(0, 2, 3, 1).contiguous()).permute(0, 3, 1, 2)
+    parts = {}
+    if fuse:
+        parts["stem"] = nhwc(lambda t: stem_layer1_reference(
+            s2d.space_to_depth(t), weights.stem_flat, *weights.layer1))
+        parts["layer1"] = torch.nn.Identity()
+    else:
+        parts["layer1"] = nhwc(lambda t: layer1_reference(t, *weights.layer1))
+    if branches:
+        parts["branch"] = lambda name, t: nhwc(lambda u: basic_chain_reference(
+            u, weights.branches[name], len(weights.branches[name]) // 4))(t)
+    return parts
+
+
+def test_small_slice_new_configurations_on_card(cuda):
+    """make_fast_infer(pallas_branches=True, fuse_stem_layer1=True) launches
+    the branch and stem kernels (and no stand-alone layer1 chain) and agrees
+    with the same forward through the twins; s2d_stem=True and
+    pallas_layer1=False run."""
+    cfg = small_cfg()
+    state = init_variables(cfg, seed=3)
+    x = torch.from_numpy(np.random.default_rng(0).normal(size=(4, 64, 64, 3)).astype(np.float32))
+    weights = precast_variables(cfg, state)
+    kernels = (fused_basic_chain, fused_stem_layer1, fused_bottleneck_chain, fused_head_decode_v2)
+    for fn in kernels:
+        fn.launches = 0
+    got = make_fast_infer(cfg, pallas_branches=True, fuse_stem_layer1=True)(weights, x.to(cuda))
+    torch.cuda.synchronize()
+    blocks = sum(len(p) // 4 for p in weights.branches.values())
+    assert blocks == 9 and [fn.launches for fn in kernels] == [blocks, 5, 0, 3]
+    with torch.inference_mode():
+        xin = x.to(cuda, torch.bfloat16).permute(0, 3, 1, 2).contiguous(
+            memory_format=torch.channels_last)
+        xs = weights.model.forward_backbone(xin, **twin_parts(weights, True, True))
+        want = head_decode_reference([t.permute(0, 2, 3, 1).contiguous() for t in xs],
+                                     weights.head)
+    assert got.shape == (4, 21, 2) and (got - want).abs().max().item() <= 0.25
+    for kwargs in (dict(s2d_stem=True), dict(pallas_layer1=False), dict(pallas_branches=True)):
+        out = make_fast_infer(cfg, **kwargs)(weights, x.to(cuda))
+        assert out.shape == (4, 21, 2) and torch.isfinite(out).all()
