@@ -12,6 +12,15 @@ kernel against its plain PyTorch twin at the inputs its path gives it,
 checks at batch 32 that each path went through its kernels and agrees with
 the same forward through the twins, and times the paths at batch 128.
 
+Then the 2D training path (``parallel/train_step``, ``core/trainer``) with
+the training settings of
+experiments/FreiHand/Frei_HRNet_w32_trainable_softmax_hm-pose2dloss_v1.yaml:
+the Gaussian-targets kernel against its twin, 10 bf16 steps at B=32 on one
+batch whose targets the kernel makes on the card (the loss must fall), a
+NaN-pixel step the anomaly guard must skip bit for bit, one float32 step on
+the card against the same step on the CPU, the step's time and breakdown,
+and one ``Trainer.fit`` epoch with a resume.
+
     python3 chip_smoke.py
 
 Needs one CUDA card and nvcc; exits non-zero without them.  Prints one line
@@ -40,6 +49,10 @@ from hrnet_hand_pose_estimation_tpu_torch.core import fast_infer as FI
 from hrnet_hand_pose_estimation_tpu_torch.core import quant_infer as Q
 from hrnet_hand_pose_estimation_tpu_torch.core.fast_infer import (make_fast_infer,
                                                                   precast_variables)
+from hrnet_hand_pose_estimation_tpu_torch.core.trainer import Trainer
+from hrnet_hand_pose_estimation_tpu_torch.data.pipeline import DataLoader
+from hrnet_hand_pose_estimation_tpu_torch.data.synthetic import SyntheticDataset
+from hrnet_hand_pose_estimation_tpu_torch.models import build_model
 from hrnet_hand_pose_estimation_tpu_torch.models.hrnet import hrnet_from_cfg
 from hrnet_hand_pose_estimation_tpu_torch.ops.decode import soft_argmax
 from hrnet_hand_pose_estimation_tpu_torch.ops.kernels import _build
@@ -50,9 +63,13 @@ from hrnet_hand_pose_estimation_tpu_torch.ops.kernels.fused_bottleneck import (
     layer1_reference, stem_layer1_reference)
 from hrnet_hand_pose_estimation_tpu_torch.ops.kernels.fused_head_decode import (
     fused_head_decode_v2, head_decode_reference)
+from hrnet_hand_pose_estimation_tpu_torch.ops.kernels.gaussian_targets import (
+    fused_gaussian_targets, gaussian_targets_reference)
 from hrnet_hand_pose_estimation_tpu_torch.ops.kernels.int8_chain import (
     bottleneck_chain_int8_reference, fused_bottleneck_chain_int8)
 from hrnet_hand_pose_estimation_tpu_torch.ops.s2d import space_to_depth
+from hrnet_hand_pose_estimation_tpu_torch.ops.targets import gaussian_targets
+from hrnet_hand_pose_estimation_tpu_torch.parallel import train_step as TS
 from hrnet_hand_pose_estimation_tpu_torch.utils.weights import init_variables
 
 CHECK_BATCH = 32
@@ -350,7 +367,7 @@ def new_config_phases(cfg, weights, smi, kernels, images, default_plain):
                        for n in (2, 3, 4))
         want = {"conv_int8": 0, "fused_bottleneck_chain_int8": 0, "fused_head_decode_v2": 3,
                 "fused_bottleneck_chain": 0, "fused_basic_chain": n_blocks,
-                "fused_stem_layer1": 1 + len(flags)}
+                "fused_stem_layer1": 1 + len(flags), "fused_gaussian_targets": 0}
         if launches != want:
             raise AssertionError(f"launches {launches}, want {want}")
         chain_entry["launches"] = launches["fused_basic_chain"]
@@ -451,7 +468,7 @@ def twins():
 
 
 COUNTED = (conv_int8, fused_bottleneck_chain_int8, fused_head_decode_v2, fused_bottleneck_chain,
-           fused_basic_chain, fused_stem_layer1)
+           fused_basic_chain, fused_stem_layer1, fused_gaussian_targets)
 
 
 def zero_counters():
@@ -634,7 +651,8 @@ def quant_forward_gate(label, infer, weights, qparams, witness_qparams, images, 
     launches = counters()
     print(f"{label}: CUDA launches on the main path: {launches}")
     want = {"conv_int8": sites, "fused_bottleneck_chain_int8": 4, "fused_head_decode_v2": 3,
-            "fused_bottleneck_chain": 0, "fused_basic_chain": 0, "fused_stem_layer1": 0}
+            "fused_bottleneck_chain": 0, "fused_basic_chain": 0, "fused_stem_layer1": 0,
+            "fused_gaussian_targets": 0}
     if launches != want:
         raise AssertionError(f"{label}: launches {launches}, want {want}")
     if coords.shape != (images.shape[0], 21, 2) or not torch.isfinite(coords).all():
@@ -826,6 +844,323 @@ def int8_phases(cfg, state, weights, smi, kernels, new_infer):
     kernels += [head_entry, chain_entry, conv_entry]
 
 
+# -- the 2D training path ---------------------------------------------------
+
+TRAIN_BATCH = 32            # IMAGES_PER_GPU of the FreiHand training config
+TRAIN_STEPS = 10
+
+
+def train_cfg(**extra):
+    """The training settings of
+    experiments/FreiHand/Frei_HRNet_w32_trainable_softmax_hm-pose2dloss_v1.yaml,
+    set in code (the card's machine may lack PyYAML): pose_hrnet_w32 with
+    the trainable-softmax head at 256x256, heatmap loss + 0.1 * pose2d loss,
+    adam at LR 1e-3, sigma 2, B=32, bf16 compute.  ``extra`` overrides
+    dotted keys (``TRAIN__OPTIMIZER="sgd"``)."""
+    opts = ["MODEL.NAME", "pose_hrnet_trainable_softmax", "MODEL.HEATMAP_SOFTMAX", True,
+            "MODEL.IMAGE_SIZE", [256, 256], "MODEL.HEATMAP_SIZE", [64, 64], "MODEL.SIGMA", 2,
+            "LOSS.WITH_HEATMAP_LOSS", True, "LOSS.HEATMAP_LOSS_FACTOR", 1.0,
+            "LOSS.WITH_POSE2D_LOSS", True, "LOSS.POSE2D_LOSS_FACTOR", 0.1,
+            "TRAIN.OPTIMIZER", "adam", "TRAIN.LR", 0.001, "TRAIN.LR_FACTOR", 0.5,
+            "TRAIN.LR_STEP", [25, 55, 80], "TRAIN.IMAGES_PER_GPU", TRAIN_BATCH,
+            "TRAIN.BEGIN_EPOCH", 1, "TRAIN.END_EPOCH", 91, "DATASET.SIGMA", 2]
+    cfg = load_config(opts=opts, freeze=False)
+    cfg.MODEL.EXTRA.merge_from_mapping(POSE_HIGH_RESOLUTION_NET_EXTRA)
+    if extra:
+        cfg.merge_from_list([x for key, val in extra.items()
+                             for x in (key.replace("__", "."), val)])
+    return cfg
+
+
+def train_batch(seed: int, batch: int, device, image: int = 256, res: int = 64):
+    """A seeded numpy batch on the card: images, joints in heatmap pixels
+    (one joint per sample invisible), visibility; no targets yet."""
+    rng = np.random.default_rng(seed)
+    vis = np.ones((batch, 21), np.float32)
+    vis[np.arange(batch), rng.integers(0, 21, batch)] = 0.0
+    host = {"images": rng.normal(size=(batch, image, image, 3)).astype(np.float32),
+            "pose2d": rng.uniform(2, res - 2, size=(batch, 21, 2)).astype(np.float32),
+            "visibility": vis}
+    return {k: torch.from_numpy(v).to(device) for k, v in host.items()}
+
+
+def ragged_joints(device):
+    """B=3 joints at the edges of the semantics: -0.5 (valid: truncates to
+    0), exactly res, beyond res, negative, invisible."""
+    rng = np.random.default_rng(5)
+    joints = rng.uniform(0, 64, size=(3, 21, 2)).astype(np.float32)
+    joints[0, 0] = (-0.5, -0.5)
+    joints[0, 1] = (64.0, 10.0)
+    joints[1, 2] = (70.0, 80.0)
+    joints[1, 3] = (-3.0, 5.0)
+    joints[2, 4] = (63.99, 0.0)
+    vis = np.ones((3, 21), np.float32)
+    vis[2, 5] = 0.0
+    return torch.from_numpy(joints).to(device), torch.from_numpy(vis).to(device)
+
+
+def targets_work(out):
+    """Bound of the targets kernel: the output written once (the joints are
+    bytes-negligible but counted); ~16 float32 operations per element inside
+    a window (an exp and its argument), counted on this run's data."""
+    b, h, w, k = out.shape
+    inside = int((out > 0).sum().item())
+    return bound(0, 16 * inside, out.numel() * 4 + b * k * 12)
+
+
+def conv_flops(model, images) -> float:
+    """FLOPs of one forward (2 per multiply-add of every conv), counted with
+    forward hooks at the run's shapes."""
+    total = [0]
+
+    def hook(mod, inp, out):
+        k = mod.weight.shape[1] * mod.weight.shape[2] * mod.weight.shape[3]
+        total[0] += 2 * out.numel() * k
+
+    handles = [m.register_forward_hook(hook) for m in model.modules()
+               if isinstance(m, torch.nn.Conv2d)]
+    try:
+        with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
+            model(images)
+    finally:
+        for h in handles:
+            h.remove()
+    return float(total[0])
+
+
+def state_tensors(state):
+    """Every tensor the guard must leave bit-identical, cloned."""
+    out = {"params": state.params.clone(), "stats": state.stats.clone(),
+           "counts": state.counts.clone()}
+    out.update({f"opt/{k}": v.clone() for k, v in state.opt_state.items()})
+    return out
+
+
+def train_phases(smi, kernels):
+    """The 2D training path: the targets kernel against its twin, the
+    flagship's train steps with targets made by the kernel, the guard, the
+    float32 step on the card against the CPU, timing, and the Trainer."""
+    dev = torch.device("cuda")
+    sigma, res = 2.0, 64
+    with phase("train kernel checks"):
+        worst = 0.0
+        for label, (joints, vis) in (
+                ("B=32", (lambda b: (b["pose2d"], b["visibility"]))(train_batch(20, 32, dev))),
+                ("B=128", (lambda b: (b["pose2d"], b["visibility"]))(train_batch(21, 128, dev))),
+                ("ragged B=3", ragged_joints(dev))):
+            for sig in ((1.0, 1.5, 2.0) if label.startswith("ragged") else (sigma,)):
+                got = fused_gaussian_targets(joints, vis, res, sig)
+                want = gaussian_targets_reference(joints, vis, res, sig)
+                torch.cuda.synchronize()
+                err = (got - want).abs().max().item()
+                print(f"gaussian targets {label} sigma {sig}: max|kernel - plain| {err:.3g} "
+                      f"(limit 1e-6), nonzero {(want > 0).float().mean().item():.4f}")
+                if not err <= 1e-6:
+                    raise AssertionError(f"targets kernel disagrees with its twin: {err}")
+                worst = max(worst, err)
+        entry = dict(name="fused_gaussian_targets", route="cuda",
+                     source="hrnet_hand_pose_estimation_tpu_torch/csrc/gaussian_targets.cu",
+                     replaces="hrnet_hand_pose_estimation_tpu/ops/pallas/decode_kernel.py:123",
+                     max_abs_err=worst, library_ms=None)
+        for b, seed in ((32, 20), (128, 21)):
+            tb = train_batch(seed, b, dev)
+            j, v = tb["pose2d"], tb["visibility"]
+            out = fused_gaussian_targets(j, v, res, sigma)
+            ms = time_ms(lambda: fused_gaussian_targets(j, v, res, sigma), 50, warmup=5)
+            plain = time_ms(lambda: gaussian_targets_reference(j, v, res, sigma), 10)
+            b_ms, b_by = targets_work(out)
+            suffix = "" if b == 32 else f"_b{b}"
+            entry.update({f"ms{suffix}": ms, f"plain_ms{suffix}": plain,
+                          f"bound_ms{suffix}": b_ms})
+            entry["bound_by"] = b_by
+            print(f"fused_gaussian_targets B={b} (64x64x21, sigma 2): {ms:.4f} ms, plain "
+                  f"{plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}); no single PyTorch call "
+                  f"computes it, on {smi}")
+            del tb, out
+
+    cfg = train_cfg()
+    cfg.freeze()
+    model = build_model(cfg)
+    with phase("train main path"):
+        state, tx = TS.create_train_state(cfg, model, steps_per_epoch=1000, device=dev)
+        step = TS.make_train_step(cfg, model, tx)
+        batch = train_batch(0, TRAIN_BATCH, dev)
+        start = state.params.clone()
+        zero_counters()
+        batch["target_heatmaps"] = gaussian_targets(batch["pose2d"], batch["visibility"], res,
+                                                    sigma)
+        history = []
+        for _ in range(TRAIN_STEPS):
+            state, losses = step(state, batch)
+            history.append(losses)
+        torch.cuda.synchronize()
+        launches = counters()
+        want = {fn.__name__: 0 for fn in COUNTED}
+        want["fused_gaussian_targets"] = 1
+        print(f"train path ({TRAIN_STEPS} steps, targets made once on the card): CUDA launches "
+              f"{launches}")
+        if launches != want:
+            raise AssertionError(f"train path launches {launches}, want {want}")
+        entry["launches"] = launches["fused_gaussian_targets"]
+        host = [{k: v.item() for k, v in h.items()} for h in history]
+        totals = [h["total_loss"] for h in host]
+        print("train losses: " + " ".join(f"{t:.5f}" for t in totals)
+              + f"; heatmap {host[0]['heatmap_loss']:.5f} -> {host[-1]['heatmap_loss']:.5f}, "
+              f"pose2d {host[0]['pose2d_loss']:.5f} -> {host[-1]['pose2d_loss']:.5f}, "
+              f"temperature {host[-1]['temperature']:.6f}")
+        if not all(np.isfinite(v) for h in host for v in h.values()):
+            raise AssertionError("a train loss is not finite")
+        if any(h["nonfinite_grads"] for h in host):
+            raise AssertionError("the guard skipped a clean step")
+        if not totals[-1] < totals[0]:
+            raise AssertionError(f"the total loss did not fall: {totals[0]} -> {totals[-1]}")
+        moved = (state.params - start).abs().max().item()
+        if not moved > 0:
+            raise AssertionError("the parameters did not move")
+        print(f"parameters moved by up to {moved:.4g}; step counter {int(state.step)}")
+
+        bad = dict(batch)
+        bad["images"] = batch["images"].clone()
+        bad["images"][0, 0, 0, 0] = float("nan")
+        before = state_tensors(state)
+        state, losses = step(state, bad)
+        after = state_tensors(state)
+        same = {k: torch.equal(before[k], after[k]) for k in before}
+        flag = losses["nonfinite_grads"].item()
+        print(f"NaN pixel step: nonfinite_grads {flag}, bit-identical {same}, step "
+              f"{int(state.step)}")
+        if flag != 1.0 or not all(same.values()) or int(state.step) != TRAIN_STEPS + 1:
+            raise AssertionError("the anomaly guard did not skip the poisoned step")
+
+    with phase("train timing"):
+        step_ms = time_ms(lambda: step(state, batch), 5, warmup=2)
+        torch.cuda.reset_peak_memory_stats()
+        step(state, batch)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        fwd_flops = conv_flops(model, batch["images"])
+        # the backward takes about twice the forward's products (inputs and weights)
+        step_bound, _ = bound(3 * fwd_flops, 0, 0)
+        targets_ms = time_ms(lambda: gaussian_targets(batch["pose2d"], batch["visibility"],
+                                                      res, sigma), 20)
+        loss_computer = TS.LossComputer2D(cfg)
+
+        def forward_loss():
+            with TS.compute_autocast(cfg, dev):
+                out = model(batch["images"])
+            total, _ = loss_computer(out.heatmaps, batch["target_heatmaps"],
+                                     TS.decode_heatmaps(out.heatmaps), batch["pose2d"],
+                                     batch["visibility"])
+            return total
+
+        def forward_backward():
+            state.grads.zero_()
+            forward_loss().backward()
+
+        fl_ms = time_ms(forward_loss, 3)
+        fb_ms = time_ms(forward_backward, 3)
+        upd_ms = time_ms(lambda: TS.apply_guarded_update(cfg, tx, state, {},
+                                                         (state.stats.clone(),
+                                                          state.counts.clone())), 10)
+        split = {"targets kernel": targets_ms, "forward + loss (bf16 autocast)": fl_ms,
+                 "backward (autograd, cuDNN)": fb_ms - fl_ms, "guarded update": upd_ms}
+        print(f"train step B={TRAIN_BATCH} bf16: {step_ms:.3f} ms/step, "
+              f"{TRAIN_BATCH / step_ms * 1e3:.1f} images/s, peak memory {peak:.2f} GiB, "
+              f"{fwd_flops / TRAIN_BATCH / 1e9:.2f} GFLOP/image forward (conv products), "
+              f"bound {step_bound:.3f} ms (3x forward at bf16 peak) on {smi}")
+        print(f"train step breakdown B={TRAIN_BATCH} (ms, CUDA events, parts timed alone): "
+              + json.dumps({k: round(v, 3) for k, v in split.items()})
+              + f"; sum {sum(split.values()):.3f}")
+        wall, busy, top = device_busy(lambda: step(state, batch), steps=1)
+        print(f"train step B={TRAIN_BATCH} under torch.profiler: {wall:.3f} ms/step wall, "
+              f"{busy:.3f} ms/step of kernels, device busy {busy / wall:.1%} on {smi}")
+        for key, ms in top[:8]:
+            print(f"    {ms:8.3f} ms/step  {key[:100]}")
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            step(state, batch)
+            torch.cuda.synchronize()
+        ops = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
+        launches = sum(e.count for e in ops if e.key.startswith("cudaLaunchKernel"))
+        print(f"train step host side under torch.profiler: {launches} kernel launches; self "
+              f"CPU ms and calls by op: " + "; ".join(
+                  f"{e.key} {e.self_cpu_time_total / 1e3:.2f} x{e.count}" for e in ops[:12]))
+        del batch, state, model, step
+    kernels.append(entry)
+
+    with phase("train parity (float32, card vs CPU)"):
+        small = dict(MODEL__EXTRA__STAGE2__NUM_BLOCKS=[1, 1],
+                     MODEL__EXTRA__STAGE3__NUM_MODULES=1, MODEL__EXTRA__STAGE3__NUM_BLOCKS=[1, 1, 1],
+                     MODEL__EXTRA__STAGE4__NUM_MODULES=1,
+                     MODEL__EXTRA__STAGE4__NUM_BLOCKS=[1, 1, 1, 1])
+        pcfg = train_cfg(TPU__COMPUTE_DTYPE="float32", TRAIN__OPTIMIZER="sgd", **small)
+        pcfg.freeze()
+        pbatch = train_batch(30, 4, "cpu")
+        pbatch["target_heatmaps"] = gaussian_targets(pbatch["pose2d"], pbatch["visibility"],
+                                                     res, sigma)
+        def one_step(where, tf32=False):
+            torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = tf32
+            try:
+                m = build_model(pcfg)
+                st, ptx = TS.create_train_state(pcfg, m, steps_per_epoch=1000, device=where)
+                st, losses = TS.make_train_step(pcfg, m, ptx)(
+                    st, {k: v.to(where) for k, v in pbatch.items()})
+                return losses["total_loss"].item(), st.params.cpu(), st.grads.cpu()
+            finally:
+                torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+
+        cpu = one_step("cpu")
+        lr = float(pcfg.TRAIN.LR)
+        gmax = cpu[2].abs().max().item()
+        # sgd's first step is -LR * g: the parameters differ by LR times the
+        # gradients' difference, whose scale is max|g|
+        scale = lr * max(1.0, gmax)
+
+        def gaps(card):
+            dp = (card[1] - cpu[1]).abs()
+            return (abs(card[0] - cpu[0]) / abs(cpu[0]), dp.max().item() / scale,
+                    dp.mean().item() / scale, int((dp > 1e-3 * lr).sum()))
+
+        rel, dmax, dmean, over = gaps(one_step("cuda"))
+        t_rel, t_max, t_mean, t_over = gaps(one_step("cuda", tf32=True))
+        # a ReLU input within rounding of 0 can take the other side on the
+        # card and on the CPU and move a few parameters far more than the
+        # rest: the max is reported, the mean is held (TF32 moves it 10x)
+        print(f"float32 step, reduced depth w32 @256, B=4, sgd, TF32 off: loss rel {rel:.3g} "
+              f"(limit 1e-4); params mean|d| {dmean:.3g} (limit 2e-5), max|d| {dmax:.3g}, "
+              f"in units of LR max(1, max|g| = {gmax:.4g}); {over} of {cpu[1].numel()} "
+              f"parameters over 1e-3 LR.  With TF32 on (information): loss rel {t_rel:.3g}, "
+              f"params mean {t_mean:.3g}, max {t_max:.3g}, {t_over} over 1e-3 LR")
+        if not (rel <= 1e-4 and dmean <= 2e-5):
+            raise AssertionError(f"card and CPU float32 steps differ: loss {rel}, params "
+                                 f"mean {dmean}")
+
+    with phase("trainer"), tempfile.TemporaryDirectory() as tmp:
+        tcfg = train_cfg(OUTPUT_DIR=tmp, PRINT_FREQ=1, TRAIN__END_EPOCH=2)
+        tcfg.freeze()
+        loaders = {"synthetic": DataLoader(SyntheticDataset(tcfg, length=64), TRAIN_BATCH,
+                                           num_workers=4)}
+        vals = {"synthetic": DataLoader(SyntheticDataset(tcfg, "validation", length=32),
+                                        TRAIN_BATCH, shuffle=False, num_workers=4)}
+        trainer = Trainer(tcfg, build_model(tcfg), loaders, vals, output_dir=tmp, device=dev)
+        trainer.fit()
+        epochs = trainer.ckpt.epochs()
+        fitted = trainer.state.state_dict()
+        print(f"Trainer.fit: 1 epoch of {len(loaders['synthetic'])} steps at B={TRAIN_BATCH}, "
+              f"checkpoints {epochs}, best validation total {trainer.best_loss:.5f}")
+        rcfg = train_cfg(OUTPUT_DIR=tmp, TRAIN__END_EPOCH=2, AUTO_RESUME=True)
+        rcfg.freeze()
+        resumed = Trainer(rcfg, build_model(rcfg), loaders, vals, output_dir=tmp, device=dev)
+        again = resumed.state.state_dict()
+        same = all(torch.equal(fitted[s][k], again[s][k]) for s in ("params", "batch_stats")
+                   for k in fitted[s])
+        print(f"AUTO_RESUME: begins at epoch {resumed.begin_epoch}, state bit-identical {same}")
+        if epochs != [1] or resumed.begin_epoch != 2 or not same:
+            raise AssertionError("the Trainer did not checkpoint and resume")
+        del trainer, resumed
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs an NVIDIA card",
@@ -995,6 +1330,8 @@ def main() -> int:
 
     new_infer = new_config_phases(cfg, weights, smi, kernels, images, plain)
     int8_phases(cfg, state, weights, smi, kernels, new_infer)
+    del weights, state, new_infer
+    train_phases(smi, kernels)
 
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -206,8 +206,11 @@ class PoseHRNet(nn.Module):
             nn.Conv2d(total, num_joints, final_conv_kernel, 1, pad, bias=True),
         )
         if head == "softmax":
-            self.trainable_temp = nn.Parameter(torch.ones(()),
-                                               requires_grad=trainable_softmax)
+            # always a parameter, as in the JAX model: when it is frozen the
+            # forward stops its gradient, so the optimizer still holds it
+            # with a zero gradient (and adamw decays it, as optax does)
+            self.trainable_softmax = trainable_softmax
+            self.trainable_temp = nn.Parameter(torch.ones(()))
 
     def forward_backbone(self, x: torch.Tensor,
                          layer1: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
@@ -244,13 +247,13 @@ class PoseHRNet(nn.Module):
         y = self.last_layer(features.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
         if self.head == "plain":
             return HRNetOutput(y.float(), features, None)
-        temp = self.trainable_temp
+        temp = self.trainable_temp if self.trainable_softmax else self.trainable_temp.detach()
         return HRNetOutput(spatial_softmax(y, temp), features, temp)
 
 
 def hrnet_from_cfg(cfg, head: str = "softmax", **overrides) -> PoseHRNet:
     """Build a PoseHRNet from a loaded config (MODEL.EXTRA.STAGE2/3/4), in
-    eval mode."""
+    eval mode (the train step puts it in train mode)."""
     extra = cfg.MODEL.EXTRA
     kwargs = dict(
         stage2=StageCfg.from_cfg(extra["STAGE2"]),

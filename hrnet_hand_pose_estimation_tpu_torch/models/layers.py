@@ -20,8 +20,39 @@ BN_EPS = 1e-5
 BN_MOMENTUM = 0.1
 
 
-def batch_norm(features: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(features, eps=BN_EPS, momentum=BN_MOMENTUM)
+class BatchNorm(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` whose train-mode forward has flax's semantics.
+
+    flax's ``nn.BatchNorm(use_running_average=False)`` normalises with the
+    *biased* batch variance and updates the running variance with it too;
+    ``nn.BatchNorm2d`` updates it with the unbiased one (a factor N/(N-1):
+    14 % on a 2x2 branch at batch 2).  Here the train forward normalises
+    with the batch statistics, computed in float32 (``native_batch_norm``
+    accumulates in float32 for bf16 inputs, as flax promotes them), returns
+    the input's dtype, and sets ``running = (1 - momentum) * running +
+    momentum * batch`` with the biased variance (flax's decay 0.9 = 1 -
+    momentum).  It writes the running statistics during the forward, as
+    torch's BN does; the train step's anomaly guard puts them back when the
+    step is skipped.  The eval forward, the parameters and the state-dict
+    names are ``nn.BatchNorm2d``'s.
+    """
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        y, mean, invstd = torch.native_batch_norm(x, self.weight, self.bias, None, None, True,
+                                                  0.0, self.eps)
+        with torch.no_grad():
+            var = torch.clamp(invstd.reciprocal().square() - self.eps, min=0.0)
+            decay = 1.0 - self.momentum
+            self.running_mean.copy_(decay * self.running_mean + (1.0 - decay) * mean)
+            self.running_var.copy_(decay * self.running_var + (1.0 - decay) * var)
+            self.num_batches_tracked.add_(1)
+        return y
+
+
+def batch_norm(features: int) -> BatchNorm:
+    return BatchNorm(features, eps=BN_EPS, momentum=BN_MOMENTUM)
 
 
 def fold_bn(weight: torch.Tensor, conv_bias: Optional[torch.Tensor], bn_weight: torch.Tensor,

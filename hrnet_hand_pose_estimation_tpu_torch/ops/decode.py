@@ -1,6 +1,6 @@
 """Heatmap -> keypoint decoding, in PyTorch.
 
-Port of the JAX package's ``ops/decode.py:24-50``.  Heatmaps are NHWK
+Port of the JAX package's ``ops/decode.py:24-77``.  Heatmaps are NHWK
 ``(batch, height, width, joints)``; coordinates are ``(batch, joints, 2)``
 ordered ``[u, v]`` = [column, row] in heatmap pixels.
 """
@@ -33,3 +33,22 @@ def soft_argmax(probs: torch.Tensor) -> torch.Tensor:
     eu = torch.einsum("bhwk,w->bk", p, us)
     ev = torch.einsum("bhwk,h->bk", p, vs)
     return torch.stack([eu, ev], dim=-1)
+
+
+def hard_argmax(heatmaps: torch.Tensor) -> torch.Tensor:
+    """Flat argmax decode (reference heatmap_decoding.py:103-107), dividing
+    by the width as the JAX package does; the first maximum wins a tie.
+
+    returns: (B, K, 2) [u, v] float32.
+    """
+    b, h, w, k = heatmaps.shape
+    idx = torch.argmax(heatmaps.reshape(b, h * w, k), dim=1)
+    return torch.stack([(idx % w).float(), (idx // w).float()], dim=-1)
+
+
+def decode_heatmaps(heatmaps: torch.Tensor, use_softmax: bool = True) -> torch.Tensor:
+    """``get_final_preds`` (reference heatmap_decoding.py:87-107): the spatial
+    expectation of probability maps with ``use_softmax``, else the argmax."""
+    if use_softmax:
+        return soft_argmax(heatmaps)
+    return hard_argmax(heatmaps)

@@ -33,6 +33,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # C signature of every entry point: (argtypes), all returning cudaError_t as int
 SIGNATURES = {
     # x, out, w1, b1, w2, b2, w3, b3, ws, bs, B, H, W, Cin, Cm, Cout, stream
@@ -53,6 +54,8 @@ SIGNATURES = {
     "hrnet_basic_block": (_P,) * 6 + (_I,) * 4 + (_P,),
     # x_s2d, y, ws1, bs1, ws2, bs2, B, Hs, Ws, stream
     "hrnet_stem_s2d": (_P,) * 6 + (_I,) * 3 + (_P,),
+    # joints, vis, out, B, K, res, win, sig2, stream
+    "hrnet_gaussian_targets": (_P,) * 3 + (_I,) * 4 + (_F, _P),
 }
 
 _lock = threading.Lock()

@@ -45,15 +45,24 @@ def align_corners_matrix(src: int, dst: int) -> np.ndarray:
     return w
 
 
+@lru_cache(maxsize=32)
+def _device_matrix(src: int, dst: int, device: torch.device) -> torch.Tensor:
+    """``align_corners_matrix`` on ``device``, copied there once (a copy
+    from pageable host memory per call would wait for the device)."""
+    return torch.from_numpy(align_corners_matrix(src, dst).copy()).to(device)
+
+
 def upsample_bilinear_align_corners(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
     """Bilinear align_corners=True resize of (B, H, W, C) to ``out_hw``,
-    computed in float32 and returned in the input's dtype."""
+    computed in float32 (also under autocast, as the JAX package computes
+    it at HIGHEST precision) and returned in the input's dtype."""
     _, h, w, _ = x.shape
     oh, ow = out_hw
     if (oh, ow) == (h, w):
         return x
-    wh = torch.from_numpy(align_corners_matrix(h, oh).copy()).to(x.device)
-    ww = torch.from_numpy(align_corners_matrix(w, ow).copy()).to(x.device)
-    y = torch.einsum("Hh,bhwc->bHwc", wh, x.float())
-    y = torch.einsum("Ww,bHwc->bHWc", ww, y)
+    wh = _device_matrix(h, oh, x.device)
+    ww = _device_matrix(w, ow, x.device)
+    with torch.autocast(x.device.type, enabled=False):
+        y = torch.einsum("Hh,bhwc->bHwc", wh, x.float())
+        y = torch.einsum("Ww,bHwc->bHWc", ww, y)
     return y.to(x.dtype)

@@ -7,6 +7,10 @@ keeps its own copy of the name rules of the JAX package's
 flax path -> torch name, HWIO kernels -> OIHW weights, and BN
 ``scale/bias/mean/var`` -> ``weight/bias/running_mean/running_var``.
 
+``from_jax_train_state`` maps a JAX ``TrainState`` (parameters, BN
+statistics, the optax state and the step) onto the port's
+``parallel/train_step.TrainState.state_dict()`` payload.
+
 ``init_variables`` makes a random state for a config from a numpy seed, for
 runs on a machine without JAX (the card's).
 """
@@ -98,7 +102,7 @@ def from_jax_variables(variables: Mapping, model: Optional[nn.Module] = None
                 continue
             if path[-1] == "kernel":
                 arr = arr.transpose(3, 2, 0, 1)           # HWIO -> OIHW
-            out[f"{name}.{field}"] = torch.from_numpy(np.ascontiguousarray(arr))
+            out[f"{name}.{field}"] = torch.from_numpy(np.array(arr, order="C"))
     unknown = set(variables) - {"params", "batch_stats"}
     unplaced += sorted(unknown)
     if unplaced:
@@ -118,6 +122,56 @@ def from_jax_variables(variables: Mapping, model: Optional[nn.Module] = None
                 raise ValueError(f"{key}: port shape {tuple(val.shape)}, "
                                  f"JAX gives {tuple(out[key].shape)}")
     return out
+
+
+def _param_tree(tree: Mapping, names, what: str) -> Dict[str, torch.Tensor]:
+    """A tree shaped like the JAX params (an optimizer moment) -> {port
+    parameter name: tensor}; raises unless it covers exactly ``names``."""
+    out = from_jax_variables({"params": tree})
+    if set(out) != set(names):
+        missing, extra = sorted(set(names) - set(out)), sorted(set(out) - set(names))
+        raise KeyError(f"{what}: port parameters left unfilled {missing[:5]}, "
+                       f"leaves with no port parameter {extra[:5]}")
+    return out
+
+
+def from_jax_train_state(state, model: nn.Module) -> Dict:
+    """A JAX ``TrainState`` (numpy leaves, e.g. after ``jax.device_get``) ->
+    the payload of the port's ``TrainState.load_state_dict``.
+
+    Carries the parameters and BN statistics (``from_jax_variables``,
+    strict), the step, and the optax state of ``make_optimizer``'s chains,
+    read by field name (no optax import): ``ScaleByAdamState`` -> count, mu,
+    nu; ``TraceState`` -> trace; ``ScaleByScheduleState`` -> the schedule's
+    count; ``EmptyState`` (adamw's weight decay) carries nothing.  Raises on
+    any other optimizer state and on a leaf it cannot place.
+    """
+    get = (lambda key: state[key]) if isinstance(state, Mapping) else (
+        lambda key: getattr(state, key))
+    variables = {"params": get("params"), "batch_stats": get("batch_stats")}
+    sd = from_jax_variables(variables, model)
+    names = [n for n, _ in model.named_parameters()]
+    params = {n: sd[n] for n in names}
+    opt: Dict = {}
+    for node in get("opt_state"):
+        fields = tuple(getattr(node, "_fields", ("?",)))
+        if fields == ():
+            continue
+        if set(fields) == {"count", "mu", "nu"}:
+            opt["count"] = torch.tensor(int(np.asarray(node.count)), dtype=torch.int32)
+            opt["mu"] = _param_tree(node.mu, names, "adam mu")
+            opt["nu"] = _param_tree(node.nu, names, "adam nu")
+        elif fields == ("trace",):
+            opt["trace"] = _param_tree(node.trace, names, "sgd trace")
+        elif fields == ("count",):
+            opt["sched_count"] = torch.tensor(int(np.asarray(node.count)), dtype=torch.int32)
+        else:
+            raise KeyError(f"optimizer state {type(node).__name__}{fields} has no place "
+                           "in the port")
+    return {"step": torch.tensor(int(np.asarray(get("step"))), dtype=torch.int32),
+            "params": params,
+            "batch_stats": {k: v for k, v in sd.items() if k not in params},
+            "opt_state": opt}
 
 
 # the BNs that close a residual branch of stages 2-4 (basic-block bn2) or

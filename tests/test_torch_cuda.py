@@ -14,6 +14,11 @@ import torch
 from hrnet_hand_pose_estimation_tpu_torch.config import load_config
 from hrnet_hand_pose_estimation_tpu_torch.core import quant_infer as Q
 from hrnet_hand_pose_estimation_tpu_torch.core.fast_infer import make_fast_infer, precast_variables
+from hrnet_hand_pose_estimation_tpu_torch.core.trainer import Trainer
+from hrnet_hand_pose_estimation_tpu_torch.data.pipeline import DataLoader
+from hrnet_hand_pose_estimation_tpu_torch.data.synthetic import SyntheticDataset
+from hrnet_hand_pose_estimation_tpu_torch.models import build_model
+from hrnet_hand_pose_estimation_tpu_torch.ops import s2d
 from hrnet_hand_pose_estimation_tpu_torch.ops.kernels.conv_int8 import (
     SiteQ, conv_int8, conv_int8_reference)
 from hrnet_hand_pose_estimation_tpu_torch.ops.kernels.fused_bottleneck import (
@@ -21,9 +26,11 @@ from hrnet_hand_pose_estimation_tpu_torch.ops.kernels.fused_bottleneck import (
     layer1_reference, stem_layer1_reference)
 from hrnet_hand_pose_estimation_tpu_torch.ops.kernels.fused_head_decode import (
     HeadParams, fused_head_decode_v2, head_decode_reference)
+from hrnet_hand_pose_estimation_tpu_torch.ops.kernels.gaussian_targets import (
+    fused_gaussian_targets, gaussian_targets_reference)
 from hrnet_hand_pose_estimation_tpu_torch.ops.kernels.int8_chain import (
     bottleneck_chain_int8_reference, fused_bottleneck_chain_int8)
-from hrnet_hand_pose_estimation_tpu_torch.ops import s2d
+from hrnet_hand_pose_estimation_tpu_torch.parallel import train_step as TS
 from hrnet_hand_pose_estimation_tpu_torch.utils.weights import init_variables
 
 pytestmark = pytest.mark.cuda
@@ -343,3 +350,130 @@ def test_small_slice_new_configurations_on_card(cuda):
     for kwargs in (dict(s2d_stem=True), dict(pallas_layer1=False), dict(pallas_branches=True)):
         out = make_fast_infer(cfg, **kwargs)(weights, x.to(cuda))
         assert out.shape == (4, 21, 2) and torch.isfinite(out).all()
+
+
+# -- the 2D training slice ---------------------------------------------------
+
+def edge_joints(rng, b, k, res):
+    """Joints across the map plus the edge cases: -0.5 (valid), res, beyond
+    res, negative; one invisible joint per sample."""
+    joints = rng.uniform(0, res, size=(b, k, 2)).astype(np.float32)
+    joints[0, 0] = (-0.5, -0.5)
+    joints[0, 1] = (res, 1.0)
+    joints[-1, 2] = (res + 3.5, -2.0)
+    vis = np.ones((b, k), np.float32)
+    vis[np.arange(b), rng.integers(0, k, b)] = 0.0
+    return joints, vis
+
+
+@pytest.mark.parametrize("res", [16, 64])
+@pytest.mark.parametrize("sigma", [1.0, 1.5, 2.0])
+@pytest.mark.parametrize("batch", [3, 32])
+def test_gaussian_targets_kernel_matches_twin(cuda, res, sigma, batch):
+    rng = np.random.default_rng(res * 100 + batch)
+    joints, vis = edge_joints(rng, batch, 21, res)
+    j, v = f32(joints, cuda), f32(vis, cuda)
+    before = fused_gaussian_targets.launches
+    got = fused_gaussian_targets(j, v, res, sigma)
+    torch.cuda.synchronize()
+    want = gaussian_targets_reference(j, v, res, sigma)
+    assert fused_gaussian_targets.launches == before + 1
+    assert got.shape == (batch, res, res, 21) and (want > 0).any()
+    assert (got - want).abs().max().item() <= 1e-6
+    assert torch.equal(got == 0, want == 0)          # exactly 0 outside the windows
+
+
+def test_gaussian_targets_kernel_refuses_bad_input(cuda):
+    j = torch.zeros(2, 21, 2, device=cuda)
+    v = torch.ones(2, 21, device=cuda)
+    with pytest.raises(ValueError, match="float32"):
+        fused_gaussian_targets(j.double(), v, 16)
+    with pytest.raises(ValueError, match="visibility"):
+        fused_gaussian_targets(j, v.cpu(), 16)
+
+
+def train_small_cfg(**opts):
+    cfg = small_cfg().clone()
+    cfg.defrost()
+    cfg.merge_from_list(["MODEL.HEATMAP_SOFTMAX", True, "LOSS.WITH_POSE2D_LOSS", True]
+                        + [x for kv in opts.items() for x in kv])
+    return cfg.freeze()
+
+
+def small_batch(device, b=4, seed=0):
+    rng = np.random.default_rng(seed)
+    batch = {"images": f32(rng.normal(size=(b, 64, 64, 3)), device),
+             "pose2d": f32(rng.uniform(1, 15, size=(b, 21, 2)), device),
+             "visibility": f32(np.ones((b, 21)), device)}
+    batch["target_heatmaps"] = gaussian_targets_reference(batch["pose2d"], batch["visibility"],
+                                                          16, 2.0)
+    return batch
+
+
+def test_anomaly_guard_on_card(cuda):
+    """A NaN pixel leaves parameters, optimizer state and BN statistics
+    bit-identical on the card; the next clean step trains."""
+    cfg = train_small_cfg()
+    model = build_model(cfg)
+    state, tx = TS.create_train_state(cfg, model, device=cuda)
+    step = TS.make_train_step(cfg, model, tx)
+    batch = small_batch(cuda)
+    state, _ = step(state, batch)
+    bad = dict(batch, images=batch["images"].clone())
+    bad["images"][1, 3, 3, 0] = float("nan")
+    before = [t.clone() for t in (state.params, state.stats, state.counts,
+                                  *state.opt_state.values())]
+    state, losses = step(state, bad)
+    after = (state.params, state.stats, state.counts, *state.opt_state.values())
+    assert losses["nonfinite_grads"].item() == 1.0 and int(state.step) == 2
+    assert all(torch.equal(a, b) for a, b in zip(before, after))
+    state, losses = step(state, batch)
+    assert losses["nonfinite_grads"].item() == 0.0
+    assert not torch.equal(before[0], state.params)
+
+
+def test_float32_train_step_card_matches_cpu(cuda):
+    """One float32 sgd step on the card and on the CPU (TF32 off), on
+    ``chip_smoke.py``'s parity case (w32 widths, one module and one block
+    per branch, 256x256, B=4): the loss at rtol 1e-4; the parameters, in
+    units of LR max(1, max|g|), within 2e-5 on average.  A ReLU input
+    within rounding of 0 can take the other side on the two and move a few
+    parameters far more, so the max is not held; on a narrower net those
+    few move the mean as well."""
+    from chip_smoke import train_batch, train_cfg
+
+    cfg = train_cfg(TPU__COMPUTE_DTYPE="float32", TRAIN__OPTIMIZER="sgd",
+                    MODEL__EXTRA__STAGE2__NUM_BLOCKS=[1, 1],
+                    MODEL__EXTRA__STAGE3__NUM_MODULES=1,
+                    MODEL__EXTRA__STAGE3__NUM_BLOCKS=[1, 1, 1],
+                    MODEL__EXTRA__STAGE4__NUM_MODULES=1,
+                    MODEL__EXTRA__STAGE4__NUM_BLOCKS=[1, 1, 1, 1])
+    cfg.freeze()
+    batch = train_batch(30, 4, "cpu")
+    batch["target_heatmaps"] = gaussian_targets_reference(batch["pose2d"], batch["visibility"],
+                                                          64, 2.0)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        model = build_model(cfg)
+        state, tx = TS.create_train_state(cfg, model, device=dev)
+        state, losses = TS.make_train_step(cfg, model, tx)(
+            state, {k: v.to(dev) for k, v in batch.items()})
+        out[dev.type] = (losses["total_loss"].item(), state.params.cpu(), state.grads.cpu())
+    lr = float(cfg.TRAIN.LR)
+    gmax = out["cpu"][2].abs().max().item()
+    assert abs(out["cuda"][0] - out["cpu"][0]) <= 1e-4 * abs(out["cpu"][0])
+    dp = (out["cuda"][1] - out["cpu"][1]).abs() / (lr * max(1.0, gmax))
+    assert dp.mean().item() <= 2e-5, (dp.mean().item(), dp.max().item())
+
+
+def test_two_step_trainer_on_card(cuda, tmp_path):
+    cfg = train_small_cfg(**{"OUTPUT_DIR": str(tmp_path), "TRAIN.BEGIN_EPOCH": 0,
+                             "TRAIN.END_EPOCH": 1, "PRINT_FREQ": 1})
+    loaders = {"s": DataLoader(SyntheticDataset(cfg, length=8), 4, num_workers=2)}
+    vals = {"s": DataLoader(SyntheticDataset(cfg, "validation", length=4), 4, shuffle=False,
+                            num_workers=0)}
+    trainer = Trainer(cfg, build_model(cfg), loaders, vals, output_dir=str(tmp_path),
+                      device=cuda)
+    trainer.fit()
+    assert trainer.train_global_steps == 2 and trainer.ckpt.epochs() == [0]
+    assert np.isfinite(trainer.best_loss)

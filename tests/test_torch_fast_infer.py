@@ -72,7 +72,11 @@ def test_port_imports_no_jax():
         "import chip_smoke, chip_conditioning\n"
         "for name in ('core.quant_infer', 'ops.kernels.conv_int8', 'ops.kernels.int8_chain',\n"
         "             'ops.kernels.fused_head_decode', 'core.fast_infer',\n"
-        "             'ops.kernels.fused_bottleneck', 'ops.s2d'):\n"
+        "             'ops.kernels.fused_bottleneck', 'ops.s2d', 'ops.targets',\n"
+        "             'ops.kernels.gaussian_targets', 'ops.flip', 'data.legends',\n"
+        "             'data.synthetic', 'data.pipeline', 'core.losses', 'core.loss_computer',\n"
+        "             'core.metrics', 'core.trainer', 'parallel.train_step',\n"
+        "             'parallel.checkpoint', 'utils.logging_utils'):\n"
         "    assert port.__name__ + '.' + name in sys.modules, name\n"
         "assert not any(m.split('.')[0] in ('jax', 'flax') for m in sys.modules"
         " if sys.modules[m] is not None)\n"

@@ -122,7 +122,8 @@ def test_init_variables_seeded_and_folding_relevant(tiny_cfg):
 
 
 def test_registry(tiny_cfg):
-    assert registered_models() == ["pose_hrnet", "pose_hrnet_softmax"]
+    assert registered_models() == ["pose_hrnet", "pose_hrnet_softmax",
+                                   "pose_hrnet_trainable_softmax"]
     cfg = port_cfg(tiny_cfg)
     model = build_model(cfg)
     assert isinstance(model, PoseHRNet) and model.head == "softmax" and not model.training

@@ -37,7 +37,15 @@ from hrnet_hand_pose_estimation_tpu_torch.utils.weights import from_jax_variable
 from tests.test_quant_infer import _activated_variables
 
 torch.set_num_threads(1)
-torch.set_grad_enabled(False)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def no_grad():
+    """The module's tests run without autograd; a module-level
+    ``set_grad_enabled(False)`` would also turn it off for every other test
+    file a worker imports at collection."""
+    with torch.no_grad():
+        yield
 
 
 @pytest.fixture(scope="module")
