@@ -21,6 +21,13 @@ NaN-pixel step the anomaly guard must skip bit for bit, one float32 step on
 the card against the same step on the CPU, the step's time and breakdown,
 and one ``Trainer.fit`` epoch with a resume.
 
+Then the 2D evaluation path (``core/evaluator.Evaluator2D``) of the same
+flagship model on the synthetic test set at 256/64, B=32: the softmax-decode
+kernel against its twin, the standard evaluation (one decode launch per
+batch) against the same evaluation decoded by the twin, the int8 serving
+evaluation, the evaluation tool's artifacts, and the inference tool's
+three serving functions.
+
     python3 chip_smoke.py
 
 Needs one CUDA card and nvcc; exits non-zero without them.  Prints one line
@@ -45,11 +52,14 @@ import torch
 
 from hrnet_hand_pose_estimation_tpu_torch.config import (POSE_HIGH_RESOLUTION_NET_EXTRA,
                                                          load_config)
+from hrnet_hand_pose_estimation_tpu_torch.core import evaluator as EV
 from hrnet_hand_pose_estimation_tpu_torch.core import fast_infer as FI
 from hrnet_hand_pose_estimation_tpu_torch.core import quant_infer as Q
 from hrnet_hand_pose_estimation_tpu_torch.core.fast_infer import (make_fast_infer,
                                                                   precast_variables)
+from hrnet_hand_pose_estimation_tpu_torch.core.evaluator import Evaluator2D
 from hrnet_hand_pose_estimation_tpu_torch.core.trainer import Trainer
+from hrnet_hand_pose_estimation_tpu_torch.data.build import make_test_dataloader
 from hrnet_hand_pose_estimation_tpu_torch.data.pipeline import DataLoader
 from hrnet_hand_pose_estimation_tpu_torch.data.synthetic import SyntheticDataset
 from hrnet_hand_pose_estimation_tpu_torch.models import build_model
@@ -67,9 +77,13 @@ from hrnet_hand_pose_estimation_tpu_torch.ops.kernels.gaussian_targets import (
     fused_gaussian_targets, gaussian_targets_reference)
 from hrnet_hand_pose_estimation_tpu_torch.ops.kernels.int8_chain import (
     bottleneck_chain_int8_reference, fused_bottleneck_chain_int8)
+from hrnet_hand_pose_estimation_tpu_torch.ops.kernels.softmax_decode import (
+    fused_softmax_decode, softmax_decode_reference)
 from hrnet_hand_pose_estimation_tpu_torch.ops.s2d import space_to_depth
 from hrnet_hand_pose_estimation_tpu_torch.ops.targets import gaussian_targets
 from hrnet_hand_pose_estimation_tpu_torch.parallel import train_step as TS
+from hrnet_hand_pose_estimation_tpu_torch.tools import evaluate_2d as tool_eval
+from hrnet_hand_pose_estimation_tpu_torch.tools.inference import make_serving_fn
 from hrnet_hand_pose_estimation_tpu_torch.utils.weights import init_variables
 
 CHECK_BATCH = 32
@@ -367,7 +381,8 @@ def new_config_phases(cfg, weights, smi, kernels, images, default_plain):
                        for n in (2, 3, 4))
         want = {"conv_int8": 0, "fused_bottleneck_chain_int8": 0, "fused_head_decode_v2": 3,
                 "fused_bottleneck_chain": 0, "fused_basic_chain": n_blocks,
-                "fused_stem_layer1": 1 + len(flags), "fused_gaussian_targets": 0}
+                "fused_stem_layer1": 1 + len(flags), "fused_gaussian_targets": 0,
+                "fused_softmax_decode": 0}
         if launches != want:
             raise AssertionError(f"launches {launches}, want {want}")
         chain_entry["launches"] = launches["fused_basic_chain"]
@@ -468,7 +483,7 @@ def twins():
 
 
 COUNTED = (conv_int8, fused_bottleneck_chain_int8, fused_head_decode_v2, fused_bottleneck_chain,
-           fused_basic_chain, fused_stem_layer1, fused_gaussian_targets)
+           fused_basic_chain, fused_stem_layer1, fused_gaussian_targets, fused_softmax_decode)
 
 
 def zero_counters():
@@ -652,7 +667,7 @@ def quant_forward_gate(label, infer, weights, qparams, witness_qparams, images, 
     print(f"{label}: CUDA launches on the main path: {launches}")
     want = {"conv_int8": sites, "fused_bottleneck_chain_int8": 4, "fused_head_decode_v2": 3,
             "fused_bottleneck_chain": 0, "fused_basic_chain": 0, "fused_stem_layer1": 0,
-            "fused_gaussian_targets": 0}
+            "fused_gaussian_targets": 0, "fused_softmax_decode": 0}
     if launches != want:
         raise AssertionError(f"{label}: launches {launches}, want {want}")
     if coords.shape != (images.shape[0], 21, 2) or not torch.isfinite(coords).all():
@@ -1161,6 +1176,217 @@ def train_phases(smi, kernels):
         del trainer, resumed
 
 
+# -- 2D evaluation and the tools -------------------------------------------
+
+EVAL_BATCH = 32
+EVAL_BATCHES = 4
+
+
+def eval_cfg(out_dir: str):
+    """The flagship (pose_hrnet_w32 softmax @256, bf16 compute) evaluated on
+    the synthetic test set at 256/64, B=32."""
+    cfg = load_config(opts=["MODEL.NAME", "pose_hrnet_softmax", "MODEL.TRAINABLE_SOFTMAX", True,
+                            "MODEL.HEATMAP_SOFTMAX", True, "DATASET.DATASET", ["Synthetic_kpt"],
+                            "DATASET.TEST_DATASET", ["Synthetic_kpt"],
+                            "TEST.IMAGES_PER_GPU", EVAL_BATCH, "WORKERS", 4,
+                            "EXP_NAME", "chip_smoke_eval", "OUTPUT_DIR", out_dir], freeze=False)
+    cfg.MODEL.EXTRA.merge_from_mapping(POSE_HIGH_RESOLUTION_NET_EXTRA)
+    return cfg.freeze()
+
+
+@contextmanager
+def patched(module, name, value):
+    saved = getattr(module, name)
+    setattr(module, name, value)
+    try:
+        yield
+    finally:
+        setattr(module, name, saved)
+
+
+def decode_work(x, out):
+    """Bound of the softmax decode: the logits read once and the output
+    written once; ~10 float32 operations per logit (the temperature
+    product, the max, one exp and three FMAs, counted at the f32 rate)."""
+    return bound(0, 10 * x.numel(), nbytes([x, out]) + 4)
+
+
+def decode_cases(dev):
+    """(label, logits, temperature) of the B4 checks."""
+    rng = np.random.default_rng(40)
+    t25 = torch.tensor(2.5, device=dev)
+    cases = []
+    for shape in ((32, 64, 64, 21), (128, 64, 64, 21), (3, 64, 64, 21), (2, 48, 64, 21)):
+        x = torch.from_numpy((rng.normal(size=shape) * 3).astype(np.float32)).to(dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            for temp in (1.0, t25):
+                cases.append((f"{shape} {str(dtype)[6:]} T {float(temp)}", x.to(dtype), temp))
+    return cases
+
+
+def eval_phases(smi, kernels):
+    """The softmax-decode kernel against its twin and timed; the flagship's
+    standard 2D evaluation (the kernel once per batch) against the same
+    evaluation decoded by the twin; the int8 serving evaluation; the
+    evaluation tool and the inference tool's serving functions."""
+    dev = torch.device("cuda")
+    with phase("eval kernel checks"):
+        worst = 0.0
+        for label, x, temp in decode_cases(dev):
+            got = fused_softmax_decode(x, temp)
+            want = softmax_decode_reference(x, temp)
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            worst = max(worst, err)
+            if not err <= 1e-4:
+                raise AssertionError(f"softmax decode {label}: kernel vs twin {err} px > 1e-4")
+        flat = fused_softmax_decode(torch.zeros(2, 64, 64, 21, device=dev), 2.5)
+        peak = torch.from_numpy(np.random.default_rng(41).normal(
+            size=(2, 64, 64, 21)).astype(np.float32)).to(dev)
+        peak[1, 10, 37, 4] = 1e4
+        top = fused_softmax_decode(peak, torch.tensor(2.5, device=dev))[1, 4].tolist()
+        print(f"softmax decode: {len(decode_cases(dev))} cases (B 32/128/3 and 2x48x64, f32 "
+              f"and bf16, T 1.0 and 2.5 on the card), max|kernel - twin| {worst:.3g} px "
+              f"(limit 1e-4); flat plane -> {flat[0, 0].tolist()}, one logit of 1e4 at "
+              f"(37, 10) -> {top}")
+        if not (flat == 31.5).all() or top != [37.0, 10.0]:
+            raise AssertionError("softmax decode: flat or peaked plane decoded wrongly")
+        entry = dict(name="fused_softmax_decode", route="cuda",
+                     source="hrnet_hand_pose_estimation_tpu_torch/csrc/softmax_decode.cu",
+                     replaces="hrnet_hand_pose_estimation_tpu/ops/pallas/decode_kernel.py:69",
+                     max_abs_err=worst, library_ms=None)
+        temp = torch.tensor(1.7, device=dev)
+        for b in (EVAL_BATCH, TIME_BATCH):
+            base = torch.randn(b, 64, 64, 21, device=dev) * 3
+            for dtype in (torch.bfloat16, torch.float32):
+                x = base.to(dtype)
+                ms = time_ms(lambda: fused_softmax_decode(x, temp), 50, warmup=5)
+                plain = time_ms(lambda: softmax_decode_reference(x, temp), 20, warmup=3)
+                # the kernel's own device time: back-to-back calls above are
+                # paced by the wrapper's host work when that is longer
+                _, kernel_ms, _ = device_busy(lambda: fused_softmax_decode(x, temp), steps=20)
+                b_ms, b_by = decode_work(x, torch.empty(b, 21, 2, device=dev))
+                # the eval path's logits are bf16 at B=32: the unsuffixed keys
+                suffix = ("" if dtype == torch.bfloat16 else "_f32") + (
+                    "" if b == EVAL_BATCH else f"_b{b}")
+                entry.update({f"ms{suffix}": ms, f"plain_ms{suffix}": plain,
+                              f"bound_ms{suffix}": b_ms, f"device_ms{suffix}": kernel_ms})
+                entry["bound_by"] = b_by
+                print(f"fused_softmax_decode B={b} (64x64x21 {str(dtype)[6:]}): {ms:.4f} ms per "
+                      f"call, {kernel_ms:.4f} ms of kernel (torch.profiler), plain {plain:.4f} "
+                      f"ms, bound {b_ms:.4f} ms ({b_by}); no single PyTorch call computes it, "
+                      f"on {smi}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = eval_cfg(tmp)
+        state = init_variables(cfg, seed=0, device=dev)
+        loader = make_test_dataloader(cfg)["Synthetic_kpt"]
+        # the registry's synthetic set holds 64 samples; the smoke evaluates 128
+        loader.dataset.length = EVAL_BATCH * EVAL_BATCHES
+        with phase("eval main path"):
+            model = build_model(cfg)
+            ev = Evaluator2D(cfg, model, state, device=dev)
+            zero_counters()
+            results = ev.run(loader, "Synthetic", tmp)
+            torch.cuda.synchronize()
+            launches = counters()
+            want = {fn.__name__: 0 for fn in COUNTED}
+            want["fused_softmax_decode"] = len(loader)
+            print(f"Evaluator2D std, {len(loader)} batches of {EVAL_BATCH}: CUDA launches "
+                  f"{launches}; results {json.dumps(results)}")
+            if launches != want:
+                raise AssertionError(f"eval path launches {launches}, want {want}")
+            entry["launches"] = launches["fused_softmax_decode"]
+            if not all(np.isfinite(v) for v in results.values()) or not results["fps"] > 0:
+                raise AssertionError(f"eval results not finite: {results}")
+            out = Path(tmp) / "eval2D_results_chip_smoke_eval"
+            shapes = (np.loadtxt(out / "mse2d_each_joint.txt").shape,
+                      np.loadtxt(out / "PCK2d.txt").shape)
+            if shapes != ((21,), (2, 49)):
+                raise AssertionError(f"eval artifacts of shapes {shapes}")
+            worst = 0.0
+            spread = []
+            with torch.no_grad():
+                for batch in loader:
+                    images = torch.from_numpy(batch["imgs"]).to(dev)
+                    with TS.compute_autocast(cfg, dev):
+                        logits, temp = ev.model.forward_logits(images)
+                    got = fused_softmax_decode(logits, temp)
+                    want_xy = softmax_decode_reference(logits, temp)
+                    worst = max(worst, (got - want_xy).abs().max().item())
+                    spread.append(got.std(dim=(0, 1)).min().item())
+            with patched(EV, "softmax_decode", softmax_decode_reference):
+                twin = Evaluator2D(cfg, model, None, device=dev).run(loader, "Synthetic")
+            gaps = {k: abs(results[k] - twin[k]) for k in ("EPE_px", "PCK_AUC_30",
+                                                            "PCK_AUC_full")}
+            print(f"eval decode, kernel vs twin on the same logits ({logits.dtype}): max "
+                  f"{worst:.3g} px (limit 1e-4); coordinate spread >= {min(spread):.3f} px; "
+                  f"results decoded by the twin {json.dumps(twin)}; gaps {json.dumps(gaps)} "
+                  f"(limit 1e-3)")
+            if not worst <= 1e-4 or not all(g <= 1e-3 for g in gaps.values()):
+                raise AssertionError(f"eval decode disagrees with its twin: {worst}, {gaps}")
+
+            zero_counters()
+            ev8 = Evaluator2D(cfg, model, None, serving="int8", device=dev)
+            results8 = ev8.run(loader, "Synthetic")
+            torch.cuda.synchronize()
+            launches8 = counters()
+            print(f"Evaluator2D int8: CUDA launches {launches8}; results {json.dumps(results8)}")
+            if not (launches8["conv_int8"] and launches8["fused_bottleneck_chain_int8"]
+                    and launches8["fused_head_decode_v2"]) or launches8["fused_softmax_decode"]:
+                raise AssertionError(f"int8 eval launches {launches8}")
+            if not all(np.isfinite(v) for v in results8.values()):
+                raise AssertionError(f"int8 eval results not finite: {results8}")
+
+        with phase("eval timing"):
+            batch = next(iter(loader))
+            images = torch.from_numpy(batch["imgs"]).to(dev)
+            step = time_ms(lambda: ev.forward(images).cpu(), 5, warmup=2)
+
+            def logits_only():
+                with torch.no_grad(), TS.compute_autocast(cfg, dev):
+                    return ev.model.forward_logits(images)
+
+            trunk = time_ms(logits_only, 5, warmup=1)
+            logits, temp = logits_only()
+            decode = time_ms(lambda: fused_softmax_decode(logits, temp), 20)
+            print(f"Evaluator2D std batch B={EVAL_BATCH}: {step:.3f} ms (forward to the .cpu() "
+                  f"of the decode, CUDA events), {EVAL_BATCH / step * 1e3:.1f} images/s; "
+                  f"forward_logits {trunk:.3f} ms, decode kernel {decode:.4f} ms "
+                  f"({decode / step:.2%} of the batch); the evaluator reported "
+                  f"{results['fps']:.1f} fps over {len(loader) - 1} timed batches on {smi}")
+        del ev, ev8
+
+        with phase("tools"):
+            tcfg = eval_cfg(tmp)
+            res = tool_eval.evaluate(tcfg, state=state, out=tmp, device=dev)
+            out = Path(tmp) / "eval2D_results_chip_smoke_eval"
+            lines = (out / "mse2d_each_joint.txt").read_text().splitlines()
+            pck = np.loadtxt(out / "PCK2d.txt")
+            print(f"tools.evaluate_2d.evaluate: {json.dumps(res)}; mse2d_each_joint.txt "
+                  f"{len(lines)} lines, PCK2d.txt {pck.shape}")
+            if len(lines) != 21 or pck.shape != (2, 49):
+                raise AssertionError("evaluate_2d artifacts have the wrong shapes")
+            frames = batch["imgs"]
+            images = torch.from_numpy(frames).to(dev)
+            kernels_of = {"std": (), "fast": ("fused_bottleneck_chain", "fused_head_decode_v2"),
+                          "int8": ("conv_int8", "fused_bottleneck_chain_int8",
+                                   "fused_head_decode_v2")}
+            for mode, used in kernels_of.items():
+                fwd = make_serving_fn(tcfg, state, mode, list(frames), device=dev)
+                zero_counters()
+                _, pose = fwd(images)
+                torch.cuda.synchronize()
+                launched = {k: v for k, v in counters().items() if v}
+                print(f"tools.inference.make_serving_fn({mode!r}): {tuple(pose.shape)}, "
+                      f"launches {launched}")
+                if tuple(pose.shape) != (EVAL_BATCH, 21, 2) or not torch.isfinite(pose).all():
+                    raise AssertionError(f"serving fn {mode} gave a bad output")
+                if set(launched) != set(used):
+                    raise AssertionError(f"serving fn {mode} launched {launched}, want {used}")
+    kernels.append(entry)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs an NVIDIA card",
@@ -1332,6 +1558,7 @@ def main() -> int:
     int8_phases(cfg, state, weights, smi, kernels, new_infer)
     del weights, state, new_infer
     train_phases(smi, kernels)
+    eval_phases(smi, kernels)
 
     print(json.dumps({"kernels": kernels}))
     print(smi)

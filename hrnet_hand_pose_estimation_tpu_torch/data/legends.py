@@ -1,8 +1,9 @@
-"""The 21-joint hand legend's bone tables, as the 2D losses use them.
+"""The 21-joint hand legend's bone tables, as the 2D losses and the
+skeleton overlay use them.
 
 The port's own copy of the JAX package's ``data/legends.py:43-73`` (numpy
-only): the kinematic-chain incidence matrix and the reference-faithful bone
-chain of ``BoneLengthLoss``.
+only): the kinematic-chain incidence matrix, the anatomical (parent, child)
+bone pairs, and the reference-faithful bone chain of ``BoneLengthLoss``.
 """
 
 from __future__ import annotations
@@ -26,6 +27,11 @@ def _kc_matrix() -> np.ndarray:
 
 
 KC_MATRIX = _kc_matrix()
+
+# (parent, child) joint-index pairs for the 20 bones; anatomical chain (what
+# KC_MATRIX encodes): each finger roots at the wrist.
+BONE_PARENTS = np.array([0 if j % 4 == 1 else j - 1 for j in range(1, 21)], dtype=np.int32)
+BONE_CHILDREN = np.arange(1, 21, dtype=np.int32)
 
 # Reference-faithful chain for BoneLengthLoss: the reference's wrist branch
 # (lib/core/loss.py:167, `if joint_idx == finger_idx`) is unreachable, so

@@ -1,8 +1,7 @@
-"""Input pipeline: image normalisation, batching, shuffling, threaded
-loading and the copy to the device.
+"""Input pipeline: batching, shuffling, threaded loading and the copy to
+the device.
 
-Port of the JAX package's ``data/pipeline.py:27-158`` (and
-``normalize_image`` of ``data/transforms.py``) for one process:
+Port of the JAX package's ``data/pipeline.py:27-158`` for one process:
 
 - map-style datasets (``__len__``/``__getitem__`` -> dict of numpy arrays);
 - epoch-seeded shuffling (the reference's ``sampler.set_epoch``);
@@ -22,19 +21,6 @@ from typing import Callable, Dict, Iterator, Sequence
 
 import numpy as np
 import torch
-
-IMAGENET_MEAN = np.asarray([0.485, 0.456, 0.406], np.float32)
-IMAGENET_STD = np.asarray([0.229, 0.224, 0.225], np.float32)
-
-
-def normalize_image(image: np.ndarray) -> np.ndarray:
-    """uint8/float HWC -> float32 HWC, /255 + ImageNet normalise
-    (reference ToTensor+Normalize, transforms.py:38-51)."""
-    img = image.astype(np.float32)
-    if image.dtype == np.uint8 or img.max() > 2.0:
-        img = img / 255.0
-    return (img - IMAGENET_MEAN) / IMAGENET_STD
-
 
 def default_collate(samples: Sequence[Dict[str, np.ndarray]]) -> Dict[str, np.ndarray]:
     out: Dict[str, np.ndarray] = {}

@@ -1,11 +1,13 @@
 """Procedural synthetic hand-pose samples for tests and smoke runs.
 
 Port of the JAX package's ``data/synthetic.py:25-116`` (``SyntheticDataset``,
-2D, without augmentations): 21 joints along 5 synthetic fingers radiating
-from a random wrist, rendered as Gaussian blobs on a noisy background, with
-the RHD_kpt-compatible record schema.  Samples are a function of
-``(seed, index)`` only.  The cv2 augmentation chain and the CPM schema are
-not ported yet.
+2D): 21 joints along 5 synthetic fingers radiating from a random wrist,
+rendered as Gaussian blobs on a noisy background, with the
+RHD_kpt-compatible record schema.  Samples are a function of
+``(seed, index)`` (and of the transforms' generator, when they augment).
+A transform chain (``data/transforms.HandTransforms``) is applied as the
+JAX package applies it.  The CPM schema and the multi-view dataset are not
+ported yet (ROADMAP A9, A10).
 """
 
 from __future__ import annotations
@@ -13,7 +15,7 @@ from __future__ import annotations
 import numpy as np
 
 from ..ops.targets import gaussian_targets_np
-from .pipeline import normalize_image
+from .transforms import normalize_image
 
 
 def synthetic_pose(rng: np.random.Generator, size: float = 1.0) -> np.ndarray:
@@ -53,8 +55,6 @@ class SyntheticDataset:
     def __init__(self, cfg=None, subset: str = "training", heatmap_generator=None,
                  transforms=None, length: int = 64, img_size: int = 64,
                  hm_size: int = 16, sigma: float = 2.0, seed: int = 0):
-        if transforms is not None:
-            raise NotImplementedError("the cv2 augmentation chain is not ported yet")
         if cfg is not None:
             if str(cfg.MODEL.NAME) == "CPM":
                 raise NotImplementedError("the CPM sample schema is not ported yet")
@@ -66,6 +66,7 @@ class SyntheticDataset:
         self.hm_size = hm_size
         self.sigma = sigma
         self.seed = seed + (0 if subset in ("train", "training") else 10_000)
+        self.transforms = transforms
         self.heatmap_generator = heatmap_generator
         self.exception = False
 
@@ -78,8 +79,12 @@ class SyntheticDataset:
         center = rng.uniform(0.35, 0.65, size=2) * self.img_size
         pose2d = pose3d[:, :2] + center
         img = render_blob_image(pose2d, self.img_size, rng)
-        img = normalize_image(img)
-        pose2d = pose2d * self.hm_size / self.img_size
+        if self.transforms is not None:
+            img, joints = self.transforms(img, [pose2d])
+            pose2d = np.asarray(joints[0], np.float32)
+        else:
+            img = normalize_image(img)
+            pose2d = pose2d * self.hm_size / self.img_size
         vis = np.ones((21, 1), np.float32)
         hms = (self.heatmap_generator(pose2d, vis[:, 0]) if self.heatmap_generator
                else gaussian_targets_np(pose2d, vis[:, 0], self.hm_size, self.sigma))

@@ -233,10 +233,9 @@ class PoseHRNet(nn.Module):
                 xs = module(xs, branch=branch, name=f"stage{idx + 1}.{m}")
         return xs
 
-    def forward(self, x: torch.Tensor,
-                layer1: Optional[Callable[[torch.Tensor], torch.Tensor]] = None) -> HRNetOutput:
-        """x: (B, H, W, 3) NHWC image -> HRNetOutput with NHWC maps.
-        ``layer1`` is passed on to ``forward_backbone``."""
+    def _logits(self, x: torch.Tensor, layer1=None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(y, features): the head's NHWK logits, in the dtype the last conv
+        gives, and the concat of the upsampled branches."""
         dtype = self.conv1.weight.dtype
         xs = self.forward_backbone(x.to(dtype).permute(0, 3, 1, 2), layer1=layer1)
         xs = [t.permute(0, 2, 3, 1) for t in xs]
@@ -245,9 +244,30 @@ class PoseHRNet(nn.Module):
         feats = [xs[0]] + [upsample_bilinear_align_corners(t, (h, w)) for t in xs[1:]]
         features = torch.cat(feats, dim=-1)
         y = self.last_layer(features.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        return y, features
+
+    def _temperature(self) -> Optional[torch.Tensor]:
         if self.head == "plain":
+            return None
+        return self.trainable_temp if self.trainable_softmax else self.trainable_temp.detach()
+
+    def forward_logits(self, x: torch.Tensor) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """x: (B, H, W, 3) NHWC image -> (y, temperature): the head's NHWK
+        logits before the spatial softmax, computed as ``forward`` computes
+        them, and the softmax temperature (None for the plain head).  For the
+        softmax head ``forward(x).heatmaps == spatial_softmax(y, temperature)``;
+        the 2D evaluator decodes ``y`` with ``ops.decode.softmax_decode``."""
+        y, _ = self._logits(x)
+        return y, self._temperature()
+
+    def forward(self, x: torch.Tensor,
+                layer1: Optional[Callable[[torch.Tensor], torch.Tensor]] = None) -> HRNetOutput:
+        """x: (B, H, W, 3) NHWC image -> HRNetOutput with NHWC maps.
+        ``layer1`` is passed on to ``forward_backbone``."""
+        y, features = self._logits(x, layer1)
+        temp = self._temperature()
+        if temp is None:
             return HRNetOutput(y.float(), features, None)
-        temp = self.trainable_temp if self.trainable_softmax else self.trainable_temp.detach()
         return HRNetOutput(spatial_softmax(y, temp), features, temp)
 
 

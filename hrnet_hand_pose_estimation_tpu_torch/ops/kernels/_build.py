@@ -56,6 +56,8 @@ SIGNATURES = {
     "hrnet_stem_s2d": (_P,) * 6 + (_I,) * 3 + (_P,),
     # joints, vis, out, B, K, res, win, sig2, stream
     "hrnet_gaussian_targets": (_P,) * 3 + (_I,) * 4 + (_F, _P),
+    # logits, temp (or null), temp_value, out, B, H, W, K, is_bf16, stream
+    "hrnet_fused_softmax_decode": (_P, _P, _F, _P) + (_I,) * 5 + (_P,),
 }
 
 _lock = threading.Lock()

@@ -101,6 +101,15 @@ def split_state_dict(state: Mapping[str, torch.Tensor]) -> Dict[str, Dict[str, t
     return out
 
 
+def join_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """The inverse of ``split_state_dict``: {"params", "batch_stats"} (as
+    ``load_pretrained`` returns) -> one flat state_dict; a flat state_dict
+    passes through."""
+    if "params" in variables and isinstance(variables["params"], Mapping):
+        return {**variables["params"], **variables.get("batch_stats", {})}
+    return dict(variables)
+
+
 def load_torch_checkpoint(path: str) -> Dict[str, torch.Tensor]:
     """A reference ``.pth(.tar)`` -> its flat state_dict (under
     ``state_dict`` if the file nests it), without a ``module.`` prefix."""

@@ -30,6 +30,8 @@ from hrnet_hand_pose_estimation_tpu_torch.ops.kernels.gaussian_targets import (
     fused_gaussian_targets, gaussian_targets_reference)
 from hrnet_hand_pose_estimation_tpu_torch.ops.kernels.int8_chain import (
     bottleneck_chain_int8_reference, fused_bottleneck_chain_int8)
+from hrnet_hand_pose_estimation_tpu_torch.ops.kernels.softmax_decode import (
+    fused_softmax_decode, softmax_decode_reference)
 from hrnet_hand_pose_estimation_tpu_torch.parallel import train_step as TS
 from hrnet_hand_pose_estimation_tpu_torch.utils.weights import init_variables
 
@@ -477,3 +479,66 @@ def test_two_step_trainer_on_card(cuda, tmp_path):
     trainer.fit()
     assert trainer.train_global_steps == 2 and trainer.ckpt.epochs() == [0]
     assert np.isfinite(trainer.best_loss)
+
+
+@pytest.mark.parametrize("shape", [(32, 64, 64, 21), (3, 64, 64, 21), (2, 48, 64, 21),
+                                   (2, 7, 5, 3), (1, 16, 16, 700)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_softmax_decode_kernel_matches_twin(cuda, shape, dtype):
+    """B4 against its twin at the eval path's shape, a ragged batch,
+    non-square and odd planes and a wide K, with T as a float and as a
+    0-d tensor on the card: 1e-4 px."""
+    rng = np.random.default_rng(sum(shape))
+    x = f32(rng.normal(size=shape) * 3.0, cuda).to(dtype)
+    for temp in (1.0, torch.tensor(2.5, device=cuda)):
+        before = fused_softmax_decode.launches
+        got = fused_softmax_decode(x, temp)
+        torch.cuda.synchronize()
+        assert fused_softmax_decode.launches == before + 1
+        want = softmax_decode_reference(x, temp)
+        assert got.shape == (shape[0], shape[3], 2) and got.dtype == torch.float32
+        assert (got - want).abs().max().item() <= 1e-4
+
+
+def test_softmax_decode_kernel_exact_planes(cuda):
+    flat = torch.zeros(2, 64, 48, 21, device=cuda)
+    assert torch.equal(fused_softmax_decode(flat, 2.5)[..., 0].cpu(), torch.full((2, 21), 23.5))
+    assert torch.equal(fused_softmax_decode(flat, 2.5)[..., 1].cpu(), torch.full((2, 21), 31.5))
+    peak = f32(np.random.default_rng(1).normal(size=(2, 64, 64, 21)), cuda)
+    peak[1, 10, 37, 4] = 1e4
+    out = fused_softmax_decode(peak, torch.tensor(2.5, device=cuda))
+    assert out[1, 4].tolist() == [37.0, 10.0]
+
+
+def test_softmax_decode_kernel_refuses_bad_input(cuda):
+    x = torch.zeros(2, 8, 8, 21, device=cuda)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        fused_softmax_decode(x.half())
+    with pytest.raises(ValueError, match="temperature on"):
+        fused_softmax_decode(x, torch.tensor(1.0))
+    with pytest.raises(ValueError, match="joints"):
+        fused_softmax_decode(torch.zeros(1, 2, 2, 1025, device=cuda))
+
+
+def test_small_eval_on_card(cuda):
+    """Evaluator2D std on the card launches B4 once per batch and agrees
+    with the same evaluation on the CPU (float32, TF32 off)."""
+    from hrnet_hand_pose_estimation_tpu_torch.core.evaluator import Evaluator2D
+    from hrnet_hand_pose_estimation_tpu_torch.data.build import make_test_dataloader
+
+    cfg = small_cfg().clone()
+    cfg.defrost()
+    cfg.merge_from_list(["MODEL.HEATMAP_SOFTMAX", True, "TPU.COMPUTE_DTYPE", "float32",
+                         "DATASET.TEST_DATASET", ["Synthetic_kpt"], "TEST.IMAGES_PER_GPU", 16,
+                         "WORKERS", 0])
+    cfg.freeze()
+    state = init_variables(cfg, seed=2)
+    results = {}
+    for dev in ("cpu", cuda):
+        loader = make_test_dataloader(cfg)["Synthetic_kpt"]
+        before = fused_softmax_decode.launches
+        results[str(dev)] = Evaluator2D(cfg, build_model(cfg), state, device=dev).run(loader)
+        launched = fused_softmax_decode.launches - before
+        assert launched == (len(loader) if str(dev) != "cpu" else 0)
+    for key in ("EPE_px", "PCK_AUC_30", "PCK_AUC_full"):
+        assert abs(results["cpu"][key] - results["cuda"][key]) <= 1e-3, key

@@ -60,11 +60,12 @@ def test_serving_weights_and_inputs(tiny_cfg):
 
 
 def test_port_imports_no_jax():
-    """The port and the chip scripts' imports run with jax, flax and the JAX
-    package blocked, as on the card's machine."""
+    """The port and the chip scripts' imports run with jax, flax, the JAX
+    package, cv2 and yaml blocked, as on the card's machine."""
     code = (
         "import sys\n"
-        "for name in ('jax', 'jaxlib', 'flax', 'hrnet_hand_pose_estimation_tpu'):\n"
+        "for name in ('jax', 'jaxlib', 'flax', 'hrnet_hand_pose_estimation_tpu', 'cv2',\n"
+        "             'yaml'):\n"
         "    sys.modules[name] = None\n"
         "import pkgutil, importlib, hrnet_hand_pose_estimation_tpu_torch as port\n"
         "for mod in pkgutil.walk_packages(port.__path__, port.__name__ + '.'):\n"
@@ -76,9 +77,13 @@ def test_port_imports_no_jax():
         "             'ops.kernels.gaussian_targets', 'ops.flip', 'data.legends',\n"
         "             'data.synthetic', 'data.pipeline', 'core.losses', 'core.loss_computer',\n"
         "             'core.metrics', 'core.trainer', 'parallel.train_step',\n"
-        "             'parallel.checkpoint', 'utils.logging_utils'):\n"
+        "             'parallel.checkpoint', 'utils.logging_utils',\n"
+        "             'ops.kernels.softmax_decode', 'ops.decode', 'ops.image', 'ops.volumetric',\n"
+        "             'data.transforms', 'data.build', 'core.evaluator', 'utils.summary',\n"
+        "             'tools._common', 'tools.evaluate_2d', 'tools.inference',\n"
+        "             'tools.calibrate', 'tools.train'):\n"
         "    assert port.__name__ + '.' + name in sys.modules, name\n"
-        "assert not any(m.split('.')[0] in ('jax', 'flax') for m in sys.modules"
+        "assert not any(m.split('.')[0] in ('jax', 'flax', 'cv2', 'yaml') for m in sys.modules"
         " if sys.modules[m] is not None)\n"
     )
     env = dict(os.environ, PYTHONPATH=str(REPO))
