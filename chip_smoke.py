@@ -12,6 +12,14 @@ kernel against its plain PyTorch twin at the inputs its path gives it,
 checks at batch 32 that each path went through its kernels and agrees with
 the same forward through the twins, and times the paths at batch 128.
 
+Then the last two TPU kernels' own entry points at the flagship's full
+width, on the real tensors of the serving paths: the W8A8 BasicBlock branch
+chain (``prepare_branch_int8`` + ``fused_basic_chain_int8``) over the 26
+branch inputs of the int8 path, against its twin and against the int8
+walk's own per-site branches, and the first version of the fused head
+(``fused_head_decode``) on the four branch tensors of the default bf16 path,
+against its twin and beside the second version.
+
 Then the 2D training path (``parallel/train_step``, ``core/trainer``) with
 the training settings of
 experiments/FreiHand/Frei_HRNet_w32_trainable_softmax_hm-pose2dloss_v1.yaml:
@@ -72,11 +80,12 @@ from hrnet_hand_pose_estimation_tpu_torch.ops.kernels.fused_bottleneck import (
     basic_chain_reference, fused_basic_chain, fused_bottleneck_chain, fused_stem_layer1,
     layer1_reference, stem_layer1_reference)
 from hrnet_hand_pose_estimation_tpu_torch.ops.kernels.fused_head_decode import (
-    fused_head_decode_v2, head_decode_reference)
+    fused_head_decode, fused_head_decode_v2, head_decode_reference, head_decode_v1_reference)
 from hrnet_hand_pose_estimation_tpu_torch.ops.kernels.gaussian_targets import (
     fused_gaussian_targets, gaussian_targets_reference)
 from hrnet_hand_pose_estimation_tpu_torch.ops.kernels.int8_chain import (
-    bottleneck_chain_int8_reference, fused_bottleneck_chain_int8)
+    basic_chain_int8_reference, bottleneck_chain_int8_reference, fused_basic_chain_int8,
+    fused_bottleneck_chain_int8, prepare_branch_int8)
 from hrnet_hand_pose_estimation_tpu_torch.ops.kernels.softmax_decode import (
     fused_softmax_decode, softmax_decode_reference)
 from hrnet_hand_pose_estimation_tpu_torch.ops.s2d import space_to_depth
@@ -379,10 +388,9 @@ def new_config_phases(cfg, weights, smi, kernels, images, default_plain):
         n_blocks = sum(int(cfg.MODEL.EXTRA[f"STAGE{n}"]["NUM_MODULES"])
                        * sum(int(b) for b in cfg.MODEL.EXTRA[f"STAGE{n}"]["NUM_BLOCKS"])
                        for n in (2, 3, 4))
-        want = {"conv_int8": 0, "fused_bottleneck_chain_int8": 0, "fused_head_decode_v2": 3,
-                "fused_bottleneck_chain": 0, "fused_basic_chain": n_blocks,
-                "fused_stem_layer1": 1 + len(flags), "fused_gaussian_targets": 0,
-                "fused_softmax_decode": 0}
+        want = {fn.__name__: 0 for fn in COUNTED}
+        want.update(fused_head_decode_v2=3, fused_basic_chain=n_blocks,
+                    fused_stem_layer1=1 + len(flags))
         if launches != want:
             raise AssertionError(f"launches {launches}, want {want}")
         chain_entry["launches"] = launches["fused_basic_chain"]
@@ -483,7 +491,8 @@ def twins():
 
 
 COUNTED = (conv_int8, fused_bottleneck_chain_int8, fused_head_decode_v2, fused_bottleneck_chain,
-           fused_basic_chain, fused_stem_layer1, fused_gaussian_targets, fused_softmax_decode)
+           fused_basic_chain, fused_stem_layer1, fused_gaussian_targets, fused_softmax_decode,
+           fused_basic_chain_int8, fused_head_decode)
 
 
 def zero_counters():
@@ -559,6 +568,17 @@ def int_mm_ms(x, q, stride):
     return None
 
 
+def cudnn_conv_ms(x, q, stride):
+    """cuDNN's bf16 conv of the site's dequantized weights: a yardstick."""
+    k = q.kq.shape[1]
+    w_bf16 = ((q.kq.permute(0, 3, 1, 2).float() * q.wscale[:, None, None, None])
+              .to(torch.bfloat16).contiguous(memory_format=torch.channels_last))
+    bias = q.bias.to(torch.bfloat16)
+    x_nchw = x.permute(0, 3, 1, 2)
+    return time_ms(lambda: torch.nn.functional.conv2d(x_nchw, w_bf16, bias, stride,
+                                                      (k - 1) // 2), 10)
+
+
 def check_conv_classes(classes):
     """conv_int8 vs its twin once per shape class of the main path, with
     times; returns the kernels-line entry (sums over every site)."""
@@ -577,15 +597,10 @@ def check_conv_classes(classes):
             raise AssertionError(f"conv_int8 {k}x{k}/s{stride} {cin}->{cout} at {h}x{w}: "
                                  f"|kernel - plain| {err} > {limit}")
         worst = max(worst, err)
-        w_bf16 = ((q.kq.permute(0, 3, 1, 2).float() * q.wscale[:, None, None, None])
-                  .to(torch.bfloat16).contiguous(memory_format=torch.channels_last))
-        bias = q.bias.to(torch.bfloat16)
-        x_nchw = x.permute(0, 3, 1, 2)
         ms = time_ms(lambda: conv_int8(x, q, stride=stride, relu=relu), 10)
         plain = time_ms(lambda: conv_int8_reference(x, q, stride=stride, relu=relu), 1,
                         warmup=0)
-        lib = time_ms(lambda: torch.nn.functional.conv2d(x_nchw, w_bf16, bias, stride,
-                                                         (k - 1) // 2), 10)
+        lib = cudnn_conv_ms(x, q, stride)
         imm = int_mm_ms(x, q, stride)
         b_ms, b_by = conv_work(x, q, stride)
         if b_by == "operations":
@@ -665,9 +680,8 @@ def quant_forward_gate(label, infer, weights, qparams, witness_qparams, images, 
     torch.cuda.synchronize()
     launches = counters()
     print(f"{label}: CUDA launches on the main path: {launches}")
-    want = {"conv_int8": sites, "fused_bottleneck_chain_int8": 4, "fused_head_decode_v2": 3,
-            "fused_bottleneck_chain": 0, "fused_basic_chain": 0, "fused_stem_layer1": 0,
-            "fused_gaussian_targets": 0, "fused_softmax_decode": 0}
+    want = {fn.__name__: 0 for fn in COUNTED}
+    want.update(conv_int8=sites, fused_bottleneck_chain_int8=4, fused_head_decode_v2=3)
     if launches != want:
         raise AssertionError(f"{label}: launches {launches}, want {want}")
     if coords.shape != (images.shape[0], 21, 2) or not torch.isfinite(coords).all():
@@ -695,7 +709,8 @@ def quant_forward_gate(label, infer, weights, qparams, witness_qparams, images, 
 def int8_phases(cfg, state, weights, smi, kernels, new_infer):
     """Calibrate, prepare, check the int8 kernels, gate the int8 main path
     at B=32 and time it at B=128, then profile the bf16 paths (the default
-    and ``new_infer``) and the int8 path.  Appends to ``kernels``."""
+    and ``new_infer``) and the int8 path.  Appends to ``kernels``; returns
+    (int8 infer, qparams, calibration record, state on the card)."""
     dev = weights.model.conv1.weight.device
     infer = Q.make_quant_infer(cfg, device=dev, input_norm=NORM)
     with phase("int8 weights"):
@@ -846,6 +861,16 @@ def int8_phases(cfg, state, weights, smi, kernels, new_infer):
             TIME_BATCH, 21, 2, device=dev))[0]
         chain_entry["library_ms_b128"] = time_ms(lambda: model.layer1(x0.permute(0, 3, 1, 2)),
                                                  10)
+        # the per-site yardsticks at B=128: cuDNN's bf16 conv and torch._int_mm
+        conv_entry["library_ms_b128"] = sum(c * cudnn_conv_ms(x, q, k[1])
+                                            for k, (c, x, q) in classes.items())
+        imm = [(c, int_mm_ms(x, q, k[1])) for k, (c, x, q) in classes.items()]
+        conv_entry["int_mm_ms_b128"] = sum(c * t for c, t in imm if t is not None)
+        conv_entry["int_mm_sites_missing_b128"] = sum(c for c, t in imm if t is None)
+        print(f"conv_int8 at B={TIME_BATCH}: {sites_ms:.3f} ms over the {sum(c for c, _ in imm)} "
+              f"sites; cuDNN bf16 per site {conv_entry['library_ms_b128']:.3f} ms, _int_mm "
+              f"{conv_entry['int_mm_ms_b128']:.3f} ms ({conv_entry['int_mm_sites_missing_b128']} "
+              f"sites it cannot take) on {smi}")
     with phase("profile"), torch.inference_mode():
         bf16_infer, big_f32 = make_fast_infer(cfg, device=dev), normalize(big)
         for label, fn in (("bf16 path", lambda: bf16_infer(weights, big_f32)),
@@ -857,6 +882,264 @@ def int8_phases(cfg, state, weights, smi, kernels, new_infer):
             for key, ms in top[:6]:
                 print(f"    {ms:8.3f} ms/step  {key[:100]}")
     kernels += [head_entry, chain_entry, conv_entry]
+    return infer, qparams, loaded, dstate
+
+
+# -- the W8A8 BasicBlock branch chains (B6) ----------------------------------
+
+def record_branch_chains(infer, weights, qparams, images):
+    """One int8 forward with every stage branch of the walk recorded in
+    order: [(mod, branch, n_blocks, x NHWC, the walk's own output NHWC)]."""
+    chains, real = [], Q._Walk.branch
+
+    def rec(walk, x, mod, i, n_blocks):
+        y = real(walk, x, mod, i, n_blocks)
+        chains.append((mod, i, n_blocks, Q._nhwc(x), Q._nhwc(y)))
+        return y
+
+    Q._Walk.branch = rec
+    try:
+        infer(weights, qparams, images)
+    finally:
+        Q._Walk.branch = real
+    return chains
+
+
+def branch_int8_work(x, params):
+    """Bound of a W8A8 BasicBlock chain: two 3x3 convs per block; x, the
+    output and the params once."""
+    b, h, w, c = x.shape
+    ops = (len(params) // 7) * 2 * 2 * b * h * w * 9 * c * c
+    return bound(0, 0, 2 * nbytes([x]) + nbytes(params), ops_int8=ops)
+
+
+def basic_int8_case(dev, c=48, size=64, n_blocks=2):
+    """Random params and input of one w48 branch class (C % 32 == 16), with
+    scales that keep the int8 intermediate inside +-127."""
+    rng = np.random.default_rng(c)
+    t = lambda a: torch.from_numpy(np.asarray(a)).to(dev)
+    i8 = lambda: t(rng.integers(-127, 128, size=(9 * c, c)).astype(np.int8))
+    scale = lambda s: t((rng.uniform(0.5, 1.5, size=c) * s / np.sqrt(9 * c)).astype(np.float32))
+    bias = lambda s: t((rng.normal(size=c) * s).astype(np.float32))
+    params = []
+    for _ in range(n_blocks):
+        params += [t(np.full((1, 1), 11.3, np.float32)), i8(), scale(0.06), bias(5.0), i8(),
+                   scale(1.4e-3), bias(0.3)]
+    x = t(np.abs(rng.normal(size=(CHECK_BATCH, size, size, c))).astype(np.float32))
+    return x.to(torch.bfloat16), tuple(params), n_blocks
+
+
+def branch_int8_phases(cfg, weights, smi, kernels, infer, qparams, amax, dstate):
+    """B6 on the int8 path's own branch inputs at full width: prepare every
+    chain from the calibration record, hold the kernel against its twin
+    once per shape class (and one w48 class), run all 26 chains with the
+    counters zeroed, gate each against the walk's per-site int8 branch, and
+    time them at B=32 and B=128.  Appends one entry to ``kernels``."""
+    dev = weights.model.conv1.weight.device
+    model = weights.model
+    n_chains = sum(int(cfg.MODEL.EXTRA[f"STAGE{n}"]["NUM_MODULES"])
+                   * int(cfg.MODEL.EXTRA[f"STAGE{n}"]["NUM_BRANCHES"]) for n in (2, 3, 4))
+    rest = {k: v for k, v in qparams.items() if k != Q.LAYER1_CHAIN_KEY}
+
+    def res_layer(mod, i):
+        """The folded bf16 ResLayer of a branch: stage3_m1, 2 -> stage3.1.branches.2."""
+        return model.get_submodule(f"{mod.replace('_m', '.')}.branches.{i}")
+
+    def walk_branch(mod, i, n, x):
+        return Q._Walk(model, "quant", rest).branch(x.permute(0, 3, 1, 2), mod, i, n)
+
+    def totals(chains, params, plain: bool):
+        """Times summed over the chains (kernel, cuDNN's ResLayer, the walk's
+        per-site branch, and with ``plain`` the twin) and their bound."""
+        tot = dict(ms=0.0, bound_ms=0.0, library_ms=0.0, walk_ms=0.0)
+        if plain:
+            tot["plain_ms"] = 0.0
+        t_ops = t_bytes = 0.0
+        for (mod, i, n, x, _), p in zip(chains, params):
+            x_nchw = x.permute(0, 3, 1, 2)
+            tot["ms"] += time_ms(lambda: fused_basic_chain_int8(x, p, n), 5)
+            tot["library_ms"] += time_ms(lambda: res_layer(mod, i)(x_nchw), 5)
+            tot["walk_ms"] += time_ms(lambda: walk_branch(mod, i, n, x), 5)
+            if plain:
+                tot["plain_ms"] += time_ms(lambda: basic_chain_int8_reference(x, p, n), 1,
+                                           warmup=0)
+            b_ms, b_by = branch_int8_work(x, p)
+            tot["bound_ms"] += b_ms
+            t_ops, t_bytes = (t_ops + b_ms, t_bytes) if b_by == "operations" else (
+                t_ops, t_bytes + b_ms)
+        tot["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+        return tot
+
+    with phase("int8 branch chains"), torch.inference_mode():
+        chains = record_branch_chains(infer, weights, qparams, uint8_images(11, CHECK_BATCH, dev))
+        if len(chains) != n_chains:
+            raise AssertionError(f"recorded {len(chains)} branch chains, want {n_chains}")
+        params = [prepare_branch_int8(dstate, amax, mod, i, n) for mod, i, n, _, _ in chains]
+        classes = {}
+        for (mod, i, n, x, _), p in zip(chains, params):
+            classes.setdefault(tuple(x.shape[1:]), [0, x, p, n])[0] += 1
+        worst, equal, total = 0.0, 0, 0
+        cases = [(f"{h}x{w}x{c}", x, p, n, count)
+                 for (h, w, c), (count, x, p, n) in sorted(classes.items(), reverse=True)]
+        cases.append(("64x64x48 (w48, random params)", *basic_int8_case(dev), 0))
+        for label, x, p, n, count in cases:
+            got = fused_basic_chain_int8(x, p, n)
+            want = basic_chain_int8_reference(x, p, n)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            limit = 0.02 * max(1.0, want.float().abs().max().item())
+            eq = (got == want).sum().item()
+            equal, total = equal + eq, total + got.numel()
+            print(f"fused_basic_chain_int8 {label}, {n} blocks, x{count} chains: max|kernel - "
+                  f"plain| {err:.4g} (limit {limit:.4g}), bit-equal {eq / got.numel():.6f}")
+            if not err <= limit:
+                raise AssertionError(f"fused_basic_chain_int8 {label}: |kernel - plain| "
+                                     f"{err} > {limit}")
+            worst = max(worst, err)
+        print(f"fused_basic_chain_int8 bit-equal share over the {len(cases)} classes: "
+              f"{equal / total:.6f} (predicted 1)")
+
+        zero_counters()
+        outs = [fused_basic_chain_int8(x, p, n) for (_, _, n, x, _), p in zip(chains, params)]
+        torch.cuda.synchronize()
+        launches = counters()
+        want = {fn.__name__: 0 for fn in COUNTED}
+        want["fused_basic_chain_int8"] = sum(n for _, _, n, _, _ in chains)
+        print(f"the {len(chains)} int8 branch chains: CUDA launches {launches}")
+        if launches != want:
+            raise AssertionError(f"branch chain launches {launches}, want {want}")
+        gaps = []
+        for (mod, i, n, x, y), out in zip(chains, outs):
+            scale = y.float().abs().max().item()
+            gap = (out.float() - y.float()).abs().max().item() / max(scale, 1e-6)
+            gaps.append(gap)
+            if not (gap < 0.05 and scale > 0.1) or not torch.isfinite(out).all():
+                raise AssertionError(f"{mod}/branch{i}: chain vs the walk's per-site branch "
+                                     f"relative gap {gap} (limit 0.05), walk max {scale} (> 0.1)")
+        print(f"chain vs the int8 walk's per-site branch, all {len(chains)} chains: relative max "
+              f"gap {max(gaps):.5f} (limit 0.05), mean over chains {np.mean(gaps):.5f}; walk max "
+              f"|out| >= {min(y.float().abs().max().item() for *_, y in chains):.3f} (> 0.1)")
+
+        entry = dict(name="fused_basic_chain_int8", route="cuda",
+                     source="hrnet_hand_pose_estimation_tpu_torch/csrc/basic_int8.cu",
+                     replaces="hrnet_hand_pose_estimation_tpu/ops/pallas/int8_chain.py:206",
+                     launches=launches["fused_basic_chain_int8"], max_abs_err=worst,
+                     bit_equal=equal / total, walk_max_rel_gap=max(gaps),
+                     **totals(chains, params, plain=True))
+        del chains, outs, classes, cases
+
+    with phase("int8 branch chains timing"), torch.inference_mode():
+        chains = record_branch_chains(infer, weights, qparams, uint8_images(12, TIME_BATCH, dev))
+        big = totals(chains, params, plain=False)
+        entry.update({f"{k}_b{TIME_BATCH}": v for k, v in big.items()})
+        b7 = next(k for k in kernels if k["name"] == "fused_basic_chain")
+        for b, suffix in ((CHECK_BATCH, ""), (TIME_BATCH, f"_b{TIME_BATCH}")):
+            print(f"fused_basic_chain_int8, {entry['launches']} launches over the {n_chains} chains, "
+                  f"B={b}: {entry['ms' + suffix]:.3f} ms summed, bound "
+                  f"{entry['bound_ms' + suffix]:.4f} ms ({entry['bound_by' + suffix]}); the int8 "
+                  f"walk's per-site branches {entry['walk_ms' + suffix]:.3f} ms, cuDNN bf16 folded "
+                  f"ResLayers on the same inputs {entry['library_ms' + suffix]:.3f} ms (on the "
+                  f"bf16 path's: {b7['library_ms' + suffix]:.3f} ms); B7 (bf16 chain kernel) "
+                  f"{b7['ms' + suffix]:.3f} ms, on {smi}")
+        print(f"fused_basic_chain_int8 plain twin at B={CHECK_BATCH}: {entry['plain_ms']:.3f} ms")
+        del chains
+    kernels.append(entry)
+
+
+# -- the first version of the fused head (B9) --------------------------------
+
+def record_head_inputs(infer, weights, images):
+    """One bf16 forward of ``infer`` with the four NHWC branch tensors it
+    hands the head kernel kept."""
+    kept, real = [], FI.fused_head_decode_v2
+
+    def rec(xs, params, input_scales=None):
+        kept.append(list(xs))
+        return real(xs, params, input_scales)
+
+    FI.fused_head_decode_v2 = rec
+    try:
+        infer(weights, images)
+    finally:
+        FI.fused_head_decode_v2 = real
+    return kept[0]
+
+
+def head_v1_work(xs, head, out):
+    """Bound of v1: the full-resolution head conv and final conv, the
+    four-tap upsample (as FMAs at the tensor-core rate, as ``head_work``),
+    the softmax in f32; the branches, the output and the weights once."""
+    b, h0, w0, c0 = xs[0].shape
+    n, k = head.w_final.shape
+    hw = h0 * w0
+    ctot = sum(x.shape[3] for x in xs)
+    mm = 2 * b * hw * (ctot * n + n * k)
+    interp = 2 * b * hw * (ctot - c0) * 4
+    weights = [head.w_head.to(torch.bfloat16), head.b_head, head.w_final.to(torch.bfloat16),
+               head.b_final]
+    return bound(mm + interp, 6 * b * k * hw, nbytes([*xs, out, *weights]))
+
+
+def head_v1_phases(weights, smi, kernels, infer, images):
+    """B9 on the default bf16 path's four branch tensors at B=32 and B=128:
+    launches, the kernel against its twin, v1 beside v2, the shapes it must
+    refuse, and times.  Appends one entry to ``kernels``."""
+    dev = images.device
+    head = weights.head
+    with phase("head v1"), torch.inference_mode():
+        xs = record_head_inputs(infer, weights, images)
+        zero_counters()
+        got = fused_head_decode(xs, head)
+        torch.cuda.synchronize()
+        launches = counters()
+        want = {fn.__name__: 0 for fn in COUNTED}
+        want["fused_head_decode"] = 2
+        print(f"fused_head_decode (v1) at B={CHECK_BATCH} on the bf16 path's branches "
+              f"{[tuple(x.shape[1:]) for x in xs]}: CUDA launches {launches}")
+        if launches != want:
+            raise AssertionError(f"head v1 launches {launches}, want {want}")
+        plain = head_decode_v1_reference(xs, head)
+        d = (got - plain).abs()
+        spread = plain.std(dim=(0, 1)).min().item()
+        print(f"head v1: max|kernel - plain| {d.max().item():.5f} px (limit 0.05), mean "
+              f"{d.mean().item():.6f} px; coordinate spread {spread:.3f} px")
+        if got.shape != plain.shape or not d.max().item() <= 0.05:
+            raise AssertionError(f"head v1 disagrees with its plain twin: {d.max().item()} px")
+        v2 = fused_head_decode_v2(xs, head)
+        d2 = (got - v2).abs()
+        print(f"head v1 vs v2 on the same tensors (information; they round at other places): "
+              f"max {d2.max().item():.5f} px, mean {d2.mean().item():.6f} px")
+        try:
+            fused_head_decode([xs[0], xs[1][:, :, :-1].contiguous(), xs[2], xs[3]], head)
+        except ValueError as e:
+            print(f"head v1 refuses a non-square branch: {e}")
+        else:
+            raise AssertionError("head v1 took a non-square branch")
+        b_ms, b_by = head_v1_work(xs, head, got)
+        entry = dict(name="fused_head_decode", route="cuda",
+                     source="hrnet_hand_pose_estimation_tpu_torch/csrc/head_v1.cu",
+                     decode_source="hrnet_hand_pose_estimation_tpu_torch/csrc/fused_head_decode.cu",
+                     replaces="hrnet_hand_pose_estimation_tpu/ops/pallas/fused_head_decode.py:109",
+                     launches=launches["fused_head_decode"], max_abs_err=d.max().item(),
+                     ms=time_ms(lambda: fused_head_decode(xs, head), 10),
+                     plain_ms=time_ms(lambda: head_decode_v1_reference(xs, head), 2, warmup=1),
+                     bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                     v2_ms=time_ms(lambda: fused_head_decode_v2(xs, head), 10))
+        del xs, plain
+        big = torch.from_numpy(np.random.default_rng(1).normal(
+            size=(TIME_BATCH, 256, 256, 3)).astype(np.float32)).to(dev)
+        xs = record_head_inputs(infer, weights, big)
+        got = fused_head_decode(xs, head)
+        entry[f"ms_b{TIME_BATCH}"] = time_ms(lambda: fused_head_decode(xs, head), 10)
+        entry[f"bound_ms_b{TIME_BATCH}"] = head_v1_work(xs, head, got)[0]
+        entry[f"v2_ms_b{TIME_BATCH}"] = time_ms(lambda: fused_head_decode_v2(xs, head), 10)
+        for b, suffix in ((CHECK_BATCH, ""), (TIME_BATCH, f"_b{TIME_BATCH}")):
+            print(f"fused_head_decode (v1), 2 launches per call, B={b}: {entry['ms' + suffix]:.3f} "
+                  f"ms, bound {entry['bound_ms' + suffix]:.4f} ms ({b_by}); v2 "
+                  f"{entry['v2_ms' + suffix]:.3f} ms; no single PyTorch call computes it, on {smi}")
+        print(f"head v1 plain twin at B={CHECK_BATCH}: {entry['plain_ms']:.3f} ms")
+        del xs, big
+    kernels.append(entry)
 
 
 # -- the 2D training path ---------------------------------------------------
@@ -1532,6 +1815,8 @@ def main() -> int:
                 print(f"{kern['name']} at B={TIME_BATCH}: {kern[f'ms_b{TIME_BATCH}']:.3f} ms, "
                       f"bound {work[kern['name']][0]:.4f} ms on {smi}")
             lib_ms = time_ms(lambda: weights.model.layer1(x1.permute(0, 3, 1, 2)), 10)
+            next(k for k in kernels if k["name"] == "fused_bottleneck_chain")[
+                f"library_ms_b{TIME_BATCH}"] = lib_ms
             print(f"cuDNN layer1 at B={TIME_BATCH}: {lib_ms:.3f} ms on {smi}")
             # where the step goes; layer1 and the head as the serving path
             # calls them, with their NCHW <-> NHWC layout changes
@@ -1555,7 +1840,10 @@ def main() -> int:
                   + json.dumps({k: round(v, 3) for k, v in split.items()}))
 
     new_infer = new_config_phases(cfg, weights, smi, kernels, images, plain)
-    int8_phases(cfg, state, weights, smi, kernels, new_infer)
+    int8_context = int8_phases(cfg, state, weights, smi, kernels, new_infer)
+    branch_int8_phases(cfg, weights, smi, kernels, *int8_context)
+    del int8_context
+    head_v1_phases(weights, smi, kernels, infer, images)
     del weights, state, new_infer
     train_phases(smi, kernels)
     eval_phases(smi, kernels)

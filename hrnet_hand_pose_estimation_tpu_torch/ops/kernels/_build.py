@@ -45,6 +45,9 @@ SIGNATURES = {
     "hrnet_head_logits": (_P,) * 11 + (_I,) * 14 + (_P,),
     # logits, out, B, K, H0, W0, stream
     "hrnet_softmax_decode": (_P, _P) + (_I,) * 4 + (_P,),
+    # x0, x1, x2, x3, taps, w_head, b_head, w_final, b_final, temp, logits,
+    # B, H0, s1, s2, s3, C0, C1, C2, C3, N, K, Kp, stream
+    "hrnet_head_v1_logits": (_P,) * 11 + (_I,) * 12 + (_P,),
     # x, out, w, scale, bias, sa, B, H, W, Cin, Ho, Wo, Cout, KH, KW, stride, pad, relu, stream
     "hrnet_conv_int8": (_P,) * 6 + (_I,) * 12 + (_P,),
     # x, out, inv1, kq1, a1, c1, kq2, a2, c2, kq3, a3, c3, kqs, as, cs,
@@ -52,6 +55,8 @@ SIGNATURES = {
     "hrnet_bottleneck_int8_block": (_P,) * 15 + (_I,) * 6 + (_P,),
     # x, out, w1, b1, w2, b2, B, H, W, C, stream
     "hrnet_basic_block": (_P,) * 6 + (_I,) * 4 + (_P,),
+    # x, out, inv1, kq1, a1, c1, kq2, a2, c2, B, H, W, C, stream
+    "hrnet_basic_int8_block": (_P,) * 9 + (_I,) * 4 + (_P,),
     # x_s2d, y, ws1, bs1, ws2, bs2, B, Hs, Ws, stream
     "hrnet_stem_s2d": (_P,) * 6 + (_I,) * 3 + (_P,),
     # joints, vis, out, B, K, res, win, sig2, stream

@@ -19,6 +19,20 @@ branches are int8 ``(B, h, w, C_i)`` with ``x_i ~= sa_i * xq_i``: the scale
 folds into the weight slice in f32 before the bf16 cast,
 ``W_i = bf16(w_head[rows_i] * sa_i)``, and the int8 values enter the
 products as bf16 (exact for |v| <= 127), as in the TPU kernel.
+
+``fused_head_decode`` is the port of the first version of that TPU kernel,
+``ops/pallas/fused_head_decode.py::fused_head_decode`` (v1), which upsamples
+first and convolves at full resolution: ``csrc/head_v1.cu`` on the card,
+the plain twin ``head_decode_v1_reference`` on the CPU.  Both compute
+
+    up_i   = bf16(x_i @ bf16(M_i))        M_i = kron_interp(h_i, h0), f32 sums
+    feat   = concat(x0, up_1, up_2, up_3)                   (bf16)
+    y      = bf16(relu(feat @ w_head + b_head))
+    logits = (y @ w_final + b_final) * temp
+    coords = soft_argmax(spatial_softmax(logits))       -> (B, K, 2) [u, v]
+
+on square maps; the twin multiplies the dense Kronecker matrices, the
+kernel gathers each upsampled pixel's (at most four) nonzero taps.
 """
 
 from __future__ import annotations
@@ -29,7 +43,7 @@ from typing import Mapping, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..upsample import align_corners_matrix
+from ..upsample import align_corners_matrix, kron_interp
 from . import _build
 from .fused_bottleneck import fold_conv_bn
 
@@ -86,6 +100,10 @@ def _validate(xs: Sequence[torch.Tensor], params: HeadParams,
             raise ValueError(f"branch {i} on {x.device}, branch 0 on {xs[0].device}")
         if i and min(x.shape[1:3]) < 2:
             raise ValueError(f"branch {i}: the upsample needs h, w >= 2")
+    _validate_params(xs, params)
+
+
+def _validate_params(xs: Sequence[torch.Tensor], params: HeadParams) -> None:
     c = _offsets(xs)[-1]
     n, k = params.w_final.shape
     want = {"w_head": (c, n), "b_head": (n,), "w_final": (n, k), "b_final": (k,), "temp": ()}
@@ -221,3 +239,134 @@ def fused_head_decode_v2(xs: Sequence[torch.Tensor], params: HeadParams,
 
 
 fused_head_decode_v2.launches = 0
+
+
+# --------------------------------------------------------------------------
+# v1: upsample first, then the head at full resolution (TPU kernel
+# fused_head_decode)
+# --------------------------------------------------------------------------
+
+MAX_JOINTS_V1 = 128     # the TPU kernel pads K to one 128-lane row
+
+
+def _validate_v1(xs: Sequence[torch.Tensor], params: HeadParams) -> None:
+    """What the TPU kernel takes: four square branches, K <= 128."""
+    if len(xs) != 4:
+        raise ValueError(f"the head takes 4 branch tensors, got {len(xs)}")
+    b = xs[0].shape[0]
+    for i, x in enumerate(xs):
+        if x.dim() != 4 or x.shape[0] != b:
+            raise ValueError(f"branch {i}: want (B={b}, h, w, C), got {tuple(x.shape)}")
+        if x.shape[1] != x.shape[2]:
+            raise ValueError(f"branch {i}: v1 needs square maps, got {tuple(x.shape[1:3])}")
+        if not x.is_floating_point():
+            raise ValueError(f"branch {i} must be floating point, got {x.dtype}")
+        if x.device != xs[0].device:
+            raise ValueError(f"branch {i} on {x.device}, branch 0 on {xs[0].device}")
+    _validate_params(xs, params)
+    k = params.w_final.shape[1]
+    if k > MAX_JOINTS_V1:
+        raise ValueError(f"v1 takes K <= {MAX_JOINTS_V1} joints, got {k}")
+
+
+@lru_cache(maxsize=16)
+def _kron_bf16(src: int, dst: int, device: str) -> torch.Tensor:
+    """``kron_interp(src, dst)`` rounded to bf16, held as float32 on ``device``."""
+    m = torch.from_numpy(kron_interp(src, dst).copy())
+    return m.to(torch.bfloat16).float().to(device)
+
+
+def head_decode_v1_reference(xs: Sequence[torch.Tensor], params: HeadParams) -> torch.Tensor:
+    """Plain PyTorch twin of v1: 4 square NHWC branches (any float dtype,
+    cast to bf16) -> (B, K, 2) f32, with the dense Kronecker matrices.
+
+    On a card, disable TF32 (``torch.backends.cuda.matmul.allow_tf32``)
+    for a float32 reference.
+    """
+    b, h0, w0, _ = xs[0].shape
+    dev = xs[0].device
+    feats = [xs[0].to(torch.bfloat16).float().reshape(b, h0 * w0, -1)]
+    for x in xs[1:]:
+        s = x.shape[1]
+        m = _kron_bf16(s, h0, str(dev))                        # (s*s, h0*h0)
+        xf = x.to(torch.bfloat16).float().reshape(b, s * s, -1)
+        feats.append((m.t() @ xf).to(torch.bfloat16).float())  # (B, h0*w0, C_i)
+    feat = torch.cat(feats, dim=-1)
+    y = torch.relu(feat @ params.w_head.to(torch.bfloat16).float() + params.b_head)
+    y = y.to(torch.bfloat16).float()
+    logits = (y @ params.w_final.to(torch.bfloat16).float() + params.b_final) * params.temp
+    e = torch.exp(logits - logits.amax(dim=1, keepdim=True))  # (B, HW, K)
+    s = e.sum(dim=1)
+    idx = torch.arange(h0 * w0, device=dev)
+    u = (e * (idx % w0).float()[:, None]).sum(dim=1) / s
+    v = (e * (idx // w0).float()[:, None]).sum(dim=1) / s
+    return torch.stack([u, v], dim=-1)
+
+
+@lru_cache(maxsize=16)
+def _taps_v1(sizes: Tuple[int, ...], dst: int, device: str) -> torch.Tensor:
+    """(3 branches, 4 fields {lo, hi, wa, wb}, dst) f32: output coordinate d
+    of branch i samples source coordinates lo and hi with weights wa and wb,
+    the nonzero entries of row d of ``align_corners_matrix(s_i, dst)`` (hi =
+    lo and wb = 0 for a 1-pixel map).  A kron_interp entry is the float32
+    product of a row tap and a column tap."""
+    taps = np.zeros((3, 4, dst), np.float32)
+    for i, src in enumerate(sizes):
+        m = align_corners_matrix(src, dst)
+        rows = np.arange(dst)
+        lo = np.minimum(np.argmax(m > 0, axis=1), max(src - 2, 0))
+        hi = np.minimum(lo + 1, src - 1)
+        taps[i] = lo, hi, m[rows, lo], np.where(hi > lo, m[rows, hi], 0.0)
+    return torch.from_numpy(taps).to(device)
+
+
+def fused_head_decode(xs: Sequence[torch.Tensor], params: HeadParams) -> torch.Tensor:
+    """v1 of the fused head: xs 4 square NHWC branch tensors (B, s_i, s_i,
+    C_i) of any float dtype (cast to bf16) -> (B, K, 2) f32.
+
+    CUDA tensors run the kernel (two launches: the head with its gathered
+    upsample to logits, then the softmax decode) and CPU tensors the plain
+    twin; any other device raises.  ``launches`` counts the kernel's
+    launches (2 per call).
+    """
+    _validate_v1(xs, params)
+    dev = xs[0].device
+    if dev.type == "cpu":
+        return head_decode_v1_reference(xs, params)
+    if dev.type != "cuda":
+        raise ValueError(f"fused_head_decode runs on cuda or cpu, not {dev}")
+    b, h0, w0, _ = xs[0].shape
+    c = _offsets(xs)[-1]
+    n, k = params.w_final.shape
+    if any(x.shape[3] % 8 for x in xs) or c % 16 or n % 16:
+        raise ValueError(f"the kernel needs every C_i % 8 == 0, their sum % 16 == 0 and head "
+                         f"width % 16 == 0, got {[x.shape[3] for x in xs]}, {n}")
+    xs = [x.to(torch.bfloat16).contiguous() for x in xs]
+    kp = (k + 15) // 16 * 16
+    w_head = params.w_head.to(torch.bfloat16).contiguous()
+    w_final = torch.zeros((n, kp), dtype=torch.bfloat16, device=dev)
+    w_final[:, :k] = params.w_final
+    b_head, b_final = params.b_head.contiguous(), params.b_final.contiguous()
+    temp = params.temp.contiguous()
+    # 16-byte vector loads of the branches, 32-byte WMMA tiles of w_head
+    if any(x.data_ptr() % 16 for x in xs) or w_head.data_ptr() % 32:
+        raise ValueError("the kernel needs 16-byte aligned branches and a 32-byte aligned w_head")
+    taps = _taps_v1(tuple(x.shape[1] for x in xs[1:]), h0, str(dev))
+    logits = torch.empty((b, k, h0 * w0), dtype=torch.float32, device=dev)
+    out = torch.empty((b, k, 2), dtype=torch.float32, device=dev)
+
+    lib = _build.lib()
+    stream = _build.stream_ptr(dev)
+    err = lib.hrnet_head_v1_logits(
+        *(x.data_ptr() for x in xs), taps.data_ptr(), w_head.data_ptr(), b_head.data_ptr(),
+        w_final.data_ptr(), b_final.data_ptr(), temp.data_ptr(), logits.data_ptr(),
+        b, h0, *(x.shape[1] for x in xs[1:]), *(x.shape[3] for x in xs), n, k, kp, stream)
+    _build.check(err, "hrnet_head_v1_logits")
+    fused_head_decode.launches += 1
+    err = lib.hrnet_softmax_decode(logits.data_ptr(), out.data_ptr(), b, k, h0, w0, stream)
+    _build.check(err, "hrnet_softmax_decode")
+    fused_head_decode.launches += 1
+    return out
+
+
+fused_head_decode.launches = 0

@@ -5,7 +5,9 @@ Port of the JAX package's ``ops/upsample.py``:
 - bilinear ``align_corners=True`` in the head (:500-502), as two dense
   interpolation matrices contracted with einsum.  The matrices keep the
   JAX package's ``lo = min(floor(pos), src - 2)`` rule, so the last output
-  sample weights ``src - 2`` by 0 and ``src - 1`` by 1.
+  sample weights ``src - 2`` by 0 and ``src - 1`` by 1;
+- the dense Kronecker form of that upsample for a square map
+  (``kron_interp``), which the head kernel v1 of the JAX package multiplies.
 """
 
 from __future__ import annotations
@@ -43,6 +45,19 @@ def align_corners_matrix(src: int, dst: int) -> np.ndarray:
         w = w64.astype(np.float32)
     w.flags.writeable = False
     return w
+
+
+@lru_cache(maxsize=None)
+def kron_interp(src: int, dst: int) -> np.ndarray:
+    """(src*src, dst*dst) float32 matrix M with x(C, src^2) @ M = the
+    align-corners bilinear upsample of a square map flattened to (C, dst^2):
+    ``np.kron(W, W).T`` of ``align_corners_matrix(src, dst)``, each entry
+    one float32 product ``W[i, k] * W[j, l]`` (the JAX package's
+    ``_kron_interp``).  Read-only: callers share it."""
+    w = align_corners_matrix(src, dst)
+    m = np.kron(w, w).T.astype(np.float32)
+    m.flags.writeable = False
+    return m
 
 
 @lru_cache(maxsize=32)

@@ -25,11 +25,13 @@ from hrnet_hand_pose_estimation_tpu_torch.ops.kernels.fused_bottleneck import (
     basic_chain_reference, fused_basic_chain, fused_bottleneck_chain, fused_stem_layer1,
     layer1_reference, stem_layer1_reference)
 from hrnet_hand_pose_estimation_tpu_torch.ops.kernels.fused_head_decode import (
-    HeadParams, fused_head_decode_v2, head_decode_reference)
+    HeadParams, fused_head_decode, fused_head_decode_v2, head_decode_reference,
+    head_decode_v1_reference)
 from hrnet_hand_pose_estimation_tpu_torch.ops.kernels.gaussian_targets import (
     fused_gaussian_targets, gaussian_targets_reference)
 from hrnet_hand_pose_estimation_tpu_torch.ops.kernels.int8_chain import (
-    bottleneck_chain_int8_reference, fused_bottleneck_chain_int8)
+    basic_chain_int8_reference, bottleneck_chain_int8_reference, fused_basic_chain_int8,
+    fused_bottleneck_chain_int8)
 from hrnet_hand_pose_estimation_tpu_torch.ops.kernels.softmax_decode import (
     fused_softmax_decode, softmax_decode_reference)
 from hrnet_hand_pose_estimation_tpu_torch.parallel import train_step as TS
@@ -542,3 +544,67 @@ def test_small_eval_on_card(cuda):
         assert launched == (len(loader) if str(dev) != "cpu" else 0)
     for key in ("EPE_px", "PCK_AUC_30", "PCK_AUC_full"):
         assert abs(results["cpu"][key] - results["cuda"][key]) <= 1e-3, key
+
+
+def basic_int8_params(rng, c, n_blocks, device):
+    """A W8A8 branch chain's flat params with scales that keep the int8
+    intermediate inside +-127 for |N(0, 1)| inputs (inv1 11.3)."""
+    i8 = lambda: torch.from_numpy(rng.integers(-127, 128, size=(9 * c, c)).astype(np.int8)).to(device)
+    params = []
+    for _ in range(n_blocks):
+        params += [f32(np.full((1, 1), 11.3), device), i8(),
+                   f32(rng.uniform(0.5, 1.5, size=c) * 0.06 / np.sqrt(9 * c), device),
+                   f32(rng.normal(size=c) * 5, device), i8(),
+                   f32(rng.uniform(0.5, 1.5, size=c) * 1.4e-3 / np.sqrt(9 * c), device),
+                   f32(rng.normal(size=c) * 0.3, device)]
+    return tuple(params)
+
+
+@pytest.mark.parametrize("batch", [1, 2, 3])
+@pytest.mark.parametrize("c,size", [(32, 64), (64, 32), (128, 16), (256, 8),    # w32 branches
+                                    (48, 64), (96, 32)])                        # w48 (C % 32 == 16)
+def test_basic_int8_kernel_matches_twin(cuda, c, size, batch):
+    """The W8A8 BasicBlock chain at every w32 branch shape and two w48 ones;
+    one launch per block.  Expected bit-equal; gated at 0.02 max|out|."""
+    rng = np.random.default_rng(c + batch)
+    params = basic_int8_params(rng, c, 2, cuda)
+    x = bf16(np.abs(rng.normal(size=(batch, size, size, c))), cuda)
+    before = fused_basic_chain_int8.launches
+    got = fused_basic_chain_int8(x, params, 2)
+    torch.cuda.synchronize()
+    assert fused_basic_chain_int8.launches == before + 2
+    want = basic_chain_int8_reference(x, params, 2)
+    limit = 0.02 * max(1.0, want.float().abs().max().item())
+    assert got.shape == want.shape == (batch, size, size, c) and want.float().std().item() > 0.1
+    assert (got.float() - want.float()).abs().max().item() <= limit
+
+
+def test_basic_int8_kernel_refuses_channels_it_cannot_take(cuda):
+    rng = np.random.default_rng(1)
+    params = basic_int8_params(rng, 40, 1, cuda)
+    x = bf16(np.abs(rng.normal(size=(1, 8, 8, 40))), cuda)
+    before = fused_basic_chain_int8.launches
+    with pytest.raises(ValueError, match="C % 16"):
+        fused_basic_chain_int8(x, params, 1)
+    assert fused_basic_chain_int8.launches == before
+
+
+@pytest.mark.parametrize("batch", [1, 3, 32])
+def test_head_v1_kernel_matches_twin(cuda, batch):
+    """v1 of the head at the w32 widths on a 64x64 map: two launches per
+    call (logits, then the softmax decode); within 0.05 px of the twin."""
+    rng = np.random.default_rng(batch)
+    widths = (32, 64, 128, 256)
+    xs = [bf16(np.abs(rng.normal(size=(batch, 64 >> i, 64 >> i, c))), cuda)
+          for i, c in enumerate(widths)]
+    n, k = sum(widths), 21
+    params = HeadParams(f32(rng.normal(size=(n, n)) * 0.05, cuda), f32(rng.normal(size=n) * 0.1, cuda),
+                        f32(rng.normal(size=(n, k)) * 0.1, cuda), f32(rng.normal(size=k) * 0.1, cuda),
+                        f32(np.float32(1.3), cuda))
+    before = fused_head_decode.launches
+    got = fused_head_decode(xs, params)
+    torch.cuda.synchronize()
+    assert fused_head_decode.launches == before + 2
+    want = head_decode_v1_reference(xs, params)
+    assert got.shape == (batch, k, 2) and want.std().item() > 0.5
+    assert (got - want).abs().max().item() <= 0.05
