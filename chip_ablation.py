@@ -1,0 +1,199 @@
+#!/usr/bin/env python3
+"""Where the time of the two implicit-GEMM kernels goes, on one NVIDIA card.
+
+Builds timing-only copies of the port's package under
+``build/ablation/<variant>/``, each with one part of ``csrc/conv_int8.cu``
+and ``csrc/basic_chain.cu`` removed or replaced, and times ``conv_int8`` and
+``fused_basic_chain`` (one BasicBlock) at the flagship's B=128 shape classes
+in each (CUDA events, a subprocess per variant). The variants' outputs are
+wrong by design, except ``fdiv``, the former quantization by ``__fdiv_rn``,
+whose output hashes must equal ``base``'s. Then it checks on the card that
+the kernel's quantization, ``float(double(x) * (1.0 / double(sa)))``, rounds
+every finite bf16 x to the same clipped int8 as ``__fdiv_rn(x, sa)`` and to
+the same float, for 60,000 scales sa drawn log-uniformly from [1e-4, 1e2]
+and the powers of two from 2^-14 to 2^6 and their predecessors.
+
+    python3 chip_ablation.py            # all variants
+    python3 chip_ablation.py base fdiv  # some
+
+Prints one JSON line per variant, the check, the card's name and power
+limit. Needs one CUDA card and nvcc; exits non-zero without them.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import json
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+PKG = "hrnet_hand_pose_estimation_tpu_torch"
+OUT = ROOT / "build" / "ablation"
+
+# variant -> [(file under the package, old text, new text)]
+VARIANTS = {
+    "base": [],
+    # the former quantization: __fdiv_rn(x, sa) for every x
+    "fdiv": [("csrc/conv_int8.cu", "return clip_s8(__double2float_rn(__dmul_rn((double)x, rcp)));",
+              "return clip_s8(__fdiv_rn(x, (float)rcp));"),
+             ("csrc/conv_int8.cu", "const double rcp = __drcp_rn((double)*a.sa);",
+              "const double rcp = (double)*a.sa;")],
+    "no_halo": [("csrc/conv_int8.cu", "for (int pix0 = p0; p0 < pstep && pix0 < npx;",
+                 "for (int pix0 = p0; p0 < 0 && pix0 < npx;"),
+                ("csrc/basic_chain.cu", "for (int r = r0; r < halo_px; r += rstep) {",
+                 "for (int r = r0; r < 0; r += rstep) {")],
+    "no_weights": [("csrc/conv_mainloop.cuh",
+                    "    if (jn < J) load(jn, ring + (jn % stages) * stage_bytes);", "")],
+    "no_mma": [("csrc/conv_int8.cu", "if (nb0 + n0 + jn * 8 < a.Cout) mma_s8(",
+                "if (a.relu == 7) mma_s8("),
+               ("csrc/basic_chain.cu", "for (int jn = 0; jn < NT; ++jn) mma_bf16(",
+                "for (int jn = 0; jn < NT; ++jn) if (a.H < 0) mma_bf16(")],
+    "no_store": [("csrc/conv_int8.cu", "      if (oy >= a.Ho || ox >= a.Wo) continue;",
+                  "      if (oy >= a.Ho || ox >= a.Wo || a.relu != 7) continue;"),
+                 ("csrc/basic_chain.cu", "          if (gy >= a.H || gx >= a.W) continue;",
+                  "          if (gy >= a.H || gx >= a.W || a.H > 0) continue;")],
+    "no_barrier": [("csrc/conv_mainloop.cuh", "    cp_async_wait(stages - 2);\n    __syncthreads();",
+                    "    cp_async_wait(stages - 2);")],
+}
+
+CHECK_CU = r'''
+#include "common.cuh"
+namespace {
+__global__ void quant_check(const float* sas, unsigned long long* bad) {
+  const float sa = sas[blockIdx.y];
+  const double rcp = __drcp_rn((double)sa);
+  unsigned long long clipped = 0, raw = 0;
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < 65536; i += gridDim.x * blockDim.x) {
+    const float x = __uint_as_float((unsigned)i << 16);     // every bf16 bit pattern
+    if (!isfinite(x)) continue;
+    const float want = __fdiv_rn(x, sa);
+    const float got = __double2float_rn(__dmul_rn((double)x, rcp));
+    clipped += hrnet::clip_s8(want) != hrnet::clip_s8(got);
+    raw += __float_as_uint(want) != __float_as_uint(got);
+  }
+  atomicAdd(bad, clipped);
+  atomicAdd(bad + 1, raw);
+}
+}
+extern "C" int hrnet_quant_check(const void* sas, int n, void* bad, void* stream) {
+  quant_check<<<dim3(64, n), 256, 0, (cudaStream_t)stream>>>((const float*)sas,
+                                                              (unsigned long long*)bad);
+  return (int)cudaGetLastError();
+}
+'''
+
+CLASSES_INT8 = [(3, 1, 32, 32, 64), (3, 1, 64, 64, 32), (3, 1, 128, 128, 16), (3, 1, 256, 256, 8),
+                (3, 1, 256, 32, 64), (3, 2, 32, 64, 64), (1, 1, 64, 32, 32)]
+CLASSES_B7 = [(64, 32), (32, 64), (16, 128), (8, 256)]
+
+
+def make(name):
+    dst = OUT / name
+    shutil.rmtree(dst, ignore_errors=True)
+    shutil.copytree(ROOT / PKG, dst / PKG, ignore=shutil.ignore_patterns("__pycache__"))
+    for fname, old, new in VARIANTS[name]:
+        path = dst / PKG / fname
+        text = path.read_text()
+        if old not in text:
+            raise SystemExit(f"variant {name}: {fname} no longer holds {old!r}")
+        path.write_text(text.replace(old, new))
+    if name == "base":
+        (dst / PKG / "csrc" / "quant_check.cu").write_text(CHECK_CU)
+    return dst
+
+
+def time_variant(where: str) -> None:
+    """Runs in a subprocess with the variant's copy first on sys.path."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, where)
+    from hrnet_hand_pose_estimation_tpu_torch.ops.kernels import _build
+    from hrnet_hand_pose_estimation_tpu_torch.ops.kernels.conv_int8 import SiteQ, conv_int8
+    from hrnet_hand_pose_estimation_tpu_torch.ops.kernels.fused_bottleneck import fused_basic_chain
+
+    if not str(_build.CSRC).startswith(where):
+        raise SystemExit(f"imported the package from {_build.CSRC}, not from {where}")
+    dev, rng = torch.device("cuda"), np.random.default_rng(0)
+
+    def ms(fn, iters=20):
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / iters
+
+    res = {}
+    for k, stride, cin, cout, h in CLASSES_INT8:
+        x = torch.relu(torch.from_numpy(rng.normal(size=(128, h, h, cin)).astype(np.float32))
+                       ).to(dev, torch.bfloat16)          # half zeros, as after a ReLU
+        kq = torch.from_numpy(rng.integers(-127, 128, size=(cout, k, k, cin)).astype(np.int8)).to(dev)
+        ws, sa = torch.full((cout,), 1e-3, device=dev), torch.tensor(0.0137, device=dev)
+        q = SiteQ(kq, ws, sa, sa * ws, torch.zeros(cout, device=dev))
+        key = f"conv_int8 {k}x{k}/s{stride} {cin}->{cout} at {h}x{h}"
+        res[key] = round(ms(lambda: conv_int8(x, q, stride=stride, relu=True)), 4)
+        y = conv_int8(x, q, stride=stride, relu=False)
+        res[key + " hash"] = hashlib.sha1(y.view(torch.int16).cpu().numpy().tobytes()).hexdigest()[:12]
+    for h, c in CLASSES_B7:
+        x = torch.relu(torch.from_numpy(rng.normal(size=(128, h, h, c)).astype(np.float32))
+                       ).to(dev, torch.bfloat16)
+        p = []
+        for _ in range(2):
+            p += [torch.from_numpy(rng.normal(size=(3, 3, c, c)).astype(np.float32) * 0.02).to(
+                dev, torch.bfloat16), torch.zeros(c, device=dev)]
+        res[f"fused_basic_chain 1 block {h}x{h}x{c}"] = round(ms(lambda: fused_basic_chain(x, p, 1)), 4)
+    if (Path(where) / PKG / "csrc" / "quant_check.cu").exists():
+        fn = _build.lib().hrnet_quant_check
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+        r = np.random.default_rng(5)
+        pw = np.ldexp(1.0, np.arange(-14, 7))
+        sas = np.concatenate([np.exp(r.uniform(np.log(1e-4), np.log(1e2), 60000)), pw,
+                              np.nextafter(pw.astype(np.float32), np.float32(0))]).astype(np.float32)
+        bad = torch.zeros(2, dtype=torch.int64, device=dev)
+        for i in range(0, len(sas), 30000):
+            chunk = torch.from_numpy(sas[i:i + 30000]).to(dev)
+            if fn(chunk.data_ptr(), chunk.numel(), bad.data_ptr(),
+                  torch.cuda.current_stream().cuda_stream):
+                raise SystemExit("quant_check did not launch")
+        torch.cuda.synchronize()
+        res["quantization check"] = (f"{len(sas)} scales x every finite bf16: "
+                                     f"{int(bad[0])} clipped int8 and {int(bad[1])} f32 quotients "
+                                     f"differ from __fdiv_rn")
+    print(json.dumps({Path(where).name: res}), flush=True)
+
+
+def main(names) -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_ablation.py needs a CUDA card", file=sys.stderr)
+        return 1
+    names = names or list(VARIANTS)
+    dirs = [make(n) for n in names]
+    build = "from hrnet_hand_pose_estimation_tpu_torch.ops.kernels import _build; _build.build()"
+    procs = [subprocess.Popen([sys.executable, "-c", build], cwd=d) for d in dirs]
+    if any(p.wait() for p in procs):
+        return 1
+    for d in dirs:
+        if subprocess.call([sys.executable, __file__, "--time", str(d)]):
+            return 1
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip()
+    print(smi)
+    return 0
+
+
+if __name__ == "__main__":
+    if sys.argv[1:2] == ["--time"]:
+        time_variant(sys.argv[2])
+    else:
+        sys.exit(main(sys.argv[1:]))

@@ -10,7 +10,10 @@ calibrate, ``prepare_serving_qparams``, ``make_quant_infer`` on raw uint8
 images).  It builds the hand-written CUDA kernels with nvcc, holds each
 kernel against its plain PyTorch twin at the inputs its path gives it,
 checks at batch 32 that each path went through its kernels and agrees with
-the same forward through the twins, and times the paths at batch 128.
+the same forward through the twins, and times the paths at batch 128. For
+the branch-chain kernel and ``conv_int8`` it also prints each shape class's
+time at batch 128 beside cuDNN's and the bound (``per_class`` in the
+kernels line).
 
 Then the last two TPU kernels' own entry points at the flagship's full
 width, on the real tensors of the serving paths: the W8A8 BasicBlock branch
@@ -319,6 +322,7 @@ def new_config_phases(cfg, weights, smi, kernels, images, default_plain):
         classes = record_branches(infer, weights, images)
         tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
         t_ops = t_bytes = worst = 0.0
+        per_class = {}
         for (h, w, c), (count, x, p, name) in sorted(classes.items(), reverse=True):
             got = fused_basic_chain(x, p, len(p) // 4)
             want = basic_chain_reference(x, p, len(p) // 4)
@@ -340,6 +344,10 @@ def new_config_phases(cfg, weights, smi, kernels, images, default_plain):
             for key, val in (("ms", ms), ("plain_ms", plain), ("bound_ms", b_ms),
                              ("library_ms", lib)):
                 tot[key] += count * val
+            per_class[(h, w, c)] = {"class": f"{h}x{w}x{c}", "chains": count,
+                                    "launches": count * (len(p) // 4), "max_abs_err": err,
+                                    "ms_b32": count * ms, "library_ms_b32": count * lib,
+                                    "bound_ms_b32": count * b_ms, "bound_by": b_by}
             print(f"fused_basic_chain {h}x{w}x{c}, {len(p) // 4} blocks, x{count} chains: "
                   f"max|kernel - plain| {err:.4g} (limit {limit:.4g}); {ms:.4f} ms, plain "
                   f"{plain:.3f} ms, cuDNN bf16 ResLayer {lib:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
@@ -348,7 +356,7 @@ def new_config_phases(cfg, weights, smi, kernels, images, default_plain):
             source="hrnet_hand_pose_estimation_tpu_torch/csrc/basic_chain.cu",
             replaces="hrnet_hand_pose_estimation_tpu/ops/pallas/fused_bottleneck.py:319",
             max_abs_err=worst, bound_by="operations" if t_ops >= t_bytes else "bytes",
-            shape_classes=len(classes), **tot)
+            shape_classes=len(classes), per_class=per_class, **tot)
 
         x_s2d = space_to_depth(images.to(torch.bfloat16))
         got = fused_stem_layer1(x_s2d, weights.stem_flat, params, flags)
@@ -450,13 +458,22 @@ def new_config_phases(cfg, weights, smi, kernels, images, default_plain):
         print(f"new-config step breakdown B={TIME_BATCH} (ms, CUDA events, parts timed alone): "
               + json.dumps({k: round(v, 3) for k, v in split.items()})
               + f"; sum {sum(split.values()):.3f}")
-        chain_entry["ms_b128"] = sum(count * time_ms(lambda: fused_basic_chain(x, p, len(p) // 4), 5)
-                                     for count, x, p, _ in classes.values())
-        chain_entry["bound_ms_b128"] = sum(count * basic_chain_work(x, p)[0]
-                                           for count, x, p, _ in classes.values())
-        chain_entry["library_ms_b128"] = sum(
-            count * time_ms(lambda: model.get_submodule(name)(x.permute(0, 3, 1, 2)), 5)
-            for count, x, _, name in classes.values())
+        for key in ("ms_b128", "bound_ms_b128", "library_ms_b128"):
+            chain_entry[key] = 0.0
+        for key, (count, x, p, name) in sorted(classes.items(), reverse=True):
+            row = chain_entry["per_class"][key]
+            row["ms_b128"] = count * time_ms(lambda: fused_basic_chain(x, p, len(p) // 4), 5)
+            row["bound_ms_b128"] = count * basic_chain_work(x, p)[0]
+            row["library_ms_b128"] = count * time_ms(
+                lambda: model.get_submodule(name)(x.permute(0, 3, 1, 2)), 5)
+            row["share_b128"] = row["bound_ms_b128"] / row["ms_b128"]
+            for k in ("ms_b128", "bound_ms_b128", "library_ms_b128"):
+                chain_entry[k] += row[k]
+            print(f"fused_basic_chain {row['class']} x{count} chains at B={TIME_BATCH}: "
+                  f"{row['ms_b128']:.3f} ms, cuDNN bf16 ResLayers {row['library_ms_b128']:.3f} "
+                  f"ms, bound {row['bound_ms_b128']:.4f} ms ({row['bound_by']}), share of the "
+                  f"bound {row['share_b128']:.4f} on {smi}")
+        chain_entry["per_class"] = list(chain_entry["per_class"].values())
         stem_entry["ms_b128"] = time_ms(
             lambda: fused_stem_layer1(x_s2d, weights.stem_flat, params, flags), 10)
         stem_entry["bound_ms_b128"] = stem_layer1_work(x_s2d, weights.stem_flat, params, flags)[0]
@@ -585,7 +602,9 @@ def check_conv_classes(classes):
     tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, int_mm_ms=0.0)
     t_ops = t_bytes = 0.0
     worst, equal, total, int_mm_missing = 0.0, 0, 0, 0
-    for (k, stride, relu, cin, cout, h, w), (count, x, q) in sorted(classes.items()):
+    per_class = {}
+    for cls, (count, x, q) in sorted(classes.items()):
+        k, stride, relu, cin, cout, h, w = cls
         got = conv_int8(x, q, stride=stride, relu=relu)
         want = conv_int8_reference(x, q, stride=stride, relu=relu)
         torch.cuda.synchronize()
@@ -614,6 +633,10 @@ def check_conv_classes(classes):
             int_mm_missing += count
         else:
             tot["int_mm_ms"] += count * imm
+        per_class[cls] = {"class": f"{k}x{k}/s{stride} relu={relu} {cin}->{cout} at {h}x{w}",
+                          "sites": count, "bit_equal": eq / got.numel(), "max_abs_err": err,
+                          "ms_b32": count * ms, "library_ms_b32": count * lib,
+                          "bound_ms_b32": count * b_ms, "bound_by": b_by}
         print(f"conv_int8 {k}x{k}/s{stride} relu={relu} {cin}->{cout} at {h}x{w} x{count}: "
               f"max|kernel - plain| {err:.3g} (limit {limit:.3g}), bit-equal "
               f"{eq / got.numel():.6f}; {ms:.4f} ms, plain {plain:.3f} ms, cuDNN bf16 "
@@ -627,7 +650,7 @@ def check_conv_classes(classes):
                          "conv, no pallas_call)",
                 max_abs_err=worst, bit_equal=equal / total,
                 bound_by="operations" if t_ops >= t_bytes else "bytes",
-                int_mm_sites_missing=int_mm_missing, **tot)
+                int_mm_sites_missing=int_mm_missing, per_class=per_class, **tot)
 
 
 def check_conv_w48(dev):
@@ -834,11 +857,20 @@ def int8_phases(cfg, state, weights, smi, kernels, new_infer):
         stages_ms = time_ms(lambda: Q.apply_stages(cfg, model, l1, mode="quant",
                                                    qparams=rest), 5)
         sites_ms = stem2_ms = 0.0
-        for (k, stride, relu, cin, cout, h, w), (count, x, q) in classes.items():
+        for cls, (count, x, q) in sorted(classes.items()):
+            k, stride, relu, cin, cout, h, w = cls
             t = count * time_ms(lambda: conv_int8(x, q, stride=stride, relu=relu), 10)
             sites_ms += t
             if cin == 64 and h == 128:       # stem2, inside the stem's time
                 stem2_ms += t
+            row = conv_entry["per_class"][cls]
+            row["ms_b128"], row["bound_ms_b128"] = t, count * conv_work(x, q, stride)[0]
+            row["library_ms_b128"] = count * cudnn_conv_ms(x, q, stride)
+            row["share_b128"] = row["bound_ms_b128"] / t
+            print(f"conv_int8 {row['class']} x{count} at B={TIME_BATCH}: {t:.3f} ms, cuDNN "
+                  f"bf16 {row['library_ms_b128']:.3f} ms, bound {row['bound_ms_b128']:.4f} ms "
+                  f"({row['bound_by']}), share of the bound {row['share_b128']:.4f}")
+        conv_entry["per_class"] = list(conv_entry["per_class"].values())
         head_ms = time_ms(lambda: fused_head_decode_v2([Q._nhwc(t) for t in xs],
                                                        weights.head), 10)
         xq = head_int8_inputs([Q._nhwc(t) for t in xs], scales)
@@ -854,16 +886,14 @@ def int8_phases(cfg, state, weights, smi, kernels, new_infer):
               + f"; sum {sum(split.values()):.3f}; int8-input head kernel {head8_ms:.3f} ms")
         conv_entry["ms_b128"], chain_entry["ms_b128"] = sites_ms, l1_ms
         head_entry["ms_b128"] = head8_ms
-        conv_entry["bound_ms_b128"] = sum(c * conv_work(x, q, k[1])[0]
-                                          for k, (c, x, q) in classes.items())
+        conv_entry["bound_ms_b128"] = sum(r["bound_ms_b128"] for r in conv_entry["per_class"])
         chain_entry["bound_ms_b128"] = chain_work(x0, chain, flags)[0]
         head_entry["bound_ms_b128"] = head_work(xq, weights.head, torch.empty(
             TIME_BATCH, 21, 2, device=dev))[0]
         chain_entry["library_ms_b128"] = time_ms(lambda: model.layer1(x0.permute(0, 3, 1, 2)),
                                                  10)
         # the per-site yardsticks at B=128: cuDNN's bf16 conv and torch._int_mm
-        conv_entry["library_ms_b128"] = sum(c * cudnn_conv_ms(x, q, k[1])
-                                            for k, (c, x, q) in classes.items())
+        conv_entry["library_ms_b128"] = sum(r["library_ms_b128"] for r in conv_entry["per_class"])
         imm = [(c, int_mm_ms(x, q, k[1])) for k, (c, x, q) in classes.items()]
         conv_entry["int_mm_ms_b128"] = sum(c * t for c, t in imm if t is not None)
         conv_entry["int_mm_sites_missing_b128"] = sum(c for c, t in imm if t is None)

@@ -31,6 +31,12 @@ LIB_NAME = "libhrnet_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
+# what the implicit-GEMM kernels' launch plans must respect (csrc/common.cuh
+# kWarps, csrc/conv_mainloop.cuh kSmemLimit): warps per block, and the most
+# dynamic shared memory one block may take on an H100
+WARPS = 8
+SMEM_LIMIT = 232448
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
@@ -48,13 +54,15 @@ SIGNATURES = {
     # x0, x1, x2, x3, taps, w_head, b_head, w_final, b_final, temp, logits,
     # B, H0, s1, s2, s3, C0, C1, C2, C3, N, K, Kp, stream
     "hrnet_head_v1_logits": (_P,) * 11 + (_I,) * 12 + (_P,),
-    # x, out, w, scale, bias, sa, B, H, W, Cin, Ho, Wo, Cout, KH, KW, stride, pad, relu, stream
-    "hrnet_conv_int8": (_P,) * 6 + (_I,) * 12 + (_P,),
+    # x, out, w, scale, bias, sa, B, H, W, Cin, Ho, Wo, Cout, KH, KW, stride, pad, relu,
+    # then the plan: TR, TW, HR, HC, ldh, KB, WM, MT, NT, NB, stages, smem; stream
+    "hrnet_conv_int8": (_P,) * 6 + (_I,) * 24 + (_P,),
     # x, out, inv1, kq1, a1, c1, kq2, a2, c2, kq3, a3, c3, kqs, as, cs,
     # B, H, W, Cin, Cm, Cout, stream
     "hrnet_bottleneck_int8_block": (_P,) * 15 + (_I,) * 6 + (_P,),
-    # x, out, w1, b1, w2, b2, B, H, W, C, stream
-    "hrnet_basic_block": (_P,) * 6 + (_I,) * 4 + (_P,),
+    # x, out, w1, b1, w2, b2, B, H, W, C, then the plan: TH, TW, WM, MT, NT, KS,
+    # stages, smem; stream
+    "hrnet_basic_block": (_P,) * 6 + (_I,) * 12 + (_P,),
     # x, out, inv1, kq1, a1, c1, kq2, a2, c2, B, H, W, C, stream
     "hrnet_basic_int8_block": (_P,) * 9 + (_I,) * 4 + (_P,),
     # x_s2d, y, ws1, bs1, ws2, bs2, B, Hs, Ws, stream

@@ -11,11 +11,14 @@ which XLA runs as an int8 convolution with int32 sums (no Pallas kernel):
 tensor on the card (PyTorch has no int8 convolution there) and runs the
 plain twin ``conv_int8_reference`` for a tensor on the CPU.  ``SiteQ`` holds
 one site's prepared parameters (``core/quant_infer.prepare_quant_params``).
+``conv_int8_plan`` makes the kernel's launch plan (tile, warp grid, weight
+ring depth, shared memory, grid); the C entry checks it and launches it.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+import functools
+from typing import NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -31,6 +34,73 @@ class SiteQ(NamedTuple):
     sa: torch.Tensor       # () f32 activation scale, on the device of the weights
     scale: torch.Tensor    # (Cout,) f32: sa * wscale, one f32 product
     bias: torch.Tensor     # (Cout,) f32
+
+
+# the kernel's instances: (pixels, channels) of a block -> (WM warps along the
+# pixels, MT m16 tiles per warp, NT n8 tiles per warp); 8 / WM warps along the
+# channels, so WM * MT * 16 pixels and (8 / WM) * NT * 8 channels
+CONV_INT8_TILES = {(512, 32): (8, 4, 4), (256, 32): (8, 2, 4), (256, 64): (4, 4, 4),
+                   (128, 32): (8, 1, 4), (128, 64): (4, 2, 4), (128, 128): (4, 2, 8),
+                   (64, 32): (4, 1, 2), (64, 64): (4, 1, 4), (64, 128): (2, 2, 4)}
+
+
+class ConvInt8Plan(NamedTuple):
+    """One launch of ``csrc/conv_int8.cu``: block (b, tile) x channel block."""
+
+    tr: int                 # output rows of a tile
+    tw: int                 # output columns of a tile
+    hr: int                 # halo rows: (tr - 1) * stride + k
+    hc: int                 # halo columns: (tw - 1) * stride + k
+    ldh: int                # halo bytes per pixel: an odd multiple of 16, >= Cin + 16
+    kb: int                 # input channels of one tap per weight slab (32 or 64)
+    wm: int                 # warps along the tile's pixels
+    mt: int                 # m16 tiles per warp
+    nt: int                 # n8 tiles per warp
+    nb: int                 # output channels per block
+    stages: int             # weight slabs in the shared-memory ring
+    smem: int               # dynamic shared memory bytes
+    grid: Tuple[int, int]   # (B * tiles, channel blocks)
+
+
+@functools.lru_cache(maxsize=1024)
+def conv_int8_plan(b: int, h: int, w: int, cin: int, cout: int, k: int,
+                   stride: int) -> ConvInt8Plan:
+    """The kernel's plan for x (b, h, w, cin) and a (cout, k, k, cin) site.
+
+    A tile is about 512 output pixels for at most 32 output channels, 256
+    for at most 64, else 128 (eight, four or two rows at Wo = 64, the whole
+    image at 8 x 8) for at most 128: the fewer channels, the more pixels
+    each weight slab serves.  The ring holds up to four weight slabs of 64
+    input channels (32 where Cin % 64 != 0).  Raises ValueError on a shape
+    the kernel does not take."""
+    if cin % 16 or cout % 8 or not 0 < cin <= 2048 or cout <= 0:
+        raise ValueError(f"the kernel needs Cin % 16 == 0, Cin <= 2048 (a 16-byte column per "
+                         f"thread) and Cout % 8 == 0, got {cin}, {cout}")
+    if k % 2 == 0 or k < 1 or stride not in (1, 2):
+        raise ValueError(f"the kernel takes odd k and stride 1 or 2, got k={k}, stride={stride}")
+    pad = (k - 1) // 2
+    ho, wo = (h + 2 * pad - k) // stride + 1, (w + 2 * pad - k) // stride + 1
+    if b < 1 or ho < 1 or wo < 1:
+        raise ValueError(f"empty output for x {(b, h, w, cin)}, k={k}, stride={stride}")
+    n_blocks = -(-cout // 128)
+    ncap = next(n for n in (32, 64, 128) if n >= -(-cout // n_blocks))
+    ldh = cin + (16 if cin % 32 == 0 else 32)
+    kb = 64 if cin % 64 == 0 else 32
+    stages = max(2, min(4, k * k * -(-cin // kb)))
+    tw = min(wo, 64)
+    tr = min(ho, max(1, {32: 512, 64: 256, 128: 128}[ncap] // tw))
+    while True:
+        mcap = next(m for m in (64, 128, 256, 512) if m >= tr * tw)
+        wm, mt, nt = CONV_INT8_TILES[(mcap, ncap)]
+        hr, hc = (tr - 1) * stride + k, (tw - 1) * stride + k
+        smem = -(-hr * hc * ldh // 128) * 128 + stages * ncap * (kb + 16)
+        if smem <= _build.SMEM_LIMIT:
+            break
+        if tr == 1 and tw == 1:
+            raise ValueError(f"no tile of the kernel fits Cin {cin} in shared memory")
+        tr, tw = (tr // 2, tw) if tr > 1 else (tr, tw // 2)
+    grid = (b * -(-ho // tr) * -(-wo // tw), -(-cout // ncap))
+    return ConvInt8Plan(tr, tw, hr, hc, ldh, kb, wm, mt, nt, ncap, stages, smem, grid)
 
 
 def _validate(x: torch.Tensor, q: SiteQ, stride: int) -> None:
@@ -89,18 +159,21 @@ def conv_int8(x: torch.Tensor, q: SiteQ, stride: int = 1, relu: bool = True) -> 
     if x.device.type != "cuda":
         raise ValueError(f"conv_int8 runs on cuda or cpu, not {x.device}")
     cout, k, _, cin = q.kq.shape
-    if cin % 16 or cout % 8:
-        raise ValueError(f"the kernel needs Cin % 16 == 0 and Cout % 8 == 0, got {cin}, {cout}")
+    b, h, w, _ = x.shape
+    plan = conv_int8_plan(b, h, w, cin, cout, k, stride)
     if not (x.is_contiguous() and all(t.is_contiguous() for t in q)):
         raise ValueError("x and the site's tensors must be contiguous")
-    b, h, w, _ = x.shape
+    if any(t.data_ptr() % 16 for t in (x, q.kq)):
+        raise ValueError("the kernel reads x and kq in 16-byte vectors: both must be "
+                         "16-byte aligned")
     pad = (k - 1) // 2
     ho, wo = (h + 2 * pad - k) // stride + 1, (w + 2 * pad - k) // stride + 1
     out = torch.empty((b, ho, wo, cout), dtype=torch.bfloat16, device=x.device)
     err = _build.lib().hrnet_conv_int8(
         x.data_ptr(), out.data_ptr(), q.kq.data_ptr(), q.scale.data_ptr(), q.bias.data_ptr(),
         q.sa.data_ptr(), b, h, w, cin, ho, wo, cout, k, k, stride, pad, int(relu),
-        _build.stream_ptr(x.device))
+        plan.tr, plan.tw, plan.hr, plan.hc, plan.ldh, plan.kb, plan.wm, plan.mt, plan.nt, plan.nb,
+        plan.stages, plan.smem, _build.stream_ptr(x.device))
     _build.check(err, "hrnet_conv_int8")
     conv_int8.launches += 1
     return out

@@ -24,12 +24,14 @@ rounds them.
   ``y = relu((conv3x3_2(relu(conv3x3_1(x) + b1)) + b2) + x)``.
   ``fold_branch_params`` folds a branch (the JAX package's
   ``models/hrnet.py::_pallas_basic_branch_apply``): per block w1 (3, 3, C, C)
-  bf16 HWIO, b1 (C,) f32, w2, b2.
+  bf16 HWIO, b1 (C,) f32, w2, b2.  ``basic_chain_plan`` makes the kernel's
+  launch plan (tile, warp grid, weight ring depth, shared memory, grid).
 """
 
 from __future__ import annotations
 
-from typing import Mapping, Sequence, Tuple
+import functools
+from typing import Mapping, NamedTuple, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -343,6 +345,60 @@ def basic_chain_reference(x: torch.Tensor, params_flat: Sequence[torch.Tensor],
     return y
 
 
+# the kernel's instances: NT (n8 tiles per warp) -> the MT (m16 tiles per
+# warp) it is built for; NT in order of preference
+BASIC_TILES = {4: (2, 4, 6, 8), 6: (2, 4), 8: (4,), 2: (8,)}
+
+
+class BasicChainPlan(NamedTuple):
+    """One launch of ``csrc/basic_chain.cu``: block (tile, sample)."""
+
+    th: int                 # output rows of a tile
+    tw: int                 # output columns of a tile
+    wm: int                 # warps along the pixels (8 / wm along the channels)
+    mt: int                 # m16 tiles per warp: wm * mt * 16 >= (th + 2) * (tw + 2)
+    nt: int                 # n8 tiles per warp: (8 / wm) * nt * 8 == C
+    ks: int                 # K rows (input channels of one tap) per weight slab
+    stages: int             # weight slabs in the shared-memory ring
+    smem: int               # dynamic shared memory bytes
+    grid: Tuple[int, int]   # (tiles, B)
+
+
+@functools.lru_cache(maxsize=1024)
+def basic_chain_plan(b: int, h: int, w: int, c: int) -> BasicChainPlan:
+    """The kernel's plan for one BasicBlock on x (b, h, w, c).
+
+    A tile is up to 16 rows x 32 columns, all C channels: the most pixels
+    (so the fewest passes over the weights) whose conv1 ring fits the
+    kernel's warp tiles, i.e. 16 rows at 32 channels, 8 at 64 and 128, the
+    whole image at 8 x 8, narrower where shared memory runs out.  Shared
+    memory holds the (th+4) x (tw+4) input halo, conv1's (th+2) x (tw+2)
+    ring t and a ring of 4 (else 3, 2) weight slabs, each pixel or K row
+    C + 8 bf16.  Raises ValueError on a shape the kernel does not take."""
+    for nt in BASIC_TILES:
+        wn = c // (nt * 8)
+        if c > 0 and c % (nt * 8) == 0 and wn in (1, 2, 4, 8):
+            break
+    else:
+        raise ValueError(f"the kernel takes C = 8 * NT * (1, 2, 4 or 8 warps) with NT in "
+                         f"{tuple(BASIC_TILES)}, got C = {c}")
+    if b < 1 or h < 1 or w < 1:
+        raise ValueError(f"empty input {(b, h, w, c)}")
+    wm, ks = _build.WARPS // wn, 32 if c % 32 == 0 else 16
+    for tw in sorted({min(w, 32), min(w, 16), min(w, 8)}, reverse=True):
+        for th in sorted({min(h, 16), min(h, 8), min(h, 4), min(h, 2), 1}, reverse=True):
+            ring_tiles = -(-(th + 2) * (tw + 2) // 16)      # conv1's m16 tiles
+            mts = [m for m in BASIC_TILES[nt] if m * wm >= ring_tiles]
+            if not mts:
+                continue
+            for stages in (4, 3, 2):
+                smem = 2 * (c + 8) * ((th + 4) * (tw + 4) + (th + 2) * (tw + 2) + stages * ks)
+                if smem <= _build.SMEM_LIMIT:
+                    return BasicChainPlan(th, tw, wm, mts[0], nt, ks, stages, smem,
+                                          (-(-h // th) * -(-w // tw), b))
+    raise ValueError(f"no tile of the kernel fits C = {c} at {h}x{w}")
+
+
 def fused_basic_chain(x: torch.Tensor, params_flat: Sequence[torch.Tensor],
                       n_blocks: int) -> torch.Tensor:
     """x: (B, H, W, C) bf16 -> (B, H, W, C) bf16 through ``n_blocks`` folded
@@ -355,14 +411,19 @@ def fused_basic_chain(x: torch.Tensor, params_flat: Sequence[torch.Tensor],
     if x.device.type == "cpu":
         return basic_chain_reference(x, params_flat, n_blocks)
     _check_cuda("fused_basic_chain", x, params_flat, [x.shape[3]])
+    if any(t.data_ptr() % 16 for t in (x, *params_flat)):
+        raise ValueError("fused_basic_chain reads x and the weights in 16-byte vectors and "
+                         "the biases in pairs: every tensor must be 16-byte aligned")
     b, h, w, c = x.shape
+    plan = basic_chain_plan(b, h, w, c)
     lib, stream = _build.lib(), _build.stream_ptr(x.device)
     y = x
     for i in range(n_blocks):
         out = torch.empty_like(x)
         err = lib.hrnet_basic_block(y.data_ptr(), out.data_ptr(),
                                     *(t.data_ptr() for t in params_flat[4 * i:4 * i + 4]),
-                                    b, h, w, c, stream)
+                                    b, h, w, c, plan.th, plan.tw, plan.wm, plan.mt, plan.nt,
+                                    plan.ks, plan.stages, plan.smem, stream)
         _build.check(err, "hrnet_basic_block")
         fused_basic_chain.launches += 1
         y = out

@@ -139,25 +139,36 @@ def site_q(rng, cout, k, cin, device):
                  scale=f32(sa * wscale, device), bias=f32(rng.normal(size=cout) * 0.3, device))
 
 
-@pytest.mark.parametrize("k,stride,relu,cin,cout,hw", [
-    (3, 1, True, 32, 32, (13, 21)),
-    (3, 1, False, 256, 256, (5, 6)),
-    (3, 2, True, 64, 64, (33, 17)),
-    (3, 2, False, 32, 128, (9, 9)),
-    (1, 1, False, 256, 32, (7, 9)),
-    (3, 1, True, 256, 32, (20, 36)),
+@pytest.mark.parametrize("k,stride,relu,cin,cout,hw,batch", [
+    (3, 1, True, 32, 32, (13, 21), 3),
+    (3, 1, False, 256, 256, (5, 6), 3),
+    (3, 2, True, 64, 64, (33, 17), 3),
+    (3, 2, False, 32, 128, (9, 9), 3),
+    (1, 1, False, 256, 32, (7, 9), 3),
+    (3, 1, True, 256, 32, (20, 36), 3),
     # the w48 widths: Cin % 32 == 16 takes a 16-channel last K slice
-    (3, 1, True, 48, 48, (13, 21)),
-    (3, 2, True, 48, 96, (17, 17)),
-    (1, 1, False, 96, 48, (9, 7)),
-    (3, 1, False, 96, 96, (8, 8)),
+    (3, 1, True, 48, 48, (13, 21), 3),
+    (3, 2, True, 48, 96, (17, 17), 3),
+    (1, 1, False, 96, 48, (9, 7), 3),          # a ring of 3 weight slabs
+    (3, 1, False, 96, 96, (8, 8), 3),
+    # the edges of the tiles: Wo past one 64-column tile, Ho not a multiple of
+    # the tile rows, B = 1, three channel blocks, 48 channels in a 64-wide
+    # block, a ring of 2 slabs (1x1, Cin 64)
+    (3, 1, True, 32, 32, (5, 70), 1),
+    (3, 2, True, 64, 64, (129, 131), 1),
+    (3, 1, False, 256, 256, (8, 8), 1),
+    (3, 1, True, 384, 384, (8, 8), 2),
+    (1, 1, False, 384, 48, (8, 8), 2),
+    (1, 1, True, 64, 32, (11, 13), 2),
+    (3, 1, True, 128, 128, (16, 16), 1),
 ])
-def test_conv_int8_kernel_matches_twin(cuda, k, stride, relu, cin, cout, hw):
-    """Every site class of the int8 trunk, at ragged sizes; the kernel's
-    arithmetic is the twin's, so the outputs agree to the bit."""
+def test_conv_int8_kernel_matches_twin(cuda, k, stride, relu, cin, cout, hw, batch):
+    """Every site class of the int8 trunk, at ragged sizes and at the edges
+    of the kernel's tiles; the kernel's arithmetic is the twin's, so the
+    outputs agree to the bit."""
     rng = np.random.default_rng(cin + cout + k + stride)
     q = site_q(rng, cout, k, cin, cuda)
-    x = bf16(np.abs(rng.normal(size=(3, *hw, cin))) * 3, cuda)
+    x = bf16(np.abs(rng.normal(size=(batch, *hw, cin))) * 3, cuda)
     before = conv_int8.launches
     got = conv_int8(x, q, stride=stride, relu=relu)
     torch.cuda.synchronize()
@@ -263,10 +274,15 @@ def basic_params(rng, c, n_blocks, device):
     (2, 64, 64, 48), (2, 32, 32, 96), (2, 16, 16, 192), (2, 8, 8, 384),      # w48 branches
     (3, 8, 8, 256), (5, 16, 16, 32),                                         # ragged batches
     (2, 13, 21, 64), (1, 37, 70, 32),                                        # ragged tiles
+    # the edges of the tiles: B = 1, H and W not multiples of the 8 x 32
+    # tile, 16- and 48-channel warps (16-channel weight slabs), one-row
+    # tiles (384 channels at 16 x 16), a ring of 2 weight slabs (512 at 8 x 8)
+    (1, 8, 8, 256), (2, 19, 45, 32), (2, 11, 9, 16), (1, 12, 40, 48),
+    (1, 16, 16, 384), (2, 8, 8, 512),
 ])
 def test_basic_chain_kernel_matches_twin(cuda, batch, h, w, c):
     """Every branch shape of w32 and w48, ragged batches and ragged spatial
-    sizes; one launch per block."""
+    sizes, and the edges of the kernel's tiles; one launch per block."""
     rng = np.random.default_rng(c + h)
     params = basic_params(rng, c, 2, cuda)
     x = bf16(np.abs(rng.normal(size=(batch, h, w, c))), cuda)
@@ -278,6 +294,22 @@ def test_basic_chain_kernel_matches_twin(cuda, batch, h, w, c):
     limit = 0.02 * max(1.0, want.float().abs().max().item())
     assert got.shape == want.shape == (batch, h, w, c) and want.float().std().item() > 0.1
     assert (got.float() - want.float()).abs().max().item() <= limit
+
+
+def test_tiled_kernels_refuse_untaken_shapes(cuda):
+    """A shape the launch plans do not take raises before any launch; no
+    fallback runs."""
+    rng = np.random.default_rng(80)
+    params = basic_params(rng, 80, 1, cuda)
+    x = bf16(np.abs(rng.normal(size=(1, 8, 8, 80))), cuda)
+    before = fused_basic_chain.launches
+    with pytest.raises(ValueError, match="C = 80"):
+        fused_basic_chain(x, params, 1)
+    q = site_q(rng, 20, 3, 32, cuda)
+    before_int8 = conv_int8.launches
+    with pytest.raises(ValueError, match="Cout % 8"):
+        conv_int8(bf16(np.ones((1, 8, 8, 32)), cuda), q)
+    assert (fused_basic_chain.launches, conv_int8.launches) == (before, before_int8)
 
 
 def layer1_params(rng, device):
