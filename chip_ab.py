@@ -1,0 +1,126 @@
+#!/usr/bin/env python3
+"""Times one checkout of the PyTorch port on one NVIDIA card, for comparing
+two commits on the same card in one call.
+
+    python3 chip_ab.py <root> <label>             # the three serving steps and three kernels
+    python3 chip_ab.py <root> <label> --profile   # per-kernel device time of the int8 step
+
+``<root>`` is a directory holding ``hrnet_hand_pose_estimation_tpu_torch``
+(this checkout, or a parent commit unpacked with ``git archive``); its
+kernels build into ``<root>/build/kernels``.  Run the two roots in turns in
+one call (parent, change, change, parent): two calls may land on two cards.
+
+On pose_hrnet_w32 softmax at 256x256, random weights from seed 0, B=128,
+CUDA events after warm-up, it prints one line
+``AB {"label", "step_default", "step_new", "step_int8", "head", "layer1",
+"stem_layer1"}`` in ms: the default bf16 step, the bf16 step with
+``pallas_branches=True, fuse_stem_layer1=True``, the int8 step on uint8
+images, and ``fused_head_decode_v2``, ``fused_bottleneck_chain`` and
+``fused_stem_layer1`` alone on the serving path's inputs.  With
+``--profile`` it prints ``AB2 <label> total <ms>`` and the 14 largest
+per-kernel device times of one int8 step (``torch.profiler``, 3 steps).
+Exits non-zero without a card.
+"""
+
+import json
+import sys
+
+if len(sys.argv) < 3:
+    sys.exit(__doc__)
+root, label = sys.argv[1], sys.argv[2]
+sys.path.insert(0, root)
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+if not torch.cuda.is_available():
+    sys.exit("chip_ab: torch.cuda.is_available() is false; this needs an NVIDIA card")
+
+import hrnet_hand_pose_estimation_tpu_torch as P  # noqa: E402
+from hrnet_hand_pose_estimation_tpu_torch.config import (  # noqa: E402
+    POSE_HIGH_RESOLUTION_NET_EXTRA, load_config)
+from hrnet_hand_pose_estimation_tpu_torch.core import quant_infer as Q  # noqa: E402
+from hrnet_hand_pose_estimation_tpu_torch.core.fast_infer import (  # noqa: E402
+    make_fast_infer, precast_variables)
+from hrnet_hand_pose_estimation_tpu_torch.ops.kernels.fused_bottleneck import (  # noqa: E402
+    fused_bottleneck_chain, fused_stem_layer1)
+from hrnet_hand_pose_estimation_tpu_torch.ops.kernels.fused_head_decode import (  # noqa: E402
+    fused_head_decode_v2)
+from hrnet_hand_pose_estimation_tpu_torch.ops.s2d import space_to_depth  # noqa: E402
+from hrnet_hand_pose_estimation_tpu_torch.utils.weights import init_variables  # noqa: E402
+
+if not P.__file__.startswith(root):
+    sys.exit(f"chip_ab: imported the port from {P.__file__}, not from {root}")
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+dev = torch.device("cuda")
+
+
+def time_ms(fn, iters=10, warmup=3):
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+cfg = load_config(opts=["MODEL.NAME", "pose_hrnet_softmax", "MODEL.TRAINABLE_SOFTMAX", True,
+                        "MODEL.HEATMAP_SOFTMAX", True], freeze=False)
+cfg.MODEL.EXTRA.merge_from_mapping(POSE_HIGH_RESOLUTION_NET_EXTRA)
+cfg = cfg.freeze()
+state = init_variables(cfg, seed=0, device=dev)
+weights = precast_variables(cfg, state, device=dev)
+big = torch.from_numpy(np.random.default_rng(1).normal(
+    size=(128, 256, 256, 3)).astype(np.float32)).to(dev)
+u8 = torch.from_numpy(np.random.default_rng(2).integers(
+    0, 256, size=(128, 256, 256, 3)).astype(np.uint8)).to(dev)
+norm = (Q.IMAGENET_MEAN, Q.IMAGENET_STD)
+mean = torch.tensor(norm[0], device=dev) * 255.0
+inv_std = 1.0 / (torch.tensor(norm[1], device=dev) * 255.0)
+amax = Q.calibrate(cfg, weights, [(u8[:32].float() - mean) * inv_std])
+qparams = Q.prepare_serving_qparams(cfg, {k: v.to(dev) for k, v in state.items()}, amax)
+quant = Q.make_quant_infer(cfg, device=dev, input_norm=norm)
+
+if "--profile" in sys.argv:
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        quant(weights, qparams, u8)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            quant(weights, qparams, u8)
+        torch.cuda.synchronize()
+    per = {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        dt = getattr(e, "self_device_time_total", None) or e.self_cuda_time_total
+        per[e.key[:60]] = per.get(e.key[:60], 0) + dt / 1e3 / 3
+    top = sorted(per.items(), key=lambda kv: -kv[1])[:14]
+    print(f"AB2 {label} total {sum(per.values()):.3f} "
+          + json.dumps([(k, round(v, 3)) for k, v in top]), flush=True)
+    sys.exit(0)
+
+fast = make_fast_infer(cfg, device=dev)
+new = make_fast_infer(cfg, device=dev, pallas_branches=True, fuse_stem_layer1=True)
+with torch.inference_mode():
+    xin = big.to(torch.bfloat16).permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+    xs = [t.permute(0, 2, 3, 1).contiguous() for t in weights.model.forward_backbone(xin)]
+    m = weights.model
+    x1 = torch.relu(m.conv2(torch.relu(m.conv1(xin)))).permute(0, 2, 3, 1).contiguous()
+    x_s2d = space_to_depth(big.to(torch.bfloat16))
+    out = dict(label=label,
+               step_default=time_ms(lambda: fast(weights, big)),
+               step_new=time_ms(lambda: new(weights, big)),
+               step_int8=time_ms(lambda: quant(weights, qparams, u8)),
+               head=time_ms(lambda: fused_head_decode_v2(xs, weights.head)),
+               layer1=time_ms(lambda: fused_bottleneck_chain(x1, *weights.layer1)),
+               stem_layer1=time_ms(lambda: fused_stem_layer1(x_s2d, weights.stem_flat,
+                                                             *weights.layer1)))
+print("AB " + json.dumps(out), flush=True)

@@ -13,7 +13,16 @@ checks at batch 32 that each path went through its kernels and agrees with
 the same forward through the twins, and times the paths at batch 128. For
 the branch-chain kernel and ``conv_int8`` it also prints each shape class's
 time at batch 128 beside cuDNN's and the bound (``per_class`` in the
-kernels line).
+kernels line); for the layer1 kernel each of its four launches and for the
+stem + layer1 path the stem launch alone, at batch 32 and 128, beside
+cuDNN's same folded convs, the bound and the four launches' byte floor.
+
+Before those, the repo's own experiments/synthetic_smoke.yaml (branches
+8/16/32/64, a head 120 wide, a 2x2 coarsest map) is served on the card at
+B=1 and B=4 through both bf16 configurations and the int8 path, each
+against its twin path with the launch counters checked, and the serving
+CLIs (tools.inference --serving fast|int8, tools.evaluate_2d --serving
+int8) run on it with --device cuda.
 
 Then the last two TPU kernels' own entry points at the flagship's full
 width, on the real tensors of the serving paths: the W8A8 BasicBlock branch
@@ -50,6 +59,7 @@ Any failed check raises.
 
 from __future__ import annotations
 
+import importlib.util
 import json
 import subprocess
 import sys
@@ -77,6 +87,7 @@ from hrnet_hand_pose_estimation_tpu_torch.models import build_model
 from hrnet_hand_pose_estimation_tpu_torch.models.hrnet import hrnet_from_cfg
 from hrnet_hand_pose_estimation_tpu_torch.ops.decode import soft_argmax
 from hrnet_hand_pose_estimation_tpu_torch.ops.kernels import _build
+from hrnet_hand_pose_estimation_tpu_torch.ops.kernels import fused_bottleneck as FB
 from hrnet_hand_pose_estimation_tpu_torch.ops.kernels.conv_int8 import (SiteQ, conv_int8,
                                                                         conv_int8_reference)
 from hrnet_hand_pose_estimation_tpu_torch.ops.kernels.fused_bottleneck import (
@@ -185,6 +196,65 @@ def layer1_flops(x, params, flags):
 
 def layer1_work(x, params, flags, out):
     return bound(layer1_flops(x, params, flags), 0, nbytes([x, out, *params]))
+
+
+def layer1_launches(x1, weights, iters):
+    """Each of the layer1 chain's four launches on its real input (the
+    chain's own intermediate tensors): [{ms, cudnn_ms, bound_ms, bound_by,
+    bytes_ms}], cuDNN timing the same folded block (``model.layer1[i]``);
+    bytes_ms is the block's input and output over the memory rate, the
+    floor of any design with one launch per block."""
+    params, flags = weights.layer1
+    blocks = FB._split(params, flags)
+    plans = FB._bottleneck_plans(tuple(x1.shape), blocks)
+    rows, y = [], x1
+    for i, (p, plan) in enumerate(zip(blocks, plans)):
+        out = FB._launch_bottleneck(y, p, plan)
+        ms = time_ms(lambda: FB._launch_bottleneck(y, p, plan), iters)
+        lib = time_ms(lambda: weights.model.layer1[i](y.permute(0, 3, 1, 2)), iters)
+        b_ms, b_by = layer1_work(y, tuple(p.values()), ("ws" in p,), out)
+        rows.append(dict(block=i, cin=y.shape[3], ms=ms, cudnn_ms=lib, bound_ms=b_ms,
+                         bound_by=b_by, bytes_ms=nbytes([y, out]) / PEAK_BYTES * 1e3,
+                         plan=plan._asdict()))
+        y = out
+    return rows
+
+
+def print_launches(label, rows, smi):
+    for r in rows:
+        print(f"{label} block {r['block']} (Cin {r['cin']}): {r['ms']:.4f} ms, cuDNN "
+              f"{r['cudnn_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
+              f"bytes floor {r['bytes_ms']:.4f} ms; plan {r['plan']} on {smi}")
+    print(f"{label} summed over {len(rows)} launches: {sum(r['ms'] for r in rows):.4f} ms, "
+          f"cuDNN {sum(r['cudnn_ms'] for r in rows):.4f} ms, bound "
+          f"{sum(r['bound_ms'] for r in rows):.4f} ms, four-launch bytes floor "
+          f"{sum(r['bytes_ms'] for r in rows):.4f} ms on {smi}")
+
+
+def stem_work(x_s2d, stem_flat, y2):
+    """Bound of the s2d stem launch: stem1 (K = 48) and stem2 (K = 576);
+    x_s2d, y2 and the weights once."""
+    b, hs, ws, _ = x_s2d.shape
+    flops = 2 * b * hs * ws * 48 * 64 + 2 * b * (hs // 2) * (ws // 2) * 576 * 64
+    return bound(flops, 0, nbytes([x_s2d, y2, *stem_flat]))
+
+
+def stem_launch(x_s2d, weights, xin, iters):
+    """The stem launch alone on the s2d image: {max_abs_err, limit, ms,
+    cudnn_ms (the served model's folded stem convs), bound_ms, bound_by}."""
+    plan = FB.stem_plan(*x_s2d.shape[:3])
+    got = FB._launch_stem(x_s2d, weights.stem_flat, plan)
+    want = FB._stem_reference(x_s2d, weights.stem_flat)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    limit = 0.02 * max(1.0, want.float().abs().max().item())
+    if not err <= limit:
+        raise AssertionError(f"stem kernel disagrees with its plain twin: {err} > {limit}")
+    b_ms, b_by = stem_work(x_s2d, weights.stem_flat, got)
+    return dict(max_abs_err=err, limit=limit, plan=plan._asdict(),
+                ms=time_ms(lambda: FB._launch_stem(x_s2d, weights.stem_flat, plan), iters),
+                cudnn_ms=time_ms(lambda: stem(weights.model, xin), iters),
+                bound_ms=b_ms, bound_by=b_by)
 
 
 def head_work(xs, head, out):
@@ -368,6 +438,11 @@ def new_config_phases(cfg, weights, smi, kernels, images, default_plain):
         if not err <= limit:
             raise AssertionError(f"fused_stem_layer1 disagrees with its plain twin: {err} > {limit}")
         xin = to_input(images)
+        stem32 = stem_launch(x_s2d, weights, xin, 10)
+        print(f"stem launch alone B={CHECK_BATCH}: max|kernel - plain| {stem32['max_abs_err']:.5f} "
+              f"(limit {stem32['limit']:.5f}); {stem32['ms']:.4f} ms, cuDNN folded stem "
+              f"{stem32['cudnn_ms']:.4f} ms, bound {stem32['bound_ms']:.4f} ms "
+              f"({stem32['bound_by']}) on {smi}")
         b_ms, b_by = stem_layer1_work(x_s2d, weights.stem_flat, params, flags)
         stem_entry = dict(
             name="fused_stem_layer1", route="cuda",
@@ -380,7 +455,8 @@ def new_config_phases(cfg, weights, smi, kernels, images, default_plain):
                                                            flags), 2, warmup=1),
             bound_ms=b_ms, bound_by=b_by,
             # yardstick: cuDNN's bf16 stem and layer1 (the folded served model's)
-            library_ms=time_ms(lambda: model.layer1(stem(model, xin)), 10))
+            library_ms=time_ms(lambda: model.layer1(stem(model, xin)), 10),
+            stem_launch_b32=stem32)
         for kern in (chain_entry, stem_entry):
             print(f"{kern['name']} at B={CHECK_BATCH}: {kern['ms']:.3f} ms, plain "
                   f"{kern['plain_ms']:.3f} ms, library {kern['library_ms']:.3f} ms, bound "
@@ -478,6 +554,11 @@ def new_config_phases(cfg, weights, smi, kernels, images, default_plain):
             lambda: fused_stem_layer1(x_s2d, weights.stem_flat, params, flags), 10)
         stem_entry["bound_ms_b128"] = stem_layer1_work(x_s2d, weights.stem_flat, params, flags)[0]
         stem_entry["library_ms_b128"] = time_ms(lambda: model.layer1(stem(model, xin)), 10)
+        stem128 = stem_launch(x_s2d, weights, xin, 10)
+        stem_entry["stem_launch_b128"] = stem128
+        print(f"stem launch alone B={TIME_BATCH}: {stem128['ms']:.4f} ms, cuDNN folded stem "
+              f"{stem128['cudnn_ms']:.4f} ms, bound {stem128['bound_ms']:.4f} ms "
+              f"({stem128['bound_by']}) on {smi}")
         for kern in (chain_entry, stem_entry):
             print(f"{kern['name']} at B={TIME_BATCH}: {kern['ms_b128']:.3f} ms, library "
                   f"{kern['library_ms_b128']:.3f} ms, bound {kern['bound_ms_b128']:.4f} ms on {smi}")
@@ -1700,6 +1781,144 @@ def eval_phases(smi, kernels):
     kernels.append(entry)
 
 
+# -- C9: the repo's smoke model served on the card --------------------------
+
+SMOKE_YAML = Path(__file__).resolve().parent / "experiments" / "synthetic_smoke.yaml"
+SMOKE_WIDTHS = (8, 16, 32, 64)
+
+
+def smoke_cfg():
+    """experiments/synthetic_smoke.yaml through the port's load_config; where
+    PyYAML is missing, the same tree built in code.  Returns (cfg, origin)."""
+    if importlib.util.find_spec("yaml") is not None:
+        return load_config(str(SMOKE_YAML)), f"read from {SMOKE_YAML.name}"
+    cfg = load_config(opts=["EXP_NAME", "synthetic_smoke", "MODEL.NAME", "pose_hrnet_softmax",
+                            "MODEL.NUM_JOINTS", 21, "MODEL.IMAGE_SIZE", [64, 64],
+                            "MODEL.HEATMAP_SIZE", [16, 16], "MODEL.SIGMA", 2,
+                            "MODEL.HEATMAP_SOFTMAX", True, "MODEL.TRAINABLE_SOFTMAX", True,
+                            "DATASET.DATASET", ["Synthetic_kpt"],
+                            "DATASET.TEST_DATASET", ["Synthetic_kpt"], "DATASET.NUM_JOINTS", 21,
+                            "DATASET.SIGMA", 2, "TEST.IMAGES_PER_GPU", 4, "WORKERS", 2],
+                      freeze=False)
+    stage = lambda n: dict(NUM_MODULES=1, NUM_BRANCHES=n, BLOCK="BASIC", NUM_BLOCKS=[1] * n,
+                           NUM_CHANNELS=list(SMOKE_WIDTHS[:n]), FUSE_METHOD="SUM")
+    cfg.MODEL.EXTRA.merge_from_mapping(dict(FINAL_CONV_KERNEL=1, STAGE2=stage(2),
+                                            STAGE3=stage(3), STAGE4=stage(4)))
+    return cfg.freeze(), "built in code as synthetic_smoke.yaml's tree (no PyYAML here)"
+
+
+def smoke_gate(label, coords, plain, batch):
+    """The small models' decode gate of the card tests: within 0.25 px of
+    the same forward through the twins."""
+    diff = (coords - plain).abs()
+    print(f"{label}: {tuple(coords.shape)}, vs its plain-twin path max |d| "
+          f"{diff.max().item():.5f} px (limit 0.25), mean {diff.mean().item():.5f} px")
+    if coords.shape != (batch, 21, 2) or not torch.isfinite(coords).all():
+        raise AssertionError(f"{label}: bad output, shape {tuple(coords.shape)}")
+    if not diff.max().item() <= 0.25:
+        raise AssertionError(f"{label}: kernel path disagrees with its plain path")
+
+
+def c9_phases(smi):
+    """The smoke model (branches 8/16/32/64, a head 120 wide, a 2x2 coarsest
+    map at 64x64) served on the card through the bf16 path (defaults and
+    NEW_CONFIG) and the int8 path at B=1 and B=4, each against its twin
+    path with the launch counters checked; then the serving CLIs on it."""
+    dev = torch.device("cuda")
+    with phase("C9 smoke model served"):
+        cfg, origin = smoke_cfg()
+        extra = cfg.MODEL.EXTRA
+        print(f"smoke config {origin}: branches {list(extra['STAGE4']['NUM_CHANNELS'])}, "
+              f"image {list(cfg.MODEL.IMAGE_SIZE)}")
+        state = {k: v.to(dev) for k, v in init_variables(cfg, seed=0, device=dev).items()}
+        weights = precast_variables(cfg, state, device=dev)
+        print("branch chains served at widths "
+              f"{sorted({p[0].shape[-1] for p in weights.branches.values()})} (padded once)")
+        n_blocks = sum(len(p) // 4 for p in weights.branches.values())
+        n_sites = len(Q.quant_sites(cfg, "exchange", stem2=True))
+        size = int(cfg.MODEL.IMAGE_SIZE[0])
+        qinfer = Q.make_quant_infer(cfg, device=dev, input_norm=NORM)
+        for batch in (1, 4):
+            rng = np.random.default_rng(100 + batch)
+            images = torch.from_numpy(rng.normal(size=(batch, size, size, 3)).astype(
+                np.float32)).to(dev)
+            for label, kwargs, parts, want in (
+                    ("defaults", {}, dict(layer1=nchw(layer1_reference, weights)),
+                     dict(fused_bottleneck_chain=4, fused_head_decode_v2=3)),
+                    ("pallas_branches + fuse_stem_layer1", NEW_CONFIG,
+                     new_parts(weights, twin=True),
+                     dict(fused_basic_chain=n_blocks, fused_stem_layer1=5,
+                          fused_head_decode_v2=3))):
+                infer = make_fast_infer(cfg, device=dev, **kwargs)
+                zero_counters()
+                coords = infer(weights, images)
+                torch.cuda.synchronize()
+                launched = {k: v for k, v in counters().items() if v}
+                if launched != want:
+                    raise AssertionError(f"smoke {label} B={batch}: launches {launched}, "
+                                         f"want {want}")
+                smoke_gate(f"smoke bf16 {label} B={batch}, launches {launched}", coords,
+                           twin_forward(weights, images, **parts), batch)
+            u8 = torch.from_numpy(rng.integers(0, 256, size=(batch, size, size, 3)).astype(
+                np.uint8)).to(dev)
+            amax = Q.calibrate(cfg, weights, [normalize(u8)])
+            qparams = Q.prepare_serving_qparams(cfg, state, amax)
+            zero_counters()
+            coords = qinfer(weights, qparams, u8)
+            torch.cuda.synchronize()
+            launched = {k: v for k, v in counters().items() if v}
+            want = dict(conv_int8=n_sites, fused_bottleneck_chain_int8=4, fused_head_decode_v2=3)
+            if launched != want:
+                raise AssertionError(f"smoke int8 B={batch}: launches {launched}, want {want}")
+            with twins():
+                plain = qinfer(weights, qparams, u8)
+            smoke_gate(f"smoke int8 B={batch}, launches {launched}", coords, plain, batch)
+
+    with phase("C9 tools"), tempfile.TemporaryDirectory() as tmp:
+        have = {m: importlib.util.find_spec(m) is not None for m in ("yaml", "cv2")}
+        if all(have.values()):
+            import cv2
+
+            imgs = Path(tmp) / "imgs"
+            imgs.mkdir()
+            rng = np.random.default_rng(7)
+            for i in range(2):
+                cv2.imwrite(str(imgs / f"{i}.png"), rng.integers(0, 256, size=(96, 80, 3),
+                                                                 dtype=np.uint8))
+            tool = "hrnet_hand_pose_estimation_tpu_torch.tools."
+            runs = [[tool + "inference", "--serving", mode, "--image_path", str(imgs),
+                     "--out_dir", str(Path(tmp) / mode)] for mode in ("fast", "int8")]
+            runs.append([tool + "evaluate_2d", "--serving", "int8", "--out", str(Path(tmp) / "ev")])
+            for args in runs:
+                cmd = [sys.executable, "-m", args[0], "--cfg", str(SMOKE_YAML), "--device", "cuda",
+                       *args[1:]]
+                res = subprocess.run(cmd, capture_output=True, text=True,
+                                     cwd=Path(__file__).resolve().parent, timeout=300)
+                tail = (res.stdout + res.stderr).strip().splitlines()[-3:]
+                print(f"python -m {args[0]} --cfg {SMOKE_YAML.name} {' '.join(args[1:3])} "
+                      f"--device cuda: rc {res.returncode}; " + " | ".join(tail))
+                if res.returncode != 0:
+                    raise AssertionError(f"{args[0]} {args[1:3]} failed:\n{res.stdout}"
+                                         f"\n{res.stderr}")
+        else:
+            # no PyYAML or cv2 on this machine: the tools' own functions on the
+            # same config, in this process
+            print(f"tools' modules present: {have}; running their serving and evaluation "
+                  "functions in process on the config built in code")
+            cfg, _ = smoke_cfg()
+            state = init_variables(cfg, seed=0, device=dev)
+            frames = np.random.default_rng(7).normal(size=(2, 64, 64, 3)).astype(np.float32)
+            for mode in ("fast", "int8"):
+                fwd = make_serving_fn(cfg, state, mode, list(frames), device=dev)
+                _, pose = fwd(torch.from_numpy(frames[:1]).to(dev))
+                torch.cuda.synchronize()
+                print(f"tools.inference.make_serving_fn({mode!r}) B=1: {tuple(pose.shape)}")
+                if tuple(pose.shape) != (1, 21, 2) or not torch.isfinite(pose).all():
+                    raise AssertionError(f"serving fn {mode} gave a bad output")
+            res = tool_eval.evaluate(cfg, state=state, serving="int8", out=tmp, device=dev)
+            print(f"tools.evaluate_2d.evaluate(serving='int8'): {json.dumps(res)}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs an NVIDIA card",
@@ -1755,6 +1974,10 @@ def main() -> int:
             bound_ms=bound_ms, bound_by=bound_by,
             # yardstick: the same folded chain as cuDNN bf16 channels_last convs
             library_ms=time_ms(lambda: weights.model.layer1(x_nchw), 10)))
+        rows = layer1_launches(x1, weights, 10)
+        print_launches(f"fused_bottleneck_chain B={CHECK_BATCH}", rows, smi)
+        kernels[-1].update(per_launch_b32=rows,
+                           bytes_floor_ms=sum(r["bytes_ms"] for r in rows))
 
         got = fused_head_decode_v2(xs, weights.head)
         want = head_decode_reference(xs, weights.head)
@@ -1845,9 +2068,13 @@ def main() -> int:
                 print(f"{kern['name']} at B={TIME_BATCH}: {kern[f'ms_b{TIME_BATCH}']:.3f} ms, "
                       f"bound {work[kern['name']][0]:.4f} ms on {smi}")
             lib_ms = time_ms(lambda: weights.model.layer1(x1.permute(0, 3, 1, 2)), 10)
-            next(k for k in kernels if k["name"] == "fused_bottleneck_chain")[
-                f"library_ms_b{TIME_BATCH}"] = lib_ms
+            b2 = next(k for k in kernels if k["name"] == "fused_bottleneck_chain")
+            b2[f"library_ms_b{TIME_BATCH}"] = lib_ms
             print(f"cuDNN layer1 at B={TIME_BATCH}: {lib_ms:.3f} ms on {smi}")
+            rows = layer1_launches(x1, weights, 10)
+            print_launches(f"fused_bottleneck_chain B={TIME_BATCH}", rows, smi)
+            b2.update(per_launch_b128=rows,
+                      bytes_floor_ms_b128=sum(r["bytes_ms"] for r in rows))
             # where the step goes; layer1 and the head as the serving path
             # calls them, with their NCHW <-> NHWC layout changes
             model = weights.model
@@ -1869,6 +2096,7 @@ def main() -> int:
             print(f"step breakdown B={TIME_BATCH} (ms, CUDA events, parts timed alone): "
                   + json.dumps({k: round(v, 3) for k, v in split.items()}))
 
+    c9_phases(smi)
     new_infer = new_config_phases(cfg, weights, smi, kernels, images, plain)
     int8_context = int8_phases(cfg, state, weights, smi, kernels, new_infer)
     branch_int8_phases(cfg, weights, smi, kernels, *int8_context)

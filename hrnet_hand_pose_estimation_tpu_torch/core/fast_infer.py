@@ -32,10 +32,10 @@ from torch import nn
 
 from ..models.hrnet import HRModule, PoseHRNet, hrnet_from_cfg
 from ..models.layers import BasicBlock, Bottleneck, ConvBN, fold_bn
-from ..ops.kernels.fused_bottleneck import (fold_branch_params, fold_conv_bn,
+from ..ops.kernels.fused_bottleneck import (BASIC_WIDTHS, fold_branch_params, fold_conv_bn,
                                             fold_layer1_params, fused_basic_chain,
                                             fused_bottleneck_chain, fused_stem_layer1,
-                                            prepare_stem_params)
+                                            pad_basic_params, prepare_stem_params)
 from ..ops.kernels.fused_head_decode import HeadParams, fused_head_decode_v2, prepare_head_params
 from ..ops.s2d import s2d_kernel, space_to_depth
 
@@ -48,7 +48,8 @@ class ServingWeights(NamedTuple):
     head: HeadParams
     stem_s2d: Tuple[torch.Tensor, ...]    # (k1, b1, k2, b2) bf16: _s2d_stem_apply's
     stem_flat: Tuple[torch.Tensor, ...]   # fused_stem_layer1's (prepare_stem_params)
-    branches: Dict[str, Tuple[torch.Tensor, ...]]   # ResLayer name -> fused_basic_chain params
+    # ResLayer name -> fused_basic_chain params (on a card, at the kernel's width)
+    branches: Dict[str, Tuple[torch.Tensor, ...]]
 
 
 def _fold_cb(conv: nn.Conv2d, bn: nn.BatchNorm2d) -> nn.Conv2d:
@@ -122,7 +123,10 @@ def precast_variables(cfg, state: Mapping[str, torch.Tensor], device="cuda") -> 
     folded into the chain kernel's params, the head folded into
     ``HeadParams``, the stem folded for the space-to-depth paths and every
     BasicBlock branch chain for ``fused_basic_chain`` (with the folds taken
-    in float32 before any cast, as in the JAX package).
+    in float32 before any cast, as in the JAX package).  On a card the
+    branch chains are zero-padded once to a width their kernel takes
+    (``pad_basic_params``: 8 -> 16, 18 -> 32, 40 -> 48, 72 -> 96, ...); on
+    the CPU they keep the model's width.
 
     A state without ``trainable_temp`` is a plain-head model; it serves
     with softmax temperature 1, as the JAX package serves it.  Any other
@@ -138,6 +142,9 @@ def precast_variables(cfg, state: Mapping[str, torch.Tensor], device="cuda") -> 
     head = head._replace(w_final=head.w_final.to(torch.bfloat16))
     stem_s2d = tuple(t.to(torch.bfloat16) for t in prepare_s2d_stem(state))
     branches = {name: fold_branch_params(state, name) for name in _branch_names(model)}
+    if device.type == "cuda":
+        branches = {name: pad_basic_params(p) if p[0].shape[-1] <= BASIC_WIDTHS[-1] else p
+                    for name, p in branches.items()}
     served = _fold_model(model).to(device=device, dtype=torch.bfloat16,
                                    memory_format=torch.channels_last).eval()
     return ServingWeights(served, layer1, head, stem_s2d, prepare_stem_params(state), branches)

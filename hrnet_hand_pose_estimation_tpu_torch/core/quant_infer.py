@@ -35,7 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from ..models.hrnet import PoseHRNet, StageCfg, _nchw
-from ..ops.kernels.conv_int8 import SiteQ, conv_int8
+from ..ops.kernels.conv_int8 import SiteQ, conv_int8, pad_kq
 from ..ops.kernels.fused_bottleneck import fold_conv_bn, fused_bottleneck_chain
 from ..ops.kernels.fused_head_decode import fused_head_decode_v2
 from ..ops.kernels.int8_chain import fused_bottleneck_chain_int8, prepare_layer1_int8
@@ -191,7 +191,9 @@ def fold_site(state: Mapping[str, torch.Tensor], conv: str, bn: str
 def prepare_quant_params(cfg, state: Mapping[str, torch.Tensor], amax: Mapping[str, float],
                          scope: str = "branch", stem2: bool = False) -> Dict[str, SiteQ]:
     """Offline weight quantization of a PoseHRNet state_dict (unfolded):
-    {site: SiteQ} on the state's device, for the sites of ``quant_sites``."""
+    {site: SiteQ} on the state's device, for the sites of ``quant_sites``.
+    Each kq is laid out as ``conv_int8``'s kernel reads it (``pad_kq``:
+    a channel pitch of Cin rounded up to 16, zeros past Cin)."""
     dev = state["conv1.weight"].device
     out = {}
     for site in quant_sites(cfg, scope, stem2=stem2):
@@ -199,7 +201,7 @@ def prepare_quant_params(cfg, state: Mapping[str, torch.Tensor], amax: Mapping[s
         kq, wscale = quantize_weight(kernel)
         sa = np.float32(site_scale(amax, site))
         out[site] = SiteQ(
-            kq=torch.from_numpy(np.ascontiguousarray(kq.transpose(0, 2, 3, 1))).to(dev),
+            kq=pad_kq(torch.from_numpy(np.ascontiguousarray(kq.transpose(0, 2, 3, 1))).to(dev)),
             wscale=torch.from_numpy(wscale).to(dev),
             sa=torch.tensor(sa, dtype=torch.float32, device=dev),
             scale=torch.from_numpy(sa * wscale).to(dev),        # one f32 product

@@ -9,7 +9,7 @@
 //   y = bf16(relu?(float(acc) * (sa * wscale[c]) + bias[c])).
 // One kernel serves every site of the 'exchange' scope: 3x3 stride 1 and 2
 // (branch, transition and downsampling fuse convs, stem2) and 1x1 stride 1
-// (upsampling fuse convs), Cin % 16 == 0, Cout % 8 == 0.
+// (upsampling fuse convs), at any Cin and Cout.
 //
 // Bit parity with JAX (each a trap of the port):
 // - x / sa is a correctly rounded division, not a multiply by an f32 1/sa
@@ -39,15 +39,20 @@
 // - A comes from the halo by ldmatrix.x4 with per-lane row addresses (the
 //   lane's own pixel, plus the tap's offset), so strided and 1x1 sites need
 //   no im2col copy.
-// - K walks (tap, KB-channel slice, KB = 64 where Cin % 64 == 0, else 32);
-//   the weights' (Cout, KH*KW*Cin) rows are K-major, so each slab, NB rows x
+// - K walks (tap, KB-channel slice, KB = 64 where Cinp % 64 == 0, else 32);
+//   the weights' (Cout, KH*KW*Cinp) rows are K-major, so each slab, NB rows x
 //   KB bytes, streams through a ring of up to 4 stages by 16-byte cp.async
 //   while earlier slabs are multiplied: no weight is read from global memory
-//   inside the MMA loop.  Where Cin % 32 == 16 (the w48 widths 48, 96, 192,
-//   384) the last slice of each tap holds 16 channels and the ring
-//   zero-fills its upper 16 bytes, so the exact int32 sum is unchanged
-//   (whatever A holds there) and nothing past channel Cin is read from
-//   global memory.
+//   inside the MMA loop.  The weights' channel pitch Cinp is Cin rounded up
+//   to 16 (a view of zero-padded storage, ops/kernels/conv_int8.py::pad_kq,
+//   made once with the site's weights), so every slab copy is 16-byte
+//   aligned.  Where Cinp % 32 == 16 (the w48 widths 48, 96, 192, 384; the
+//   narrow 8 and 40) the last slice of each tap holds 16 channels and the
+//   ring zero-fills its upper 16 bytes, so the exact int32 sum is unchanged
+//   (whatever A holds there) and nothing past channel Cinp is read.
+// - Any width: the halo holds Cinp channels, those past Cin zero (staged by
+//   16-byte vectors where Cin % 8 == 0, else element by element), and the
+//   epilogue masks the channels past Cout.
 // - 8 warps: WM along the pixels, 8 / WM along the channels, each an MT x NT
 //   grid of m16n8k32 mma.sync tiles; the bit-exact epilogue runs from the
 //   accumulator registers with scale and bias loaded once per thread.
@@ -63,7 +68,7 @@ namespace {
 struct ConvArgs {
   const bf16* x;          // (B, H, W, Cin)
   bf16* out;              // (B, Ho, Wo, Cout)
-  const signed char* w;   // (Cout, KH, KW, Cin): row n is K = KH*KW*Cin contiguous
+  const signed char* w;   // (Cout, KH, KW, Cinp): row n is K = KH*KW*Cinp contiguous
   const float* scale;     // (Cout,) sa * wscale
   const float* bias;      // (Cout,)
   const float* sa;        // () activation scale
@@ -72,6 +77,7 @@ struct ConvArgs {
   int ldh;                // halo bytes per pixel
   int KB;                 // input channels (bytes) of one tap per weight slab: 32 or 64
   int WM, NB, stages;     // warps along the pixels, channels per block, ring depth
+  int Cinp;               // the weights' channel pitch: Cin rounded up to 16
 };
 
 // bytes per weight row of a ring stage: the slab's KB bytes + 16, an odd
@@ -80,6 +86,19 @@ __host__ __device__ inline int ring_row(int KB) { return KB + 16; }
 
 __host__ __device__ inline int halo_bytes(int HR, int HC, int ldh) {
   return (HR * HC * ldh + 127) / 128 * 128;
+}
+
+// the first n (< 8) of 8 bf16 values at p element by element, 0 past them:
+// x's channel columns where Cin % 8 != 0
+__device__ __forceinline__ uint4 load_tail8(const bf16* p, int n) {
+  unsigned w[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const unsigned lo = 2 * e < n ? __bfloat16_as_ushort(p[2 * e]) : 0u;
+    const unsigned hi = 2 * e + 1 < n ? __bfloat16_as_ushort(p[2 * e + 1]) : 0u;
+    w[e] = lo | (hi << 16);
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
 }
 
 // clip(round(x / sa)) with x / sa rounded to f32 exactly as __fdiv_rn rounds
@@ -97,7 +116,10 @@ __device__ __forceinline__ signed char quantize(float x, double rcp) {
   return clip_s8(__double2float_rn(__dmul_rn((double)x, rcp)));
 }
 
-template <int MT, int NT>
+// kAny: any Cin and Cout; else Cin % 16 == 0 and Cout % 8 == 0 (every w32 and
+// w48 site), compiled apart so that those keep the code of the fixed-width
+// kernel
+template <int MT, int NT, bool kAny>
 __global__ void __launch_bounds__(kThreads, (MT * NT <= 8) ? 4 : 2) conv_int8_kernel(ConvArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
   signed char* halo = reinterpret_cast<signed char*>(smem);   // HR x HC x ldh int8
@@ -112,8 +134,9 @@ __global__ void __launch_bounds__(kThreads, (MT * NT <= 8) ? 4 : 2) conv_int8_ke
   const int oy0 = ty * a.TR, ox0 = tx * a.TW;
   const int iy0 = oy0 * a.stride - a.pad, ix0 = ox0 * a.stride - a.pad;
   const int nb0 = blockIdx.y * a.NB;   // the block's first output channel
-  const int K = a.KH * a.KW * a.Cin;
-  const int cs = (a.Cin + a.KB - 1) / a.KB;   // slabs per tap (with KB 32 the last may hold 16)
+  const int cinp = kAny ? a.Cinp : a.Cin;      // == Cin where Cin % 16 == 0
+  const int K = a.KH * a.KW * cinp;
+  const int cs = (cinp + a.KB - 1) / a.KB;   // slabs per tap (with KB 32 the last may hold 16)
   const int J = a.KH * a.KW * cs;
 
   // The copies give each thread one 16-byte column of a weight row or of a
@@ -126,9 +149,9 @@ __global__ void __launch_bounds__(kThreads, (MT * NT <= 8) ? 4 : 2) conv_int8_ke
   auto load = [&](int j, unsigned char* st) {
     const int tap = j / cs, c0 = (j - tap * cs) * a.KB + part * 16;
     const unsigned dst = smem_u32(st) + part * 16;
-    const signed char* src = a.w + (size_t)nb0 * K + tap * a.Cin + c0;
+    const signed char* src = a.w + (size_t)nb0 * K + tap * cinp + c0;
     for (int r = w0; r < a.NB; r += wstep) {
-      const bool valid = nb0 + r < a.Cout && c0 < a.Cin;
+      const bool valid = nb0 + r < a.Cout && c0 < cinp;
       cp_async16(dst + r * rowb, valid ? src + (size_t)r * K : a.w, valid);
     }
   };
@@ -139,19 +162,34 @@ __global__ void __launch_bounds__(kThreads, (MT * NT <= 8) ? 4 : 2) conv_int8_ke
   // quantizes any, so that they are in flight together.
   constexpr int kBatch = 4;
   const double rcp = __drcp_rn((double)*a.sa);
-  const int vpr = a.Cin / 8, pstep = kThreads / vpr, npx = a.HR * a.HC;
+  const int vpr = cinp / 8, pstep = kThreads / vpr, npx = a.HR * a.HC;
   const int v = tid % vpr, p0 = tid / vpr;   // p0 >= pstep: idle
+  // this thread's 8 channels of x: all of them (16-byte loads, Cin % 8 == 0),
+  // the first `tail` (element by element), or none (0 past Cin)
+  const int tail = a.Cin - v * 8;
+  const bool vec = a.Cin % 8 == 0 && tail > 0;
   const bf16* xb = a.x + (size_t)b * a.H * a.W * a.Cin + v * 8;
   int hy = p0 / a.HC, hx = p0 - hy * a.HC;
   for (int pix0 = p0; p0 < pstep && pix0 < npx; pix0 += kBatch * pstep) {
     uint4 raw[kBatch];
+    if (!kAny || vec) {   // the loads of a batch stay in flight together
 #pragma unroll
-    for (int u = 0; u < kBatch; ++u) {
-      const int gy = iy0 + hy, gx = ix0 + hx;
-      raw[u] = make_uint4(0, 0, 0, 0);
-      if (pix0 + u * pstep < npx && gy >= 0 && gy < a.H && gx >= 0 && gx < a.W)
-        raw[u] = __ldg(reinterpret_cast<const uint4*>(xb + ((size_t)gy * a.W + gx) * a.Cin));
-      for (hx += pstep; hx >= a.HC; hx -= a.HC) ++hy;
+      for (int u = 0; u < kBatch; ++u) {
+        const int gy = iy0 + hy, gx = ix0 + hx;
+        raw[u] = make_uint4(0, 0, 0, 0);
+        if (pix0 + u * pstep < npx && gy >= 0 && gy < a.H && gx >= 0 && gx < a.W)
+          raw[u] = __ldg(reinterpret_cast<const uint4*>(xb + ((size_t)gy * a.W + gx) * a.Cin));
+        for (hx += pstep; hx >= a.HC; hx -= a.HC) ++hy;
+      }
+    } else {
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int gy = iy0 + hy, gx = ix0 + hx;
+        raw[u] = make_uint4(0, 0, 0, 0);
+        if (tail > 0 && pix0 + u * pstep < npx && gy >= 0 && gy < a.H && gx >= 0 && gx < a.W)
+          raw[u] = load_tail8(xb + ((size_t)gy * a.W + gx) * a.Cin, tail < 8 ? tail : 8);
+        for (hx += pstep; hx >= a.HC; hx -= a.HC) ++hy;
+      }
     }
 #pragma unroll
     for (int u = 0; u < kBatch; ++u) {
@@ -229,11 +267,11 @@ __global__ void __launch_bounds__(kThreads, (MT * NT <= 8) ? 4 : 2) conv_int8_ke
 #pragma unroll
   for (int jn = 0; jn < NT; ++jn) {
     const int n = nb0 + n0 + jn * 8 + 2 * t4;
-    const bool ok = n < a.Cout;
-    sc[jn][0] = ok ? a.scale[n] : 0.0f;
-    sc[jn][1] = ok ? a.scale[n + 1] : 0.0f;
-    bi[jn][0] = ok ? a.bias[n] : 0.0f;
-    bi[jn][1] = ok ? a.bias[n + 1] : 0.0f;
+    const bool ok0 = n < a.Cout, ok1 = kAny ? n + 1 < a.Cout : ok0;
+    sc[jn][0] = ok0 ? a.scale[n] : 0.0f;
+    sc[jn][1] = ok1 ? a.scale[n + 1] : 0.0f;
+    bi[jn][0] = ok0 ? a.bias[n] : 0.0f;
+    bi[jn][1] = ok1 ? a.bias[n + 1] : 0.0f;
   }
 #pragma unroll
   for (int i = 0; i < MT; ++i) {
@@ -247,28 +285,40 @@ __global__ void __launch_bounds__(kThreads, (MT * NT <= 8) ? 4 : 2) conv_int8_ke
       bf16* dst = a.out + (((size_t)b * a.Ho + oy) * a.Wo + ox) * a.Cout + nb0 + n0 + 2 * t4;
 #pragma unroll
       for (int jn = 0; jn < NT; ++jn) {
-        if (nb0 + n0 + jn * 8 >= a.Cout) continue;
+        const int n = nb0 + n0 + jn * 8 + 2 * t4;
+        if (kAny ? n >= a.Cout : nb0 + n0 + jn * 8 >= a.Cout) continue;
         float y0 = dequant(acc[i][jn][2 * h], sc[jn][0], bi[jn][0]);
         float y1 = dequant(acc[i][jn][2 * h + 1], sc[jn][1], bi[jn][1]);
         if (a.relu) {
           y0 = fmaxf(y0, 0.0f);
           y1 = fmaxf(y1, 0.0f);
         }
-        *reinterpret_cast<__nv_bfloat162*>(dst + jn * 8) = __floats2bfloat162_rn(y0, y1);
+        if (!kAny || (n + 1 < a.Cout && a.Cout % 2 == 0)) {   // a 4-byte aligned pair
+          *reinterpret_cast<__nv_bfloat162*>(dst + jn * 8) = __floats2bfloat162_rn(y0, y1);
+        } else {
+          dst[jn * 8] = __float2bfloat16(y0);
+          if (n + 1 < a.Cout) dst[jn * 8 + 1] = __float2bfloat16(y1);
+        }
       }
     }
   }
 }
 
-template <int MT, int NT>
-int launch(const ConvArgs& a, int smem, cudaStream_t stream) {
+template <int MT, int NT, bool kAny>
+int launch_as(const ConvArgs& a, int smem, cudaStream_t stream) {
   static int raised[kMaxDevices] = {};
-  const cudaError_t err = raise_smem(conv_int8_kernel<MT, NT>, smem, raised);
+  const cudaError_t err = raise_smem(conv_int8_kernel<MT, NT, kAny>, smem, raised);
   if (err != cudaSuccess) return (int)err;
   const int tiles = ((a.Wo + a.TW - 1) / a.TW) * ((a.Ho + a.TR - 1) / a.TR);
   const dim3 grid((unsigned)a.B * tiles, (a.Cout + a.NB - 1) / a.NB);
-  conv_int8_kernel<MT, NT><<<grid, kThreads, smem, stream>>>(a);
+  conv_int8_kernel<MT, NT, kAny><<<grid, kThreads, smem, stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+template <int MT, int NT>
+int launch(const ConvArgs& a, int smem, cudaStream_t stream) {
+  return a.Cin % 16 == 0 && a.Cout % 8 == 0 ? launch_as<MT, NT, false>(a, smem, stream)
+                                            : launch_as<MT, NT, true>(a, smem, stream);
 }
 
 }  // namespace
@@ -280,18 +330,19 @@ using namespace hrnet;
 // conv_int8.py::conv_int8_plan: tile TR x TW (halo HR x HC pixels of ldh
 // bytes), KB channels per weight slab, WM warps along the pixels with MT m16 tiles each, NT n8 tiles per
 // warp along NB = (8 / WM) * NT * 8 channels, a ring of `stages` slabs,
-// `smem` bytes.  Cin % 16 == 0, Cout % 8 == 0, pointers 16-byte aligned (the
-// wrapper checks).  A plan this file has no instance for, or whose numbers
+// `smem` bytes.  The weights' channel pitch Cinp is Cin rounded up to 16;
+// x and w 16-byte aligned (the wrapper checks).  A plan this file has no instance for, or whose numbers
 // do not add up, returns cudaErrorInvalidValue; else cudaGetLastError().
 extern "C" int hrnet_conv_int8(const void* x, void* out, const void* w, const void* scale,
                                const void* bias, const void* sa, int B, int H, int W, int Cin,
-                               int Ho, int Wo, int Cout, int KH, int KW, int stride, int pad,
+                               int Cinp, int Ho, int Wo, int Cout, int KH, int KW, int stride, int pad,
                                int relu, int TR, int TW, int HR, int HC, int ldh, int KB, int WM,
                                int MT, int NT, int NB, int stages, int smem, void* stream) {
-  const bool ok = Cin % 16 == 0 && Cin <= 8 * kThreads && Cout % 8 == 0 && (WM == 2 || WM == 4 || WM == 8) &&
+  const bool ok = Cinp % 16 == 0 && Cin >= 1 && Cin <= Cinp && Cinp - Cin < 16 &&
+                  Cinp <= 8 * kThreads && Cout >= 1 && (WM == 2 || WM == 4 || WM == 8) &&
                   (kWarps / WM) * NT * 8 == NB && WM * MT * 16 >= TR * TW && TR >= 1 &&
                   TW >= 1 && HR == (TR - 1) * stride + KH && HC == (TW - 1) * stride + KW &&
-                  ldh % 32 == 16 && ldh >= Cin + 16 && (KB == 32 || (KB == 64 && Cin % 64 == 0)) &&
+                  ldh % 32 == 16 && ldh >= Cinp + 16 && (KB == 32 || (KB == 64 && Cinp % 64 == 0)) &&
                   stages >= 2 && stages <= 8 &&
                   smem == halo_bytes(HR, HC, ldh) + stages * NB * ring_row(KB) && smem <= kSmemLimit;
   if (!ok) return (int)cudaErrorInvalidValue;
@@ -299,7 +350,7 @@ extern "C" int hrnet_conv_int8(const void* x, void* out, const void* w, const vo
              static_cast<const signed char*>(w), static_cast<const float*>(scale),
              static_cast<const float*>(bias),    static_cast<const float*>(sa),
              B, H, W, Cin, Ho, Wo, Cout, KH, KW, stride, pad, relu,
-             TR, TW, HR, HC, ldh, KB, WM, NB, stages};
+             TR, TW, HR, HC, ldh, KB, WM, NB, stages, Cinp};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (MT == 1 && NT == 2) return launch<1, 2>(a, smem, s);
   if (MT == 1 && NT == 4) return launch<1, 4>(a, smem, s);

@@ -7,7 +7,8 @@
 // row slice of the folded kernel and the results are upsampled and summed:
 //   (a) branch_conv_kernel: y_i = bf16(x_i @ W_i) for branches 1..3, at native
 //       resolution, into a workspace (bf16, where the TPU kernel rounds too);
-//   (b) head_logits_kernel: per full-resolution pixel, the bilinear samples of
+//   (b) head_logits_tiles_kernel or head_logits_kernel (any): per
+//       full-resolution pixel, the bilinear samples of
 //       y_1..y_3 (W-mix weights rounded to bf16 and f32 H-mix taps, as in the
 //       TPU kernel) + b_head, plus x_0 @ W_0, ReLU, rounded to bf16, then the
 //       final 1x1 conv to K joints, + b_final, x temperature -> logits
@@ -15,8 +16,20 @@
 //   (c) softmax_decode_kernel: one block per (sample, joint): max, exp, sum and
 //       the expectation of the column (u) and row (v) -> (B, K, 2) f32.
 // K is never padded in memory: (b) stages the final conv's weights in shared
-// memory with zero columns up to 32 for the tensor-core tile and writes only
+// memory 32 columns at a time (zero past K, up to K = 128) and writes only
 // the K real columns; nothing downstream reads the pad.
+//
+// Widths: any branch width C_i, head width N, K <= 128 and any B*h*w.  The
+// wrapper pads the weights (once per call, with the slices it makes anyway)
+// to Cp_i = C_i and Np = N rounded up to 16 with zero rows and columns; (a)
+// and the any-width (b) stage the branch inputs into those pitches with zeros
+// past C_i (16-byte vectors where C_i % 8 == 0, else element by element) and
+// mask the rows past B*h*w.  Zero channels add exact zeros, and a padded
+// head channel stays relu(0) = 0, so the function is unchanged.  Heads with
+// C_0 % 16 == 0 and K <= 32 (every w32 and w48 one) run (b) as the
+// fixed-width head_logits_tiles_kernel, compiled apart: with the tails folded
+// in, (b) was given 44 registers instead of 60 and took 0.5 ms more at B=128
+// (H100 80GB HBM3, 700 W, torch.profiler).
 //
 // What bounds it on the H100: ~0.37 GFLOP per sample against ~0.5 MB of
 // branch tensors in and 168 bytes out, ~700 FLOP per byte: tensor-core
@@ -41,67 +54,97 @@ namespace hrnet {
 namespace {
 
 constexpr int kRows = 64;   // rows of x per block in (a), output pixels per block in (b)
-constexpr int kKPad = 32;   // final-conv columns held in shared memory
+constexpr int kKPad = 32;   // final-conv columns held in shared memory at a time
 
-// A 16x16 tile of a row-major input of type T as a bf16 WMMA fragment:
-// bf16 straight from memory, int8 through the warp's bf16 staging tile.
+// channels c .. c + 7 of row `row` (C channels, type T) as 8 bf16, 0 past C:
+// one 16-byte (bf16) or 8-byte (int8) load where C % 8 == 0, else element by
+// element; int8 values convert exactly
 template <typename T>
-__device__ inline void load_a_tile(FragA& fa, const T* src, int ld, bf16* tile, int lane) {
+__device__ inline uint4 load8_bf16(const T* row, int c, int C) {
+  uint4 val = make_uint4(0, 0, 0, 0);
+  if (c >= C) return val;
   if constexpr (std::is_same<T, bf16>::value) {
-    wmma::load_matrix_sync(fa, src, ld);
-  } else {
-    for (int e = lane; e < 256; e += 32)
-      tile[e] = __float2bfloat16((float)src[(size_t)(e / 16) * ld + e % 16]);
-    __syncwarp();
-    wmma::load_matrix_sync(fa, tile, 16);
-    __syncwarp();
+    if (C % 8 == 0) return *reinterpret_cast<const uint4*>(row + c);
   }
+  bf16* h = reinterpret_cast<bf16*>(&val);
+  if constexpr (std::is_same<T, bf16>::value) {
+    for (int e = 0; e < 8; ++e) h[e] = c + e < C ? row[c + e] : __float2bfloat16(0.0f);
+  } else if (C % 8 == 0) {
+    const uint2 q = *reinterpret_cast<const uint2*>(row + c);
+    const signed char* b = reinterpret_cast<const signed char*>(&q);
+    for (int e = 0; e < 8; ++e) h[e] = __float2bfloat16((float)b[e]);
+  } else {
+    for (int e = 0; e < 8; ++e) h[e] = __float2bfloat16(c + e < C ? (float)row[c + e] : 0.0f);
+  }
+  return val;
 }
 
 struct BranchConvArgs {
   const void* x[3];       // (M_i, C_i) = branch i+1 flattened NHWC, bf16 or int8
-  const bf16* w[3];       // (C_i, N)
+  const bf16* w[3];       // (Cp_i, N): C_i rows rounded up to 16, zero past C_i
   bf16* y[3];             // (M_i, N)
   int M[3], C[3];
   int first_block[4];     // prefix sums of the row blocks of each branch
-  int N;
+  int N;                  // a multiple of 16
 };
 
+// (a)'s shared memory: the block's 64 rows at the widest branch's pitch, and
+// the warps' f32 scratch tiles
+__host__ inline size_t branch_smem_bytes(int cmax) {
+  return (size_t)kRows * ((cmax + 15) / 16 * 16 + kRowPad) * sizeof(bf16) +
+         (size_t)kWarps * 256 * sizeof(float);
+}
+
+// One block = 64 rows of one branch x every output column: the rows are
+// staged once (zero past C and past M), then each warp walks its 16 rows
+// across every other 16-column tile, B fragments from global memory.
 template <typename T>
 __global__ void __launch_bounds__(kThreads) branch_conv_kernel(BranchConvArgs a) {
-  __shared__ __align__(32) float scratch_all[kWarps][256];
-  __shared__ __align__(32) bf16 tile_all[kWarps][256];
+  extern __shared__ __align__(128) unsigned char smem[];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  float* scratch = scratch_all[warp];
   const int br = blockIdx.x >= a.first_block[2] ? 2 : (blockIdx.x >= a.first_block[1] ? 1 : 0);
-  const int m0 = (blockIdx.x - a.first_block[br]) * kRows + (warp / 2) * 16;
-  const int n0 = blockIdx.y * 32 + (warp % 2) * 16;
+  const int mb = (blockIdx.x - a.first_block[br]) * kRows, mw = (warp % 4) * 16;
   const int M = a.M[br], C = a.C[br], N = a.N;
-  if (m0 >= M || n0 >= N) return;
+  const int cp = (C + 15) / 16 * 16, ldx = cp + kRowPad;
+  bf16* xs = reinterpret_cast<bf16*>(smem);
+  float* scratch = reinterpret_cast<float*>(xs + kRows * ldx) + warp * 256;
   const T* x = static_cast<const T*>(a.x[br]);
+  const int vpr = cp / 8;
+  for (int i = threadIdx.x; i < kRows * vpr; i += kThreads) {
+    const int r = i / vpr, v = i - r * vpr;
+    uint4 val = make_uint4(0, 0, 0, 0);
+    if (mb + r < M) val = load8_bf16(x + (size_t)(mb + r) * C, v * 8, C);
+    *reinterpret_cast<uint4*>(xs + r * ldx + v * 8) = val;
+  }
+  __syncthreads();
+  if (mb + mw >= M) return;   // warp-uniform: no rows of this warp
   const bf16* w = a.w[br];
+  bf16* y = a.y[br];
   FragA fa;
   FragB fb;
   FragC acc;
-  wmma::fill_fragment(acc, 0.0f);
-  for (int k = 0; k < C; k += 16) {
-    load_a_tile(fa, x + (size_t)m0 * C + k, C, tile_all[warp], lane);
-    wmma::load_matrix_sync(fb, w + (size_t)k * N + n0, N);
-    wmma::mma_sync(acc, fa, fb, acc);
+  for (int n0 = (warp / 4) * 16; n0 < N; n0 += 32) {
+    wmma::fill_fragment(acc, 0.0f);
+    for (int k = 0; k < cp; k += 16) {
+      wmma::load_matrix_sync(fa, xs + mw * ldx + k, ldx);
+      wmma::load_matrix_sync(fb, w + (size_t)k * N + n0, N);
+      wmma::mma_sync(acc, fa, fb, acc);
+    }
+    wmma::store_matrix_sync(scratch, acc, 16, wmma::mem_row_major);
+    __syncwarp();
+    for (int e = lane; e < 256; e += 32)
+      if (mb + mw + e / 16 < M)
+        y[(size_t)(mb + mw + e / 16) * N + n0 + e % 16] = __float2bfloat16(scratch[e]);
+    __syncwarp();
   }
-  wmma::store_matrix_sync(scratch, acc, 16, wmma::mem_row_major);
-  __syncwarp();
-  bf16* y = a.y[br];
-  for (int e = lane; e < 256; e += 32)
-    y[(size_t)(m0 + e / 16) * N + n0 + e % 16] = __float2bfloat16(scratch[e]);
 }
 
 struct LogitsArgs {
   const void* x0;        // (B, H0*W0, C0), bf16 or int8
-  const bf16* w0;        // (C0, N)
+  const bf16* w0;        // (Cp0, N): C0 rows rounded up to 16, zero past C0
   const bf16* y[3];      // (B, h_i*w_i, N)
   const float* taps;     // (3 branches, 2 axes, 3 fields {lo, a, b}, L)
-  const float* b_head;   // (N)
+  const float* b_head;   // (N), N a multiple of 16 (zero past the head's width)
   const bf16* w_final;   // (N, K)
   const float* b_final;  // (K)
   const float* temp;     // ()
@@ -112,12 +155,15 @@ struct LogitsArgs {
 };
 
 __host__ __device__ inline size_t logits_smem_bytes(int c0, int n) {
-  return (size_t)(kRows * (c0 + kRowPad) + kRows * (n + kRowPad) + n * kKPad) * sizeof(bf16) +
+  const int cp0 = (c0 + 15) / 16 * 16;
+  return (size_t)(kRows * (cp0 + kRowPad) + kRows * (n + kRowPad) + n * kKPad) * sizeof(bf16) +
          (size_t)kWarps * 256 * sizeof(float);
 }
 
+// C0 % 16 == 0 and K <= 32 (every w32 and w48 head): x0 by 16-byte vectors,
+// the final conv in one pass
 template <typename T>
-__global__ void __launch_bounds__(kThreads) head_logits_kernel(LogitsArgs a) {
+__global__ void __launch_bounds__(kThreads) head_logits_tiles_kernel(LogitsArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int ldx = a.C0 + kRowPad, ldh = a.N + kRowPad;
   bf16* xs = reinterpret_cast<bf16*>(smem);   // kRows x ldx
@@ -211,6 +257,109 @@ __global__ void __launch_bounds__(kThreads) head_logits_kernel(LogitsArgs a) {
   }
 }
 
+// Any C0 and K <= 128: x0 staged with zeros past C0, the final conv kKPad
+// joints at a time
+template <typename T>
+__global__ void __launch_bounds__(kThreads) head_logits_kernel(LogitsArgs a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int cp0 = (a.C0 + 15) / 16 * 16;
+  const int ldx = cp0 + kRowPad, ldh = a.N + kRowPad;
+  bf16* xs = reinterpret_cast<bf16*>(smem);   // kRows x ldx
+  bf16* hs = xs + kRows * ldx;                // kRows x ldh: relu(head) in bf16
+  bf16* wf = hs + kRows * ldh;                // N x kKPad: final conv, zero pad columns
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  float* scratch = reinterpret_cast<float*>(wf + a.N * kKPad) + warp * 256;
+
+  const int HW = a.H0 * a.W0, b = blockIdx.y, p0 = blockIdx.x * kRows;
+  const int vec_per_row = cp0 / 8;
+  for (int i = threadIdx.x; i < kRows * vec_per_row; i += kThreads) {
+    const int r = i / vec_per_row, v = i % vec_per_row;
+    uint4 val = make_uint4(0, 0, 0, 0);
+    if (p0 + r < HW)
+      val = load8_bf16(static_cast<const T*>(a.x0) + ((size_t)b * HW + p0 + r) * a.C0, v * 8, a.C0);
+    *reinterpret_cast<uint4*>(xs + r * ldx + v * 8) = val;
+  }
+  // the final conv's first kKPad columns, zero past K
+  for (int i = threadIdx.x; i < a.N * kKPad; i += kThreads) {
+    const int r = i / kKPad, c = i % kKPad;
+    wf[i] = c < a.K ? a.w_final[r * a.K + c] : __float2bfloat16(0.0f);
+  }
+  __syncthreads();
+
+  FragA fa;
+  FragB fb;
+  FragC acc;
+  const int ntn = a.N / 16;
+  for (int task = warp; task < (kRows / 16) * ntn; task += kWarps) {
+    const int mt = task / ntn, nt = task % ntn;
+    // bias + the bilinear samples of branches 1..3 seed the accumulator
+    for (int e = lane; e < 256; e += 32) {
+      const int p = p0 + mt * 16 + e / 16, n = nt * 16 + e % 16;
+      float v = a.b_head[n];
+      if (p < HW) {
+        const int py = p / a.W0, px = p % a.W0;
+        for (int i = 0; i < 3; ++i) {
+          const float* tr = a.taps + (size_t)(i * 2 + 0) * 3 * a.L;
+          const float* tc = a.taps + (size_t)(i * 2 + 1) * 3 * a.L;
+          const int r0 = (int)tr[py], c0 = (int)tc[px];
+          const float ra = tr[a.L + py], rb = tr[2 * a.L + py];
+          const float ca = tc[a.L + px], cb = tc[2 * a.L + px];
+          const int wi = a.w[i];
+          const bf16* yb = a.y[i] + ((size_t)b * a.h[i] * wi + (size_t)r0 * wi + c0) * a.N + n;
+          const float t0 = ca * __bfloat162float(yb[0]) + cb * __bfloat162float(yb[a.N]);
+          const float t1 = ca * __bfloat162float(yb[(size_t)wi * a.N]) +
+                           cb * __bfloat162float(yb[(size_t)(wi + 1) * a.N]);
+          v += ra * t0 + rb * t1;
+        }
+      }
+      scratch[e] = v;
+    }
+    __syncwarp();
+    wmma::load_matrix_sync(acc, scratch, 16, wmma::mem_row_major);
+    for (int k = 0; k < cp0; k += 16) {
+      wmma::load_matrix_sync(fa, xs + mt * 16 * ldx + k, ldx);
+      wmma::load_matrix_sync(fb, a.w0 + (size_t)k * a.N + nt * 16, a.N);
+      wmma::mma_sync(acc, fa, fb, acc);
+    }
+    wmma::store_matrix_sync(scratch, acc, 16, wmma::mem_row_major);
+    __syncwarp();
+    for (int e = lane; e < 256; e += 32)
+      hs[(mt * 16 + e / 16) * ldh + nt * 16 + e % 16] = __float2bfloat16(fmaxf(scratch[e], 0.0f));
+    __syncwarp();
+  }
+  __syncthreads();
+
+  // final 1x1 conv, kKPad joints at a time: (kRows x N) @ (N x kKPad), one
+  // 16x16 tile per warp
+  const int mt = warp / 2, nt = warp % 2;
+  const float temp = *a.temp;
+  for (int kc = 0; kc < a.K; kc += kKPad) {
+    if (kc) {   // the next columns, once every warp is done with the previous ones
+      __syncthreads();
+      for (int i = threadIdx.x; i < a.N * kKPad; i += kThreads) {
+        const int r = i / kKPad, c = i % kKPad;
+        wf[i] = kc + c < a.K ? a.w_final[r * a.K + kc + c] : __float2bfloat16(0.0f);
+      }
+      __syncthreads();
+    }
+    wmma::fill_fragment(acc, 0.0f);
+    for (int k = 0; k < a.N; k += 16) {
+      wmma::load_matrix_sync(fa, hs + mt * 16 * ldh + k, ldh);
+      wmma::load_matrix_sync(fb, wf + k * kKPad + nt * 16, kKPad);
+      wmma::mma_sync(acc, fa, fb, acc);
+    }
+    wmma::store_matrix_sync(scratch, acc, 16, wmma::mem_row_major);
+    __syncwarp();
+    for (int e = lane; e < 256; e += 32) {
+      const int c = e / 16, r = e % 16;   // consecutive lanes: consecutive pixels
+      const int kk = kc + nt * 16 + c, p = p0 + mt * 16 + r;
+      if (kk < a.K && p < HW)
+        a.logits[((size_t)b * a.K + kk) * HW + p] = (scratch[r * 16 + c] + a.b_final[kk]) * temp;
+    }
+    __syncwarp();
+  }
+}
+
 __device__ inline float block_reduce(float v, bool is_max, float* red) {
   for (int off = 16; off > 0; off /= 2) {
     const float o = __shfl_xor_sync(0xffffffffu, v, off);
@@ -254,8 +403,8 @@ __global__ void __launch_bounds__(kThreads) softmax_decode_kernel(const float* l
 
 using namespace hrnet;
 
-// (a): M_i % 16 == 0, C_i % 16 == 0, N % 16 == 0 (the wrapper checks);
-// in_int8 selects int8 branch inputs.
+// (a): any M_i and C_i, N % 16 == 0, w_i with C_i rounded up to 16 rows (the
+// wrapper checks); in_int8 selects int8 branch inputs.
 extern "C" int hrnet_head_branch_conv(const void* x1, const void* x2, const void* x3,
                                       const void* w1, const void* w2, const void* w3, void* y1,
                                       void* y2, void* y3, int M1, int M2, int M3, int C1,
@@ -275,16 +424,19 @@ extern "C" int hrnet_head_branch_conv(const void* x1, const void* x2, const void
     a.first_block[i + 1] = a.first_block[i] + (Ms[i] + kRows - 1) / kRows;
   }
   a.N = N;
-  const dim3 grid(a.first_block[3], (N + 31) / 32);
-  if (in_int8)
-    branch_conv_kernel<signed char><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
-  else
-    branch_conv_kernel<bf16><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int cmax = C1 > C2 ? (C1 > C3 ? C1 : C3) : (C2 > C3 ? C2 : C3);
+  const size_t smem = branch_smem_bytes(cmax);
+  const auto kernel = in_int8 ? branch_conv_kernel<signed char> : branch_conv_kernel<bf16>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<a.first_block[3], kThreads, smem, s>>>(a);
   return (int)cudaGetLastError();
 }
 
-// (b): C0 % 16 == 0, N % 16 == 0, K <= 32, every h_i, w_i >= 2 (the wrapper
-// checks); in_int8 selects an int8 branch 0.
+// (b): any C0, N % 16 == 0, K <= 128, every h_i, w_i >= 2, w0 with C0 rounded
+// up to 16 rows (the wrapper checks); in_int8 selects an int8 branch 0.
 extern "C" int hrnet_head_logits(const void* x0, const void* w0, const void* y1, const void* y2,
                                  const void* y3, const void* taps, const void* b_head,
                                  const void* w_final, const void* b_final, const void* temp,
@@ -306,7 +458,10 @@ extern "C" int hrnet_head_logits(const void* x0, const void* w0, const void* y1,
                {w1, w2, w3},
                N, K, L};
   const size_t smem = logits_smem_bytes(C0, N);
-  const auto kernel = in_int8 ? head_logits_kernel<signed char> : head_logits_kernel<bf16>;
+  const bool tiles = C0 % 16 == 0 && K <= kKPad;
+  const auto kernel = in_int8 ? (tiles ? head_logits_tiles_kernel<signed char>
+                                       : head_logits_kernel<signed char>)
+                              : (tiles ? head_logits_tiles_kernel<bf16> : head_logits_kernel<bf16>);
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return (int)err;

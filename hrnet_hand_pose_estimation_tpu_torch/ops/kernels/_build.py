@@ -42,8 +42,9 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C signature of every entry point: (argtypes), all returning cudaError_t as int
 SIGNATURES = {
-    # x, out, w1, b1, w2, b2, w3, b3, ws, bs, B, H, W, Cin, Cm, Cout, stream
-    "hrnet_bottleneck_block": (_P,) * 10 + (_I,) * 6 + (_P,),
+    # x, out, w1, b1, w2, b2, w3, b3, ws, bs, B, H, W, Cin, Cm, Cout, then the plan:
+    # TH, TW, KS, stages, smem; stream
+    "hrnet_bottleneck_block": (_P,) * 10 + (_I,) * 11 + (_P,),
     # x1, x2, x3, w1, w2, w3, y1, y2, y3, M1, M2, M3, C1, C2, C3, N, in_int8, stream
     "hrnet_head_branch_conv": (_P,) * 9 + (_I,) * 8 + (_P,),
     # x0, w0, y1, y2, y3, taps, b_head, w_final, b_final, temp, logits,
@@ -54,9 +55,9 @@ SIGNATURES = {
     # x0, x1, x2, x3, taps, w_head, b_head, w_final, b_final, temp, logits,
     # B, H0, s1, s2, s3, C0, C1, C2, C3, N, K, Kp, stream
     "hrnet_head_v1_logits": (_P,) * 11 + (_I,) * 12 + (_P,),
-    # x, out, w, scale, bias, sa, B, H, W, Cin, Ho, Wo, Cout, KH, KW, stride, pad, relu,
-    # then the plan: TR, TW, HR, HC, ldh, KB, WM, MT, NT, NB, stages, smem; stream
-    "hrnet_conv_int8": (_P,) * 6 + (_I,) * 24 + (_P,),
+    # x, out, w, scale, bias, sa, B, H, W, Cin, Cinp, Ho, Wo, Cout, KH, KW, stride, pad,
+    # relu, then the plan: TR, TW, HR, HC, ldh, KB, WM, MT, NT, NB, stages, smem; stream
+    "hrnet_conv_int8": (_P,) * 6 + (_I,) * 25 + (_P,),
     # x, out, inv1, kq1, a1, c1, kq2, a2, c2, kq3, a3, c3, kqs, as, cs,
     # B, H, W, Cin, Cm, Cout, stream
     "hrnet_bottleneck_int8_block": (_P,) * 15 + (_I,) * 6 + (_P,),
@@ -65,8 +66,8 @@ SIGNATURES = {
     "hrnet_basic_block": (_P,) * 6 + (_I,) * 12 + (_P,),
     # x, out, inv1, kq1, a1, c1, kq2, a2, c2, B, H, W, C, stream
     "hrnet_basic_int8_block": (_P,) * 9 + (_I,) * 4 + (_P,),
-    # x_s2d, y, ws1, bs1, ws2, bs2, B, Hs, Ws, stream
-    "hrnet_stem_s2d": (_P,) * 6 + (_I,) * 3 + (_P,),
+    # x_s2d, y, ws1, bs1, ws2, bs2, B, Hs, Ws, then the plan: TH, TW, stages, smem; stream
+    "hrnet_stem_s2d": (_P,) * 6 + (_I,) * 7 + (_P,),
     # joints, vis, out, B, K, res, win, sig2, stream
     "hrnet_gaussian_targets": (_P,) * 3 + (_I,) * 4 + (_F, _P),
     # logits, temp (or null), temp_value, out, B, H, W, K, is_bf16, stream

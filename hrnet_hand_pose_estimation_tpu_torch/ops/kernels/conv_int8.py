@@ -13,6 +13,10 @@ plain twin ``conv_int8_reference`` for a tensor on the CPU.  ``SiteQ`` holds
 one site's prepared parameters (``core/quant_infer.prepare_quant_params``).
 ``conv_int8_plan`` makes the kernel's launch plan (tile, warp grid, weight
 ring depth, shared memory, grid); the C entry checks it and launches it.
+The kernel takes any Cin and Cout: it reads the weights at a channel pitch
+of Cin rounded up to 16 (``pad_kq``, done once by
+``core/quant_infer.prepare_quant_params``), stages x's channels into that
+pitch with zeros past Cin and masks the channels past Cout.
 """
 
 from __future__ import annotations
@@ -44,6 +48,28 @@ CONV_INT8_TILES = {(512, 32): (8, 4, 4), (256, 32): (8, 2, 4), (256, 64): (4, 4,
                    (64, 32): (4, 1, 2), (64, 64): (4, 1, 4), (64, 128): (2, 2, 4)}
 
 
+def pad_kq(kq: torch.Tensor) -> torch.Tensor:
+    """kq (Cout, k, k, Cin) as the kernel reads it: ``kq`` itself where
+    Cin % 16 == 0, else a view ``[..., :Cin]`` of zero-padded storage whose
+    channel pitch is Cin rounded up to 16, so that every 16-byte copy of a
+    weight slab is aligned.  The view has kq's shape and values."""
+    cin = kq.shape[3]
+    if cin % 16 == 0:
+        return kq
+    return F.pad(kq, (0, -cin % 16)).contiguous()[..., :cin]
+
+
+def _kernel_kq(kq: torch.Tensor) -> torch.Tensor:
+    """kq as the kernel takes it: a dense (Cout, k, k, Cinp) layout seen
+    through ``[..., :Cin]``, Cinp = Cin rounded up to 16 (``pad_kq``'s,
+    made here when kq is not already in it)."""
+    cout, k, _, cin = kq.shape
+    cinp = -(-cin // 16) * 16
+    if kq.stride() != (k * k * cinp, k * cinp, cinp, 1):
+        kq = pad_kq(kq.contiguous())
+    return kq
+
+
 class ConvInt8Plan(NamedTuple):
     """One launch of ``csrc/conv_int8.cu``: block (b, tile) x channel block."""
 
@@ -51,7 +77,7 @@ class ConvInt8Plan(NamedTuple):
     tw: int                 # output columns of a tile
     hr: int                 # halo rows: (tr - 1) * stride + k
     hc: int                 # halo columns: (tw - 1) * stride + k
-    ldh: int                # halo bytes per pixel: an odd multiple of 16, >= Cin + 16
+    ldh: int                # halo bytes per pixel: an odd multiple of 16, >= cinp + 16
     kb: int                 # input channels of one tap per weight slab (32 or 64)
     wm: int                 # warps along the tile's pixels
     mt: int                 # m16 tiles per warp
@@ -60,6 +86,7 @@ class ConvInt8Plan(NamedTuple):
     stages: int             # weight slabs in the shared-memory ring
     smem: int               # dynamic shared memory bytes
     grid: Tuple[int, int]   # (B * tiles, channel blocks)
+    cinp: int               # the weights' channel pitch: Cin rounded up to 16
 
 
 @functools.lru_cache(maxsize=1024)
@@ -71,11 +98,12 @@ def conv_int8_plan(b: int, h: int, w: int, cin: int, cout: int, k: int,
     for at most 64, else 128 (eight, four or two rows at Wo = 64, the whole
     image at 8 x 8) for at most 128: the fewer channels, the more pixels
     each weight slab serves.  The ring holds up to four weight slabs of 64
-    input channels (32 where Cin % 64 != 0).  Raises ValueError on a shape
-    the kernel does not take."""
-    if cin % 16 or cout % 8 or not 0 < cin <= 2048 or cout <= 0:
-        raise ValueError(f"the kernel needs Cin % 16 == 0, Cin <= 2048 (a 16-byte column per "
-                         f"thread) and Cout % 8 == 0, got {cin}, {cout}")
+    input channels (32 where cinp % 64 != 0), cinp = Cin rounded up to 16.
+    Raises ValueError on a shape the kernel does not take."""
+    cinp = -(-cin // 16) * 16
+    if not 0 < cin <= 2048 or cout <= 0:
+        raise ValueError(f"the kernel takes 0 < Cin <= 2048 (a 16-byte column per thread) "
+                         f"and Cout > 0, got {cin}, {cout}")
     if k % 2 == 0 or k < 1 or stride not in (1, 2):
         raise ValueError(f"the kernel takes odd k and stride 1 or 2, got k={k}, stride={stride}")
     pad = (k - 1) // 2
@@ -84,9 +112,9 @@ def conv_int8_plan(b: int, h: int, w: int, cin: int, cout: int, k: int,
         raise ValueError(f"empty output for x {(b, h, w, cin)}, k={k}, stride={stride}")
     n_blocks = -(-cout // 128)
     ncap = next(n for n in (32, 64, 128) if n >= -(-cout // n_blocks))
-    ldh = cin + (16 if cin % 32 == 0 else 32)
-    kb = 64 if cin % 64 == 0 else 32
-    stages = max(2, min(4, k * k * -(-cin // kb)))
+    ldh = cinp + (16 if cinp % 32 == 0 else 32)
+    kb = 64 if cinp % 64 == 0 else 32
+    stages = max(2, min(4, k * k * -(-cinp // kb)))
     tw = min(wo, 64)
     tr = min(ho, max(1, {32: 512, 64: 256, 128: 128}[ncap] // tw))
     while True:
@@ -97,10 +125,10 @@ def conv_int8_plan(b: int, h: int, w: int, cin: int, cout: int, k: int,
         if smem <= _build.SMEM_LIMIT:
             break
         if tr == 1 and tw == 1:
-            raise ValueError(f"no tile of the kernel fits Cin {cin} in shared memory")
+            raise ValueError(f"no tile of the kernel fits Cin {cinp} in shared memory")
         tr, tw = (tr // 2, tw) if tr > 1 else (tr, tw // 2)
     grid = (b * -(-ho // tr) * -(-wo // tw), -(-cout // ncap))
-    return ConvInt8Plan(tr, tw, hr, hc, ldh, kb, wm, mt, nt, ncap, stages, smem, grid)
+    return ConvInt8Plan(tr, tw, hr, hc, ldh, kb, wm, mt, nt, ncap, stages, smem, grid, cinp)
 
 
 def _validate(x: torch.Tensor, q: SiteQ, stride: int) -> None:
@@ -161,17 +189,18 @@ def conv_int8(x: torch.Tensor, q: SiteQ, stride: int = 1, relu: bool = True) -> 
     cout, k, _, cin = q.kq.shape
     b, h, w, _ = x.shape
     plan = conv_int8_plan(b, h, w, cin, cout, k, stride)
-    if not (x.is_contiguous() and all(t.is_contiguous() for t in q)):
+    kq = _kernel_kq(q.kq)
+    if not (x.is_contiguous() and all(t.is_contiguous() for t in q[1:])):
         raise ValueError("x and the site's tensors must be contiguous")
-    if any(t.data_ptr() % 16 for t in (x, q.kq)):
+    if any(t.data_ptr() % 16 for t in (x, kq)):
         raise ValueError("the kernel reads x and kq in 16-byte vectors: both must be "
                          "16-byte aligned")
     pad = (k - 1) // 2
     ho, wo = (h + 2 * pad - k) // stride + 1, (w + 2 * pad - k) // stride + 1
     out = torch.empty((b, ho, wo, cout), dtype=torch.bfloat16, device=x.device)
     err = _build.lib().hrnet_conv_int8(
-        x.data_ptr(), out.data_ptr(), q.kq.data_ptr(), q.scale.data_ptr(), q.bias.data_ptr(),
-        q.sa.data_ptr(), b, h, w, cin, ho, wo, cout, k, k, stride, pad, int(relu),
+        x.data_ptr(), out.data_ptr(), kq.data_ptr(), q.scale.data_ptr(), q.bias.data_ptr(),
+        q.sa.data_ptr(), b, h, w, cin, plan.cinp, ho, wo, cout, k, k, stride, pad, int(relu),
         plan.tr, plan.tw, plan.hr, plan.hc, plan.ldh, plan.kb, plan.wm, plan.mt, plan.nt, plan.nb,
         plan.stages, plan.smem, _build.stream_ptr(x.device))
     _build.check(err, "hrnet_conv_int8")

@@ -159,6 +159,51 @@ def head_decode_reference(xs: Sequence[torch.Tensor], params: HeadParams,
     return torch.stack([u, v], dim=-1)
 
 
+MAX_JOINTS = 128        # the TPU kernel pads K to one 128-lane row
+
+
+class HeadPlan(NamedTuple):
+    """The three launches of ``csrc/fused_head_decode.cu`` for one call."""
+
+    cp: Tuple[int, ...]     # each branch's weight rows: C_i rounded up to 16
+    np: int                 # the head width the kernels run at: N rounded up to 16
+    conv_blocks: int        # (a): 64-row blocks of branches 1-3, each over all np columns
+    conv_smem: int          # (a)'s dynamic shared memory bytes
+    logits_grid: Tuple[int, int]   # (b): (64-pixel blocks, B)
+    logits_smem: int        # (b)'s dynamic shared memory bytes
+
+
+def head_plan(b: int, shapes: Tuple[Tuple[int, int], ...], widths: Tuple[int, ...], n: int,
+              k: int) -> HeadPlan:
+    """The kernels' plan for branches of spatial ``shapes`` and channel
+    ``widths``, head width ``n`` and ``k`` joints: any widths, any B*h*w,
+    K up to 128 (the TPU kernel's limit).  Raises ValueError on what they
+    do not take."""
+    if not 0 < k <= MAX_JOINTS:
+        raise ValueError(f"the head takes 1 <= K <= {MAX_JOINTS} joints, got {k}")
+    if b < 1 or n < 1 or min(widths) < 1 or any(min(hw) < 1 for hw in shapes):
+        raise ValueError(f"empty head input: B {b}, shapes {shapes}, widths {widths}, N {n}")
+    if any(min(hw) < 2 for hw in shapes[1:]):
+        raise ValueError("the upsample needs h, w >= 2 on branches 1-3")
+    cp = tuple(-(-c // 16) * 16 for c in widths)
+    np_ = -(-n // 16) * 16
+    smem = 2 * (64 * (cp[0] + 16) + 64 * (np_ + 16) + np_ * 32) + 8 * 256 * 4
+    conv_smem = 2 * 64 * (max(cp[1:]) + 16) + 8 * 256 * 4
+    if max(smem, conv_smem) > _build.SMEM_LIMIT:
+        raise ValueError(f"the head kernel's tiles do not fit a head {n} wide on branches "
+                         f"{widths} in shared memory")
+    rows = sum(-(-(b * h * w) // 64) for h, w in shapes[1:])
+    h0, w0 = shapes[0]
+    return HeadPlan(cp, np_, rows, conv_smem, (-(-(h0 * w0) // 64), b), smem)
+
+
+def _pad2(w: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
+    """w zero-padded to (rows, cols), contiguous and 32-byte aligned (WMMA
+    reads it in tiles from global memory)."""
+    w = torch.nn.functional.pad(w, (0, cols - w.shape[1], 0, rows - w.shape[0])).contiguous()
+    return w.clone() if w.data_ptr() % 32 else w
+
+
 @lru_cache(maxsize=16)
 def _taps(shapes: Tuple[Tuple[int, int], ...], h0: int, w0: int, device: str) -> torch.Tensor:
     """(3 branches, 2 axes {rows, cols}, 3 fields {lo, a, b}, L) f32: the two
@@ -185,9 +230,9 @@ def fused_head_decode_v2(xs: Sequence[torch.Tensor], params: HeadParams,
     with ``input_scales`` (4 scales, float or 0-dim float32 tensors) the
     branches are int8 and ``x_i ~= sa_i * xs[i]``.
 
-    CUDA tensors run the kernel (three launches) and CPU tensors the plain
-    twin; any other device raises.  ``launches`` counts the kernel's
-    launches (3 per call).
+    CUDA tensors run the kernel (three launches, plan ``head_plan``: any
+    widths, any B*h*w, K <= 128) and CPU tensors the plain twin; any other
+    device raises.  ``launches`` counts the kernel's launches (3 per call).
     """
     _validate(xs, params, input_scales)
     dev = xs[0].device
@@ -197,23 +242,24 @@ def fused_head_decode_v2(xs: Sequence[torch.Tensor], params: HeadParams,
         raise ValueError(f"fused_head_decode_v2 runs on cuda or cpu, not {dev}")
     b, h0, w0, c0 = xs[0].shape
     n, k = params.w_final.shape
+    plan = head_plan(b, tuple((x.shape[1], x.shape[2]) for x in xs),
+                     tuple(x.shape[3] for x in xs), n, k)
     for i, x in enumerate(xs):
-        if not x.is_contiguous():
-            raise ValueError(f"branch {i} must be contiguous NHWC")
-        if x.shape[3] % 16 or (i and (b * x.shape[1] * x.shape[2]) % 16):
-            raise ValueError(f"branch {i}: the kernel needs C % 16 == 0 and B*h*w % 16 == 0")
-    if n % 16 or k > 32:
-        raise ValueError(f"the kernel needs head width % 16 == 0 and K <= 32, got {n}, {k}")
+        if not x.is_contiguous() or x.data_ptr() % 16:
+            raise ValueError(f"branch {i} must be contiguous NHWC and 16-byte aligned")
 
-    w_slices = branch_weights(xs, params, input_scales)
+    # the weights at the kernels' pitches: rows C_i and columns N rounded up to 16
+    np_ = plan.np
+    w_slices = [_pad2(w, cp, np_) for w, cp in
+                zip(branch_weights(xs, params, input_scales), plan.cp)]
     in_int8 = int(input_scales is not None)
-    w_final = params.w_final.to(torch.bfloat16).contiguous()
-    b_head = params.b_head.contiguous()
+    w_final = _pad2(params.w_final.to(torch.bfloat16), np_, k)
+    b_head = torch.nn.functional.pad(params.b_head, (0, np_ - n)).contiguous()
     b_final = params.b_final.contiguous()
     temp = params.temp.contiguous()
     shapes = tuple((x.shape[1], x.shape[2]) for x in xs[1:])
     taps = _taps(shapes, h0, w0, str(dev))
-    ys = [torch.empty((b * h * w, n), dtype=torch.bfloat16, device=dev) for h, w in shapes]
+    ys = [torch.empty((b * h * w, np_), dtype=torch.bfloat16, device=dev) for h, w in shapes]
     logits = torch.empty((b, k, h0 * w0), dtype=torch.float32, device=dev)
     out = torch.empty((b, k, 2), dtype=torch.float32, device=dev)
 
@@ -222,14 +268,14 @@ def fused_head_decode_v2(xs: Sequence[torch.Tensor], params: HeadParams,
     err = lib.hrnet_head_branch_conv(
         *(x.data_ptr() for x in xs[1:]), *(w.data_ptr() for w in w_slices[1:]),
         *(y.data_ptr() for y in ys), *(b * h * w for h, w in shapes),
-        *(x.shape[3] for x in xs[1:]), n, in_int8, stream)
+        *(x.shape[3] for x in xs[1:]), np_, in_int8, stream)
     _build.check(err, "hrnet_head_branch_conv")
     fused_head_decode_v2.launches += 1
     err = lib.hrnet_head_logits(
         xs[0].data_ptr(), w_slices[0].data_ptr(), *(y.data_ptr() for y in ys),
         taps.data_ptr(), b_head.data_ptr(), w_final.data_ptr(), b_final.data_ptr(),
         temp.data_ptr(), logits.data_ptr(), b, h0, w0, c0,
-        *(d for hw in shapes for d in hw), n, k, taps.shape[-1], in_int8, stream)
+        *(d for hw in shapes for d in hw), np_, k, taps.shape[-1], in_int8, stream)
     _build.check(err, "hrnet_head_logits")
     fused_head_decode_v2.launches += 1
     err = lib.hrnet_softmax_decode(logits.data_ptr(), out.data_ptr(), b, k, h0, w0, stream)
@@ -245,9 +291,6 @@ fused_head_decode_v2.launches = 0
 # v1: upsample first, then the head at full resolution (TPU kernel
 # fused_head_decode)
 # --------------------------------------------------------------------------
-
-MAX_JOINTS_V1 = 128     # the TPU kernel pads K to one 128-lane row
-
 
 def _validate_v1(xs: Sequence[torch.Tensor], params: HeadParams) -> None:
     """What the TPU kernel takes: four square branches, K <= 128."""
@@ -265,8 +308,8 @@ def _validate_v1(xs: Sequence[torch.Tensor], params: HeadParams) -> None:
             raise ValueError(f"branch {i} on {x.device}, branch 0 on {xs[0].device}")
     _validate_params(xs, params)
     k = params.w_final.shape[1]
-    if k > MAX_JOINTS_V1:
-        raise ValueError(f"v1 takes K <= {MAX_JOINTS_V1} joints, got {k}")
+    if k > MAX_JOINTS:
+        raise ValueError(f"v1 takes K <= {MAX_JOINTS} joints, got {k}")
 
 
 @lru_cache(maxsize=16)

@@ -1,15 +1,19 @@
-"""Launch plans of the two implicit-GEMM kernels, checked on the CPU.
+"""Launch plans of the implicit-GEMM kernels, checked on the CPU.
 
 ``fused_bottleneck.basic_chain_plan`` (the bf16 BasicBlock kernel,
-``csrc/basic_chain.cu``) and ``conv_int8.conv_int8_plan`` (the W8A8 site
-conv, ``csrc/conv_int8.cu``) choose each launch's tile, warp grid, weight
-ring depth, shared memory and grid in Python; the kernels cannot run here,
-so these tests hold the plans to what the kernels need at every w32 and
-w48 shape class the serving paths give them, at B = 1, 32 and 128: shared
-memory within the H100's 232,448 bytes per block, warps that cover the
-tile, tiles that cover the output exactly once (decoded from the grid as
-the kernels decode ``blockIdx``), and a ValueError for a shape a kernel
-does not take.
+``csrc/basic_chain.cu``), ``conv_int8.conv_int8_plan`` (the W8A8 site
+conv, ``csrc/conv_int8.cu``), ``fused_bottleneck.bottleneck_plan`` (the
+layer1 block, ``csrc/fused_bottleneck.cu``) and ``fused_bottleneck.stem_plan``
+(the s2d stem, ``csrc/stem_layer1.cu``) choose each launch's tile, warp
+grid, weight ring depth, shared memory and grid in Python; the kernels
+cannot run here, so these tests hold the plans to what the kernels need at
+every w32 and w48 shape class the serving paths give them, at B = 1, 32
+and 128: shared memory within the H100's 232,448 bytes per block, warps
+that cover the tile, tiles that cover the output exactly once (decoded
+from the grid as the kernels decode ``blockIdx``), and a ValueError for a
+shape a kernel does not take.  The widths of the smoke model, HRNet-w18 and
+w40 (8 ... 160) are served too: the BasicBlock kernel at a zero-padded
+width it takes, ``conv_int8`` and the head at any width.
 """
 
 from collections import Counter
@@ -23,10 +27,12 @@ from hrnet_hand_pose_estimation_tpu_torch.config import (POSE_HIGH_RESOLUTION_NE
 from hrnet_hand_pose_estimation_tpu_torch.core.quant_infer import (quant_sites, site_modules,
                                                                    stage_cfgs)
 from hrnet_hand_pose_estimation_tpu_torch.models.hrnet import hrnet_from_cfg
-from hrnet_hand_pose_estimation_tpu_torch.ops.kernels.conv_int8 import (CONV_INT8_TILES,
-                                                                        conv_int8_plan)
-from hrnet_hand_pose_estimation_tpu_torch.ops.kernels.fused_bottleneck import (BASIC_TILES,
-                                                                               basic_chain_plan)
+from hrnet_hand_pose_estimation_tpu_torch.ops.kernels.conv_int8 import (
+    CONV_INT8_TILES, SiteQ, conv_int8_plan, conv_int8_reference, pad_kq)
+from hrnet_hand_pose_estimation_tpu_torch.ops.kernels.fused_bottleneck import (
+    BASIC_TILES, BASIC_WIDTHS, basic_chain_plan, basic_chain_reference, basic_chain_width,
+    bottleneck_plan, pad_basic_params, stem_plan)
+from hrnet_hand_pose_estimation_tpu_torch.ops.kernels.fused_head_decode import head_plan
 
 SMEM_LIMIT = 232448
 RES = (64, 32, 16, 8)     # each branch's resolution at a 256 x 256 input
@@ -138,8 +144,8 @@ def test_conv_int8_plan_fits_and_covers(width, batch):
 
 
 @pytest.mark.parametrize("b,h,w,c", [
-    (2, 8, 8, 80),       # 80 = 8 * 10: no warp grid of the kernel's n8 tiles
-    (2, 8, 8, 24),
+    (2, 8, 8, 640),      # past 512: no width of the kernel to pad to
+    (2, 8, 0, 32),       # empty
     (2, 8, 8, 1024),     # 128 channels a warp: no instance
     (0, 8, 8, 32),
 ])
@@ -149,8 +155,8 @@ def test_basic_chain_plan_raises_on_untaken_shapes(b, h, w, c):
 
 
 @pytest.mark.parametrize("b,h,w,cin,cout,k,stride", [
-    (2, 8, 8, 24, 32, 3, 1),     # Cin % 16
-    (2, 8, 8, 32, 20, 3, 1),     # Cout % 8
+    (0, 8, 8, 24, 32, 3, 1),     # B = 0
+    (2, 8, 8, 32, 0, 3, 1),      # no output channel
     (2, 8, 8, 32, 32, 2, 1),     # even k
     (2, 8, 8, 32, 32, 3, 3),     # stride 3
     (2, 0, 8, 32, 32, 5, 2),     # empty output
@@ -175,3 +181,174 @@ def test_plans_at_the_tile_edges():
     assert (19 % p.th, 45 % p.tw) != (0, 0)
     p = conv_int8_plan(1, 5, 70, 32, 32, 3, 1)
     assert p.tw == 64 and p.grid[0] == 2 * -(-5 // p.tr)
+
+
+# -- the layer1 block and the stem (redesigned on the implicit-GEMM mainloop)
+
+@pytest.mark.parametrize("batch", [1, 128])
+@pytest.mark.parametrize("cin", [64, 256])
+@pytest.mark.parametrize("h,w", [(64, 64), (16, 16), (20, 36), (7, 19)])
+def test_bottleneck_plan_fits_and_covers(h, w, cin, batch):
+    """layer1's two block classes (64 -> 256 with a projection, 256 -> 256)
+    at the flagship's 64 x 64, the smoke model's 16 x 16 and the card
+    tests' ragged sizes."""
+    p = bottleneck_plan(batch, h, w, cin, 64, 256)
+    halo = (p.th + 2) * (p.tw + 2)
+    assert p.smem <= SMEM_LIMIT and 2 <= p.stages <= 4 and cin % p.ks == 0
+    assert p.smem == 2 * (halo * (cin + 8) + halo * 72 + p.th * p.tw * 72 + p.stages * p.ks * 136)
+    assert halo <= 192 and p.th * p.tw <= 128                # conv1's and conv2's warp tiles
+    assert ((cin + 8) * 2 // 16) % 2 == 1                    # x rows: odd multiples of 16 bytes
+    if (h, w) == (64, 64):
+        assert (p.th, p.tw, p.stages) == (8, 16, 4 if cin == 256 else 4)
+        assert halo / (p.th * p.tw) <= 1.41                  # conv1's recomputed share
+    tiles_x, tiles_y = -(-w // p.tw), -(-h // p.th)
+    assert p.grid == (tiles_x * tiles_y, batch)
+    counts = np.zeros((h, w), np.int32)
+    for bx in range(p.grid[0]):                      # as the kernel decodes blockIdx.x
+        x0, y0 = (bx % tiles_x) * p.tw, (bx // tiles_x) * p.th
+        assert x0 < w and y0 < h
+        counts[y0:y0 + p.th, x0:x0 + p.tw] += 1
+    assert covered_once(counts)
+
+
+@pytest.mark.parametrize("b,h,w,cin,cm,cout", [
+    (2, 8, 8, 64, 32, 256),      # Cm != 64
+    (2, 8, 8, 64, 64, 96),       # Cout % 128
+    (2, 8, 8, 48, 64, 256),      # Cin % 32
+    (0, 8, 8, 64, 64, 256),      # B = 0
+])
+def test_bottleneck_plan_raises_on_untaken_shapes(b, h, w, cin, cm, cout):
+    with pytest.raises(ValueError):
+        bottleneck_plan(b, h, w, cin, cm, cout)
+
+
+@pytest.mark.parametrize("batch", [1, 128])
+@pytest.mark.parametrize("hs,ws", [(128, 128), (32, 32), (20, 36), (6, 38)])
+def test_stem_plan_fits_and_covers(hs, ws, batch):
+    """The s2d stem at 256 x 256 and 64 x 64 images and the card tests'
+    ragged sizes: every y2 pixel once, the windows within shared memory."""
+    p = stem_plan(batch, hs, ws)
+    ho, wo = hs // 2, ws // 2
+    assert p.smem <= SMEM_LIMIT and 2 <= p.stages <= 4
+    assert p.th <= 8 and p.tw <= 16 and p.th * p.tw <= 128   # stem2's 4 x 2 warps of m16 tiles
+    assert p.smem == 2 * ((2 * p.th + 2) * (2 * p.tw + 2) * 24 + 64 * 72
+                          + (2 * p.th + 1) * (2 * p.tw + 1) * 72 + p.stages * 64 * 72)
+    tiles_x, tiles_y = -(-wo // p.tw), -(-ho // p.th)
+    assert p.grid == (tiles_x * tiles_y, batch)
+    counts = np.zeros((ho, wo), np.int32)
+    for bx in range(p.grid[0]):
+        x0, y0 = (bx % tiles_x) * p.tw, (bx // tiles_x) * p.th
+        assert x0 < wo and y0 < ho
+        counts[y0:y0 + p.th, x0:x0 + p.tw] += 1
+    assert covered_once(counts)
+
+
+@pytest.mark.parametrize("b,hs,ws", [(1, 7, 8), (1, 8, 0), (0, 8, 8)])
+def test_stem_plan_raises_on_untaken_shapes(b, hs, ws):
+    with pytest.raises(ValueError):
+        stem_plan(b, hs, ws)
+
+
+# -- widths the JAX package serves that no kernel instance takes ------------
+
+NEW_WIDTHS = (8, 16, 18, 36, 40, 72, 80, 120, 144, 160)
+
+
+@pytest.mark.parametrize("batch", [1, 4])
+@pytest.mark.parametrize("c", NEW_WIDTHS)
+def test_basic_chain_plan_serves_new_widths(c, batch):
+    """A chain of C channels runs at the least width >= C of the kernel's
+    instances, zero-padded; its plan fits and covers the map."""
+    cp = basic_chain_width(c)
+    assert cp >= c and cp in BASIC_WIDTHS and not any(c <= v < cp for v in BASIC_WIDTHS)
+    for h in (16, 8, 4, 2):
+        p = basic_chain_plan(batch, h, h, c)
+        assert p.cp == cp and p.smem <= SMEM_LIMIT and (8 // p.wm) * p.nt * 8 == cp
+        assert p.wm * p.mt * 16 >= (p.th + 2) * (p.tw + 2)
+        assert p.grid == (-(-h // p.th) * -(-h // p.tw), batch)
+
+
+@pytest.mark.parametrize("c", NEW_WIDTHS)
+def test_padded_basic_twin_matches_unpadded(c):
+    """The twin on params zero-padded to the kernel's width (x padded, the
+    first C channels back) equals the unpadded twin: the padded channels
+    stay exactly 0 and add exact zeros (float32 sums in another order)."""
+    torch.set_num_threads(1)
+    rng = np.random.default_rng(c)
+    params = []
+    for _ in range(2):
+        params += [torch.tensor(rng.normal(size=(3, 3, c, c)) * (0.6 / np.sqrt(9 * c)),
+                                dtype=torch.bfloat16),
+                   torch.tensor(rng.normal(size=c) * 0.1, dtype=torch.float32)]
+    x = torch.tensor(np.abs(rng.normal(size=(2, 6, 5, c))), dtype=torch.bfloat16)
+    padded = pad_basic_params(params)
+    assert padded[0].shape[-1] == basic_chain_width(c)
+    assert all(torch.equal(p[..., :c, :c] if p.dim() == 4 else p[:c], q)
+               for p, q in zip(padded, params))
+    want = basic_chain_reference(x, params, 1)
+    got = basic_chain_reference(x, padded, 1)
+    assert got.shape == want.shape == (2, 6, 5, c)
+    diff = (got.float() - want.float()).abs()
+    assert diff.max().item() <= 2 ** -7 * want.float().abs().max().item()   # one bf16 ulp
+    assert (diff == 0).float().mean().item() > 0.99
+
+
+@pytest.mark.parametrize("batch", [1, 4])
+@pytest.mark.parametrize("c", NEW_WIDTHS)
+def test_conv_int8_plan_serves_new_widths(c, batch):
+    """Any Cin and Cout: the weights at a pitch of Cin rounded up to 16, the
+    halo as wide, the output channels covered once."""
+    for cin, cout, k, stride in ((c, c, 3, 1), (c, 2 * c, 3, 2), (2 * c, c, 1, 1), (256, c, 3, 1)):
+        h = 16
+        p = conv_int8_plan(batch, h, h, cin, cout, k, stride)
+        assert p.cinp == -(-cin // 16) * 16 and p.cinp - cin < 16
+        assert p.ldh % 32 == 16 and p.ldh >= p.cinp + 16 and p.smem <= SMEM_LIMIT
+        assert p.kb == (64 if p.cinp % 64 == 0 else 32)
+        assert p.grid[1] * p.nb >= cout > (p.grid[1] - 1) * p.nb
+
+
+@pytest.mark.parametrize("c", NEW_WIDTHS)
+def test_padded_conv_int8_twin_matches(c):
+    """``pad_kq``'s view has kq's shape and values and a pitch of Cin rounded
+    up to 16; the twin through it is bit-equal."""
+    rng = np.random.default_rng(c)
+    kq = torch.from_numpy(rng.integers(-127, 128, size=(c, 3, 3, c)).astype(np.int8))
+    view = pad_kq(kq)
+    cinp = -(-c // 16) * 16
+    assert view.shape == kq.shape and torch.equal(view, kq)
+    assert view.stride() == (9 * cinp, 3 * cinp, cinp, 1)
+    assert (view.storage_offset(), view.untyped_storage().nbytes()) == (0, c * 9 * cinp)
+    q = SiteQ(kq=kq, wscale=torch.full((c,), 0.01), sa=torch.tensor(0.05),
+              scale=torch.full((c,), 5e-4), bias=torch.tensor(rng.normal(size=c), dtype=torch.float32))
+    x = torch.tensor(np.abs(rng.normal(size=(2, 7, 6, c))) * 3, dtype=torch.bfloat16)
+    assert torch.equal(conv_int8_reference(x, q._replace(kq=view), 2),
+                       conv_int8_reference(x, q, 2))
+
+
+@pytest.mark.parametrize("batch", [1, 4])
+@pytest.mark.parametrize("c", NEW_WIDTHS)
+def test_head_plan_serves_new_widths(c, batch):
+    """The head at branch widths c and 2c (a head 6c wide), K up to 128."""
+    widths = (c, c, 2 * c, 2 * c)
+    n = sum(widths)
+    shapes = ((16, 16), (8, 8), (4, 4), (2, 2))
+    for k in (21, 128):
+        p = head_plan(batch, shapes, widths, n, k)
+        assert p.cp == tuple(-(-w // 16) * 16 for w in widths) and p.np == -(-n // 16) * 16
+        assert p.logits_smem <= SMEM_LIMIT and p.conv_smem <= SMEM_LIMIT
+    with pytest.raises(ValueError):
+        head_plan(batch, shapes, widths, n, 129)
+
+
+@pytest.mark.parametrize("batch", [1, 4])
+def test_head_plan_rows_at_small_maps(batch):
+    """B*h*w of the smoke model's branches 1-3 (64, 16 and 4 at B = 1, a
+    2x2 coarsest map): each gets its own 64-row blocks over all columns,
+    the last one partial, masked by the kernel."""
+    shapes = ((16, 16), (8, 8), (4, 4), (2, 2))
+    p = head_plan(batch, shapes, (8, 16, 32, 64), 120, 21)
+    rows = [batch * h * w for h, w in shapes[1:]]
+    assert rows == [64 * batch, 16 * batch, 4 * batch]
+    assert p.conv_blocks == sum(-(-r // 64) for r in rows)
+    assert p.conv_smem == 2 * 64 * (64 + 16) + 8 * 256 * 4          # the widest branch, 64
+    assert p.logits_grid == (4, batch) and p.np == 128

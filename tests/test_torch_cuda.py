@@ -20,7 +20,7 @@ from hrnet_hand_pose_estimation_tpu_torch.data.synthetic import SyntheticDataset
 from hrnet_hand_pose_estimation_tpu_torch.models import build_model
 from hrnet_hand_pose_estimation_tpu_torch.ops import s2d
 from hrnet_hand_pose_estimation_tpu_torch.ops.kernels.conv_int8 import (
-    SiteQ, conv_int8, conv_int8_reference)
+    SiteQ, conv_int8, conv_int8_reference, pad_kq)
 from hrnet_hand_pose_estimation_tpu_torch.ops.kernels.fused_bottleneck import (
     basic_chain_reference, fused_basic_chain, fused_bottleneck_chain, fused_stem_layer1,
     layer1_reference, stem_layer1_reference)
@@ -57,8 +57,9 @@ def f32(a, device):
     return torch.from_numpy(np.asarray(a, np.float32)).to(device)
 
 
-@pytest.mark.parametrize("hw", [(64, 64), (20, 36), (7, 19)])
-def test_layer1_kernel_matches_twin(cuda, hw):
+@pytest.mark.parametrize("batch,hw", [(3, (64, 64)), (3, (20, 36)), (3, (7, 19)),
+                                      (1, (64, 64)), (128, (64, 64))])
+def test_layer1_kernel_matches_twin(cuda, batch, hw):
     """Full layer1 widths; ragged spatial sizes exercise the tile edges."""
     rng = np.random.default_rng(hw[0])
     flags = (True, False, False, False)
@@ -70,14 +71,14 @@ def test_layer1_kernel_matches_twin(cuda, hw):
         if has_sc:
             params += [bf16(rng.normal(size=(cin, 256)) * 0.1, cuda), f32(rng.normal(size=256) * 0.1, cuda)]
         cin = 256
-    x = bf16(np.abs(rng.normal(size=(3, *hw, 64))), cuda)
+    x = bf16(np.abs(rng.normal(size=(batch, *hw, 64))), cuda)
     before = fused_bottleneck_chain.launches
     got = fused_bottleneck_chain(x, tuple(params), flags)
     torch.cuda.synchronize()
     assert fused_bottleneck_chain.launches == before + len(flags)    # one per block
     want = layer1_reference(x, tuple(params), flags)
     limit = 0.02 * max(1.0, want.float().abs().max().item())
-    assert got.shape == want.shape == (3, *hw, 256)
+    assert got.shape == want.shape == (batch, *hw, 256)
     assert (got.float() - want.float()).abs().max().item() <= limit
 
 
@@ -233,11 +234,11 @@ def test_small_w48_int8_slice_on_card(cuda, monkeypatch):
     int8_slice_on_card(cuda, monkeypatch, small_cfg((48, 96, 192, 384)))
 
 
-def int8_slice_on_card(cuda, monkeypatch, cfg):
+def int8_slice_on_card(cuda, monkeypatch, cfg, batch=4):
     state = init_variables(cfg, seed=3)
     weights = precast_variables(cfg, state)
     rng = np.random.default_rng(0)
-    u8 = torch.from_numpy(rng.integers(0, 256, size=(4, 64, 64, 3)).astype(np.uint8)).to(cuda)
+    u8 = torch.from_numpy(rng.integers(0, 256, size=(batch, 64, 64, 3)).astype(np.uint8)).to(cuda)
     norm = (Q.IMAGENET_MEAN, Q.IMAGENET_STD)
     mean, std = (torch.tensor(v, device=cuda) for v in norm)
     amax = Q.calibrate(cfg, weights, [(u8.float() / 255 - mean) / std])
@@ -257,7 +258,7 @@ def int8_slice_on_card(cuda, monkeypatch, cfg):
             m.setattr(Q, "fused_bottleneck_chain_int8", bottleneck_chain_int8_reference)
             m.setattr(Q, "fused_head_decode_v2", head_decode_reference)
             want = infer(weights, qparams, u8)
-        assert got.shape == (4, 21, 2) and (got - want).abs().max().item() <= 0.25
+        assert got.shape == (batch, 21, 2) and (got - want).abs().max().item() <= 0.25
 
 
 def basic_params(rng, c, n_blocks, device):
@@ -300,15 +301,15 @@ def test_tiled_kernels_refuse_untaken_shapes(cuda):
     """A shape the launch plans do not take raises before any launch; no
     fallback runs."""
     rng = np.random.default_rng(80)
-    params = basic_params(rng, 80, 1, cuda)
-    x = bf16(np.abs(rng.normal(size=(1, 8, 8, 80))), cuda)
+    params = basic_params(rng, 640, 1, cuda)
+    x = bf16(np.abs(rng.normal(size=(1, 8, 8, 640))), cuda)
     before = fused_basic_chain.launches
-    with pytest.raises(ValueError, match="C = 80"):
+    with pytest.raises(ValueError, match="C = 640"):
         fused_basic_chain(x, params, 1)
     q = site_q(rng, 20, 3, 32, cuda)
     before_int8 = conv_int8.launches
-    with pytest.raises(ValueError, match="Cout % 8"):
-        conv_int8(bf16(np.ones((1, 8, 8, 32)), cuda), q)
+    with pytest.raises(ValueError, match="stride"):
+        conv_int8(bf16(np.ones((1, 8, 8, 32)), cuda), q, stride=3)
     assert (fused_basic_chain.launches, conv_int8.launches) == (before, before_int8)
 
 
@@ -325,22 +326,23 @@ def layer1_params(rng, device):
     return tuple(params), flags
 
 
-@pytest.mark.parametrize("hs,ws", [(64, 64), (20, 36), (6, 38)])
-def test_stem_layer1_kernel_matches_twin(cuda, hs, ws):
+@pytest.mark.parametrize("batch,hs,ws", [(2, 64, 64), (2, 20, 36), (2, 6, 38), (1, 128, 128),
+                                         (128, 128, 128)])
+def test_stem_layer1_kernel_matches_twin(cuda, batch, hs, ws):
     """The s2d stem kernel + the layer1 launches against their twin, with
     ragged tiles; one stem launch and one per layer1 block."""
     rng = np.random.default_rng(hs + ws)
     stem = (bf16(rng.normal(size=(4, 12, 64)) * 0.3, cuda), f32(rng.normal(size=64) * 0.1, cuda),
             bf16(rng.normal(size=(576, 64)) * 0.06, cuda), f32(rng.normal(size=64) * 0.1, cuda))
     params, flags = layer1_params(rng, cuda)
-    x = bf16(rng.normal(size=(2, hs, ws, 12)), cuda)
+    x = bf16(rng.normal(size=(batch, hs, ws, 12)), cuda)
     before = fused_stem_layer1.launches
     got = fused_stem_layer1(x, stem, params, flags)
     torch.cuda.synchronize()
     assert fused_stem_layer1.launches == before + 5
     want = stem_layer1_reference(x, stem, params, flags)
     limit = 0.02 * max(1.0, want.float().abs().max().item())
-    assert got.shape == want.shape == (2, hs // 2, ws // 2, 256)
+    assert got.shape == want.shape == (batch, hs // 2, ws // 2, 256)
     assert (got.float() - want.float()).abs().max().item() <= limit
 
 
@@ -386,6 +388,105 @@ def test_small_slice_new_configurations_on_card(cuda):
     for kwargs in (dict(s2d_stem=True), dict(pallas_layer1=False), dict(pallas_branches=True)):
         out = make_fast_infer(cfg, **kwargs)(weights, x.to(cuda))
         assert out.shape == (4, 21, 2) and torch.isfinite(out).all()
+
+
+SMOKE_WIDTHS = (8, 16, 32, 64)    # experiments/synthetic_smoke.yaml: head 120, 2x2 at 64x64
+
+
+@pytest.mark.parametrize("batch", [1, 4])
+def test_smoke_model_served_on_card(cuda, monkeypatch, batch):
+    """The smoke model's widths through both serving paths on the card, at
+    B = 1 (one image, as tools.inference serves) and B = 4: every kernel
+    launches (the branch chains at 8 channels padded to 16, the head at 120
+    wide over a 2x2 coarsest map, conv_int8 at 8 input channels and 8
+    output channels) and each path agrees with its twin path."""
+    cfg = small_cfg(SMOKE_WIDTHS)
+    state = init_variables(cfg, seed=3)
+    weights = precast_variables(cfg, state)
+    x = torch.from_numpy(np.random.default_rng(batch).normal(
+        size=(batch, 64, 64, 3)).astype(np.float32)).to(cuda)
+    kernels = (fused_basic_chain, fused_stem_layer1, fused_bottleneck_chain, fused_head_decode_v2)
+    for fuse in (False, True):
+        for fn in kernels:
+            fn.launches = 0
+        got = make_fast_infer(cfg, pallas_branches=fuse, fuse_stem_layer1=fuse)(weights, x)
+        torch.cuda.synchronize()
+        assert [fn.launches for fn in kernels] == ([9, 5, 0, 3] if fuse else [0, 0, 4, 3])
+        with torch.inference_mode():
+            xin = x.to(torch.bfloat16).permute(0, 3, 1, 2).contiguous(
+                memory_format=torch.channels_last)
+            xs = weights.model.forward_backbone(xin, **twin_parts(weights, fuse, fuse))
+            want = head_decode_reference([t.permute(0, 2, 3, 1).contiguous() for t in xs],
+                                         weights.head)
+        assert got.shape == (batch, 21, 2) and (got - want).abs().max().item() <= 0.25
+    int8_slice_on_card(cuda, monkeypatch, cfg, batch)
+
+
+@pytest.mark.parametrize("c", [8, 18, 36, 40, 72, 80, 120, 144, 160])
+def test_basic_chain_kernel_serves_any_width(cuda, c):
+    """Widths no kernel instance takes run zero-padded to one that does, and
+    agree with the unpadded twin."""
+    rng = np.random.default_rng(c)
+    params = basic_params(rng, c, 2, cuda)
+    x = bf16(np.abs(rng.normal(size=(2, 16, 16, c))), cuda)
+    before = fused_basic_chain.launches
+    got = fused_basic_chain(x, params, 2)
+    torch.cuda.synchronize()
+    assert fused_basic_chain.launches == before + 2
+    want = basic_chain_reference(x, params, 2)
+    limit = 0.02 * max(1.0, want.float().abs().max().item())
+    assert got.shape == want.shape == (2, 16, 16, c)
+    assert (got.float() - want.float()).abs().max().item() <= limit
+
+
+@pytest.mark.parametrize("cin,cout,k,stride", [(8, 8, 3, 1), (18, 36, 3, 2), (36, 18, 1, 1),
+                                               (40, 80, 3, 1), (120, 20, 3, 1), (256, 8, 3, 1),
+                                               (72, 144, 3, 2), (160, 21, 1, 1)])
+def test_conv_int8_kernel_serves_any_width(cuda, cin, cout, k, stride):
+    """Any Cin and Cout, bit-equal to the twin (weights at a pitch of Cin
+    rounded up to 16, x staged element by element where Cin % 8 != 0)."""
+    rng = np.random.default_rng(cin * cout)
+    q = site_q(rng, cout, k, cin, cuda)
+    x = bf16(np.abs(rng.normal(size=(3, 11, 13, cin))) * 3, cuda)
+    before = conv_int8.launches
+    got = conv_int8(x, q, stride=stride)
+    torch.cuda.synchronize()
+    assert conv_int8.launches == before + 1
+    want = conv_int8_reference(x, q, stride=stride)
+    assert got.shape == want.shape and want.float().abs().max().item() > 1.0
+    assert torch.equal(got, want)
+    got = conv_int8(x, q._replace(kq=pad_kq(q.kq)), stride=stride)   # prepared layout
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("widths,k,batch", [((8, 16, 32, 64), 21, 1), ((18, 36, 72, 144), 21, 4),
+                                            ((40, 80, 160, 320), 128, 2), ((8, 16, 32, 64), 42, 4)])
+def test_head_kernel_serves_any_width(cuda, widths, k, batch):
+    """Any branch width, head width and B*h*w (a 2x2 coarsest map at B=1),
+    K up to 128, bf16 and int8 inputs."""
+    rng = np.random.default_rng(sum(widths) + k)
+    size = 16
+    n = sum(widths)
+    params = HeadParams(f32(rng.normal(size=(n, n)) * 0.05, cuda), f32(rng.normal(size=n) * 0.1, cuda),
+                        f32(rng.normal(size=(n, k)) * 0.3, cuda), f32(rng.normal(size=k) * 0.1, cuda),
+                        f32(np.float32(1.3), cuda))
+    xs = [bf16(rng.normal(size=(batch, size >> i, size >> i, c)), cuda) for i, c in enumerate(widths)]
+    before = fused_head_decode_v2.launches
+    got = fused_head_decode_v2(xs, params)
+    torch.cuda.synchronize()
+    assert fused_head_decode_v2.launches == before + 3
+    want = head_decode_reference(xs, params)
+    assert got.shape == (batch, k, 2) and want.std().item() > 0.5
+    assert (got - want).abs().max().item() <= 0.05
+    xq = [torch.from_numpy(rng.integers(-127, 128, size=t.shape).astype(np.int8)).to(cuda) for t in xs]
+    scales = tuple(torch.tensor(s, device=cuda) for s in (0.011, 0.023, 0.017, 0.029))
+    got = fused_head_decode_v2(xq, params, input_scales=scales)
+    want = head_decode_reference(xq, params, input_scales=scales)
+    assert (got - want).abs().max().item() <= 0.1
+    with pytest.raises(ValueError, match="K <= 128"):
+        fused_head_decode_v2(xs, params._replace(w_final=torch.zeros(n, 129, device=cuda),
+                                                 b_final=torch.zeros(129, device=cuda)))
+    assert fused_head_decode_v2.launches == before + 6
 
 
 # -- the 2D training slice ---------------------------------------------------

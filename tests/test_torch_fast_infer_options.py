@@ -25,7 +25,7 @@ from hrnet_hand_pose_estimation_tpu_torch.config import config_from_dict
 from hrnet_hand_pose_estimation_tpu_torch.core import quant_infer as Q
 from hrnet_hand_pose_estimation_tpu_torch.core.fast_infer import make_fast_infer, precast_variables
 from hrnet_hand_pose_estimation_tpu_torch.ops.kernels.fused_bottleneck import (
-    fused_basic_chain, fused_bottleneck_chain, fused_stem_layer1)
+    fused_basic_chain, fused_bottleneck_chain, fused_stem_layer1, pad_basic_params)
 from hrnet_hand_pose_estimation_tpu_torch.utils.weights import from_jax_variables
 from tests.test_quant_infer import _activated_variables
 
@@ -83,6 +83,25 @@ def test_configuration_matches_jax_fast_infer(tiny_cfg, interpret_kernels, name)
                                              fused_stem_layer1)]
     assert got.shape == want.shape == (4, 21, 2) and want.std() > 0.15
     print(f"{name}: max |port - JAX| {np.abs(got - want).max():.4g} px")
+    np.testing.assert_allclose(got, want, atol=0.05)
+
+
+@pytest.mark.parametrize("name", ["pallas_branches", "branches_and_fused_stem"])
+def test_padded_branches_match_jax_fast_infer(tiny_cfg, interpret_kernels, name):
+    """The branch chains as a card serves them, zero-padded once to widths
+    their kernel takes (``pad_basic_params``, as ``precast_variables`` does
+    on a card: the tiny model's 8 -> 16), through their twins on the CPU ==
+    JAX's make_fast_infer within 0.05 px."""
+    kwargs = CONFIGS[name]
+    v, x = activated(tiny_cfg, "softmax", **MILD)
+    want = np.asarray(jax_make_fast_infer(tiny_cfg, interpret=True, **kwargs)(v, jnp.asarray(x)))
+    cfg = config_from_dict(tiny_cfg.to_dict())
+    weights = precast_variables(cfg, from_jax_variables(v), device="cpu")
+    padded = {n: pad_basic_params(p) for n, p in weights.branches.items()}
+    assert sorted({p[0].shape[-1] for p in padded.values()}) == [16, 32, 64]
+    got = make_fast_infer(cfg, device="cpu", **kwargs)(
+        weights._replace(branches=padded), torch.from_numpy(x)).numpy()
+    assert got.shape == want.shape == (4, 21, 2) and want.std() > 0.15
     np.testing.assert_allclose(got, want, atol=0.05)
 
 
