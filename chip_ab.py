@@ -2,7 +2,7 @@
 """Times one checkout of the PyTorch port on one NVIDIA card, for comparing
 two commits on the same card in one call.
 
-    python3 chip_ab.py <root> <label>             # the three serving steps and three kernels
+    python3 chip_ab.py <root> <label>             # the three serving steps and five kernels
     python3 chip_ab.py <root> <label> --profile   # per-kernel device time of the int8 step
 
 ``<root>`` is a directory holding ``hrnet_hand_pose_estimation_tpu_torch``
@@ -13,10 +13,13 @@ one call (parent, change, change, parent): two calls may land on two cards.
 On pose_hrnet_w32 softmax at 256x256, random weights from seed 0, B=128,
 CUDA events after warm-up, it prints one line
 ``AB {"label", "step_default", "step_new", "step_int8", "head", "layer1",
-"stem_layer1"}`` in ms: the default bf16 step, the bf16 step with
-``pallas_branches=True, fuse_stem_layer1=True``, the int8 step on uint8
-images, and ``fused_head_decode_v2``, ``fused_bottleneck_chain`` and
-``fused_stem_layer1`` alone on the serving path's inputs.  With
+"stem_layer1", "layer1_int8", "branch_int8"}`` in ms: the default bf16
+step, the bf16 step with ``pallas_branches=True, fuse_stem_layer1=True``,
+the int8 step on uint8 images, and ``fused_head_decode_v2``,
+``fused_bottleneck_chain``, ``fused_stem_layer1`` and
+``fused_bottleneck_chain_int8`` alone on the serving paths' inputs, and
+``fused_basic_chain_int8`` summed over the int8 path's 26 branch inputs
+(params from ``prepare_branch_int8``).  With
 ``--profile`` it prints ``AB2 <label> total <ms>`` and the 14 largest
 per-kernel device times of one int8 step (``torch.profiler``, 3 steps).
 Exits non-zero without a card.
@@ -46,6 +49,8 @@ from hrnet_hand_pose_estimation_tpu_torch.ops.kernels.fused_bottleneck import ( 
     fused_bottleneck_chain, fused_stem_layer1)
 from hrnet_hand_pose_estimation_tpu_torch.ops.kernels.fused_head_decode import (  # noqa: E402
     fused_head_decode_v2)
+from hrnet_hand_pose_estimation_tpu_torch.ops.kernels.int8_chain import (  # noqa: E402
+    fused_basic_chain_int8, fused_bottleneck_chain_int8)
 from hrnet_hand_pose_estimation_tpu_torch.ops.s2d import space_to_depth  # noqa: E402
 from hrnet_hand_pose_estimation_tpu_torch.utils.weights import init_variables  # noqa: E402
 
@@ -107,6 +112,36 @@ if "--profile" in sys.argv:
           + json.dumps([(k, round(v, 3)) for k, v in top]), flush=True)
     sys.exit(0)
 
+def recorded(owner, name, call):
+    """Run ``call`` with ``owner.name`` wrapped to record its positional
+    arguments: the list of every call's arguments."""
+    real, seen = getattr(owner, name), []
+
+    def rec(*args):
+        seen.append(args)
+        return real(*args)
+
+    setattr(owner, name, rec)
+    try:
+        call()
+    finally:
+        setattr(owner, name, real)
+    return seen
+
+
+def int8_kernel_inputs():
+    """The int8 path's layer1 chain input and its 26 branch chains, each
+    with the B6 params prepared from the same calibration record."""
+    from hrnet_hand_pose_estimation_tpu_torch.ops.kernels.int8_chain import prepare_branch_int8
+
+    step = lambda: quant(weights, qparams, u8)
+    (x0, chain, flags), = recorded(Q, "fused_bottleneck_chain_int8", step)
+    dstate = {k: v.to(dev) for k, v in state.items()}
+    branches = [(Q._nhwc(x), prepare_branch_int8(dstate, amax, mod, i, n), n)
+                for _, x, mod, i, n in recorded(Q._Walk, "branch", step)]
+    return (x0, chain, flags), branches
+
+
 fast = make_fast_infer(cfg, device=dev)
 new = make_fast_infer(cfg, device=dev, pallas_branches=True, fuse_stem_layer1=True)
 with torch.inference_mode():
@@ -115,6 +150,7 @@ with torch.inference_mode():
     m = weights.model
     x1 = torch.relu(m.conv2(torch.relu(m.conv1(xin)))).permute(0, 2, 3, 1).contiguous()
     x_s2d = space_to_depth(big.to(torch.bfloat16))
+    l1_int8, branches = int8_kernel_inputs()
     out = dict(label=label,
                step_default=time_ms(lambda: fast(weights, big)),
                step_new=time_ms(lambda: new(weights, big)),
@@ -122,5 +158,8 @@ with torch.inference_mode():
                head=time_ms(lambda: fused_head_decode_v2(xs, weights.head)),
                layer1=time_ms(lambda: fused_bottleneck_chain(x1, *weights.layer1)),
                stem_layer1=time_ms(lambda: fused_stem_layer1(x_s2d, weights.stem_flat,
-                                                             *weights.layer1)))
+                                                             *weights.layer1)),
+               layer1_int8=time_ms(lambda: fused_bottleneck_chain_int8(*l1_int8)),
+               branch_int8=sum(time_ms(lambda: fused_basic_chain_int8(*c), iters=5)
+                               for c in branches))
 print("AB " + json.dumps(out), flush=True)

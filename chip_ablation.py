@@ -1,11 +1,15 @@
 #!/usr/bin/env python3
-"""Where the time of the two implicit-GEMM kernels goes, on one NVIDIA card.
+"""Where the time of the implicit-GEMM kernels goes, on one NVIDIA card.
 
 Builds timing-only copies of the port's package under
-``build/ablation/<variant>/``, each with one part of ``csrc/conv_int8.cu``
-and ``csrc/basic_chain.cu`` removed or replaced, and times ``conv_int8`` and
-``fused_basic_chain`` (one BasicBlock) at the flagship's B=128 shape classes
-in each (CUDA events, a subprocess per variant). The variants' outputs are
+``build/ablation/<variant>/``, each with one part of ``csrc/conv_int8.cu``,
+``csrc/basic_chain.cu`` and the W8A8 chains (``csrc/int8_chain.cu``,
+``csrc/basic_int8.cu`` and their shared code in ``csrc/conv_mainloop.cuh``)
+removed or replaced, and times ``conv_int8``, ``fused_basic_chain`` (one
+BasicBlock), ``fused_basic_chain_int8`` (one BasicBlock) and the W8A8
+layer1 block (one 64 -> 256 and one 256 -> 256 launch) at the flagship's
+B=128 shape classes in each (CUDA events, a subprocess per variant). The
+variants' outputs are
 wrong by design, except ``fdiv``, the former quantization by ``__fdiv_rn``,
 whose output hashes must equal ``base``'s. Then it checks on the card that
 the kernel's quantization, ``float(double(x) * (1.0 / double(sa)))``, rounds
@@ -45,17 +49,30 @@ VARIANTS = {
     "no_halo": [("csrc/conv_int8.cu", "for (int pix0 = p0; p0 < pstep && pix0 < npx;",
                  "for (int pix0 = p0; p0 < 0 && pix0 < npx;"),
                 ("csrc/basic_chain.cu", "for (int r = r0; r < halo_px; r += rstep) {",
-                 "for (int r = r0; r < 0; r += rstep) {")],
+                 "for (int r = r0; r < 0; r += rstep) {"),
+                ("csrc/conv_mainloop.cuh", "  if (p0 >= pstep) return;", "  if (p0 >= 0) return;")],
+    # the W8A8 chains' residual tile (the bf16 block input) not copied in
+    "no_residual": [("csrc/basic_int8.cu",
+                     "__bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(a.x + off + n));",
+                     "make_float2(0.0f, 0.0f);"),
+                    ("csrc/int8_chain.cu",
+                     "cp_async16(smem_u32(ys + q * lds + vec * 8), in ? a.x + pix * a.Cin + c0 : a.x, in);",
+                     "(void)in;")],
     "no_weights": [("csrc/conv_mainloop.cuh",
                     "    if (jn < J) load(jn, ring + (jn % stages) * stage_bytes);", "")],
     "no_mma": [("csrc/conv_int8.cu", "if (nb0 + n0 + jn * 8 < a.Cout) mma_s8(",
                 "if (a.relu == 7) mma_s8("),
                ("csrc/basic_chain.cu", "for (int jn = 0; jn < NT; ++jn) mma_bf16(",
-                "for (int jn = 0; jn < NT; ++jn) if (a.H < 0) mma_bf16(")],
+                "for (int jn = 0; jn < NT; ++jn) if (a.H < 0) mma_bf16("),
+               ("csrc/conv_mainloop.cuh", "for (int jn = 0; jn < NT; ++jn) mma_s8(",
+                "for (int jn = 0; jn < NT; ++jn) if (rowb < 0) mma_s8(")],
     "no_store": [("csrc/conv_int8.cu", "      if (oy >= a.Ho || ox >= a.Wo) continue;",
                   "      if (oy >= a.Ho || ox >= a.Wo || a.relu != 7) continue;"),
                  ("csrc/basic_chain.cu", "          if (gy >= a.H || gx >= a.W) continue;",
-                  "          if (gy >= a.H || gx >= a.W || a.H > 0) continue;")],
+                  "          if (gy >= a.H || gx >= a.W || a.H > 0) continue;"),
+                 ("csrc/basic_int8.cu", "          if (gy >= a.H || gx >= a.W) continue;",
+                  "          if (gy >= a.H || gx >= a.W || a.H > 0) continue;"),
+                 ("csrc/int8_chain.cu", "if (pixel(q, pix))", "if (pixel(q, pix) && a.H < 0)")],
     "no_barrier": [("csrc/conv_mainloop.cuh", "    cp_async_wait(stages - 2);\n    __syncthreads();",
                     "    cp_async_wait(stages - 2);")],
 }
@@ -89,6 +106,7 @@ extern "C" int hrnet_quant_check(const void* sas, int n, void* bad, void* stream
 CLASSES_INT8 = [(3, 1, 32, 32, 64), (3, 1, 64, 64, 32), (3, 1, 128, 128, 16), (3, 1, 256, 256, 8),
                 (3, 1, 256, 32, 64), (3, 2, 32, 64, 64), (1, 1, 64, 32, 32)]
 CLASSES_B7 = [(64, 32), (32, 64), (16, 128), (8, 256)]
+INT8_L1_BLOCKS = [(64, True), (256, False)]      # (Cin, projection) of layer1's W8A8 blocks
 
 
 def make(name):
@@ -151,6 +169,30 @@ def time_variant(where: str) -> None:
             p += [torch.from_numpy(rng.normal(size=(3, 3, c, c)).astype(np.float32) * 0.02).to(
                 dev, torch.bfloat16), torch.zeros(c, device=dev)]
         res[f"fused_basic_chain 1 block {h}x{h}x{c}"] = round(ms(lambda: fused_basic_chain(x, p, 1)), 4)
+    from hrnet_hand_pose_estimation_tpu_torch.ops.kernels import int8_chain as I8
+
+    f32 = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+    i8 = lambda *shape: torch.from_numpy(rng.integers(-127, 128, size=shape).astype(np.int8)).to(dev)
+    for h, c in CLASSES_B7:
+        x = torch.relu(torch.from_numpy(rng.normal(size=(128, h, h, c)).astype(np.float32))
+                       ).to(dev, torch.bfloat16)
+        p = (f32(np.full((1, 1), 11.3)), i8(9 * c, c), f32(np.full(c, 3e-3 / np.sqrt(9 * c))),
+             f32(np.zeros(c)), i8(9 * c, c), f32(np.full(c, 1e-4 / np.sqrt(9 * c))), f32(np.zeros(c)))
+        res[f"fused_basic_chain_int8 1 block {h}x{h}x{c}"] = round(
+            ms(lambda: I8.fused_basic_chain_int8(x, p, 1)), 4)
+    for cin, proj in INT8_L1_BLOCKS:
+        x = torch.relu(torch.from_numpy(rng.normal(size=(128, 64, 64, cin)).astype(np.float32))
+                       ).to(dev, torch.bfloat16)
+        p = dict(inv1=f32(np.full((1, 1), 9.7)), kq1=i8(cin, 64), a1=f32(np.full(64, 1e-3)),
+                 c1=f32(np.zeros(64)), kq2=i8(576, 64), a2=f32(np.full(64, 1e-3)),
+                 c2=f32(np.zeros(64)), kq3=i8(64, 256), a3=f32(np.full(256, 1e-4)),
+                 c3=f32(np.zeros(256)))
+        if proj:
+            p.update(kqs=i8(cin, 256), as_=f32(np.full(256, 1e-4)), cs=f32(np.zeros(256)))
+        kp = I8._kernel_params(p)
+        plan = I8.int8_bottleneck_plan(128, 64, 64, cin, 64, 256, proj)
+        res[f"int8 layer1 block {cin}->256 at 64x64"] = round(
+            ms(lambda: I8._launch_bottleneck_int8(x, kp, plan)), 4)
     if (Path(where) / PKG / "csrc" / "quant_check.cu").exists():
         fn = _build.lib().hrnet_quant_check
         fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]

@@ -13,9 +13,10 @@ checks at batch 32 that each path went through its kernels and agrees with
 the same forward through the twins, and times the paths at batch 128. For
 the branch-chain kernel and ``conv_int8`` it also prints each shape class's
 time at batch 128 beside cuDNN's and the bound (``per_class`` in the
-kernels line); for the layer1 kernel each of its four launches and for the
-stem + layer1 path the stem launch alone, at batch 32 and 128, beside
-cuDNN's same folded convs, the bound and the four launches' byte floor.
+kernels line); for the bf16 and the int8 layer1 kernels each of their
+four launches and for the stem + layer1 path the stem launch alone, at
+batch 32 and 128, beside cuDNN's same folded convs, the bound and the four
+launches' byte floor.
 
 Before those, the repo's own experiments/synthetic_smoke.yaml (branches
 8/16/32/64, a head 120 wide, a 2x2 coarsest map) is served on the card at
@@ -28,7 +29,9 @@ Then the last two TPU kernels' own entry points at the flagship's full
 width, on the real tensors of the serving paths: the W8A8 BasicBlock branch
 chain (``prepare_branch_int8`` + ``fused_basic_chain_int8``) over the 26
 branch inputs of the int8 path, against its twin and against the int8
-walk's own per-site branches, and the first version of the fused head
+walk's own per-site branches (per shape class at batch 128 beside the
+bf16 chain kernel's class time and cuDNN's ResLayers), and the first
+version of the fused head
 (``fused_head_decode``) on the four branch tensors of the default bf16 path,
 against its twin and beside the second version.
 
@@ -97,6 +100,7 @@ from hrnet_hand_pose_estimation_tpu_torch.ops.kernels.fused_head_decode import (
     fused_head_decode, fused_head_decode_v2, head_decode_reference, head_decode_v1_reference)
 from hrnet_hand_pose_estimation_tpu_torch.ops.kernels.gaussian_targets import (
     fused_gaussian_targets, gaussian_targets_reference)
+from hrnet_hand_pose_estimation_tpu_torch.ops.kernels import int8_chain as I8
 from hrnet_hand_pose_estimation_tpu_torch.ops.kernels.int8_chain import (
     basic_chain_int8_reference, bottleneck_chain_int8_reference, fused_basic_chain_int8,
     fused_bottleneck_chain_int8, prepare_branch_int8)
@@ -769,6 +773,27 @@ def chain_work(x, params, flags):
     return bound(0, 0, x.numel() * 2 + b * h * w * cout * 2 + nbytes(params), ops_int8=ops)
 
 
+def int8_layer1_launches(x0, chain, flags, model, iters):
+    """Each of the W8A8 layer1 chain's four launches on its real input (the
+    chain's own intermediate tensors), as ``layer1_launches`` for the bf16
+    chain: [{ms, cudnn_ms, bound_ms, bound_by, bytes_ms}], cuDNN timing the
+    same folded bf16 block (``model.layer1[i]``)."""
+    blocks = I8._split(chain, flags)
+    plans = I8._int8_bottleneck_plans(tuple(x0.shape), blocks)
+    rows, y = [], x0
+    for i, (p, plan) in enumerate(zip(blocks, plans)):
+        kp = I8._kernel_params(p)
+        out = I8._launch_bottleneck_int8(y, kp, plan)
+        ms = time_ms(lambda: I8._launch_bottleneck_int8(y, kp, plan), iters)
+        lib = time_ms(lambda: model.layer1[i](y.permute(0, 3, 1, 2)), iters)
+        b_ms, b_by = chain_work(y, tuple(p.values()), ("kqs" in p,))
+        rows.append(dict(block=i, cin=y.shape[3], ms=ms, cudnn_ms=lib, bound_ms=b_ms,
+                         bound_by=b_by, bytes_ms=nbytes([y, out]) / PEAK_BYTES * 1e3,
+                         plan=plan._asdict()))
+        y = out
+    return rows
+
+
 def head_int8_inputs(xs, scales):
     return [torch.clamp(torch.round(t.float() / sa), -127, 127).to(torch.int8)
             for t, sa in zip(xs, scales)]
@@ -859,6 +884,8 @@ def int8_phases(cfg, state, weights, smi, kernels, new_infer):
               f"bit-equal {share:.6f}")
         if not err <= limit:
             raise AssertionError(f"int8 chain disagrees with its plain twin: {err} > {limit}")
+        if not torch.equal(got, want):   # exact by design: int32 sums, the twin's roundings
+            raise AssertionError(f"int8 chain not bit-equal to its plain twin: share {share}")
         b_ms, b_by = chain_work(x0, chain, flags)
         x0_nchw = x0.permute(0, 3, 1, 2)
         chain_entry = dict(
@@ -872,6 +899,9 @@ def int8_phases(cfg, state, weights, smi, kernels, new_infer):
             bound_ms=b_ms, bound_by=b_by,
             # yardstick: the folded layer1 as cuDNN bf16 channels_last convs
             library_ms=time_ms(lambda: model.layer1(x0_nchw), 10))
+        rows = int8_layer1_launches(x0, chain, flags, model, 10)
+        print_launches(f"fused_bottleneck_chain_int8 B={CHECK_BATCH}", rows, smi)
+        chain_entry.update(per_launch_b32=rows, bytes_floor_ms=sum(r["bytes_ms"] for r in rows))
 
         xs, _ = Q.apply_stages(cfg, model, got.permute(0, 3, 1, 2), mode="quant", qparams=rest)
         scales = qparams_head[Q.HEAD_SCALES_KEY]
@@ -973,6 +1003,14 @@ def int8_phases(cfg, state, weights, smi, kernels, new_infer):
             TIME_BATCH, 21, 2, device=dev))[0]
         chain_entry["library_ms_b128"] = time_ms(lambda: model.layer1(x0.permute(0, 3, 1, 2)),
                                                  10)
+        rows = int8_layer1_launches(x0, chain, flags, model, 10)
+        print_launches(f"fused_bottleneck_chain_int8 B={TIME_BATCH}", rows, smi)
+        chain_entry.update(per_launch_b128=rows,
+                           bytes_floor_ms_b128=sum(r["bytes_ms"] for r in rows))
+        print(f"fused_bottleneck_chain_int8 at B={TIME_BATCH}: {l1_ms:.3f} ms, cuDNN folded "
+              f"layer1 {chain_entry['library_ms_b128']:.3f} ms, bound "
+              f"{chain_entry['bound_ms_b128']:.4f} ms, four-launch bytes floor "
+              f"{chain_entry['bytes_floor_ms_b128']:.4f} ms on {smi}")
         # the per-site yardsticks at B=128: cuDNN's bf16 conv and torch._int_mm
         conv_entry["library_ms_b128"] = sum(r["library_ms_b128"] for r in conv_entry["per_class"])
         imm = [(c, int_mm_ms(x, q, k[1])) for k, (c, x, q) in classes.items()]
@@ -1061,24 +1099,34 @@ def branch_int8_phases(cfg, weights, smi, kernels, infer, qparams, amax, dstate)
 
     def totals(chains, params, plain: bool):
         """Times summed over the chains (kernel, cuDNN's ResLayer, the walk's
-        per-site branch, and with ``plain`` the twin) and their bound."""
-        tot = dict(ms=0.0, bound_ms=0.0, library_ms=0.0, walk_ms=0.0)
-        if plain:
-            tot["plain_ms"] = 0.0
+        per-site branch, and with ``plain`` the twin) and their bound, in all
+        and per shape class (``per_class``, keyed by "HxWxC")."""
+        keys = ("ms", "bound_ms", "library_ms", "walk_ms") + (("plain_ms",) if plain else ())
+        tot = dict.fromkeys(keys, 0.0)
+        per_class = {}
         t_ops = t_bytes = 0.0
         for (mod, i, n, x, _), p in zip(chains, params):
             x_nchw = x.permute(0, 3, 1, 2)
-            tot["ms"] += time_ms(lambda: fused_basic_chain_int8(x, p, n), 5)
-            tot["library_ms"] += time_ms(lambda: res_layer(mod, i)(x_nchw), 5)
-            tot["walk_ms"] += time_ms(lambda: walk_branch(mod, i, n, x), 5)
+            row = dict(ms=time_ms(lambda: fused_basic_chain_int8(x, p, n), 5),
+                       library_ms=time_ms(lambda: res_layer(mod, i)(x_nchw), 5),
+                       walk_ms=time_ms(lambda: walk_branch(mod, i, n, x), 5))
             if plain:
-                tot["plain_ms"] += time_ms(lambda: basic_chain_int8_reference(x, p, n), 1,
-                                           warmup=0)
-            b_ms, b_by = branch_int8_work(x, p)
-            tot["bound_ms"] += b_ms
-            t_ops, t_bytes = (t_ops + b_ms, t_bytes) if b_by == "operations" else (
-                t_ops, t_bytes + b_ms)
+                row["plain_ms"] = time_ms(lambda: basic_chain_int8_reference(x, p, n), 1,
+                                          warmup=0)
+            row["bound_ms"], b_by = branch_int8_work(x, p)
+            t_ops, t_bytes = (t_ops + row["bound_ms"], t_bytes) if b_by == "operations" else (
+                t_ops, t_bytes + row["bound_ms"])
+            _, h, w, c = x.shape
+            cls = per_class.setdefault(f"{h}x{w}x{c}", dict(
+                {"class": f"{h}x{w}x{c}", "chains": 0, "launches": 0, "bound_by": b_by},
+                **dict.fromkeys(keys, 0.0)))
+            cls["chains"] += 1
+            cls["launches"] += n
+            for k in keys:
+                tot[k] += row[k]
+                cls[k] += row[k]
         tot["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+        tot["per_class"] = per_class
         return tot
 
     with phase("int8 branch chains"), torch.inference_mode():
@@ -1106,6 +1154,9 @@ def branch_int8_phases(cfg, weights, smi, kernels, infer, qparams, amax, dstate)
             if not err <= limit:
                 raise AssertionError(f"fused_basic_chain_int8 {label}: |kernel - plain| "
                                      f"{err} > {limit}")
+            if not torch.equal(got, want):   # exact by design, as the layer1 chain
+                raise AssertionError(f"fused_basic_chain_int8 {label}: not bit-equal to its "
+                                     f"plain twin, share {eq / got.numel()}")
             worst = max(worst, err)
         print(f"fused_basic_chain_int8 bit-equal share over the {len(cases)} classes: "
               f"{equal / total:.6f} (predicted 1)")
@@ -1153,6 +1204,17 @@ def branch_int8_phases(cfg, weights, smi, kernels, infer, qparams, amax, dstate)
                   f"bf16 path's: {b7['library_ms' + suffix]:.3f} ms); B7 (bf16 chain kernel) "
                   f"{b7['ms' + suffix]:.3f} ms, on {smi}")
         print(f"fused_basic_chain_int8 plain twin at B={CHECK_BATCH}: {entry['plain_ms']:.3f} ms")
+        b7_class = {r["class"]: r for r in b7["per_class"]}
+        for cls, row in entry[f"per_class_b{TIME_BATCH}"].items():
+            print(f"fused_basic_chain_int8 {cls} x{row['chains']} chains at B={TIME_BATCH}: "
+                  f"{row['ms']:.3f} ms; B7 (bf16 chain kernel) "
+                  f"{b7_class[cls]['ms_b128']:.3f} ms, cuDNN bf16 ResLayers "
+                  f"{row['library_ms']:.3f} ms, the int8 walk's per-site branches "
+                  f"{row['walk_ms']:.3f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}), "
+                  f"share of the bound {row['bound_ms'] / row['ms']:.4f} on {smi}")
+            row["b7_ms"] = b7_class[cls]["ms_b128"]
+        for key in ("per_class", f"per_class_b{TIME_BATCH}"):
+            entry[key] = list(entry[key].values())
         del chains
     kernels.append(entry)
 

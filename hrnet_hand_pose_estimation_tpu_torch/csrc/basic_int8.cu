@@ -8,10 +8,10 @@
 // with int8 x int8 -> int32 products on the tensor cores (mma.sync.m16n8k32).
 // A branch chain of n blocks is n launches (ops/kernels/int8_chain.py).
 //
-// Bit parity with JAX, as in csrc/int8_chain.cu: the block input is
-// MULTIPLIED by inv1, rounding is half to even (rintf), the clip is to
-// +-127, every a*acc + c rounds the product and the sum separately
-// (__fmul_rn, __fadd_rn), and the residual is the bf16 block input in f32.
+// Bit parity with JAX, as in int8_chain.cu: the block input is MULTIPLIED
+// by inv1, rounding is half to even (rintf), the clip is to +-127, every
+// a*acc + c rounds the product and the sum separately (__fmul_rn,
+// __fadd_rn), and the residual is the bf16 block input in f32.
 //
 // What bounds it on the H100: a block's two 3x3 convs do 36*C^2 int8
 // operations per pixel against 4*C bytes of bf16 in and out, 9*C per byte,
@@ -19,211 +19,181 @@
 // the 32-wide branch, the 64-wide one sits at the ridge, and the int8
 // tensor cores bound the 128- and 256-wide ones.
 //
-// Design: the tile structure of the bf16 BasicBlock kernel
-// (csrc/basic_chain.cu) with the int8 rules of the layer1 chain
-// (csrc/int8_chain.cu).  One CUDA block = one sample x a TH x TW output
-// tile (TW = min(W, 32), TH the largest of 8, 4, 2, 1 whose shared memory
-// fits).  The input halo, (TH+4) x (TW+4) pixels, is quantized once into
-// shared memory, row-major with row width HWd = TW + 4 and 0 outside the
-// image; in that flattened layout a 3x3 tap is a constant row shift
-// (dy*HWd + dx), so any 16 consecutive rows form an mma A tile for every
-// tap, also on the 8- and 16-wide branches (rows on the halo's wrapped
-// columns are computed and never used).  conv1 covers the (TH+2) x (TW+2)
-// ring conv2 reads, and its int8 output t stays in shared memory, set to 0
-// outside the image: conv2's zero padding applies to t, not to xq.
-// mma.sync wants both operands with K contiguous, and the weights come as
-// (9C, C) with the output channel contiguous, so each conv stages its
-// weights transposed in shared memory, 32 output channels at a time (at
-// C = 256 a whole 3x3 conv is 590 KB, more than shared memory holds), and
-// every warp runs the full K loop (9 taps x 32-channel slices) for a
-// 16-row tile and the slab's 32 channels.  Where C % 32 == 16 (the w48
-// widths) the last K slice carries 16 channels with the upper half of its
-// fragments set to 0, as in csrc/conv_int8.cu.  The weights reloaded per
-// tile, one launch per block and no TMA/wgmma are what this first version
-// pays.
-#include "common.cuh"
+// The design (an implicit GEMM on the shared mainloop of conv_mainloop.cuh,
+// the structure of the bf16 BasicBlock kernel basic_chain.cu with the int8
+// operands of conv_int8.cu): one block = one sample x a TH x TW output tile
+// (up to 16 x 32) x all C output channels.
+// - The input halo, (TH+4) x (TW+4) pixels, is quantized once into shared
+//   memory, int8 rows at an odd multiple of 16 bytes, 0 outside the image.
+// - conv1 runs on exactly the (TH+2) x (TW+2) ring that conv2 reads: each
+//   lane's ldmatrix row address is its own ring pixel's halo row plus the
+//   tap's offset.  Its requant epilogue writes t from the accumulator
+//   registers to shared memory, 0 outside the image (conv2's zero padding
+//   applies to t, not to xq); t never touches device memory.
+// - conv2 runs on the TH x TW tile pixels, reading t the same way; its
+//   epilogue dequantizes, adds the residual (read from device memory, where
+//   this block's own halo load has just left it in L2) and writes y.
+// - The weights arrive N-major (prepare_branch_int8 stores each kq as the
+//   (9C, C) view of (C, 9C) storage), so B comes from the ring by ldmatrix
+//   without .trans.  Slabs of KB = 64 (else 32) input channels of one tap x
+//   all C output channels stream through a ring of 2-4 stages by 16-byte
+//   cp.async: conv2's first slabs are in flight while conv1 finishes.
+//   Where C % 32 == 16 (the w48 widths) the last slab of each tap holds 16
+//   channels and the ring zero-fills its upper 16 bytes, so the int32 sum is
+//   exact whatever A holds there.
+// - 8 warps: WM along the tile's pixels, 8 / WM along the channels, each an
+//   MT x NT grid of m16n8k32 mma.sync tiles.  The launch plan (tile, warp
+//   grid, slab width, ring depth, shared memory, grid) is made in Python,
+//   ops/kernels/int8_chain.py::basic_int8_plan; this entry checks it.
+#include "conv_mainloop.cuh"
 
 namespace hrnet {
 namespace {
-
-constexpr int kSlab = 32;   // output channels per staged weight slab
 
 struct BasicInt8Args {
   const bf16* x;           // (B, H, W, C)
   bf16* out;               // (B, H, W, C)
   const float* inv1;       // () 1/sa1
-  const signed char* kq1;  // (9*C, C), rows (ky, kx, ci)
+  const signed char* w1;   // kq1 N-major: (C, 9C), K = tap * C + ci
   const float *a1, *c1;    // (C,) folded with conv2's 1/sa2
-  const signed char* kq2;  // (9*C, C)
+  const signed char* w2;   // kq2 N-major: (C, 9C)
   const float *a2, *c2;    // (C,) plain dequant
   int H, W, C;
-  int TH, TW, HWd;         // tile rows and columns, halo row width TW + 4
-  int M1, M2;              // rows computed by conv1 and by conv2 (multiples of 16)
-  int XR;                  // rows of the staged input halo
-  int ldx, ldw;            // bytes per row of the int8 activations and staged weights
+  int TH, TW;              // output tile
+  int WM;                  // warps along the pixels; 8 / WM along the channels
+  int KB;                  // bytes (input channels of one tap) per weight slab: 32 or 64
+  int stages;              // depth of the weight ring
 };
 
-__host__ __device__ inline int round16(int v) { return (v + 15) / 16 * 16; }
-
-// Bytes per shared-memory row of n int8 values (n % 16 == 0): n + 16 or
-// n + 32, whichever makes the stride in 4-byte words 4 mod 8, so that the
-// 8 rows one fragment load touches fall on 8 different groups of banks.
-__host__ __device__ inline int row_stride(int n) {
-  return ((n + 16) / 4) % 8 == 4 ? n + 16 : n + 32;
+// shared memory of a plan: quantized halo, t ring, weight ring
+__host__ inline long basic_int8_smem(int C, int TH, int TW, int KB, int stages) {
+  return (long)pitch_s8(C) * ((TH + 4L) * (TW + 4) + (TH + 2L) * (TW + 2)) +
+         (long)stages * C * (KB + 16);
 }
 
-// The flattened layout, as in csrc/basic_chain.cu.  Halo row L = hr * HWd + hc
-// holds image pixel (y0 - 2 + hr, x0 - 2 + hc).  conv1's row q is halo row
-// q + HWd + 1 and conv2's row q is halo row q + 2*HWd + 2, so tap (dy, dx)
-// of either reads its source at row q + dy*HWd + dx.  M1 >= M2 + 2*HWd + 2
-// keeps every row conv2 reads inside conv1's rows, and XR >= M1 + 2*HWd + 2
-// every row conv1 reads inside the staged halo.
-__host__ inline BasicInt8Args geometry(int H, int W, int C, int TH) {
-  BasicInt8Args a{};
-  a.H = H;
-  a.W = W;
-  a.C = C;
-  a.TH = TH;
-  a.TW = W < 32 ? W : 32;
-  a.HWd = a.TW + 4;
-  a.M2 = round16((TH - 1) * a.HWd + a.TW);
-  a.M1 = round16(a.M2 + 2 * a.HWd + 2);
-  const int halo = (TH + 4) * a.HWd;
-  a.XR = halo > a.M1 + 2 * a.HWd + 2 ? halo : a.M1 + 2 * a.HWd + 2;
-  a.ldx = row_stride(C);
-  a.ldw = row_stride(9 * C);
-  return a;
-}
+template <int MT, int NT>
+__global__ void __launch_bounds__(kThreads, (MT * NT <= 8) ? 4 : (MT * NT <= 16) ? 2 : 1)
+    basic_int8_kernel(BasicInt8Args a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int C = a.C, ld = pitch_s8(C);      // bytes per shared-memory pixel row
+  const int HW = a.TW + 4, RW = a.TW + 2;   // halo and t-ring widths
+  const int halo_px = (a.TH + 4) * HW, ring_px = (a.TH + 2) * RW, tile_px = a.TH * a.TW;
+  signed char* xs = reinterpret_cast<signed char*>(smem);
+  signed char* ts = xs + halo_px * ld;
+  unsigned char* ring = reinterpret_cast<unsigned char*>(ts + ring_px * ld);
+  const int rowb = a.KB + 16, stage_bytes = C * rowb;
 
-__host__ inline size_t smem_bytes(const BasicInt8Args& a) {
-  return (size_t)(a.XR + a.M1) * a.ldx + (size_t)kSlab * a.ldw;
-}
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int wm = warp % a.WM, wn = warp / a.WM;
+  const int tiles_x = (a.W + a.TW - 1) / a.TW;
+  const int x0 = (blockIdx.x % tiles_x) * a.TW, y0 = (blockIdx.x / tiles_x) * a.TH;
+  const size_t img = (size_t)blockIdx.y * a.H * a.W;
 
-// The int32 sums of a 3x3 conv over a flattened int8 source in shared memory
-// (output row q, tap (dy, dx) reads source row q + dy*HWd + dx) for `rows`
-// rows and all C output channels.  The weights kq (9C rows (ky, kx, ci) x C
-// columns, device memory) are staged transposed into ws one slab of kSlab
-// output channels at a time.  epi(q, n, acc_n, acc_n1) consumes the sums of
-// row q at channels n and n + 1.  Starts with a barrier, so the source may
-// have been written just before the call.
-template <class Epi>
-__device__ inline void conv3x3_int8(const signed char* src, int ld, int rows,
-                                    const signed char* kq, int C, int HWd, signed char* ws,
-                                    int ldw, Epi epi) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const int K = 9 * C;
-  for (int n0 = 0; n0 < C; n0 += kSlab) {
-    const int nlen = C - n0 < kSlab ? C - n0 : kSlab;
-    __syncthreads();   // the source is written and the previous slab is read
-    // ws[n * ldw + k] = kq[k * C + n0 + n], four k per 32-bit store
-    for (int i = threadIdx.x; i < (K / 4) * nlen; i += kThreads) {
-      const int n = i % nlen, k = (i / nlen) * 4;
-      const signed char* s = kq + (size_t)k * C + n0 + n;
-      const unsigned w = (unsigned)(unsigned char)s[0] |
-                         ((unsigned)(unsigned char)s[C] << 8) |
-                         ((unsigned)(unsigned char)s[2 * C] << 16) |
-                         ((unsigned)(unsigned char)s[3 * C] << 24);
-      *reinterpret_cast<unsigned*>(ws + (size_t)n * ldw + k) = w;
+  // -- the weight stream: slab j = (conv, tap, slice of KB channels), C rows
+  // of KB bytes; each thread copies one 16-byte column and steps rows.  A
+  // column past C (the upper half of a 16-channel tail) is zero-filled.
+  const int cs = (C + a.KB - 1) / a.KB;   // slabs per tap
+  const int nk = 9 * cs, J = 2 * nk, K = 9 * C;
+  const int cpr = a.KB / 16, rstep = kThreads / cpr;
+  const int part = tid % cpr, r0 = tid / cpr;
+  auto load = [&](int j, unsigned char* st) {
+    const int conv = j / nk, jj = j - conv * nk, tap = jj / cs;
+    const int c = (jj - tap * cs) * a.KB + part * 16;
+    const bool valid = c < C;
+    const signed char* src = (conv ? a.w2 : a.w1) + tap * C + c;
+    const unsigned dst = smem_u32(st) + part * 16;
+    for (int r = r0; r < C; r += rstep)
+      cp_async16(dst + r * rowb, valid ? src + (size_t)r * K : a.w1, valid);
+  };
+  ring_prologue(ring, stage_bytes, a.stages, J, load);
+
+  // -- the input halo, quantized once while the first slabs are in flight
+  // (the first barrier of conv1's ring_run publishes it)
+  quantize_window(xs, ld, a.x + img * C, a.H, a.W, C, y0 - 2, x0 - 2, HW, halo_px, *a.inv1);
+
+  const int n0 = wn * NT * 8;   // the warp's first output channel
+  const unsigned bl = b_lane_s8(n0, rowb, lane);
+  int acc[MT][NT][4];
+
+  for (int conv = 0; conv < 2; ++conv) {
+    const int M = conv == 0 ? ring_px : tile_px;   // this conv's pixels
+    const int DW = conv == 0 ? RW : a.TW;          // width of their grid
+    const int SW = conv == 0 ? HW : RW;            // width of the grid they read
+    const signed char* src = conv == 0 ? xs : ts;
+    // each lane's A row: pixel p of m tile wm + i * WM, read at tap (0, 0)
+    unsigned al[MT];
+    bool ok[MT];
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+      const int m = (wm + i * a.WM) * 16;
+      ok[i] = m < M;
+      int p = m + (lane & 15);
+      if (p >= M) p = 0;   // rows past the conv's pixels: computed, never stored
+      const int py = p / DW;
+      al[i] = a_lane_s8(src, py * SW + p - py * DW, ld, lane);
     }
-    __syncthreads();
-    for (int mt = warp; mt < rows / 16; mt += kWarps) {
-      int acc[4][4];
+    zero_s32(acc);
+    ring_run(ring, stage_bytes, a.stages, J, conv * nk, conv * nk + nk, load,
+             [&](int j, unsigned char* st) {
+      const int jj = j - conv * nk, tap = jj / cs;
+      const unsigned off = ((tap / 3) * SW + tap % 3) * ld + (jj - tap * cs) * a.KB;
+      slab_mma_s8<MT, NT>(acc, al, ok, off, smem_u32(st) + bl, rowb, a.KB);
+    });
+
+    // -- epilogues from the registers: c0, c1 at row g, c2, c3 at row g + 8,
+    // columns 2 * t4 and 2 * t4 + 1 of each n8 tile
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
+    for (int i = 0; i < MT; ++i) {
 #pragma unroll
-        for (int r = 0; r < 4; ++r) acc[j][r] = 0;
-      for (int tap = 0; tap < 9; ++tap) {
-        const signed char* p0 =
-            src + (size_t)(mt * 16 + (tap / 3) * HWd + tap % 3 + g) * ld + 4 * t;
-        const signed char* p1 = p0 + 8 * ld;
-        const signed char* wt = ws + (size_t)g * ldw + tap * C + 4 * t;
-        for (int c0 = 0; c0 < C; c0 += 32) {
-          // one 32-channel K slice; the last one of C % 32 == 16 carries 16
-          const bool full = c0 + 32 <= C;
-          unsigned fa[4], fb[2];
-          fa[0] = *reinterpret_cast<const unsigned*>(p0 + c0);
-          fa[1] = *reinterpret_cast<const unsigned*>(p1 + c0);
-          fa[2] = full ? *reinterpret_cast<const unsigned*>(p0 + c0 + 16) : 0u;
-          fa[3] = full ? *reinterpret_cast<const unsigned*>(p1 + c0 + 16) : 0u;
+      for (int h = 0; h < 2; ++h) {
+        const int p = (wm + i * a.WM) * 16 + g + 8 * h;
+        if (p >= M) continue;
+        const int py = p / DW, px = p - py * DW;
+        if (conv == 0) {
+          // t = requant(conv1) at ring pixel p, 0 outside the image
+          const int gy = y0 - 1 + py, gx = x0 - 1 + px;
+          const bool in = gy >= 0 && gy < a.H && gx >= 0 && gx < a.W;
 #pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            if (j * 8 < nlen) {
-              const signed char* pb = wt + (size_t)j * 8 * ldw + c0;
-              fb[0] = *reinterpret_cast<const unsigned*>(pb);
-              fb[1] = full ? *reinterpret_cast<const unsigned*>(pb + 16) : 0u;
-              mma_s8(acc[j], fa, fb);
-            }
+          for (int jn = 0; jn < NT; ++jn) {
+            const int n = n0 + jn * 8 + 2 * t4;
+            const float2 s = *reinterpret_cast<const float2*>(a.a1 + n);
+            const float2 c = *reinterpret_cast<const float2*>(a.c1 + n);
+            store_s8x2(ts + p * ld + n, in ? requant_s8(acc[i][jn][2 * h], s.x, c.x) : 0,
+                       in ? requant_s8(acc[i][jn][2 * h + 1], s.y, c.y) : 0);
+          }
+        } else {
+          // y = bf16(relu((a2 * conv2 + c2) + float(x))) at tile pixel p
+          const int gy = y0 + py, gx = x0 + px;
+          if (gy >= a.H || gx >= a.W) continue;
+          const size_t off = (img + (size_t)gy * a.W + gx) * C;
+#pragma unroll
+          for (int jn = 0; jn < NT; ++jn) {
+            const int n = n0 + jn * 8 + 2 * t4;
+            const float2 s = *reinterpret_cast<const float2*>(a.a2 + n);
+            const float2 c = *reinterpret_cast<const float2*>(a.c2 + n);
+            const float2 r =
+                __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(a.x + off + n));
+            const float v0 = __fadd_rn(dequant(acc[i][jn][2 * h], s.x, c.x), r.x);
+            const float v1 = __fadd_rn(dequant(acc[i][jn][2 * h + 1], s.y, c.y), r.y);
+            *reinterpret_cast<__nv_bfloat162*>(a.out + off + n) =
+                __floats2bfloat162_rn(fmaxf(v0, 0.0f), fmaxf(v1, 0.0f));
           }
         }
       }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        if (j * 8 < nlen) {
-          const int n = n0 + j * 8 + 2 * t;
-          epi(mt * 16 + g, n, acc[j][0], acc[j][1]);
-          epi(mt * 16 + g + 8, n, acc[j][2], acc[j][3]);
-        }
-      }
     }
   }
+  cp_async_wait(0);   // no copy outlives the block (the tail groups are empty)
 }
 
-__global__ void __launch_bounds__(kThreads) basic_int8_kernel(BasicInt8Args a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  signed char* xq = reinterpret_cast<signed char*>(smem);   // XR x ldx: quantized halo
-  signed char* ts = xq + (size_t)a.XR * a.ldx;              // M1 x ldx: t, conv1's rows
-  signed char* ws = ts + (size_t)a.M1 * a.ldx;              // kSlab x ldw: staged weights
-
-  const int tiles_x = (a.W + a.TW - 1) / a.TW;
-  const int x0 = (blockIdx.x % tiles_x) * a.TW;
-  const int y0 = (blockIdx.x / tiles_x) * a.TH;
-  const size_t img = (size_t)blockIdx.y * a.H * a.W;
-  const int HWd = a.HWd, C = a.C;
-  const float inv1 = *a.inv1;
-
-  // -- quantize the input halo once: clip(round(x * inv1)); 0 outside the
-  //    image and on the slack rows
-  const int vpr = C / 8, halo = (a.TH + 4) * HWd;
-  for (int i = threadIdx.x; i < a.XR * vpr; i += kThreads) {
-    const int r = i / vpr, v = i % vpr;
-    const int gy = y0 - 2 + r / HWd, gx = x0 - 2 + r % HWd;
-    signed char q[8] = {0, 0, 0, 0, 0, 0, 0, 0};
-    if (r < halo && gy >= 0 && gy < a.H && gx >= 0 && gx < a.W) {
-      const uint4 raw = *reinterpret_cast<const uint4*>(
-          a.x + (img + (size_t)gy * a.W + gx) * C + v * 8);
-      const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-      for (int j = 0; j < 4; ++j) {
-        const float2 f = __bfloat1622float2(h[j]);
-        q[2 * j] = clip_s8(__fmul_rn(f.x, inv1));
-        q[2 * j + 1] = clip_s8(__fmul_rn(f.y, inv1));
-      }
-    }
-    *reinterpret_cast<uint2*>(xq + (size_t)r * a.ldx + v * 8) = pack8(q);
-  }
-
-  // -- t = requant(conv1(xq)) on conv1's rows, 0 outside the image
-  conv3x3_int8(xq, a.ldx, a.M1, a.kq1, C, HWd, ws, a.ldw, [&](int q, int n, int s0, int s1) {
-    const int L = q + HWd + 1;
-    const int gy = y0 - 2 + L / HWd, gx = x0 - 2 + L % HWd;
-    const bool inside = gy >= 0 && gy < a.H && gx >= 0 && gx < a.W;
-    signed char* dst = ts + (size_t)q * a.ldx + n;
-    dst[0] = inside ? requant_s8(s0, a.a1[n], a.c1[n]) : 0;
-    dst[1] = inside ? requant_s8(s1, a.a1[n + 1], a.c1[n + 1]) : 0;
-  });
-
-  // -- y = bf16(relu(dequant(conv2(t)) + x)) on the tile's pixels
-  conv3x3_int8(ts, a.ldx, a.M2, a.kq2, C, HWd, ws, a.ldw, [&](int q, int n, int s0, int s1) {
-    const int L = q + 2 * HWd + 2;
-    const int oy = L / HWd - 2, ox = L % HWd - 2;
-    const int gy = y0 + oy, gx = x0 + ox;
-    if (ox < 0 || ox >= a.TW || oy >= a.TH || gy >= a.H || gx >= a.W) return;
-    const size_t off = (img + (size_t)gy * a.W + gx) * C + n;
-    const float2 res = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(a.x + off));
-    const float v0 = fmaxf(__fadd_rn(dequant(s0, a.a2[n], a.c2[n]), res.x), 0.0f);
-    const float v1 = fmaxf(__fadd_rn(dequant(s1, a.a2[n + 1], a.c2[n + 1]), res.y), 0.0f);
-    *reinterpret_cast<__nv_bfloat162*>(a.out + off) = __floats2bfloat162_rn(v0, v1);
-  });
+template <int MT, int NT>
+int launch(const BasicInt8Args& a, int B, int smem, cudaStream_t stream) {
+  static int raised[kMaxDevices] = {};
+  const cudaError_t err = raise_smem(basic_int8_kernel<MT, NT>, smem, raised);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(((a.W + a.TW - 1) / a.TW) * ((a.H + a.TH - 1) / a.TH), B);
+  basic_int8_kernel<MT, NT><<<grid, kThreads, smem, stream>>>(a);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -231,38 +201,40 @@ __global__ void __launch_bounds__(kThreads) basic_int8_kernel(BasicInt8Args a) {
 
 using namespace hrnet;
 
-// Launch one W8A8 BasicBlock on PyTorch's stream.  C % 16 == 0 (the wrapper
-// checks); the tile height is the largest of 8, 4, 2, 1 rows (at most H)
-// whose shared memory fits one block on an SM.  Returns cudaGetLastError(),
-// or cudaErrorInvalidValue for a C no tile fits.
+// Launch one W8A8 BasicBlock on PyTorch's stream with the plan of
+// int8_chain.py::basic_int8_plan: tile TH x TW, WM warps along the pixels
+// with MT m16 tiles each, NT n8 tiles per warp along the channels
+// ((8 / WM) * NT * 8 == C), KB bytes of K per weight slab, a ring of
+// `stages` slabs, `smem` bytes.  The weights N-major (C, 9C); x and the
+// weights 16-byte aligned (the wrapper checks).  A plan this file has no
+// instance for, or whose numbers do not add up, returns
+// cudaErrorInvalidValue; else cudaGetLastError() after the launch.
 extern "C" int hrnet_basic_int8_block(const void* x, void* out, const void* inv1,
                                       const void* kq1, const void* a1, const void* c1,
                                       const void* kq2, const void* a2, const void* c2, int B,
-                                      int H, int W, int C, void* stream) {
-  if (C <= 0 || C % 16) return (int)cudaErrorInvalidValue;
-  const size_t limit = 227 * 1024;
-  BasicInt8Args a{};
-  bool found = false;
-  for (int th = 8; th >= 1 && !found; th /= 2) {
-    if (th > H && th > 1) continue;
-    a = geometry(H, W, C, th);
-    found = smem_bytes(a) <= limit;
-  }
-  if (!found) return (int)cudaErrorInvalidValue;
-  a.x = static_cast<const bf16*>(x);
-  a.out = static_cast<bf16*>(out);
-  a.inv1 = static_cast<const float*>(inv1);
-  a.kq1 = static_cast<const signed char*>(kq1);
-  a.a1 = static_cast<const float*>(a1);
-  a.c1 = static_cast<const float*>(c1);
-  a.kq2 = static_cast<const signed char*>(kq2);
-  a.a2 = static_cast<const float*>(a2);
-  a.c2 = static_cast<const float*>(c2);
-  const size_t smem = smem_bytes(a);
-  cudaError_t err = cudaFuncSetAttribute(basic_int8_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(((W + a.TW - 1) / a.TW) * ((H + a.TH - 1) / a.TH), B);
-  basic_int8_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
-  return (int)cudaGetLastError();
+                                      int H, int W, int C, int TH, int TW, int WM, int MT, int NT,
+                                      int KB, int stages, int smem, void* stream) {
+  const bool ok = C % 16 == 0 && C >= 16 && C <= 8 * kThreads &&
+                  (WM == 1 || WM == 2 || WM == 4 || WM == 8) && (kWarps / WM) * NT * 8 == C &&
+                  (KB == 32 || (KB == 64 && C % 64 == 0)) && stages >= 2 && stages <= 8 &&
+                  TH >= 1 && TW >= 1 && TH <= H && TW <= W && smem <= kSmemLimit &&
+                  smem == basic_int8_smem(C, TH, TW, KB, stages) &&
+                  (WM * MT) * 16 >= (TH + 2) * (TW + 2);
+  if (!ok) return (int)cudaErrorInvalidValue;
+  typedef const signed char* I8;
+  typedef const float* F32;
+  BasicInt8Args a{static_cast<const bf16*>(x), static_cast<bf16*>(out), static_cast<F32>(inv1),
+                  static_cast<I8>(kq1), static_cast<F32>(a1), static_cast<F32>(c1),
+                  static_cast<I8>(kq2), static_cast<F32>(a2), static_cast<F32>(c2),
+                  H, W, C, TH, TW, WM, KB, stages};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (NT == 2 && MT == 8) return launch<8, 2>(a, B, smem, s);
+  if (NT == 4 && MT == 2) return launch<2, 4>(a, B, smem, s);
+  if (NT == 4 && MT == 4) return launch<4, 4>(a, B, smem, s);
+  if (NT == 4 && MT == 6) return launch<6, 4>(a, B, smem, s);
+  if (NT == 4 && MT == 8) return launch<8, 4>(a, B, smem, s);
+  if (NT == 6 && MT == 2) return launch<2, 6>(a, B, smem, s);
+  if (NT == 6 && MT == 4) return launch<4, 6>(a, B, smem, s);
+  if (NT == 8 && MT == 4) return launch<4, 8>(a, B, smem, s);
+  return (int)cudaErrorInvalidValue;
 }

@@ -1,5 +1,6 @@
-// The implicit-GEMM convolution mainloop shared by the bf16 BasicBlock kernel
-// (basic_chain.cu) and the W8A8 site conv (conv_int8.cu).
+// The implicit-GEMM convolution mainloop shared by the bf16 kernels
+// (basic_chain.cu, fused_bottleneck.cu, stem_layer1.cu) and the W8A8 ones
+// (conv_int8.cu, int8_chain.cu, basic_int8.cu).
 //
 // M is the output pixels of a block's tile, N its output channels, and K walks
 // (tap, input-channel slab).  Both kernels
@@ -124,5 +125,125 @@ __device__ __forceinline__ void ring_run(unsigned char* ring, int stage_bytes, i
     compute(j, ring + (j % stages) * stage_bytes);
   }
 }
+
+// ---- the int8 operands (int8_chain.cu, basic_int8.cu; conv_int8.cu keeps
+// its own copy of the same loop).  Activations are int8 pixel rows in
+// shared memory, `ld` bytes apart (an odd multiple of 16); weights are
+// N-major slabs in the ring, one row of KB bytes of K per output channel,
+// `rowb` = KB + 16 bytes apart.  ldmatrix moves 16-bit elements, so .trans
+// cannot transpose int8: B has to arrive N-major, and ldmatrix without .trans
+// then gives mma.m16n8k32's B fragments directly.
+//
+// This lane's ldmatrix address (bytes into a stage) of the B fragments of
+// channels n0 ..: matrix q = lane / 8 holds channels n0 + (q / 2) * 8 + lane
+// % 8, K bytes (q % 2) * 16 .. (b0 and b1 of two n8 tiles per ldsm_x4).
+__device__ __forceinline__ unsigned b_lane_s8(int n0, int rowb, int lane) {
+  return (n0 + ((lane >> 4) << 3) + (lane & 7)) * rowb + ((lane >> 3) & 1) * 16;
+}
+
+// This lane's ldmatrix address of the A rows of pixel row `row` (int8, `ld`
+// bytes per row): lanes 0-15 the row's first 16 bytes of a k32 step, lanes
+// 16-31 the next 16 (a0..a3 of mma.m16n8k32 by one ldsm_x4).
+__device__ __forceinline__ unsigned a_lane_s8(const signed char* rows, int row, int ld,
+                                              int lane) {
+  return smem_u32(rows + row * ld + (lane >> 4) * 16);
+}
+
+// acc += A (MT m16 tiles, row addresses a[i] + a_off) x one ring slab of KB
+// bytes of K (sb: this lane's b_lane_s8 address in the stage, rows rowb
+// bytes apart), int8 x int8 -> int32 by mma.sync m16n8k32; m16 tiles with
+// ok[i] false are skipped (warp-uniform).  NT is even.
+template <int MT, int NT>
+__device__ __forceinline__ void slab_mma_s8(int (&acc)[MT][NT][4], const unsigned (&a)[MT],
+                                            const bool (&ok)[MT], unsigned a_off, unsigned sb,
+                                            int rowb, int KB) {
+  for (int kk = 0; kk < KB; kk += 32) {
+    // every fragment load of the k32 step first, then the MMAs
+    unsigned b[NT][2], fa[MT][4];
+#pragma unroll
+    for (int jp = 0; jp < NT / 2; ++jp) {
+      unsigned r[4];
+      ldsm_x4(r, sb + jp * 16 * rowb + kk);
+      b[2 * jp][0] = r[0];
+      b[2 * jp][1] = r[1];
+      b[2 * jp + 1][0] = r[2];
+      b[2 * jp + 1][1] = r[3];
+    }
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+      if (ok[i]) ldsm_x4(fa[i], a[i] + a_off + kk);
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+      if (!ok[i]) continue;
+#pragma unroll
+      for (int jn = 0; jn < NT; ++jn) mma_s8(acc[i][jn], fa[i], b[jn]);
+    }
+  }
+}
+
+template <int MT, int NT>
+__device__ __forceinline__ void zero_s32(int (&acc)[MT][NT][4]) {
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int jn = 0; jn < NT; ++jn)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][jn][e] = 0;
+}
+
+// two int8 values at an even byte offset, as one 16-bit store
+__device__ __forceinline__ void store_s8x2(signed char* dst, signed char q0, signed char q1) {
+  *reinterpret_cast<unsigned short*>(dst) =
+      (unsigned short)((unsigned)(unsigned char)q0 | ((unsigned)(unsigned char)q1 << 8));
+}
+
+// Quantize a window of bf16 pixels into int8 rows in shared memory:
+// dst[p * ld + c] = clip(round(x * inv)) for window pixel p = (hy, hx) of an
+// RW-wide window whose pixel (0, 0) is image pixel (gy0, gx0); 0 outside the
+// image.  C % 8 == 0 and C <= 8 * kThreads: each thread takes one 8-channel
+// column and steps pixels, with up to 4 16-byte loads in flight before it
+// quantizes any.  The block input is MULTIPLIED by inv (the chains' rule;
+// conv_int8.cu divides).
+__device__ __forceinline__ void quantize_window(signed char* dst, int ld, const bf16* x, int H,
+                                                int W, int C, int gy0, int gx0, int RW, int npx,
+                                                float inv) {
+  constexpr int kBatch = 4;
+  const int vpr = C / 8, pstep = kThreads / vpr;
+  const int v = threadIdx.x % vpr, p0 = threadIdx.x / vpr;   // p0 >= pstep: idle
+  if (p0 >= pstep) return;
+  const bf16* xb = x + v * 8;
+  int hy = p0 / RW, hx = p0 - hy * RW;
+  for (int pix0 = p0; pix0 < npx; pix0 += kBatch * pstep) {
+    uint4 raw[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int gy = gy0 + hy, gx = gx0 + hx;
+      raw[u] = make_uint4(0, 0, 0, 0);
+      if (pix0 + u * pstep < npx && gy >= 0 && gy < H && gx >= 0 && gx < W)
+        raw[u] = __ldg(reinterpret_cast<const uint4*>(xb + ((size_t)gy * W + gx) * C));
+      for (hx += pstep; hx >= RW; hx -= RW) ++hy;
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int pix = pix0 + u * pstep;
+      if (pix >= npx) break;
+      const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw[u]);
+      signed char q[8];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 f = __bfloat1622float2(h[e]);
+        q[2 * e] = clip_s8(__fmul_rn(f.x, inv));
+        q[2 * e + 1] = clip_s8(__fmul_rn(f.y, inv));
+      }
+      *reinterpret_cast<uint2*>(dst + pix * ld + v * 8) = pack8(q);
+    }
+  }
+}
+
+// bytes per shared-memory row of n int8 values (n % 16 == 0): n + 16 or
+// n + 32, an odd multiple of 16 (the 8 rows of an ldmatrix phase on 8 bank
+// groups) with at least 16 bytes past n (a k32 step of a 16-channel tail
+// reads them; its B half there is 0)
+__host__ __device__ inline int pitch_s8(int n) { return n + (n % 32 == 0 ? 16 : 32); }
 
 }  // namespace hrnet

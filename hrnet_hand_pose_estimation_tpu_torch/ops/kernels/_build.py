@@ -58,14 +58,15 @@ SIGNATURES = {
     # x, out, w, scale, bias, sa, B, H, W, Cin, Cinp, Ho, Wo, Cout, KH, KW, stride, pad,
     # relu, then the plan: TR, TW, HR, HC, ldh, KB, WM, MT, NT, NB, stages, smem; stream
     "hrnet_conv_int8": (_P,) * 6 + (_I,) * 25 + (_P,),
-    # x, out, inv1, kq1, a1, c1, kq2, a2, c2, kq3, a3, c3, kqs, as, cs,
-    # B, H, W, Cin, Cm, Cout, stream
-    "hrnet_bottleneck_int8_block": (_P,) * 15 + (_I,) * 6 + (_P,),
+    # x, out, inv1, kq1, a1, c1, kq2, a2, c2, kq3, a3, c3, kqs, as, cs (kq's N-major),
+    # B, H, W, Cin, Cm, Cout, then the plan: TH, TW, stages, smem; stream
+    "hrnet_bottleneck_int8_block": (_P,) * 15 + (_I,) * 10 + (_P,),
     # x, out, w1, b1, w2, b2, B, H, W, C, then the plan: TH, TW, WM, MT, NT, KS,
     # stages, smem; stream
     "hrnet_basic_block": (_P,) * 6 + (_I,) * 12 + (_P,),
-    # x, out, inv1, kq1, a1, c1, kq2, a2, c2, B, H, W, C, stream
-    "hrnet_basic_int8_block": (_P,) * 9 + (_I,) * 4 + (_P,),
+    # x, out, inv1, kq1, a1, c1, kq2, a2, c2 (kq's N-major), B, H, W, C, then the plan:
+    # TH, TW, WM, MT, NT, KB, stages, smem; stream
+    "hrnet_basic_int8_block": (_P,) * 9 + (_I,) * 12 + (_P,),
     # x_s2d, y, ws1, bs1, ws2, bs2, B, Hs, Ws, then the plan: TH, TW, stages, smem; stream
     "hrnet_stem_s2d": (_P,) * 6 + (_I,) * 7 + (_P,),
     # joints, vis, out, B, K, res, win, sig2, stream

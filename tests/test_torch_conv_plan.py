@@ -4,7 +4,9 @@
 ``csrc/basic_chain.cu``), ``conv_int8.conv_int8_plan`` (the W8A8 site
 conv, ``csrc/conv_int8.cu``), ``fused_bottleneck.bottleneck_plan`` (the
 layer1 block, ``csrc/fused_bottleneck.cu``) and ``fused_bottleneck.stem_plan``
-(the s2d stem, ``csrc/stem_layer1.cu``) choose each launch's tile, warp
+(the s2d stem, ``csrc/stem_layer1.cu``), and ``int8_chain.int8_bottleneck_plan``
+and ``int8_chain.basic_int8_plan`` (the W8A8 layer1 block and BasicBlock,
+``csrc/int8_chain.cu`` and ``csrc/basic_int8.cu``) choose each launch's tile, warp
 grid, weight ring depth, shared memory and grid in Python; the kernels
 cannot run here, so these tests hold the plans to what the kernels need at
 every w32 and w48 shape class the serving paths give them, at B = 1, 32
@@ -33,6 +35,9 @@ from hrnet_hand_pose_estimation_tpu_torch.ops.kernels.fused_bottleneck import (
     BASIC_TILES, BASIC_WIDTHS, basic_chain_plan, basic_chain_reference, basic_chain_width,
     bottleneck_plan, pad_basic_params, stem_plan)
 from hrnet_hand_pose_estimation_tpu_torch.ops.kernels.fused_head_decode import head_plan
+from hrnet_hand_pose_estimation_tpu_torch.ops.kernels.int8_chain import (
+    BASIC_INT8_TILES, TWO_BLOCKS_SMEM, basic_int8_plan, basic_int8_width, int8_bottleneck_plan,
+    pitch_s8)
 
 SMEM_LIMIT = 232448
 RES = (64, 32, 16, 8)     # each branch's resolution at a 256 x 256 input
@@ -352,3 +357,124 @@ def test_head_plan_rows_at_small_maps(batch):
     assert p.conv_blocks == sum(-(-r // 64) for r in rows)
     assert p.conv_smem == 2 * 64 * (64 + 16) + 8 * 256 * 4          # the widest branch, 64
     assert p.logits_grid == (4, batch) and p.np == 128
+
+
+# -- the W8A8 layer1 block and BasicBlock (redesigned on the implicit-GEMM mainloop)
+
+SM_SMEM = 233472           # shared memory of one H100 SM; each block reserves 1 KB more
+
+INT8_L1_SHAPES = [(64, 64), (16, 16), (20, 36), (7, 19), (13, 16), (16, 21), (8, 8), (3, 5)]
+
+
+def covers(grid, th, tw, h, w):
+    """Whether the tiles of a (tiles, B) grid, decoded from blockIdx.x as
+    the kernels decode it, cover the h x w map exactly once."""
+    tiles_x = -(-w // tw)
+    assert grid[0] == tiles_x * -(-h // th)
+    counts = np.zeros((h, w), np.int32)
+    for bx in range(grid[0]):
+        x0, y0 = (bx % tiles_x) * tw, (bx // tiles_x) * th
+        assert x0 < w and y0 < h                     # no empty block
+        counts[y0:y0 + th, x0:x0 + tw] += 1
+    return covered_once(counts)
+
+
+@pytest.mark.parametrize("batch", [1, 128])
+@pytest.mark.parametrize("cin,proj", [(64, True), (256, False)])
+@pytest.mark.parametrize("h,w", INT8_L1_SHAPES)
+def test_int8_bottleneck_plan_fits_and_covers(h, w, cin, proj, batch):
+    """layer1's two W8A8 block classes (64 -> 256 with a projection, 256 ->
+    256) at the flagship's 64 x 64, the smoke model's 16 x 16 and every
+    shape of the card tests: two blocks per SM."""
+    p = int8_bottleneck_plan(batch, h, w, cin, 64, 256, proj)
+    halo, tile = (p.th + 2) * (p.tw + 2), p.th * p.tw
+    # the x halo (the identity stages y over it), for the projection y's
+    # staging rows, t1, t2 and the weight ring of 64-byte slabs
+    used = (halo * pitch_s8(cin) + (tile * 72 * 2 if proj else 0) + (halo + tile) * 80
+            + p.stages * (64 if proj else 128) * 80)
+    assert pitch_s8(cin) % 32 == 16 and pitch_s8(cin) >= cin + 16   # odd multiples of 16
+    assert halo <= 192 and p.th * p.tw <= 128                      # conv1's and conv2's warps
+    assert p.smem == used and 2 * (p.smem + 1024) <= SM_SMEM and 2 <= p.stages <= 4
+    if (h, w) == (64, 64):
+        assert (p.th, p.tw, p.stages) == (8, 16, 4)
+    assert p.grid[1] == batch and covers(p.grid, p.th, p.tw, h, w)
+
+
+@pytest.mark.parametrize("b,h,w,cin,cm,cout,proj", [
+    (2, 8, 8, 64, 32, 256, True),      # Cm != 64
+    (2, 8, 8, 64, 64, 192, True),      # Cout != 256
+    (2, 8, 8, 64, 64, 128, True),
+    (2, 8, 8, 48, 64, 256, True),      # Cin not 64 or 256
+    (2, 8, 8, 96, 64, 256, True),
+    (2, 8, 8, 128, 64, 128, False),
+    (2, 8, 8, 64, 64, 256, False),     # an identity shortcut with Cin != Cout
+    (0, 8, 8, 64, 64, 256, True),      # B = 0
+])
+def test_int8_bottleneck_plan_raises_on_untaken_shapes(b, h, w, cin, cm, cout, proj):
+    with pytest.raises(ValueError):
+        int8_bottleneck_plan(b, h, w, cin, cm, cout, proj)
+
+
+def check_basic_int8_plan(p, b, h, w, c):
+    """What csrc/basic_int8.cu's entry checks of a plan, and coverage."""
+    ring = (p.th + 2) * (p.tw + 2)
+    assert p.cp == basic_int8_width(c) >= c and p.cp % 16 == 0
+    assert p.smem <= SMEM_LIMIT and p.smem == (pitch_s8(p.cp) * ((p.th + 4) * (p.tw + 4) + ring)
+                                               + p.stages * p.cp * (p.kb + 16))
+    assert p.mt in BASIC_INT8_TILES[p.nt] and 2 <= p.stages <= 4
+    assert (8 // p.wm) * p.nt * 8 == p.cp and p.wm * (8 // p.wm) == 8
+    assert p.wm * p.mt * 16 >= ring                                # conv1's ring fits the warps
+    assert p.kb == (64 if p.cp % 64 == 0 else 32)
+    assert p.grid[1] == b and covers(p.grid, p.th, p.tw, h, w)
+
+
+@pytest.mark.parametrize("batch", [1, 32, 128])
+@pytest.mark.parametrize("width", [32, 48])
+def test_basic_int8_plan_fits_and_covers(width, batch):
+    """Every w32 and w48 branch class runs at its own width."""
+    classes = branch_classes(width)
+    assert len(classes) == 4
+    for h, c in classes:
+        p = basic_int8_plan(batch, h, h, c)
+        assert p.cp == c
+        check_basic_int8_plan(p, batch, h, h, c)
+
+
+@pytest.mark.parametrize("b,h,w,c", [
+    (1, 64, 64, 32), (3, 32, 32, 64), (1, 16, 16, 128), (2, 8, 8, 256),   # the card tests' classes
+    (1, 64, 64, 48), (2, 32, 32, 96), (1, 16, 16, 192), (2, 8, 8, 384),
+    (2, 13, 21, 32), (1, 11, 9, 64), (1, 9, 7, 128), (2, 5, 3, 48),        # ragged tiles
+    (1, 16, 16, 16), (2, 10, 12, 80), (1, 8, 8, 512), (1, 1, 1, 32),
+])
+def test_basic_int8_plan_takes_the_card_tests_shapes(b, h, w, c):
+    check_basic_int8_plan(basic_int8_plan(b, h, w, c), b, h, w, c)
+
+
+@pytest.mark.parametrize("b,h,w,c", [
+    (1, 8, 8, 40),      # C % 16
+    (1, 8, 8, 528),     # past the widest warp grid
+    (0, 8, 8, 32),      # B = 0
+    (1, 0, 8, 32),      # an empty map
+])
+def test_basic_int8_plan_raises_on_untaken_shapes(b, h, w, c):
+    with pytest.raises(ValueError):
+        basic_int8_plan(b, h, w, c)
+
+
+def test_two_blocks_share_an_sm_at_layer1():
+    """The W8A8 layer1 chain's blocks at 64 x 64: shared memory for two per
+    SM at Cin 64 and 256 (the bf16 block kernel needs one SM each at 256)."""
+    for cin, proj in ((64, True), (256, False)):
+        p = int8_bottleneck_plan(128, 64, 64, cin, 64, 256, proj)
+        assert p.smem <= TWO_BLOCKS_SMEM and 2 * (p.smem + 1024) <= SM_SMEM
+    assert 2 * (bottleneck_plan(128, 64, 64, 256, 64, 256).smem + 1024) > SM_SMEM
+
+
+@pytest.mark.parametrize("h,w", INT8_L1_SHAPES + [(200, 1), (100, 2), (1, 300)])
+def test_int8_bottleneck_identity_staging_fits_over_the_halo(h, w):
+    """With the identity shortcut the kernel stages y (tile pixels x 136
+    bf16) over the x halo (halo pixels x pitch_s8(256) bytes): it fits at
+    every tile the plan makes, thin ones included."""
+    p = int8_bottleneck_plan(2, h, w, 256, 64, 256, False)
+    halo, tile = (p.th + 2) * (p.tw + 2), p.th * p.tw
+    assert tile * 136 * 2 <= halo * pitch_s8(256)

@@ -202,6 +202,72 @@ def test_int8_chain_kernel_matches_twin(cuda, hw):
     assert torch.equal(got, want)
 
 
+def int8_layer1_params(rng, device, n_major):
+    """A W8A8 layer1 chain's flat params (64 -> 256 with a projection, then
+    three 256 -> 256 blocks), each kq a plain (K, N) tensor or, with
+    ``n_major``, the (K, N) view of (N, K) storage that prepare_layer1_int8
+    makes."""
+    def i8(k, n):
+        a = rng.integers(-127, 128, size=(k, n)).astype(np.int8)
+        return torch.from_numpy(a.T.copy()).to(device).t() if n_major else \
+            torch.from_numpy(a).to(device)
+    pos = lambda n: f32(np.abs(rng.normal(size=n)) * 2e-3 + 2e-4, device)
+    flags, params, cin = (True, False, False, False), [], 64
+    for has_sc in flags:
+        params += [f32(np.full((1, 1), 9.7), device), i8(cin, 64), pos(64),
+                   f32(rng.normal(size=64), device), i8(9 * 64, 64), pos(64),
+                   f32(rng.normal(size=64), device), i8(64, 256), pos(256) * 0.1,
+                   f32(rng.normal(size=256) * 0.1, device)]
+        if has_sc:
+            params += [i8(cin, 256), pos(256) * 0.1, f32(rng.normal(size=256) * 0.1, device)]
+        cin = 256
+    return tuple(params), flags
+
+
+@pytest.mark.parametrize("n_major", [False, True])
+@pytest.mark.parametrize("batch,hw", [(1, (64, 64)), (2, (64, 64)), (2, (20, 36)), (2, (7, 19)),
+                                      (2, (13, 16)), (2, (16, 21)), (3, (8, 8)), (1, (3, 5))])
+def test_int8_chain_kernel_tile_edges_and_layouts(cuda, n_major, batch, hw):
+    """The W8A8 layer1 chain bit-equal to its twin at B = 1, at the existing
+    shapes, where W is not a multiple of the 16-column tile, H not one of
+    its 8 rows, on an 8 x 8 map and on a map smaller than a tile, with the
+    kq's N-major views (the serving layout) or plain tensors (copied per
+    call); one launch per block."""
+    rng = np.random.default_rng(hw[0] * 100 + hw[1] + batch)
+    params, flags = int8_layer1_params(rng, cuda, n_major)
+    x = bf16(np.abs(rng.normal(size=(batch, *hw, 64))), cuda)
+    before = fused_bottleneck_chain_int8.launches
+    got = fused_bottleneck_chain_int8(x, params, flags)
+    torch.cuda.synchronize()
+    assert fused_bottleneck_chain_int8.launches == before + len(flags)
+    want = bottleneck_chain_int8_reference(x, params, flags)
+    assert got.shape == want.shape == (batch, *hw, 256) and want.float().abs().max().item() > 1.0
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("cin,cout,flags", [(64, 128, (True, False)), (128, 128, (False,)),
+                                            (96, 256, (True,))])
+def test_int8_chain_kernel_refuses_widths_it_cannot_take(cuda, cin, cout, flags):
+    """The kernel takes layer1's blocks only (Cin 64 or 256, Cout 256): any
+    other chain raises ValueError before its first launch."""
+    rng = np.random.default_rng(cin + cout)
+    i8 = lambda k, n: torch.from_numpy(rng.integers(-127, 128, size=(k, n)).astype(np.int8)).to(cuda)
+    pos = lambda n: f32(np.abs(rng.normal(size=n)) * 2e-3 + 2e-4, cuda)
+    params, c = [], cin
+    for has_sc in flags:
+        params += [f32(np.full((1, 1), 9.7), cuda), i8(c, 64), pos(64), f32(rng.normal(size=64), cuda),
+                   i8(576, 64), pos(64), f32(rng.normal(size=64), cuda), i8(64, cout),
+                   pos(cout) * 0.1, f32(rng.normal(size=cout) * 0.1, cuda)]
+        if has_sc:
+            params += [i8(c, cout), pos(cout) * 0.1, f32(rng.normal(size=cout) * 0.1, cuda)]
+        c = cout
+    x = bf16(np.abs(rng.normal(size=(2, 11, 21, cin))), cuda)
+    before = fused_bottleneck_chain_int8.launches
+    with pytest.raises(ValueError, match="layer1's blocks"):
+        fused_bottleneck_chain_int8(x, tuple(params), flags)
+    assert fused_bottleneck_chain_int8.launches == before
+
+
 def test_head_int8_kernel_matches_twin(cuda):
     rng = np.random.default_rng(5)
     widths, size, batch = (32, 64, 128, 256), 64, 2
@@ -720,6 +786,38 @@ def test_basic_int8_kernel_refuses_channels_it_cannot_take(cuda):
     with pytest.raises(ValueError, match="C % 16"):
         fused_basic_chain_int8(x, params, 1)
     assert fused_basic_chain_int8.launches == before
+
+
+def n_major_views(params):
+    """A flat int8 param tuple with every kq as the (K, N) view of N-major
+    storage, as prepare_branch_int8 and prepare_layer1_int8 make it."""
+    return tuple(t.t().contiguous().t() if t.dtype == torch.int8 else t for t in params)
+
+
+@pytest.mark.parametrize("n_major", [False, True])
+@pytest.mark.parametrize("batch,h,w,c", [
+    (2, 64, 64, 32), (2, 32, 32, 64), (2, 16, 16, 128), (2, 8, 8, 256),   # w32 branches
+    (2, 64, 64, 48), (2, 32, 32, 96), (2, 16, 16, 192), (2, 8, 8, 384),   # w48 branches
+    (1, 64, 64, 32), (1, 8, 8, 256),                                       # B = 1
+    (2, 13, 21, 32), (1, 11, 9, 64), (1, 9, 7, 128), (2, 5, 3, 48),        # ragged tiles
+    (1, 16, 16, 16), (2, 10, 12, 80)])                                     # 16; 80 padded to 96
+def test_basic_int8_kernel_tile_edges_and_layouts(cuda, n_major, batch, h, w, c):
+    """The W8A8 BasicBlock chain bit-equal to its twin at every w32 and w48
+    branch shape, B = 1, tiles cut by the image's edge, the narrowest width
+    and a width run zero-padded, with N-major or plain kq's; one launch per
+    block."""
+    rng = np.random.default_rng(c * 7 + h + batch)
+    params = basic_int8_params(rng, c, 2, cuda)
+    if n_major:
+        params = n_major_views(params)
+    x = bf16(np.abs(rng.normal(size=(batch, h, w, c))), cuda)
+    before = fused_basic_chain_int8.launches
+    got = fused_basic_chain_int8(x, params, 2)
+    torch.cuda.synchronize()
+    assert fused_basic_chain_int8.launches == before + 2
+    want = basic_chain_int8_reference(x, params, 2)
+    assert got.shape == want.shape == (batch, h, w, c) and want.float().std().item() > 0.1
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("batch", [1, 3, 32])

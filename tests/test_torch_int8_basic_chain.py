@@ -22,7 +22,8 @@ from hrnet_hand_pose_estimation_tpu_torch.config import config_from_dict
 from hrnet_hand_pose_estimation_tpu_torch.core import quant_infer as Q
 from hrnet_hand_pose_estimation_tpu_torch.core.fast_infer import precast_variables
 from hrnet_hand_pose_estimation_tpu_torch.ops.kernels.int8_chain import (
-    basic_chain_int8_reference, fused_basic_chain_int8, prepare_branch_int8)
+    _BASIC_NAMES, _pad_basic_int8, _split_basic, basic_chain_int8_reference, basic_int8_width,
+    fused_basic_chain_int8, prepare_branch_int8)
 from hrnet_hand_pose_estimation_tpu_torch.utils.weights import from_jax_variables
 from tests.test_quant_infer import _activated_variables
 
@@ -83,6 +84,25 @@ def test_twin_matches_jax_reference_and_kernel(c, n_blocks, batch, h, w):
     assert torch.equal(fused_basic_chain_int8(xt, params, n_blocks, samples_per_block=2), got)
 
 
+# widths the kernel does not take run zero-padded to the next one it does
+@pytest.mark.parametrize("c,cp", [(80, 96), (112, 128), (144, 192), (160, 192)])
+def test_padded_params_give_the_same_chain(c, cp):
+    """_pad_basic_int8 (the wrapper's padding on the card) is exact: the
+    twin on x and params zero-padded to cp gives the unpadded chain's bits
+    in the first C channels and exact zeros in the rest."""
+    assert basic_int8_width(c) == cp
+    rng = np.random.default_rng(c)
+    flat, x = chain_case(rng, c, 2, 2, 5, 6)
+    params = tuple(torch.from_numpy(a) for a in flat)
+    xt = to_torch_bf16(x)
+    padded = tuple(_pad_basic_int8(p, cp)[n] for p in _split_basic(params, 2)
+                   for n in _BASIC_NAMES)
+    got = basic_chain_int8_reference(torch.nn.functional.pad(xt, (0, cp - c)), padded, 2)
+    want = basic_chain_int8_reference(xt, params, 2)
+    assert want.float().abs().max().item() > 1.0
+    assert torch.equal(got[..., :c], want) and not got[..., c:].any()
+
+
 @pytest.fixture(scope="module")
 def activated(tiny_cfg):
     """tiny_cfg with the activated weights of tests/test_quant_infer.py in
@@ -121,6 +141,29 @@ def test_prepare_branch_int8_equals_jax_for_every_chain(activated):
             else:
                 assert g.dtype == torch.float32 and w.dtype == np.float32
                 np.testing.assert_allclose(g.numpy(), w, rtol=1e-6, atol=0)
+
+
+def test_branch_int8_kq_are_n_major_views(activated):
+    """prepare_branch_int8 keeps the JAX shapes and values (above) but stores
+    each kq as the (9C, C) view of N-major (C, 9C) storage, as the kernel
+    reads it; the twin and the wrapper give the same bits from the views
+    and from plain copies."""
+    _, cfg, _, state, _, amax = activated
+    for mod, i, n_blocks in chains(cfg):
+        flat = prepare_branch_int8(state, amax, mod, i, n_blocks)
+        for t in flat[1::7] + flat[4::7]:
+            assert t.dtype == torch.int8 and not t.is_contiguous() and t.t().is_contiguous()
+    mod, i, n_blocks = chains(cfg)[0]
+    flat = prepare_branch_int8(state, amax, mod, i, n_blocks)
+    plain = tuple(t.contiguous() for t in flat)
+    c = flat[2].shape[0]
+    rng = np.random.default_rng(c)
+    x = torch.from_numpy(np.abs(rng.normal(size=(2, 6, 7, c))).astype(np.float32)).to(
+        torch.bfloat16)
+    want = basic_chain_int8_reference(x, plain, n_blocks)
+    assert want.float().abs().max().item() > 0.1
+    assert torch.equal(basic_chain_int8_reference(x, flat, n_blocks), want)
+    assert torch.equal(fused_basic_chain_int8(x, flat, n_blocks), want)
 
 
 def test_chain_matches_the_walk_and_jax_on_the_slice(activated):

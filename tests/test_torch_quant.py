@@ -32,7 +32,7 @@ from hrnet_hand_pose_estimation_tpu_torch.ops.kernels.conv_int8 import (
 from hrnet_hand_pose_estimation_tpu_torch.ops.kernels.fused_head_decode import (
     HeadParams, fused_head_decode_v2, head_decode_reference)
 from hrnet_hand_pose_estimation_tpu_torch.ops.kernels.int8_chain import (
-    bottleneck_chain_int8_reference, fused_bottleneck_chain_int8, prepare_layer1_int8)
+    _kernel_kq, bottleneck_chain_int8_reference, fused_bottleneck_chain_int8, prepare_layer1_int8)
 from hrnet_hand_pose_estimation_tpu_torch.utils.weights import from_jax_variables
 from tests.test_quant_infer import _activated_variables
 
@@ -290,6 +290,31 @@ def test_int8_chain_rejects_bad_inputs(activated):
         fused_bottleneck_chain_int8(x, flat[:-1], flags)
     with pytest.raises(ValueError, match="int8"):
         fused_bottleneck_chain_int8(x, (flat[0], flat[1].float()) + flat[2:], flags)
+
+
+def test_layer1_int8_kq_are_n_major_views(activated):
+    """prepare_layer1_int8 keeps the JAX shapes and values (above) but
+    stores each kq N-major, as the kernel reads it: the (K, N) view of
+    contiguous (N, K) storage, handed to the kernel without a copy; a plain
+    (K, N) kq is copied to N-major.  The twin and the wrapper give the same
+    bits from the views and from plain copies."""
+    _, _, _, state, _, amax = activated
+    flat, flags = prepare_layer1_int8(state, amax)
+    kqs = [t for t in flat if t.dtype == torch.int8]
+    assert len(kqs) == 13                       # kq1, kq2, kq3 per block, kqs on block 0
+    for t in kqs:
+        assert t.dim() == 2 and not t.is_contiguous() and t.t().is_contiguous()
+        assert _kernel_kq(t).data_ptr() == t.data_ptr()          # no copy
+        plain = t.contiguous()
+        assert torch.equal(_kernel_kq(plain), t.t()) and _kernel_kq(plain).is_contiguous()
+    plain = tuple(t.contiguous() for t in flat)
+    rng = np.random.default_rng(12)
+    x = torch.from_numpy(np.abs(rng.normal(size=(2, 8, 8, 64))).astype(np.float32)).to(
+        torch.bfloat16)
+    want = bottleneck_chain_int8_reference(x, plain, flags)
+    assert want.float().abs().max().item() > 0.1
+    assert torch.equal(bottleneck_chain_int8_reference(x, flat, flags), want)
+    assert torch.equal(fused_bottleneck_chain_int8(x, flat, flags), want)
 
 
 # --------------------------------------------------------------------------
