@@ -1,14 +1,18 @@
 #!/usr/bin/env python3
-"""Where the time of the implicit-GEMM kernels goes, on one NVIDIA card.
+"""Where the time of the implicit-GEMM kernels and the head goes, on one NVIDIA card.
 
 Builds timing-only copies of the port's package under
 ``build/ablation/<variant>/``, each with one part of ``csrc/conv_int8.cu``,
-``csrc/basic_chain.cu`` and the W8A8 chains (``csrc/int8_chain.cu``,
+``csrc/basic_chain.cu``, the W8A8 chains (``csrc/int8_chain.cu``,
 ``csrc/basic_int8.cu`` and their shared code in ``csrc/conv_mainloop.cuh``)
-removed or replaced, and times ``conv_int8``, ``fused_basic_chain`` (one
-BasicBlock), ``fused_basic_chain_int8`` (one BasicBlock) and the W8A8
-layer1 block (one 64 -> 256 and one 256 -> 256 launch) at the flagship's
-B=128 shape classes in each (CUDA events, a subprocess per variant). The
+or the head (``csrc/fused_head_decode.cu``: the branch GEMMs that make y_i,
+bands' shared rows recomputed included; the upsample; the x_0 GEMM; the
+final conv; the cluster's combine) removed or replaced, and times
+``conv_int8``, ``fused_basic_chain`` (one BasicBlock),
+``fused_basic_chain_int8`` (one BasicBlock), the W8A8 layer1 block (one
+64 -> 256 and one 256 -> 256 launch) and ``fused_head_decode_v2`` (w32 and
+w48 widths on the 64x64 map) at the flagship's B=128 shape classes in each
+(CUDA events, a subprocess per variant). The
 variants' outputs are
 wrong by design, except ``fdiv``, the former quantization by ``__fdiv_rn``,
 whose output hashes must equal ``base``'s. Then it checks on the card that
@@ -75,6 +79,26 @@ VARIANTS = {
                  ("csrc/int8_chain.cu", "if (pixel(q, pix))", "if (pixel(q, pix) && a.H < 0)")],
     "no_barrier": [("csrc/conv_mainloop.cuh", "    cp_async_wait(stages - 2);\n    __syncthreads();",
                     "    cp_async_wait(stages - 2);")],
+    # the head (csrc/fused_head_decode.cu), one part skipped at run time (a.K
+    # is never negative, so the code stays and only its work goes)
+    "head_no_branch_gemm": [("csrc/fused_head_decode.cu",
+                             "for (int kq = 0; kq < nrows; kq += 16) {",
+                             "for (int kq = 0; kq < nrows && a.K < 0; kq += 16) {")],
+    "head_no_upsample": [("csrc/fused_head_decode.cu",
+                          "for (int q = 1; q < 4; ++q) {\n          const int* br = bt + q * kBtFields;\n"
+                          "          const unsigned ysq",
+                          "for (int q = 1; q < 4 && a.K < 0; ++q) {\n          const int* br = bt + q * "
+                          "kBtFields;\n          const unsigned ysq")],
+    "head_no_x0_gemm": [("csrc/fused_head_decode.cu", "for (int kq = 0; kq < a.cp[0]; kq += 16) {",
+                         "for (int kq = 0; kq < a.cp[0] && a.K < 0; kq += 16) {")],
+    "head_no_final": [("csrc/fused_head_decode.cu",
+                       "if (jn < ktiles) mma_bf16(logit[sl][jn], ah, bwf[jn]);",
+                       "if (jn < ktiles && a.K < 0) mma_bf16(logit[sl][jn], ah, bwf[jn]);")],
+    "head_no_combine": [("csrc/fused_head_decode.cu",
+                         "  cluster.sync();\n  if (cluster.block_rank() == 0) {",
+                         "  if (a.K < 0) {"),
+                        ("csrc/fused_head_decode.cu", "  cluster.sync();   // no block leaves",
+                         "  // no block leaves")],
 }
 
 CHECK_CU = r'''
@@ -193,6 +217,17 @@ def time_variant(where: str) -> None:
         plan = I8.int8_bottleneck_plan(128, 64, 64, cin, 64, 256, proj)
         res[f"int8 layer1 block {cin}->256 at 64x64"] = round(
             ms(lambda: I8._launch_bottleneck_int8(x, kp, plan)), 4)
+    from hrnet_hand_pose_estimation_tpu_torch.ops.kernels import fused_head_decode as HD
+
+    for widths, k in (((32, 64, 128, 256), 21), ((48, 96, 192, 384), 21)):
+        n = sum(widths)
+        xs = [torch.from_numpy(rng.normal(size=(128, 64 >> i, 64 >> i, c)).astype(np.float32)).to(
+            dev, torch.bfloat16) for i, c in enumerate(widths)]
+        head = HD.HeadParams(f32(rng.normal(size=(n, n)) * 0.05), f32(rng.normal(size=n) * 0.1),
+                             f32(rng.normal(size=(n, k)) * 0.3), f32(rng.normal(size=k) * 0.1),
+                             f32(np.float32(1.3)))
+        res[f"fused_head_decode_v2 B=128 {widths} 64x64"] = round(
+            ms(lambda: HD.fused_head_decode_v2(xs, head)), 4)
     if (Path(where) / PKG / "csrc" / "quant_check.cu").exists():
         fn = _build.lib().hrnet_quant_check
         fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]

@@ -97,7 +97,8 @@ from hrnet_hand_pose_estimation_tpu_torch.ops.kernels.fused_bottleneck import (
     basic_chain_reference, fused_basic_chain, fused_bottleneck_chain, fused_stem_layer1,
     layer1_reference, stem_layer1_reference)
 from hrnet_hand_pose_estimation_tpu_torch.ops.kernels.fused_head_decode import (
-    fused_head_decode, fused_head_decode_v2, head_decode_reference, head_decode_v1_reference)
+    HeadParams, fused_head_decode, fused_head_decode_v2, head_decode_reference,
+    head_decode_v1_reference, head_kernel_attributes, head_plan)
 from hrnet_hand_pose_estimation_tpu_torch.ops.kernels.gaussian_targets import (
     fused_gaussian_targets, gaussian_targets_reference)
 from hrnet_hand_pose_estimation_tpu_torch.ops.kernels import int8_chain as I8
@@ -273,6 +274,56 @@ def head_work(xs, head, out):
     weights = [head.w_head.to(torch.bfloat16), head.b_head, head.w_final.to(torch.bfloat16),
                head.b_final]
     return bound(mm + interp, softmax, nbytes([*xs, out, *weights]))
+
+
+def print_head_plan(xs, head, label):
+    """The head kernel's launch plan for these branch tensors and its
+    compiled registers and spills."""
+    n, k = head.w_final.shape
+    plan = head_plan(xs[0].shape[0], tuple(tuple(x.shape[1:3]) for x in xs),
+                     tuple(x.shape[3] for x in xs), n, k)
+    attrs = head_kernel_attributes(plan, xs[0].dtype == torch.int8)
+    print(f"head plan {label}: bands {plan.bands} (one cluster per sample) of {plan.band_rows} "
+          f"rows, passes of {plan.pass_rows} rows, staged source rows {plan.src_rows}, chunk "
+          f"{plan.chunk} columns, slabs of {plan.slab_rows} rows in {plan.stages} stages, "
+          f"{plan.smem} B shared memory, grid {plan.grid}; kernel {attrs['registers']} "
+          f"registers, {attrs['local_bytes']} B local (spills) per thread")
+    return dict(plan._asdict(), **attrs)
+
+
+def head_shape_checks(dev):
+    """The head kernel against its twin on seeded random inputs at the
+    shapes its plan splits differently from the flagship's: w48 and w64
+    widths, K = 128, a non-square map, bf16 (<= 0.05 px) and int8 inputs
+    (<= 0.1 px).  The final conv's weights are drawn at 0.1 on the 64 x 64
+    maps and 0.3 on the small one, as in tests/test_torch_cuda.py."""
+    scales = tuple(torch.tensor(v, device=dev) for v in (0.011, 0.023, 0.017, 0.029))
+    for widths, hw, k, batch in (((48, 96, 192, 384), (64, 64), 21, 4),
+                                 ((64, 128, 256, 512), (64, 64), 21, 4),
+                                 ((32, 64, 128, 256), (64, 64), 128, 4),
+                                 ((32, 64, 128, 256), (20, 36), 21, 4)):
+        rng = np.random.default_rng(sum(widths) + k + hw[1])
+        n = sum(widths)
+        f32 = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+        head = HeadParams(f32(rng.normal(size=(n, n)) * 0.05), f32(rng.normal(size=n) * 0.1),
+                          f32(rng.normal(size=(n, k)) * (0.1 if hw == (64, 64) else 0.3)),
+                          f32(rng.normal(size=k) * 0.1), f32(np.float32(1.3)))
+        shapes = [hw]
+        for _ in range(3):
+            shapes.append((-(-shapes[-1][0] // 2), -(-shapes[-1][1] // 2)))
+        xs = [f32(rng.normal(size=(batch, *sh, c))).to(torch.bfloat16)
+              for sh, c in zip(shapes, widths)]
+        xq = [torch.from_numpy(rng.integers(-127, 128, size=t.shape).astype(np.int8)).to(dev)
+              for t in xs]
+        for inputs, sc, limit in ((xs, None, 0.05), (xq, scales, 0.1)):
+            got = fused_head_decode_v2(inputs, head, input_scales=sc)
+            want = head_decode_reference(inputs, head, input_scales=sc)
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            print(f"head widths {widths} map {hw} K={k} B={batch} "
+                  f"{'int8' if sc else 'bf16'}: max|kernel - plain| = {err:.5f} px (limit {limit})")
+            if not (want.std().item() > 0.5 and err <= limit):
+                raise AssertionError(f"head kernel disagrees with its twin at {widths} {hw} K={k}")
 
 
 def flagship_cfg():
@@ -477,7 +528,7 @@ def new_config_phases(cfg, weights, smi, kernels, images, default_plain):
                        * sum(int(b) for b in cfg.MODEL.EXTRA[f"STAGE{n}"]["NUM_BLOCKS"])
                        for n in (2, 3, 4))
         want = {fn.__name__: 0 for fn in COUNTED}
-        want.update(fused_head_decode_v2=3, fused_basic_chain=n_blocks,
+        want.update(fused_head_decode_v2=1, fused_basic_chain=n_blocks,
                     fused_stem_layer1=1 + len(flags))
         if launches != want:
             raise AssertionError(f"launches {launches}, want {want}")
@@ -810,7 +861,7 @@ def quant_forward_gate(label, infer, weights, qparams, witness_qparams, images, 
     launches = counters()
     print(f"{label}: CUDA launches on the main path: {launches}")
     want = {fn.__name__: 0 for fn in COUNTED}
-    want.update(conv_int8=sites, fused_bottleneck_chain_int8=4, fused_head_decode_v2=3)
+    want.update(conv_int8=sites, fused_bottleneck_chain_int8=4, fused_head_decode_v2=1)
     if launches != want:
         raise AssertionError(f"{label}: launches {launches}, want {want}")
     if coords.shape != (images.shape[0], 21, 2) or not torch.isfinite(coords).all():
@@ -1906,11 +1957,11 @@ def c9_phases(smi):
                 np.float32)).to(dev)
             for label, kwargs, parts, want in (
                     ("defaults", {}, dict(layer1=nchw(layer1_reference, weights)),
-                     dict(fused_bottleneck_chain=4, fused_head_decode_v2=3)),
+                     dict(fused_bottleneck_chain=4, fused_head_decode_v2=1)),
                     ("pallas_branches + fuse_stem_layer1", NEW_CONFIG,
                      new_parts(weights, twin=True),
                      dict(fused_basic_chain=n_blocks, fused_stem_layer1=5,
-                          fused_head_decode_v2=3))):
+                          fused_head_decode_v2=1))):
                 infer = make_fast_infer(cfg, device=dev, **kwargs)
                 zero_counters()
                 coords = infer(weights, images)
@@ -1921,6 +1972,21 @@ def c9_phases(smi):
                                          f"want {want}")
                 smoke_gate(f"smoke bf16 {label} B={batch}, launches {launched}", coords,
                            twin_forward(weights, images, **parts), batch)
+            with torch.inference_mode():   # the head alone on the smoke model's branches
+                xs = [t.permute(0, 2, 3, 1).contiguous()
+                      for t in weights.model.forward_backbone(to_input(images))]
+                sc = tuple(torch.tensor(v, device=dev) for v in (0.05, 0.05, 0.05, 0.05))
+                for inputs, scales, limit in ((xs, None, 0.05),
+                                              (head_int8_inputs(xs, sc), sc, 0.1)):
+                    err = (fused_head_decode_v2(inputs, weights.head, input_scales=scales)
+                           - head_decode_reference(inputs, weights.head, input_scales=scales)
+                           ).abs().max().item()
+                    print(f"smoke head alone B={batch} {'int8' if scales else 'bf16'}: "
+                          f"max|kernel - plain| = {err:.5f} px (limit {limit})")
+                    if not err <= limit:
+                        raise AssertionError(f"smoke head disagrees with its twin: {err} px")
+            if batch == 1:
+                print_head_plan(xs, weights.head, "smoke B=1")
             u8 = torch.from_numpy(rng.integers(0, 256, size=(batch, size, size, 3)).astype(
                 np.uint8)).to(dev)
             amax = Q.calibrate(cfg, weights, [normalize(u8)])
@@ -1929,7 +1995,7 @@ def c9_phases(smi):
             coords = qinfer(weights, qparams, u8)
             torch.cuda.synchronize()
             launched = {k: v for k, v in counters().items() if v}
-            want = dict(conv_int8=n_sites, fused_bottleneck_chain_int8=4, fused_head_decode_v2=3)
+            want = dict(conv_int8=n_sites, fused_bottleneck_chain_int8=4, fused_head_decode_v2=1)
             if launched != want:
                 raise AssertionError(f"smoke int8 B={batch}: launches {launched}, want {want}")
             with twins():
@@ -2056,7 +2122,9 @@ def main() -> int:
             max_abs_err=err,
             ms=time_ms(lambda: fused_head_decode_v2(xs, weights.head), 10),
             plain_ms=time_ms(lambda: head_decode_reference(xs, weights.head), 2, warmup=1),
-            bound_ms=bound_ms, bound_by=bound_by, library_ms=None))
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+            plan=print_head_plan(xs, weights.head, f"B={CHECK_BATCH}")))
+        head_shape_checks(dev)
         for kern in kernels:
             print(f"{kern['name']} at B={CHECK_BATCH}: {kern['ms']:.3f} ms, plain "
                   f"{kern['plain_ms']:.3f} ms, library {kern['library_ms']} ms, bound "
@@ -2118,6 +2186,11 @@ def main() -> int:
         with torch.inference_mode():
             x1, xs = kernel_inputs(weights, big)
             params, flags = weights.layer1
+            err = (fused_head_decode_v2(xs, weights.head)
+                   - head_decode_reference(xs, weights.head)).abs().max().item()
+            print(f"head decode B={TIME_BATCH}: max|kernel - plain| = {err:.5f} px (limit 0.05)")
+            if not err <= 0.05:
+                raise AssertionError(f"head kernel disagrees with its plain twin at B=128: {err}")
             timed = {"fused_bottleneck_chain": lambda: fused_bottleneck_chain(x1, params, flags),
                      "fused_head_decode_v2": lambda: fused_head_decode_v2(xs, weights.head)}
             work = {"fused_bottleneck_chain": layer1_work(x1, params, flags, x1.new_empty(

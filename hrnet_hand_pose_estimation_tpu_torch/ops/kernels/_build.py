@@ -45,11 +45,12 @@ SIGNATURES = {
     # x, out, w1, b1, w2, b2, w3, b3, ws, bs, B, H, W, Cin, Cm, Cout, then the plan:
     # TH, TW, KS, stages, smem; stream
     "hrnet_bottleneck_block": (_P,) * 10 + (_I,) * 11 + (_P,),
-    # x1, x2, x3, w1, w2, w3, y1, y2, y3, M1, M2, M3, C1, C2, C3, N, in_int8, stream
-    "hrnet_head_branch_conv": (_P,) * 9 + (_I,) * 8 + (_P,),
-    # x0, w0, y1, y2, y3, taps, b_head, w_final, b_final, temp, logits,
-    # B, H0, W0, C0, h1, w1, h2, w2, h3, w3, N, K, L, in_int8, stream
-    "hrnet_head_logits": (_P,) * 11 + (_I,) * 14 + (_P,),
+    # x0, x1, x2, x3, w0, w1, w2, w3, b_head, w_final, b_final, temp, taps, out,
+    # B, H0, W0, C0, h1, w1, h2, w2, h3, w3, C1, C2, C3, Np, K, L, in_int8, then the plan:
+    # bands, RB, RP, UR, KW, SR1, SR2, SR3, slab_rows, stages, smem; stream
+    "hrnet_head_fused": (_P,) * 14 + (_I,) * 28 + (_P,),
+    # in_int8, whole, out (3 ints: registers, local bytes, static shared bytes)
+    "hrnet_head_fused_attributes": (_I, _I, _P),
     # logits, out, B, K, H0, W0, stream
     "hrnet_softmax_decode": (_P, _P) + (_I,) * 4 + (_P,),
     # x0, x1, x2, x3, taps, w_head, b_head, w_final, b_final, temp, logits,

@@ -2,9 +2,11 @@
 
 Port of the TPU kernel ``ops/pallas/fused_head_decode.py::fused_head_decode_v2``
 of the JAX package, with its int8-input mode.  ``fused_head_decode_v2`` runs
-the three launches of ``csrc/fused_head_decode.cu`` for tensors on the card
-and the plain PyTorch twin ``head_decode_reference`` for tensors on the CPU.  Both compute the
-head with the 1x1 conv commuted ahead of the upsample, as the TPU kernel:
+the one launch of ``csrc/fused_head_decode.cu`` (a thread-block cluster of
+row bands per sample, plan ``head_plan``) for tensors on the card and the
+plain PyTorch twin ``head_decode_reference`` for tensors on the CPU.  Both
+compute the head with the 1x1 conv commuted ahead of the upsample, as the
+TPU kernel:
 
     acc    = x0 @ W0 + sum_i up_i(bf16(x_i @ W_i))      (W_i: rows of w_head)
     y      = bf16(relu(acc + b_head))
@@ -37,6 +39,9 @@ kernel gathers each upsampled pixel's (at most four) nonzero taps.
 
 from __future__ import annotations
 
+import threading
+import weakref
+from collections import OrderedDict
 from functools import lru_cache
 from typing import Mapping, NamedTuple, Optional, Sequence, Tuple
 
@@ -131,14 +136,10 @@ def branch_weights(xs: Sequence[torch.Tensor], params: HeadParams,
     return [w.to(torch.bfloat16).contiguous() for w in slices]
 
 
-def head_decode_reference(xs: Sequence[torch.Tensor], params: HeadParams,
+def head_logits_reference(xs: Sequence[torch.Tensor], params: HeadParams,
                           input_scales: Optional[Sequence] = None) -> torch.Tensor:
-    """Plain PyTorch twin of the kernel: 4 NHWC bf16 branches (or int8 ones
-    with ``input_scales``) -> (B, K, 2) f32.
-
-    On a card, disable TF32 (``torch.backends.cuda.matmul.allow_tf32``)
-    for a float32 reference.
-    """
+    """The twin's head: 4 NHWC bf16 branches (or int8 ones with
+    ``input_scales``) -> logits (B, H0, W0, K) f32, before the softmax."""
     _, h0, w0, _ = xs[0].shape
     w_slices = [w.float() for w in branch_weights(xs, params, input_scales)]
     acc = xs[0].float() @ w_slices[0]
@@ -150,62 +151,213 @@ def head_decode_reference(xs: Sequence[torch.Tensor], params: HeadParams,
         t = torch.einsum("Ww,bhwn->bhWn", uw.to(torch.bfloat16).float(), y)
         acc = acc + torch.einsum("Hh,bhWn->bHWn", uh, t)
     y = torch.relu(acc + params.b_head).to(torch.bfloat16).float()
-    logits = (y @ params.w_final.to(torch.bfloat16).float() + params.b_final) * params.temp
-    b, _, _, k = logits.shape
+    return (y @ params.w_final.to(torch.bfloat16).float() + params.b_final) * params.temp
+
+
+def head_decode_reference(xs: Sequence[torch.Tensor], params: HeadParams,
+                          input_scales: Optional[Sequence] = None) -> torch.Tensor:
+    """Plain PyTorch twin of the kernel: 4 NHWC bf16 branches (or int8 ones
+    with ``input_scales``) -> (B, K, 2) f32.
+
+    On a card, disable TF32 (``torch.backends.cuda.matmul.allow_tf32``)
+    for a float32 reference.
+    """
+    return soft_argmax_reference(head_logits_reference(xs, params, input_scales))
+
+
+def soft_argmax_reference(logits: torch.Tensor) -> torch.Tensor:
+    """The twin's decode: logits (B, H0, W0, K) -> (B, K, 2) [u, v], the
+    expectation of the column and the row under the spatial softmax, in
+    the logits' dtype."""
+    b, h0, w0, k = logits.shape
     p = torch.softmax(logits.reshape(b, h0 * w0, k), dim=1)
     idx = torch.arange(h0 * w0, device=p.device)
-    u = torch.einsum("bpk,p->bk", p, (idx % w0).float())
-    v = torch.einsum("bpk,p->bk", p, (idx // w0).float())
+    u = torch.einsum("bpk,p->bk", p, (idx % w0).to(p.dtype))
+    v = torch.einsum("bpk,p->bk", p, (idx // w0).to(p.dtype))
     return torch.stack([u, v], dim=-1)
 
 
+def band_decode_reference(logits: torch.Tensor, bands: int) -> torch.Tensor:
+    """The kernel's softmax decode by row bands, in plain PyTorch: logits
+    (B, H0, W0, K) -> (B, K, 2).  The rows split into bands of
+    ceil(H0 / bands) rows (the last one shorter, as ``head_plan`` splits
+    them); each band forms per joint its max m, sum e, sum e*u and sum e*v
+    with e = exp(l - m), and the bands combine rescaled by exp(m - M), in
+    the logits' dtype.  For the tests; no path calls it."""
+    b, h0, w0, k = logits.shape
+    rb = -(-h0 // bands)
+    u = torch.arange(w0, dtype=logits.dtype, device=logits.device)
+    parts = []
+    for y0 in range(0, h0, rb):
+        band = logits[:, y0:y0 + rb]                                 # (B, R, W0, K)
+        v = torch.arange(y0, y0 + band.shape[1], dtype=logits.dtype, device=logits.device)
+        m = band.amax(dim=(1, 2))                                    # (B, K)
+        e = torch.exp(band - m[:, None, None, :])
+        parts.append((m, e.sum(dim=(1, 2)), (e * u[None, None, :, None]).sum(dim=(1, 2)),
+                      (e * v[None, :, None, None]).sum(dim=(1, 2))))
+    big = torch.stack([p[0] for p in parts]).amax(dim=0)
+    s = su = sv = 0.0
+    for m, se, seu, sev in parts:
+        f = torch.exp(m - big)
+        s, su, sv = s + se * f, su + seu * f, sv + sev * f
+    return torch.stack([su / s, sv / s], dim=-1)
+
+
 MAX_JOINTS = 128        # the TPU kernel pads K to one 128-lane row
+CHUNK = 32              # head columns per chunk (csrc kNC)
+JOINT_GROUP = 32        # joints per walk of the head (kJG): K > 32 walks it again
+MAX_BANDS = 8           # blocks per sample: the portable cluster size
+PASS_TILES = 32         # m16 head tiles per pass: 8 warps x 4 slots (kMT)
+SLAB_ROWS = 128         # weight rows per ring stage where a whole branch does not fit
+BRANCH_TILES = 12       # m16 tiles of one branch GEMM per pass: 8 warps x 6 / 4 n8 tiles
+PAD_ROWS = 32           # zero rows past each y_i buffer (kPadRows)
 
 
 class HeadPlan(NamedTuple):
-    """The three launches of ``csrc/fused_head_decode.cu`` for one call."""
+    """The one launch of ``csrc/fused_head_decode.cu`` for one call."""
 
     cp: Tuple[int, ...]     # each branch's weight rows: C_i rounded up to 16
-    np: int                 # the head width the kernels run at: N rounded up to 16
-    conv_blocks: int        # (a): 64-row blocks of branches 1-3, each over all np columns
-    conv_smem: int          # (a)'s dynamic shared memory bytes
-    logits_grid: Tuple[int, int]   # (b): (64-pixel blocks, B)
-    logits_smem: int        # (b)'s dynamic shared memory bytes
+    np: int                 # the head width the kernel runs at: N rounded up to 32
+    joint_groups: int       # walks of the head: ceil(K / 32)
+    bands: int              # blocks per sample, one cluster; block r owns rows r*band_rows ..
+    band_rows: int          # output rows per band (the last band may have fewer)
+    pass_rows: int          # output rows per pass: one staging of the branch rows
+    unit_rows: int          # consecutive rows of one column group a warp takes as a unit
+    src_rows: Tuple[int, int, int]   # rows of branches 1-3 staged per pass, at most
+    kw: int                 # k16 steps of the W-mix window (source columns of 16 outputs)
+    chunk: int              # head columns per chunk
+    slab_rows: int          # weight rows per ring stage: a whole branch's or 128, >= cp_0 + 32
+    stages: int             # depth of the weight ring (2-6 slabs)
+    smem: int               # dynamic shared memory bytes
+    grid: Tuple[int, int]   # (bands, B)
+    cluster: Tuple[int, int, int]   # (bands, 1, 1)
 
 
+def _take(nbytes: int) -> int:
+    return -(-nbytes // 128) * 128
+
+
+def _head_smem(pass_rows: int, w0: int, cp: Tuple[int, ...], src_rows, src_widths, slab_rows: int,
+               stages: int, np_: int, groups: int, kw: int, joint_groups: int) -> int:
+    """Shared memory of a plan, as ``csrc/fused_head_decode.cu::head_layout``
+    lays it out (each part rounded up to 128 bytes)."""
+    px = [-(-(s * w) // 16) * 16 for s, w in zip(src_rows, src_widths)]
+    return (_take(2 * pass_rows * w0 * (cp[0] + 8))
+            + sum(_take(2 * p * (c + 8)) for p, c in zip(px, cp[1:]))
+            + sum(_take(2 * (p + PAD_ROWS) * (CHUNK + 8)) for p in px)
+            + _take(2 * stages * slab_rows * CHUNK) + _take(4 * np_)
+            + _take(16 * 3 * pass_rows) + _take(16 * 3 * groups * kw * 32) + _take(4 * 3 * groups)
+            + _take(4 * 4 * 8 + 8 * 4) + _take(8 * stages)
+            + _take(4 * (8 * JOINT_GROUP * 3 + JOINT_GROUP))
+            + _take(16 * joint_groups * JOINT_GROUP))
+
+
+def band_passes(h0: int, bands: int, band_rows: int, pass_rows: int) -> list:
+    """The (first row, rows) of every pass of every band, as the kernel walks them."""
+    return [(y, min(pass_rows, min(h0, r * band_rows + band_rows) - y))
+            for r in range(bands) for y in range(r * band_rows, min(h0, (r + 1) * band_rows),
+                                                  pass_rows)]
+
+
+def _unit_rows(groups: int, pass_rows: int) -> int:
+    """Rows of one column group a warp takes together (4, 2 or 1): the most
+    that still gives all 8 warps a unit and at most 4 m16 tiles each.  A
+    unit's rows share source rows, whose W-mix it computes once."""
+    for ur in (4, 2):
+        units = groups * -(-pass_rows // ur)
+        if units >= 8 and -(-units // 8) * ur <= 4:
+            return ur
+    return 1
+
+
+@lru_cache(maxsize=64)
 def head_plan(b: int, shapes: Tuple[Tuple[int, int], ...], widths: Tuple[int, ...], n: int,
               k: int) -> HeadPlan:
-    """The kernels' plan for branches of spatial ``shapes`` and channel
+    """The kernel's plan for branches of spatial ``shapes`` and channel
     ``widths``, head width ``n`` and ``k`` joints: any widths, any B*h*w,
-    K up to 128 (the TPU kernel's limit).  Raises ValueError on what they
-    do not take."""
+    K up to 128 (the TPU kernel's limit).  The passes take as many rows as
+    fit 32 m16 tiles, 12 m16 tiles of each branch and the shared memory, the
+    bands (at most 8) as many passes as the rows need; then the largest
+    weight slab and the deepest ring that fit.  Raises ValueError on what
+    the kernel does not take."""
     if not 0 < k <= MAX_JOINTS:
         raise ValueError(f"the head takes 1 <= K <= {MAX_JOINTS} joints, got {k}")
     if b < 1 or n < 1 or min(widths) < 1 or any(min(hw) < 1 for hw in shapes):
         raise ValueError(f"empty head input: B {b}, shapes {shapes}, widths {widths}, N {n}")
     if any(min(hw) < 2 for hw in shapes[1:]):
         raise ValueError("the upsample needs h, w >= 2 on branches 1-3")
-    cp = tuple(-(-c // 16) * 16 for c in widths)
-    np_ = -(-n // 16) * 16
-    smem = 2 * (64 * (cp[0] + 16) + 64 * (np_ + 16) + np_ * 32) + 8 * 256 * 4
-    conv_smem = 2 * 64 * (max(cp[1:]) + 16) + 8 * 256 * 4
-    if max(smem, conv_smem) > _build.SMEM_LIMIT:
-        raise ValueError(f"the head kernel's tiles do not fit a head {n} wide on branches "
-                         f"{widths} in shared memory")
-    rows = sum(-(-(b * h * w) // 64) for h, w in shapes[1:])
     h0, w0 = shapes[0]
-    return HeadPlan(cp, np_, rows, conv_smem, (-(-(h0 * w0) // 64), b), smem)
+    groups = -(-w0 // 16)
+    if groups > PASS_TILES:
+        raise ValueError(f"the head kernel takes maps up to {16 * PASS_TILES} columns, got {w0}")
+    cp = tuple(-(-c // 16) * 16 for c in widths)
+    np_ = -(-n // CHUNK) * CHUNK
+    joint_groups = -(-k // JOINT_GROUP)
+    taps = _tap_table(tuple(shapes[1:]), h0, w0)
+    row_lo = taps[:, 0, 0, :h0].astype(np.int64)
+    col_lo = taps[:, 1, 0, :w0].astype(np.int64)
+    kw = max(-(-(int(col_lo[i, min(x + 15, w0 - 1)]) + 2 - int(col_lo[i, x])) // 16)
+             for i in range(3) for x in range(0, w0, 16))
+    if kw > 2:
+        raise ValueError(f"the W-mix window of 16 output columns spans more than 32 source "
+                         f"columns on branches {shapes[1:]} at width {w0}")
+    # slabs of a whole branch where the ring fits them (fewer barriers, and
+    # the branch GEMMs' accumulators live within one slab), else 128 rows
+    slabs = sorted({max(r, cp[0] + CHUNK) for r in (max(cp[1:]), SLAB_ROWS)}, reverse=True)
+    src_widths = [w for _, w in shapes[1:]]
+    for rp in range(min(h0, PASS_TILES // groups), 0, -1):
+        bands = min(MAX_BANDS, -(-h0 // rp))
+        band_rows = -(-h0 // bands)
+        bands = -(-h0 // band_rows)
+        pass_rows = -(-band_rows // -(-band_rows // rp))     # equal passes within a band
+        src_rows = [2, 2, 2]
+        for y, rows in band_passes(h0, bands, band_rows, pass_rows):
+            for i in range(3):
+                src_rows[i] = max(src_rows[i], int(row_lo[i, y + rows - 1]) + 2 - int(row_lo[i, y]))
+        if any(-(-(s * w) // 16) > BRANCH_TILES for s, w in zip(src_rows, src_widths)):
+            continue
+        unit_rows = _unit_rows(groups, pass_rows)
+        for slab_rows in slabs:
+            for stages in (6, 5, 4, 3, 2):
+                smem = _head_smem(pass_rows, w0, cp, src_rows, src_widths, slab_rows, stages,
+                                  np_, groups, kw, joint_groups)
+                if smem <= _build.SMEM_LIMIT:
+                    return HeadPlan(cp, np_, joint_groups, bands, band_rows, pass_rows,
+                                    unit_rows, tuple(src_rows), kw, CHUNK, slab_rows, stages,
+                                    smem, (bands, b), (bands, 1, 1))
+    raise ValueError(f"the head kernel's pass of one row does not fit branches {widths} on "
+                     f"maps {shapes} in shared memory")
 
 
 def _pad2(w: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
-    """w zero-padded to (rows, cols), contiguous and 32-byte aligned (WMMA
-    reads it in tiles from global memory)."""
-    w = torch.nn.functional.pad(w, (0, cols - w.shape[1], 0, rows - w.shape[0])).contiguous()
-    return w.clone() if w.data_ptr() % 32 else w
+    """w zero-padded to (rows, cols), contiguous."""
+    return torch.nn.functional.pad(w, (0, cols - w.shape[1], 0, rows - w.shape[0])).contiguous()
+
+
+def _swizzle(t: torch.Tensor) -> torch.Tensor:
+    """t (..., R, 4, 8): rows of four 16-byte pieces.  Row r's piece u takes
+    piece u ^ ((r >> 1) & 3), as the kernel's ``slab_addr`` reads it back
+    (the 8 rows of an ldmatrix phase then fall on 8 bank groups)."""
+    rows = torch.arange(t.shape[-3], device=t.device)
+    idx = torch.arange(4, device=t.device)[None, :] ^ ((rows[:, None] >> 1) & 3)
+    return torch.gather(t, -2, idx[:, :, None].expand(t.shape[-3:]).expand(t.shape)).contiguous()
+
+
+def slab_layout(w: torch.Tensor, joint_groups: int = 0) -> torch.Tensor:
+    """The kernel's weight layout: w (R, 32n) -> (n, R, 32), each chunk of
+    32 columns contiguous so that a slab of rows is one bulk copy; with
+    ``joint_groups`` g, w_final (32n, 32g) -> (g, n, 32, 32), a chunk's 32
+    rows of a joint group.  Rows swizzled by ``_swizzle``."""
+    r, c = w.shape
+    if joint_groups:
+        t = w.reshape(r // CHUNK, CHUNK, joint_groups, 4, 8).permute(2, 0, 1, 3, 4)
+    else:
+        t = w.reshape(r, c // CHUNK, 4, 8).permute(1, 0, 2, 3)
+    return _swizzle(t).reshape(*t.shape[:-2], CHUNK)
 
 
 @lru_cache(maxsize=16)
-def _taps(shapes: Tuple[Tuple[int, int], ...], h0: int, w0: int, device: str) -> torch.Tensor:
+def _tap_table(shapes: Tuple[Tuple[int, int], ...], h0: int, w0: int) -> np.ndarray:
     """(3 branches, 2 axes {rows, cols}, 3 fields {lo, a, b}, L) f32: the two
     taps of every output row/column.  Row taps are f32 and column weights
     bf16-rounded, as in the TPU kernel (f32 H-mix, bf16 W-mix matrix)."""
@@ -221,7 +373,55 @@ def _taps(shapes: Tuple[Tuple[int, int], ...], h0: int, w0: int, device: str) ->
             taps[i, axis, 0, :dst] = lo
             taps[i, axis, 1, :dst] = m[rows, lo]
             taps[i, axis, 2, :dst] = m[rows, lo + 1]
-    return torch.from_numpy(taps).to(device)
+    taps.flags.writeable = False
+    return taps
+
+
+@lru_cache(maxsize=16)
+def _taps(shapes: Tuple[Tuple[int, int], ...], h0: int, w0: int, device: str) -> torch.Tensor:
+    """``_tap_table`` on ``device``."""
+    return torch.from_numpy(_tap_table(shapes, h0, w0).copy()).to(device)
+
+
+_WEIGHTS: "OrderedDict[tuple, tuple]" = OrderedDict()
+_WEIGHTS_LOCK = threading.Lock()
+
+
+def _kernel_weights(xs: Sequence[torch.Tensor], params: HeadParams,
+                    input_scales: Optional[Sequence], plan: HeadPlan) -> tuple:
+    """The weights at the kernel's pitches (rows C_i rounded up to 16,
+    columns N rounded up to 32, the final conv's K columns up to 32 per
+    joint group) in ``slab_layout``, and b_head padded: (w_0..w_3, w_final,
+    b_head).  Made once per parameter tensors and kept for the next calls
+    (a serving loop calls with the same ones): an entry holds weak
+    references and is used only while they still name the same tensors at
+    the same ``_version``, so new or modified parameters are laid out anew.
+    Inference tensors have no version counter: they are laid out per call."""
+    srcs = [params.w_head, params.b_head, params.w_final]
+    srcs += [sa for sa in (input_scales or ()) if isinstance(sa, torch.Tensor)]
+    key = None
+    if not any(t.is_inference() for t in srcs):
+        key = (tuple(x.shape[3] for x in xs), plan.cp, plan.np, plan.joint_groups,
+               tuple((id(t), t._version) for t in srcs),
+               None if input_scales is None else
+               tuple(None if isinstance(sa, torch.Tensor) else float(sa) for sa in input_scales))
+        with _WEIGHTS_LOCK:
+            hit = _WEIGHTS.get(key)
+            if hit is not None and all(r() is t for r, t in zip(hit[0], srcs)):
+                _WEIGHTS.move_to_end(key)
+                return hit[1]
+    np_, n = plan.np, params.w_final.shape[0]
+    w_slices = [slab_layout(_pad2(w, cp, np_)) for w, cp in
+                zip(branch_weights(xs, params, input_scales), plan.cp)]
+    w_final = slab_layout(_pad2(params.w_final.to(torch.bfloat16), np_,
+                                plan.joint_groups * JOINT_GROUP), plan.joint_groups)
+    b_head = torch.nn.functional.pad(params.b_head, (0, np_ - n)).contiguous()
+    if key is not None:
+        with _WEIGHTS_LOCK:
+            _WEIGHTS[key] = ([weakref.ref(t) for t in srcs], (w_slices, w_final, b_head))
+            while len(_WEIGHTS) > 8:
+                _WEIGHTS.popitem(last=False)
+    return w_slices, w_final, b_head
 
 
 def fused_head_decode_v2(xs: Sequence[torch.Tensor], params: HeadParams,
@@ -230,9 +430,9 @@ def fused_head_decode_v2(xs: Sequence[torch.Tensor], params: HeadParams,
     with ``input_scales`` (4 scales, float or 0-dim float32 tensors) the
     branches are int8 and ``x_i ~= sa_i * xs[i]``.
 
-    CUDA tensors run the kernel (three launches, plan ``head_plan``: any
-    widths, any B*h*w, K <= 128) and CPU tensors the plain twin; any other
-    device raises.  ``launches`` counts the kernel's launches (3 per call).
+    CUDA tensors run the kernel (one launch, plan ``head_plan``: any widths,
+    any B*h*w, K <= 128) and CPU tensors the plain twin; any other device
+    raises.  ``launches`` counts the kernel's launches (1 per call).
     """
     _validate(xs, params, input_scales)
     dev = xs[0].device
@@ -242,46 +442,43 @@ def fused_head_decode_v2(xs: Sequence[torch.Tensor], params: HeadParams,
         raise ValueError(f"fused_head_decode_v2 runs on cuda or cpu, not {dev}")
     b, h0, w0, c0 = xs[0].shape
     n, k = params.w_final.shape
-    plan = head_plan(b, tuple((x.shape[1], x.shape[2]) for x in xs),
-                     tuple(x.shape[3] for x in xs), n, k)
+    plan = head_plan(b, tuple((int(x.shape[1]), int(x.shape[2])) for x in xs),
+                     tuple(int(x.shape[3]) for x in xs), int(n), int(k))
     for i, x in enumerate(xs):
         if not x.is_contiguous() or x.data_ptr() % 16:
             raise ValueError(f"branch {i} must be contiguous NHWC and 16-byte aligned")
 
-    # the weights at the kernels' pitches: rows C_i and columns N rounded up to 16
-    np_ = plan.np
-    w_slices = [_pad2(w, cp, np_) for w, cp in
-                zip(branch_weights(xs, params, input_scales), plan.cp)]
-    in_int8 = int(input_scales is not None)
-    w_final = _pad2(params.w_final.to(torch.bfloat16), np_, k)
-    b_head = torch.nn.functional.pad(params.b_head, (0, np_ - n)).contiguous()
+    w_slices, w_final, b_head = _kernel_weights(xs, params, input_scales, plan)
     b_final = params.b_final.contiguous()
     temp = params.temp.contiguous()
     shapes = tuple((x.shape[1], x.shape[2]) for x in xs[1:])
     taps = _taps(shapes, h0, w0, str(dev))
-    ys = [torch.empty((b * h * w, np_), dtype=torch.bfloat16, device=dev) for h, w in shapes]
-    logits = torch.empty((b, k, h0 * w0), dtype=torch.float32, device=dev)
     out = torch.empty((b, k, 2), dtype=torch.float32, device=dev)
 
-    lib = _build.lib()
-    stream = _build.stream_ptr(dev)
-    err = lib.hrnet_head_branch_conv(
-        *(x.data_ptr() for x in xs[1:]), *(w.data_ptr() for w in w_slices[1:]),
-        *(y.data_ptr() for y in ys), *(b * h * w for h, w in shapes),
-        *(x.shape[3] for x in xs[1:]), np_, in_int8, stream)
-    _build.check(err, "hrnet_head_branch_conv")
-    fused_head_decode_v2.launches += 1
-    err = lib.hrnet_head_logits(
-        xs[0].data_ptr(), w_slices[0].data_ptr(), *(y.data_ptr() for y in ys),
-        taps.data_ptr(), b_head.data_ptr(), w_final.data_ptr(), b_final.data_ptr(),
-        temp.data_ptr(), logits.data_ptr(), b, h0, w0, c0,
-        *(d for hw in shapes for d in hw), np_, k, taps.shape[-1], in_int8, stream)
-    _build.check(err, "hrnet_head_logits")
-    fused_head_decode_v2.launches += 1
-    err = lib.hrnet_softmax_decode(logits.data_ptr(), out.data_ptr(), b, k, h0, w0, stream)
-    _build.check(err, "hrnet_softmax_decode")
+    err = _build.lib().hrnet_head_fused(
+        *(x.data_ptr() for x in xs), *(w.data_ptr() for w in w_slices), b_head.data_ptr(),
+        w_final.data_ptr(), b_final.data_ptr(), temp.data_ptr(), taps.data_ptr(), out.data_ptr(),
+        b, h0, w0, c0, *(d for hw in shapes for d in hw), *(x.shape[3] for x in xs[1:]), plan.np, k,
+        taps.shape[-1], int(input_scales is not None), plan.bands, plan.band_rows,
+        plan.pass_rows, plan.unit_rows, plan.kw, *plan.src_rows, plan.slab_rows, plan.stages,
+        plan.smem,
+        _build.stream_ptr(dev))
+    _build.check(err, "hrnet_head_fused")
     fused_head_decode_v2.launches += 1
     return out
+
+
+def head_kernel_attributes(plan: HeadPlan, int8_inputs: bool = False) -> dict:
+    """The registers per thread, local (spill) bytes per thread and static
+    shared bytes (``cudaFuncGetAttributes``) of the kernel instance that
+    runs ``plan``: slabs that hold whole branches, or not."""
+    import ctypes
+
+    vals = (ctypes.c_int * 3)()
+    whole = int(plan.slab_rows >= max(plan.cp[1:]))
+    _build.check(_build.lib().hrnet_head_fused_attributes(int(int8_inputs), whole, vals),
+                 "hrnet_head_fused_attributes")
+    return dict(registers=vals[0], local_bytes=vals[1], static_smem=vals[2])
 
 
 fused_head_decode_v2.launches = 0

@@ -15,7 +15,11 @@ that cover the tile, tiles that cover the output exactly once (decoded
 from the grid as the kernels decode ``blockIdx``), and a ValueError for a
 shape a kernel does not take.  The widths of the smoke model, HRNet-w18 and
 w40 (8 ... 160) are served too: the BasicBlock kernel at a zero-padded
-width it takes, ``conv_int8`` and the head at any width.
+width it takes, ``conv_int8`` and the head at any width.  The head's plan
+(``fused_head_decode.head_plan``, the one launch of
+``csrc/fused_head_decode.cu``) is held to its row bands, passes, staged
+source rows and shared memory, and the band decomposition of its softmax
+epilogue (``band_decode_reference``) to the twin's decode.
 """
 
 from collections import Counter
@@ -34,7 +38,9 @@ from hrnet_hand_pose_estimation_tpu_torch.ops.kernels.conv_int8 import (
 from hrnet_hand_pose_estimation_tpu_torch.ops.kernels.fused_bottleneck import (
     BASIC_TILES, BASIC_WIDTHS, basic_chain_plan, basic_chain_reference, basic_chain_width,
     bottleneck_plan, pad_basic_params, stem_plan)
-from hrnet_hand_pose_estimation_tpu_torch.ops.kernels.fused_head_decode import head_plan
+from hrnet_hand_pose_estimation_tpu_torch.ops.kernels.fused_head_decode import (
+    HeadParams, _kernel_weights, _tap_table, band_decode_reference, band_passes,
+    head_decode_reference, head_logits_reference, head_plan, slab_layout, soft_argmax_reference)
 from hrnet_hand_pose_estimation_tpu_torch.ops.kernels.int8_chain import (
     BASIC_INT8_TILES, TWO_BLOCKS_SMEM, basic_int8_plan, basic_int8_width, int8_bottleneck_plan,
     pitch_s8)
@@ -330,33 +336,178 @@ def test_padded_conv_int8_twin_matches(c):
                        conv_int8_reference(x, q, 2))
 
 
+def check_head_plan(p, batch, shapes, widths, n, k):
+    """What the head kernel needs of its plan: padded pitches, at most 8
+    bands (one cluster) that cover every output row exactly once, passes
+    of at most 32 m16 tiles whose staged source rows reach every bilinear
+    tap, at most 12 m16 tiles of each branch GEMM, at most 4 head tiles a
+    warp, a W-mix window that holds every tap of 16 output columns, and
+    the shared memory."""
+    (h0, w0), groups = shapes[0], -(-shapes[0][1] // 16)
+    assert p.cp == tuple(-(-c // 16) * 16 for c in widths) and p.np == -(-n // 32) * 32
+    assert p.joint_groups == -(-k // 32) and p.chunk == 32
+    assert 1 <= p.bands <= 8 and p.grid == (p.bands, batch) and p.cluster == (p.bands, 1, 1)
+    assert (p.bands - 1) * p.band_rows < h0 <= p.bands * p.band_rows
+    rows = np.zeros(h0, np.int32)
+    taps = _tap_table(tuple(shapes[1:]), h0, w0)
+    for y, r in band_passes(h0, p.bands, p.band_rows, p.pass_rows):
+        assert 1 <= r <= p.pass_rows and r * groups <= 32
+        assert y // p.band_rows == (y + r - 1) // p.band_rows     # a pass stays in its band
+        rows[y:y + r] += 1
+        for i, (h, w) in enumerate(shapes[1:]):
+            lo = taps[i, 0, 0].astype(int)
+            need = lo[y + r - 1] + 2 - lo[y]                         # source rows the pass reads
+            assert need <= p.src_rows[i] <= h and -(-(p.src_rows[i] * w) // 16) <= 12
+            assert (lo[y:y + r] + 1 < h).all()
+    assert covered_once(rows)
+    for i in range(3):
+        lo = taps[i, 1, 0, :w0].astype(int)
+        for x in range(0, w0, 16):
+            assert lo[min(x + 15, w0 - 1)] + 1 - lo[x] < 16 * p.kw
+    units = groups * -(-p.pass_rows // p.unit_rows)      # the warps' units of head tiles
+    assert p.unit_rows in (1, 2, 4) and -(-units // 8) * p.unit_rows <= 4
+    assert p.slab_rows % 16 == 0 and p.slab_rows >= max(128, p.cp[0] + 32)
+    assert p.slab_rows in (max(128, p.cp[0] + 32), max(*p.cp[1:], p.cp[0] + 32))
+    assert 2 <= p.stages <= 6
+    assert p.smem <= SMEM_LIMIT
+
+
 @pytest.mark.parametrize("batch", [1, 4])
 @pytest.mark.parametrize("c", NEW_WIDTHS)
 def test_head_plan_serves_new_widths(c, batch):
-    """The head at branch widths c and 2c (a head 6c wide), K up to 128."""
+    """The head at branch widths c and 2c (a head 6c wide) on the smoke
+    model's maps (a 2x2 coarsest one), K up to 128; K = 129 is refused."""
     widths = (c, c, 2 * c, 2 * c)
     n = sum(widths)
     shapes = ((16, 16), (8, 8), (4, 4), (2, 2))
     for k in (21, 128):
-        p = head_plan(batch, shapes, widths, n, k)
-        assert p.cp == tuple(-(-w // 16) * 16 for w in widths) and p.np == -(-n // 16) * 16
-        assert p.logits_smem <= SMEM_LIMIT and p.conv_smem <= SMEM_LIMIT
-    with pytest.raises(ValueError):
+        check_head_plan(head_plan(batch, shapes, widths, n, k), batch, shapes, widths, n, k)
+    with pytest.raises(ValueError, match="K <= 128"):
         head_plan(batch, shapes, widths, n, 129)
 
 
 @pytest.mark.parametrize("batch", [1, 4])
 def test_head_plan_rows_at_small_maps(batch):
-    """B*h*w of the smoke model's branches 1-3 (64, 16 and 4 at B = 1, a
-    2x2 coarsest map): each gets its own 64-row blocks over all columns,
-    the last one partial, masked by the kernel."""
+    """The smoke model's maps (16 x 16 down to a 2x2 coarsest one, B*h*w of
+    branches 1-3 as small as 64, 16 and 4 at B = 1): one band of all 16
+    rows in one pass, all of each branch's rows staged, warps in units of
+    2 rows (8 units for the 8 warps), the 120-wide head at 128 columns."""
     shapes = ((16, 16), (8, 8), (4, 4), (2, 2))
     p = head_plan(batch, shapes, (8, 16, 32, 64), 120, 21)
-    rows = [batch * h * w for h, w in shapes[1:]]
-    assert rows == [64 * batch, 16 * batch, 4 * batch]
-    assert p.conv_blocks == sum(-(-r // 64) for r in rows)
-    assert p.conv_smem == 2 * 64 * (64 + 16) + 8 * 256 * 4          # the widest branch, 64
-    assert p.logits_grid == (4, batch) and p.np == 128
+    check_head_plan(p, batch, shapes, (8, 16, 32, 64), 120, 21)
+    assert (p.bands, p.band_rows, p.pass_rows, p.unit_rows) == (1, 16, 16, 2)
+    assert p.src_rows == (8, 4, 2) and p.np == 128 and p.grid == (1, batch)
+
+
+HEAD_MAPS = [((16, 16), (8, 8), (4, 4), (2, 2)),        # the smoke model
+             ((20, 64), (10, 32), (5, 16), (3, 8)),      # 3 bands of 7, 7 and 6 rows
+             ((64, 64), (32, 32), (16, 16), (8, 8)),     # the flagship: 8 bands of 8
+             ((96, 96), (48, 48), (24, 24), (12, 12)),   # 8 bands of 12, passes of 4
+             ((20, 36), (10, 18), (5, 9), (3, 5))]       # non-square, W0 not a multiple of 16
+
+
+@pytest.mark.parametrize("batch", [1, 4])
+@pytest.mark.parametrize("shapes", HEAD_MAPS)
+def test_head_plan_bands_cover_rows(shapes, batch):
+    """Bands and passes at the w32 widths, H0 of 16, 20, 64 and 96 rows
+    (not all divisible by the band count) and a non-square map."""
+    widths = (32, 64, 128, 256)
+    p = head_plan(batch, shapes, widths, 480, 21)
+    check_head_plan(p, batch, shapes, widths, 480, 21)
+    if shapes[0] == (64, 64):
+        assert (p.bands, p.band_rows, p.pass_rows) == (8, 8, 8)
+    if shapes[0] == (20, 64):
+        assert (p.bands, p.band_rows) == (3, 7)
+
+
+@pytest.mark.parametrize("widths", [(64, 128, 256, 512), (96, 192, 384, 768)])
+def test_head_plan_wide_heads(widths):
+    """w64's 960-wide head and a 1440-wide one (the three-launch kernel
+    stopped near 1080) on the flagship's 64 x 64 map: the weights stream in
+    slabs, so only the staged rows grow with the width."""
+    shapes = HEAD_MAPS[2]
+    p = head_plan(128, shapes, widths, sum(widths), 21)
+    check_head_plan(p, 128, shapes, widths, sum(widths), 21)
+
+
+@pytest.mark.parametrize("rows,chunks,groups", [(48, 3, 0), (16, 4, 0), (256, 15, 0), (96, 3, 2),
+                                                (480, 15, 1)])
+def test_slab_layout_reads_back(rows, chunks, groups):
+    """The wrapper's weight layout read back through the kernel's slab_addr:
+    row r's 16-byte piece cg sits at piece cg ^ ((r >> 1) & 3) of its
+    64-byte row, each chunk of 32 columns (and, for w_final, each joint
+    group's chunk of 32 rows) contiguous."""
+    cols = 32 * (groups or chunks)
+    w = torch.arange(rows * cols, dtype=torch.float32).reshape(rows, cols)
+    lay = slab_layout(w, groups)
+    if groups:
+        assert lay.shape == (groups, rows // 32, 32, 32)
+        blocks = {(g, c): (lay[g, c], w[c * 32:(c + 1) * 32, g * 32:(g + 1) * 32])
+                  for g in range(groups) for c in range(rows // 32)}
+    else:
+        assert lay.shape == (chunks, rows, 32)
+        blocks = {c: (lay[c], w[:, c * 32:(c + 1) * 32]) for c in range(chunks)}
+    for got, want in blocks.values():
+        flat = got.reshape(-1)
+        for r in range(got.shape[0]):
+            for cg in range(4):
+                at = r * 32 + (cg ^ ((r >> 1) & 3)) * 8        # slab_addr in elements
+                assert torch.equal(flat[at:at + 8], want[r, cg * 8:cg * 8 + 8])
+
+
+def test_kernel_weights_follow_the_parameters():
+    """The head's laid-out weights are made once per parameter tensors and
+    made anew when a parameter changes in place, when new tensors come, and
+    on every call for inference tensors (no version counter)."""
+    xs, params = band_case(HEAD_MAPS[0], 21)
+    shapes = tuple(tuple(x.shape[1:3]) for x in xs)
+    plan = head_plan(2, shapes, tuple(x.shape[3] for x in xs), params.w_final.shape[0], 21)
+    first = _kernel_weights(xs, params, None, plan)
+    assert _kernel_weights(xs, params, None, plan)[0] is first[0]
+    params.w_head.mul_(2.0)
+    again = _kernel_weights(xs, params, None, plan)
+    assert again[0] is not first[0] and torch.equal(again[0][0].float(), 2 * first[0][0].float())
+    fresh = params._replace(w_head=params.w_head.clone())
+    assert _kernel_weights(xs, fresh, None, plan)[0] is not again[0]
+    with torch.inference_mode():
+        frozen = HeadParams(*(t.clone() for t in params))
+        assert _kernel_weights(xs, frozen, None, plan)[0] is not _kernel_weights(
+            xs, frozen, None, plan)[0]
+
+
+def band_case(shapes, k):
+    """Branch tensors (smoke widths) and head params from a seed, as numpy-made
+    torch tensors."""
+    rng = np.random.default_rng(k + shapes[0][1])
+    widths = (8, 16, 32, 64)
+    n = sum(widths)
+    f32 = lambda a: torch.from_numpy(np.asarray(a, np.float32))
+    params = HeadParams(f32(rng.normal(size=(n, n)) * 0.05), f32(rng.normal(size=n) * 0.1),
+                        f32(rng.normal(size=(n, k)) * 0.3), f32(rng.normal(size=k) * 0.1),
+                        f32(np.float32(1.3)))
+    xs = [f32(rng.normal(size=(2, *hw, c))).to(torch.bfloat16) for hw, c in zip(shapes, widths)]
+    return xs, params
+
+
+@pytest.mark.parametrize("k", [1, 21, 128])
+@pytest.mark.parametrize("bands", range(1, 9))
+@pytest.mark.parametrize("shapes", [HEAD_MAPS[0], HEAD_MAPS[4]])
+def test_band_decode_matches_twin(shapes, bands, k):
+    """The kernel's epilogue split into 1-8 row bands, each band's (m, sum
+    e, sum e*u, sum e*v) combined by exp(m - M), agrees with the twin's
+    softmax decode within 1e-5 px on the twin's logits (square and
+    non-square maps).  The algebra is compared in float64: in float32 the
+    order of the sums alone moves the decode by ~2e-5 px over 720 pixels."""
+    torch.set_num_threads(1)
+    xs, params = band_case(shapes, k)
+    logits = head_logits_reference(xs, params)
+    want = head_decode_reference(xs, params)
+    assert torch.equal(soft_argmax_reference(logits), want)     # the twin's own decode
+    got = band_decode_reference(logits.double(), bands)
+    want64 = soft_argmax_reference(logits.double())
+    assert got.shape == want.shape == (2, k, 2) and want.std().item() > 0.5
+    assert (got - want64).abs().max().item() <= 1e-5
+    assert (got.float() - want).abs().max().item() <= 1e-4     # and the float32 twin
 
 
 # -- the W8A8 layer1 block and BasicBlock (redesigned on the implicit-GEMM mainloop)
