@@ -13,13 +13,16 @@ one call (parent, change, change, parent): two calls may land on two cards.
 On pose_hrnet_w32 softmax at 256x256, random weights from seed 0, B=128,
 CUDA events after warm-up, it prints one line
 ``AB {"label", "step_default", "step_new", "step_int8", "head", "layer1",
-"stem_layer1", "layer1_int8", "branch_int8"}`` in ms: the default bf16
-step, the bf16 step with ``pallas_branches=True, fuse_stem_layer1=True``,
-the int8 step on uint8 images, and ``fused_head_decode_v2``,
-``fused_bottleneck_chain``, ``fused_stem_layer1`` and
-``fused_bottleneck_chain_int8`` alone on the serving paths' inputs, and
-``fused_basic_chain_int8`` summed over the int8 path's 26 branch inputs
-(params from ``prepare_branch_int8``).  With
+"stem_layer1", "layer1_int8", "branch_int8", "head_v1", "decode_b32",
+"decode_b128"}`` in ms: the default bf16 step, the bf16 step with
+``pallas_branches=True, fuse_stem_layer1=True``, the int8 step on uint8
+images, and ``fused_head_decode_v2``, ``fused_bottleneck_chain``,
+``fused_stem_layer1`` and ``fused_bottleneck_chain_int8`` alone on the
+serving paths' inputs, ``fused_basic_chain_int8`` summed over the int8
+path's 26 branch inputs (params from ``prepare_branch_int8``),
+``fused_head_decode`` (v1) on the default bf16 path's branch tensors, and
+the device time per call (``torch.profiler``, 20 calls) of
+``fused_softmax_decode`` on bf16 64x64x21 logits at B=32 and B=128.  With
 ``--profile`` it prints ``AB2 <label> total <ms>`` and the 14 largest
 per-kernel device times of one int8 step (``torch.profiler``, 3 steps).
 Exits non-zero without a card.
@@ -27,6 +30,8 @@ Exits non-zero without a card.
 
 import json
 import sys
+
+from chip_timing import device_busy  # this checkout's, before <root> goes first on sys.path
 
 if len(sys.argv) < 3:
     sys.exit(__doc__)
@@ -48,9 +53,11 @@ from hrnet_hand_pose_estimation_tpu_torch.core.fast_infer import (  # noqa: E402
 from hrnet_hand_pose_estimation_tpu_torch.ops.kernels.fused_bottleneck import (  # noqa: E402
     fused_bottleneck_chain, fused_stem_layer1)
 from hrnet_hand_pose_estimation_tpu_torch.ops.kernels.fused_head_decode import (  # noqa: E402
-    fused_head_decode_v2)
+    fused_head_decode, fused_head_decode_v2)
 from hrnet_hand_pose_estimation_tpu_torch.ops.kernels.int8_chain import (  # noqa: E402
     fused_basic_chain_int8, fused_bottleneck_chain_int8)
+from hrnet_hand_pose_estimation_tpu_torch.ops.kernels.softmax_decode import (  # noqa: E402
+    fused_softmax_decode)
 from hrnet_hand_pose_estimation_tpu_torch.ops.s2d import space_to_depth  # noqa: E402
 from hrnet_hand_pose_estimation_tpu_torch.utils.weights import init_variables  # noqa: E402
 
@@ -92,25 +99,17 @@ qparams = Q.prepare_serving_qparams(cfg, {k: v.to(dev) for k, v in state.items()
 quant = Q.make_quant_infer(cfg, device=dev, input_norm=norm)
 
 if "--profile" in sys.argv:
-    from torch.profiler import ProfilerActivity, profile
-
-    for _ in range(3):
+    for _ in range(2):
         quant(weights, qparams, u8)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(3):
-            quant(weights, qparams, u8)
-        torch.cuda.synchronize()
+    _, total, kernels = device_busy(lambda: quant(weights, qparams, u8), 3)
     per = {}
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        dt = getattr(e, "self_device_time_total", None) or e.self_cuda_time_total
-        per[e.key[:60]] = per.get(e.key[:60], 0) + dt / 1e3 / 3
+    for key, ms in kernels:
+        per[key[:60]] = per.get(key[:60], 0.0) + ms
     top = sorted(per.items(), key=lambda kv: -kv[1])[:14]
-    print(f"AB2 {label} total {sum(per.values()):.3f} "
+    print(f"AB2 {label} total {total:.3f} "
           + json.dumps([(k, round(v, 3)) for k, v in top]), flush=True)
     sys.exit(0)
+
 
 def recorded(owner, name, call):
     """Run ``call`` with ``owner.name`` wrapped to record its positional
@@ -151,6 +150,8 @@ with torch.inference_mode():
     x1 = torch.relu(m.conv2(torch.relu(m.conv1(xin)))).permute(0, 2, 3, 1).contiguous()
     x_s2d = space_to_depth(big.to(torch.bfloat16))
     l1_int8, branches = int8_kernel_inputs()
+    temp = torch.tensor(1.7, device=dev)
+    logits = {b: (torch.randn(b, 64, 64, 21, device=dev) * 3).to(torch.bfloat16) for b in (32, 128)}
     out = dict(label=label,
                step_default=time_ms(lambda: fast(weights, big)),
                step_new=time_ms(lambda: new(weights, big)),
@@ -161,5 +162,8 @@ with torch.inference_mode():
                                                              *weights.layer1)),
                layer1_int8=time_ms(lambda: fused_bottleneck_chain_int8(*l1_int8)),
                branch_int8=sum(time_ms(lambda: fused_basic_chain_int8(*c), iters=5)
-                               for c in branches))
+                               for c in branches),
+               head_v1=time_ms(lambda: fused_head_decode(xs, weights.head)),
+               **{f"decode_b{b}": device_busy(lambda: fused_softmax_decode(x, temp), 20)[1] or None
+                  for b, x in logits.items()})
 print("AB " + json.dumps(out), flush=True)

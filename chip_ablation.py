@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Where the time of the implicit-GEMM kernels and the head goes, on one NVIDIA card.
+"""Where the time of the implicit-GEMM kernels and the heads goes, on one NVIDIA card.
 
 Builds timing-only copies of the port's package under
 ``build/ablation/<variant>/``, each with one part of ``csrc/conv_int8.cu``,
@@ -7,13 +7,18 @@ Builds timing-only copies of the port's package under
 ``csrc/basic_int8.cu`` and their shared code in ``csrc/conv_mainloop.cuh``)
 or the head (``csrc/fused_head_decode.cu``: the branch GEMMs that make y_i,
 bands' shared rows recomputed included; the upsample; the x_0 GEMM; the
-final conv; the cluster's combine) removed or replaced, and times
+final conv; the cluster's combine) or the first version of the head
+(``csrc/head_v1.cu``: the feat gather, the head wgmma, the final conv, the
+cluster's combine) removed or replaced, and times
 ``conv_int8``, ``fused_basic_chain`` (one BasicBlock),
 ``fused_basic_chain_int8`` (one BasicBlock), the W8A8 layer1 block (one
-64 -> 256 and one 256 -> 256 launch) and ``fused_head_decode_v2`` (w32 and
-w48 widths on the 64x64 map) at the flagship's B=128 shape classes in each
-(CUDA events, a subprocess per variant). The
-variants' outputs are
+64 -> 256 and one 256 -> 256 launch), ``fused_head_decode_v2`` (w32 and
+w48 widths on the 64x64 map) and ``fused_head_decode`` (v1, w32 widths at
+B=32 and B=128) at the flagship's shape classes in each (CUDA events, a
+subprocess per variant; the ``v1_`` variants time v1 alone), and the
+softmax decode (``csrc/softmax_decode.cu``) with each plane split into 1,
+2, 4 or 8 ranges (every variant; the ``b4_`` variants, and every variant
+under ``--b4``, time it alone). The variants' outputs are
 wrong by design, except ``fdiv``, the former quantization by ``__fdiv_rn``,
 whose output hashes must equal ``base``'s. Then it checks on the card that
 the kernel's quantization, ``float(double(x) * (1.0 / double(sa)))``, rounds
@@ -21,8 +26,9 @@ every finite bf16 x to the same clipped int8 as ``__fdiv_rn(x, sa)`` and to
 the same float, for 60,000 scales sa drawn log-uniformly from [1e-4, 1e2]
 and the powers of two from 2^-14 to 2^6 and their predecessors.
 
-    python3 chip_ablation.py            # all variants
-    python3 chip_ablation.py base fdiv  # some
+    python3 chip_ablation.py                  # all variants
+    python3 chip_ablation.py base fdiv        # some
+    python3 chip_ablation.py --b4 base b4_regs32   # the softmax decode alone
 
 Prints one JSON line per variant, the check, the card's name and power
 limit. Needs one CUDA card and nvcc; exits non-zero without them.
@@ -99,6 +105,73 @@ VARIANTS = {
                          "  if (a.K < 0) {"),
                         ("csrc/fused_head_decode.cu", "  cluster.sync();   // no block leaves",
                          "  // no block leaves")],
+    # v1 of the head (csrc/head_v1.cu), one part skipped at run time
+    "v1_no_gather": [("csrc/head_v1.cu",
+                      "const uint4 raw = *reinterpret_cast<const uint4*>(tap[d] + cb);",
+                      "const uint4 raw = make_uint4(0, 0, 0, 0);")],
+    "v1_no_head_wgmma": [("csrc/head_v1.cu", "for (int ks = 0; ks < ksteps; ++ks)",
+                          "for (int ks = 0; ks < ksteps && a.K < 0; ++ks)")],
+    "v1_no_final": [("csrc/head_v1.cu", "for (int kk = 0; kk < 6; ++kk)",
+                     "for (int kk = 0; kk < 6 && a.K < 0; ++kk)")],
+    "v1_no_combine": [("csrc/head_v1.cu", "  cluster.sync();\n  if (rank == 0) {",
+                       "  cluster.sync();\n  if (a.K < 0) {")],
+    # cycles of a w32 block's first consumer thread by phase (clock64): the
+    # feat build, waits for head slabs, the head GEMM (issue and waits),
+    # bias/ReLU and the final conv (its slab waits included), the tile's
+    # softmax; rank 0 writes them in place of its sample's coordinates
+    "v1_clock": [("csrc/head_v1.cu", "    RingPos rp;                        // the ring position of the next slab",
+                  "    RingPos rp;\n    long long cyc[5] = {0, 0, 0, 0, 0}, ck = clock64();\n"
+                  "#define PH(i) { const long long n_ = clock64(); cyc[i] += n_ - ck; ck = n_; }"),
+                 ("csrc/head_v1.cu", "      bar_sync(1 + wg, 128);", "      bar_sync(1 + wg, 128);\n PH(0)"),
+                 ("csrc/head_v1.cu", "          mbar_wait(full_u + 8 * rp.st, rp.ph);\n"
+                  "          const int ksteps",
+                  "          mbar_wait(full_u + 8 * rp.st, rp.ph);\n PH(1)\n"
+                  "          const int ksteps"),
+                 ("csrc/head_v1.cu", "          release(rp.st);\n        }\n#pragma unroll",
+                  "          release(rp.st);\n PH(2)\n        }\n#pragma unroll"),
+                 ("csrc/head_v1.cu", "          release(rp.st);\n        }\n      }",
+                  "          release(rp.st);\n        }\n PH(3)\n      }"),
+                 ("csrc/head_v1.cu", "            if (g8 == 0) merge_softmax(wpart[k], m, s, su, sv);\n"
+                  "          }\n        }\n      }\n    }\n",
+                  "            if (g8 == 0) merge_softmax(wpart[k], m, s, su, sv);\n"
+                  "          }\n        }\n      }\n PH(4)\n    }\n    if (tid == 0 && rank == 0)\n"
+                  "      for (int i = 0; i < 5; ++i) a.out[(size_t)b * a.K * 2 + i] = (float)cyc[i];\n"),
+                 ("csrc/head_v1.cu", "  cluster.sync();\n  if (rank == 0) {",
+                  "  cluster.sync();\n  if (a.K < 0) {")],
+    # per slab of sample 0's first block: when the ring warp issued it, when
+    # the first consumer thread asked for it and when it had it (clock64),
+    # written in place of the coordinates
+    "v1_trace": [("csrc/head_v1.cu",
+                  "  __syncthreads();   // the barriers and the tables exist before any copy or wait",
+                  "  __syncthreads();\n"
+                  "  const long long t0_ = clock64();   // all threads leave the barrier together\n"
+                  "  float* tr_ = (b == 0 && rank == 0) ? a.out : nullptr;"),
+                 ("csrc/head_v1.cu", "        mbar_expect_tx(fb, bytes);",
+                  "        if (tr_ && j < 512) tr_[3 * j] = (float)(clock64() - t0_);\n"
+                  "        mbar_expect_tx(fb, bytes);"),
+                 ("csrc/head_v1.cu", "    RingPos rp;                        // the ring position of the next slab",
+                  "    RingPos rp;\n    int j = 0;"),
+                 ("csrc/head_v1.cu", "          mbar_wait(full_u + 8 * rp.st, rp.ph);\n"
+                  "          const int ksteps",
+                  "          const bool rec_ = tr_ && (tid & 127) == 0 && wg == 0 && j < 512;\n"
+                  "          if (rec_) tr_[3 * j + 1] = (float)(clock64() - t0_);\n"
+                  "          mbar_wait(full_u + 8 * rp.st, rp.ph);\n"
+                  "          if (rec_) tr_[3 * j + 2] = (float)(clock64() - t0_);\n"
+                  "          ++j;\n"
+                  "          const int ksteps"),
+                 ("csrc/head_v1.cu", "          mbar_wait(full_u + 8 * rp.st, rp.ph);\n"
+                  "          const unsigned fb",
+                  "          const bool rec_ = tr_ && (tid & 127) == 0 && wg == 0 && j < 512;\n"
+                  "          if (rec_) tr_[3 * j + 1] = (float)(clock64() - t0_);\n"
+                  "          mbar_wait(full_u + 8 * rp.st, rp.ph);\n"
+                  "          if (rec_) tr_[3 * j + 2] = (float)(clock64() - t0_);\n"
+                  "          ++j;\n"
+                  "          const unsigned fb"),
+                 ("csrc/head_v1.cu", "  cluster.sync();\n  if (rank == 0) {",
+                  "  cluster.sync();\n  if (a.K < 0) {")],
+    # B4 (csrc/softmax_decode.cu) with 8 blocks per SM (32 registers a thread)
+    "b4_regs32": [("csrc/softmax_decode.cu", "constexpr int kBlocksPerSM = 4;",
+                   "constexpr int kBlocksPerSM = 8;")],
 }
 
 CHECK_CU = r'''
@@ -133,6 +206,31 @@ CLASSES_B7 = [(64, 32), (32, 64), (16, 128), (8, 256)]
 INT8_L1_BLOCKS = [(64, True), (256, False)]      # (Cin, projection) of layer1's W8A8 blocks
 
 
+def decode_splits(dev) -> dict:
+    """B4's device time per call (torch.profiler, 20 calls) on bf16
+    64x64x21 logits at B=32 and B=128 with each plane split into S = 1, 2,
+    4 and 8 ranges (``decode_plan`` takes 8)."""
+    import torch
+
+    from chip_timing import device_busy
+    from hrnet_hand_pose_estimation_tpu_torch.ops.kernels import _build
+    from hrnet_hand_pose_estimation_tpu_torch.ops.kernels.softmax_decode import decode_plan
+
+    res = {}
+    for b in (32, 128):
+        x = (torch.randn(b, 64, 64, 21, device=dev) * 3).to(torch.bfloat16)
+        out = torch.empty(b, 21, 2, device=dev)
+        plan = decode_plan(b, 64, 64, 21, 2)
+        for splits in (1, 2, 4, 8):
+            def call():
+                _build.check(_build.lib().hrnet_fused_softmax_decode(
+                    x.data_ptr(), None, 1.7, out.data_ptr(), b, 64, 64, 21, 1, splits,
+                    plan.piece_px, plan.smem, torch.cuda.current_stream().cuda_stream), "decode")
+            res[f"fused_softmax_decode B={b} bf16 S={splits} device"] = round(
+                device_busy(call, 20)[1], 5)
+    return res
+
+
 def make(name):
     dst = OUT / name
     shutil.rmtree(dst, ignore_errors=True)
@@ -148,7 +246,7 @@ def make(name):
     return dst
 
 
-def time_variant(where: str) -> None:
+def time_variant(where: str, b4_only: bool) -> None:
     """Runs in a subprocess with the variant's copy first on sys.path."""
     import numpy as np
     import torch
@@ -161,6 +259,10 @@ def time_variant(where: str) -> None:
     if not str(_build.CSRC).startswith(where):
         raise SystemExit(f"imported the package from {_build.CSRC}, not from {where}")
     dev, rng = torch.device("cuda"), np.random.default_rng(0)
+    v1_only = Path(where).name.startswith("v1_")
+    if b4_only or Path(where).name.startswith("b4_"):
+        print(json.dumps({Path(where).name: decode_splits(dev)}), flush=True)
+        return
 
     def ms(fn, iters=20):
         for _ in range(3):
@@ -175,6 +277,41 @@ def time_variant(where: str) -> None:
         return start.elapsed_time(end) / iters
 
     res = {}
+    from hrnet_hand_pose_estimation_tpu_torch.ops.kernels import fused_head_decode as HD
+
+    f32 = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+    widths, k = (32, 64, 128, 256), 21
+    n = sum(widths)
+    head = HD.HeadParams(f32(rng.normal(size=(n, n)) * 0.05), f32(rng.normal(size=n) * 0.1),
+                         f32(rng.normal(size=(n, k)) * 0.1), f32(rng.normal(size=k) * 0.1),
+                         f32(np.float32(1.3)))
+    for b in (32, 128):
+        xs = [torch.from_numpy(np.abs(rng.normal(size=(b, 64 >> i, 64 >> i, c))).astype(
+            np.float32)).to(dev, torch.bfloat16) for i, c in enumerate(widths)]
+        res[f"fused_head_decode (v1) B={b} {widths} 64x64"] = round(
+            ms(lambda: HD.fused_head_decode(xs, head)), 4)
+    if Path(where).name == "v1_clock":
+        out = HD.fused_head_decode(xs, head)
+        cyc = out.reshape(out.shape[0], -1)[:, :5].double().mean(0).tolist()
+        res["cycles of a w32 B=128 block's first consumer thread"] = dict(zip(
+            ("feat build", "slab waits", "head GEMM", "bias/ReLU + final conv", "tile softmax"),
+            [round(c) for c in cyc]))
+    if Path(where).name == "v1_trace":
+        tr = HD.fused_head_decode(xs, head).reshape(-1)[:1536].double().reshape(512, 3)
+        n = 4 * 5 * 9                                    # slabs of a w32 block
+        issue, req, got = tr[:n, 0], tr[:n, 1], tr[:n, 2]
+        late = issue > req
+        res["slab trace, sample 0's first block"] = dict(
+            slabs=n, wait_cycles=round((got - req).sum().item()),
+            issued_after_asked=int(late.sum()),
+            wait_cycles_when_issued_late=round((got - req)[late].sum().item()),
+            copy_latency_mean=round((got - issue)[late].mean().item()) if late.any() else None,
+            lead_cycles_median=round((req - issue)[~late].median().item()) if (~late).any()
+            else None)
+    if v1_only:
+        print(json.dumps({Path(where).name: res}), flush=True)
+        return
+    res.update(decode_splits(dev))
     for k, stride, cin, cout, h in CLASSES_INT8:
         x = torch.relu(torch.from_numpy(rng.normal(size=(128, h, h, cin)).astype(np.float32))
                        ).to(dev, torch.bfloat16)          # half zeros, as after a ReLU
@@ -195,7 +332,6 @@ def time_variant(where: str) -> None:
         res[f"fused_basic_chain 1 block {h}x{h}x{c}"] = round(ms(lambda: fused_basic_chain(x, p, 1)), 4)
     from hrnet_hand_pose_estimation_tpu_torch.ops.kernels import int8_chain as I8
 
-    f32 = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)
     i8 = lambda *shape: torch.from_numpy(rng.integers(-127, 128, size=shape).astype(np.int8)).to(dev)
     for h, c in CLASSES_B7:
         x = torch.relu(torch.from_numpy(rng.normal(size=(128, h, h, c)).astype(np.float32))
@@ -217,8 +353,6 @@ def time_variant(where: str) -> None:
         plan = I8.int8_bottleneck_plan(128, 64, 64, cin, 64, 256, proj)
         res[f"int8 layer1 block {cin}->256 at 64x64"] = round(
             ms(lambda: I8._launch_bottleneck_int8(x, kp, plan)), 4)
-    from hrnet_hand_pose_estimation_tpu_torch.ops.kernels import fused_head_decode as HD
-
     for widths, k in (((32, 64, 128, 256), 21), ((48, 96, 192, 384), 21)):
         n = sum(widths)
         xs = [torch.from_numpy(rng.normal(size=(128, 64 >> i, 64 >> i, c)).astype(np.float32)).to(
@@ -254,14 +388,15 @@ def main(names) -> int:
     if not torch.cuda.is_available():
         print("chip_ablation.py needs a CUDA card", file=sys.stderr)
         return 1
-    names = names or list(VARIANTS)
+    b4 = [n for n in names if n == "--b4"]
+    names = [n for n in names if n != "--b4"] or list(VARIANTS)
     dirs = [make(n) for n in names]
     build = "from hrnet_hand_pose_estimation_tpu_torch.ops.kernels import _build; _build.build()"
     procs = [subprocess.Popen([sys.executable, "-c", build], cwd=d) for d in dirs]
     if any(p.wait() for p in procs):
         return 1
     for d in dirs:
-        if subprocess.call([sys.executable, __file__, "--time", str(d)]):
+        if subprocess.call([sys.executable, __file__, "--time", str(d), *b4]):
             return 1
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
@@ -271,6 +406,6 @@ def main(names) -> int:
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--time"]:
-        time_variant(sys.argv[2])
+        time_variant(sys.argv[2], sys.argv[3:] == ["--b4"])
     else:
         sys.exit(main(sys.argv[1:]))

@@ -32,8 +32,10 @@ branch inputs of the int8 path, against its twin and against the int8
 walk's own per-site branches (per shape class at batch 128 beside the
 bf16 chain kernel's class time and cuDNN's ResLayers), and the first
 version of the fused head
-(``fused_head_decode``) on the four branch tensors of the default bf16 path,
-against its twin and beside the second version.
+(``fused_head_decode``, one launch) on the four branch tensors of the
+default bf16 path at B=32 and B=128, against its twin and beside the second
+version and cuBLAS's head GEMM, and at the w18 and smoke model's branch
+widths.
 
 Then the 2D training path (``parallel/train_step``, ``core/trainer``) with
 the training settings of
@@ -46,7 +48,8 @@ and one ``Trainer.fit`` epoch with a resume.
 
 Then the 2D evaluation path (``core/evaluator.Evaluator2D``) of the same
 flagship model on the synthetic test set at 256/64, B=32: the softmax-decode
-kernel against its twin, the standard evaluation (one decode launch per
+kernel (each plane split over a cluster) against its twin at B=1, 32 and
+128, the standard evaluation (one decode launch per
 batch) against the same evaluation decoded by the twin, the int8 serving
 evaluation, the evaluation tool's artifacts, and the inference tool's
 three serving functions.
@@ -74,6 +77,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from chip_timing import device_busy
 from hrnet_hand_pose_estimation_tpu_torch.config import (POSE_HIGH_RESOLUTION_NET_EXTRA,
                                                          load_config)
 from hrnet_hand_pose_estimation_tpu_torch.core import evaluator as EV
@@ -98,7 +102,7 @@ from hrnet_hand_pose_estimation_tpu_torch.ops.kernels.fused_bottleneck import (
     layer1_reference, stem_layer1_reference)
 from hrnet_hand_pose_estimation_tpu_torch.ops.kernels.fused_head_decode import (
     HeadParams, fused_head_decode, fused_head_decode_v2, head_decode_reference,
-    head_decode_v1_reference, head_kernel_attributes, head_plan)
+    head_decode_v1_reference, head_kernel_attributes, head_plan, head_v1_attributes, head_v1_plan)
 from hrnet_hand_pose_estimation_tpu_torch.ops.kernels.gaussian_targets import (
     fused_gaussian_targets, gaussian_targets_reference)
 from hrnet_hand_pose_estimation_tpu_torch.ops.kernels import int8_chain as I8
@@ -106,7 +110,7 @@ from hrnet_hand_pose_estimation_tpu_torch.ops.kernels.int8_chain import (
     basic_chain_int8_reference, bottleneck_chain_int8_reference, fused_basic_chain_int8,
     fused_bottleneck_chain_int8, prepare_branch_int8)
 from hrnet_hand_pose_estimation_tpu_torch.ops.kernels.softmax_decode import (
-    fused_softmax_decode, softmax_decode_reference)
+    decode_plan, fused_softmax_decode, softmax_decode_reference)
 from hrnet_hand_pose_estimation_tpu_torch.ops.s2d import space_to_depth
 from hrnet_hand_pose_estimation_tpu_torch.ops.targets import gaussian_targets
 from hrnet_hand_pose_estimation_tpu_torch.parallel import train_step as TS
@@ -146,32 +150,6 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
-
-
-def device_busy(fn, steps: int = 3) -> tuple[float, float, list]:
-    """(wall ms/step, kernel ms/step, [(kernel, ms/step), ...] largest first)
-    from torch.profiler over ``steps`` calls after a synchronize: the device
-    time of every CUDA kernel, summed (one stream: kernels do not overlap)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        for _ in range(steps):
-            fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t) * 1e3 / steps
-    per = {}
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue                 # CPU ops: their kernels are listed themselves
-        dt = getattr(e, "self_device_time_total", None)
-        if dt is None:
-            dt = e.self_cuda_time_total
-        per[e.key] = per.get(e.key, 0.0) + dt / 1e3 / steps
-    top = sorted(per.items(), key=lambda kv: -kv[1])
-    return wall, sum(per.values()), top
 
 
 def bound(flops_bf16: float, flops_f32: float, nbytes: float,
@@ -1304,10 +1282,59 @@ def head_v1_work(xs, head, out):
     return bound(mm + interp, 6 * b * k * hw, nbytes([*xs, out, *weights]))
 
 
+def head_v1_gemm_ms(xs, head):
+    """cuBLAS's time for the head GEMM alone (``torch.matmul`` of the
+    B*H0*W0 x Ctot feat by w_head, bf16): a yardstick of the dominant work,
+    not a port."""
+    b, h0, w0, _ = xs[0].shape
+    n = head.w_final.shape[0]
+    feat = torch.randn(b * h0 * w0, head.w_head.shape[0], device=xs[0].device).to(torch.bfloat16)
+    w = head.w_head.to(torch.bfloat16)
+    return time_ms(lambda: torch.matmul(feat, w), 10), 2 * b * h0 * w0 * feat.shape[1] * n
+
+
+V1_CASES = {"w18": (18, 36, 72, 144), "smoke": (8, 16, 32, 64)}
+
+
+def head_v1_width_checks(dev):
+    """C10: v1 at the w18 and smoke model's branch widths (channels that are
+    no multiple of 8, a 16x16 map for the smoke model) on seeded random
+    inputs, one launch each, within 0.05 px of the twin.  The final conv's
+    weights are drawn at 0.1 on the 64x64 map and 0.3 on the small one, as
+    in tests/test_torch_cuda.py."""
+    rows = []
+    for name, widths in V1_CASES.items():
+        rng = np.random.default_rng(len(rows) + 60)
+        h0, b, k, n = (16 if name == "smoke" else 64), 4, 21, sum(widths)
+        xs = [torch.from_numpy(np.abs(rng.normal(size=(b, h0 >> i, h0 >> i, c))).astype(
+            np.float32)).to(dev, torch.bfloat16) for i, c in enumerate(widths)]
+        f = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+        head = HeadParams(f(rng.normal(size=(n, n)) * 0.05), f(rng.normal(size=n) * 0.1),
+                          f(rng.normal(size=(n, k)) * (0.3 if name == "smoke" else 0.1)),
+                          f(rng.normal(size=k) * 0.1), f(np.float32(1.3)))
+        zero_counters()
+        got = fused_head_decode(xs, head)
+        torch.cuda.synchronize()
+        launches = counters()["fused_head_decode"]
+        want = head_decode_v1_reference(xs, head)
+        err = (got - want).abs().max().item()
+        plan = head_v1_plan(b, h0, widths, n, k, tuple(x.shape[1] for x in xs[1:]))
+        print(f"head v1 at the {name} widths {widths} on a {h0}x{h0} map, B={b}: {launches} "
+              f"launch, max|kernel - plain| {err:.5f} px (limit 0.05), spread "
+              f"{want.std().item():.3f} px; padded feat {plan.cp} -> Ctot {plan.ctot}, head "
+              f"{n} -> {plan.np}, tiles of {64 * plan.warpgroups} px, cluster {plan.cluster}")
+        if launches != 1 or not err <= 0.05 or not want.std().item() > 0.5:
+            raise AssertionError(f"head v1 at the {name} widths: {launches} launches, {err} px")
+        rows.append(dict(name=name, max_abs_err=err))
+    return rows
+
+
 def head_v1_phases(weights, smi, kernels, infer, images):
     """B9 on the default bf16 path's four branch tensors at B=32 and B=128:
-    launches, the kernel against its twin, v1 beside v2, the shapes it must
-    refuse, and times.  Appends one entry to ``kernels``."""
+    launches, the plan with its registers and spills, the kernel against its
+    twin, v1 beside v2, the w18 and smoke widths (C10), the shapes it must
+    refuse, times beside cuBLAS's head GEMM.  Appends one entry to
+    ``kernels``."""
     dev = images.device
     head = weights.head
     with phase("head v1"), torch.inference_mode():
@@ -1317,11 +1344,21 @@ def head_v1_phases(weights, smi, kernels, infer, images):
         torch.cuda.synchronize()
         launches = counters()
         want = {fn.__name__: 0 for fn in COUNTED}
-        want["fused_head_decode"] = 2
+        want["fused_head_decode"] = 1
         print(f"fused_head_decode (v1) at B={CHECK_BATCH} on the bf16 path's branches "
               f"{[tuple(x.shape[1:]) for x in xs]}: CUDA launches {launches}")
         if launches != want:
             raise AssertionError(f"head v1 launches {launches}, want {want}")
+        n, k = head.w_final.shape
+        plan = head_v1_plan(xs[0].shape[0], xs[0].shape[1], tuple(x.shape[3] for x in xs), n, k,
+                            tuple(x.shape[1] for x in xs[1:]))
+        attrs = head_v1_attributes(plan)
+        print(f"head v1 plan: tiles of {64 * plan.warpgroups} px ({plan.tiles} per sample), "
+              f"cluster {plan.cluster} x {plan.block_tiles} tiles, feat {plan.ctot} in "
+              f"{plan.kblocks} K blocks, head {plan.np} in {plan.chunks} chunks of 96, ring of "
+              f"{plan.stages} x 12 KB, staged source rows {plan.src_rows}, {plan.smem} B shared "
+              f"memory, grid {plan.grid}; kernel "
+              f"{attrs['registers']} registers, {attrs['local_bytes']} B local (spills) per thread")
         plain = head_decode_v1_reference(xs, head)
         d = (got - plain).abs()
         spread = plain.std(dim=(0, 1)).min().item()
@@ -1339,28 +1376,42 @@ def head_v1_phases(weights, smi, kernels, infer, images):
             print(f"head v1 refuses a non-square branch: {e}")
         else:
             raise AssertionError("head v1 took a non-square branch")
+        widths = head_v1_width_checks(dev)
         b_ms, b_by = head_v1_work(xs, head, got)
+        gemm_ms, gemm_flop = head_v1_gemm_ms(xs, head)
         entry = dict(name="fused_head_decode", route="cuda",
                      source="hrnet_hand_pose_estimation_tpu_torch/csrc/head_v1.cu",
-                     decode_source="hrnet_hand_pose_estimation_tpu_torch/csrc/fused_head_decode.cu",
                      replaces="hrnet_hand_pose_estimation_tpu/ops/pallas/fused_head_decode.py:109",
                      launches=launches["fused_head_decode"], max_abs_err=d.max().item(),
                      ms=time_ms(lambda: fused_head_decode(xs, head), 10),
                      plain_ms=time_ms(lambda: head_decode_v1_reference(xs, head), 2, warmup=1),
-                     bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                     v2_ms=time_ms(lambda: fused_head_decode_v2(xs, head), 10))
+                     bound_ms=b_ms, bound_by=b_by, library_ms=None, cublas_gemm_ms=gemm_ms,
+                     v2_ms=time_ms(lambda: fused_head_decode_v2(xs, head), 10), plan=plan._asdict(),
+                     widths=widths, **attrs)
         del xs, plain
         big = torch.from_numpy(np.random.default_rng(1).normal(
             size=(TIME_BATCH, 256, 256, 3)).astype(np.float32)).to(dev)
         xs = record_head_inputs(infer, weights, big)
         got = fused_head_decode(xs, head)
+        err = (got - head_decode_v1_reference(xs, head)).abs().max().item()
+        print(f"head v1 at B={TIME_BATCH}: max|kernel - plain| {err:.5f} px (limit 0.05)")
+        if not err <= 0.05:
+            raise AssertionError(f"head v1 disagrees with its plain twin at B={TIME_BATCH}: {err}")
+        entry[f"max_abs_err_b{TIME_BATCH}"] = err
         entry[f"ms_b{TIME_BATCH}"] = time_ms(lambda: fused_head_decode(xs, head), 10)
         entry[f"bound_ms_b{TIME_BATCH}"] = head_v1_work(xs, head, got)[0]
         entry[f"v2_ms_b{TIME_BATCH}"] = time_ms(lambda: fused_head_decode_v2(xs, head), 10)
-        for b, suffix in ((CHECK_BATCH, ""), (TIME_BATCH, f"_b{TIME_BATCH}")):
-            print(f"fused_head_decode (v1), 2 launches per call, B={b}: {entry['ms' + suffix]:.3f} "
-                  f"ms, bound {entry['bound_ms' + suffix]:.4f} ms ({b_by}); v2 "
-                  f"{entry['v2_ms' + suffix]:.3f} ms; no single PyTorch call computes it, on {smi}")
+        entry[f"cublas_gemm_ms_b{TIME_BATCH}"], gemm_flop_big = head_v1_gemm_ms(xs, head)
+        for b, suffix, flop in ((CHECK_BATCH, "", gemm_flop),
+                                (TIME_BATCH, f"_b{TIME_BATCH}", gemm_flop_big)):
+            ms = entry["ms" + suffix]
+            print(f"fused_head_decode (v1), 1 launch per call, B={b}: {ms:.3f} ms, bound "
+                  f"{entry['bound_ms' + suffix]:.4f} ms ({b_by}), "
+                  f"{entry['bound_ms' + suffix] / ms:.1%} of it; v2 {entry['v2_ms' + suffix]:.3f} "
+                  f"ms; cuBLAS's head GEMM alone (information, not a port) "
+                  f"{entry['cublas_gemm_ms' + suffix]:.3f} ms "
+                  f"({flop / entry['cublas_gemm_ms' + suffix] / 1e9:.0f} TFLOP/s); no single "
+                  f"PyTorch call computes v1, on {smi}")
         print(f"head v1 plain twin at B={CHECK_BATCH}: {entry['plain_ms']:.3f} ms")
         del xs, big
     kernels.append(entry)
@@ -1723,7 +1774,8 @@ def decode_cases(dev):
     rng = np.random.default_rng(40)
     t25 = torch.tensor(2.5, device=dev)
     cases = []
-    for shape in ((32, 64, 64, 21), (128, 64, 64, 21), (3, 64, 64, 21), (2, 48, 64, 21)):
+    for shape in ((32, 64, 64, 21), (128, 64, 64, 21), (1, 64, 64, 21), (3, 64, 64, 21),
+                  (2, 48, 64, 21)):
         x = torch.from_numpy((rng.normal(size=shape) * 3).astype(np.float32)).to(dev)
         for dtype in (torch.float32, torch.bfloat16):
             for temp in (1.0, t25):
@@ -1752,7 +1804,7 @@ def eval_phases(smi, kernels):
             size=(2, 64, 64, 21)).astype(np.float32)).to(dev)
         peak[1, 10, 37, 4] = 1e4
         top = fused_softmax_decode(peak, torch.tensor(2.5, device=dev))[1, 4].tolist()
-        print(f"softmax decode: {len(decode_cases(dev))} cases (B 32/128/3 and 2x48x64, f32 "
+        print(f"softmax decode: {len(decode_cases(dev))} cases (B 32/128/1/3 and 2x48x64, f32 "
               f"and bf16, T 1.0 and 2.5 on the card), max|kernel - twin| {worst:.3g} px "
               f"(limit 1e-4); flat plane -> {flat[0, 0].tolist()}, one logit of 1e4 at "
               f"(37, 10) -> {top}")
@@ -1763,7 +1815,7 @@ def eval_phases(smi, kernels):
                      replaces="hrnet_hand_pose_estimation_tpu/ops/pallas/decode_kernel.py:69",
                      max_abs_err=worst, library_ms=None)
         temp = torch.tensor(1.7, device=dev)
-        for b in (EVAL_BATCH, TIME_BATCH):
+        for b in (1, EVAL_BATCH, TIME_BATCH):
             base = torch.randn(b, 64, 64, 21, device=dev) * 3
             for dtype in (torch.bfloat16, torch.float32):
                 x = base.to(dtype)
@@ -1773,16 +1825,21 @@ def eval_phases(smi, kernels):
                 # paced by the wrapper's host work when that is longer
                 _, kernel_ms, _ = device_busy(lambda: fused_softmax_decode(x, temp), steps=20)
                 b_ms, b_by = decode_work(x, torch.empty(b, 21, 2, device=dev))
+                plan = decode_plan(b, 64, 64, 21, x.element_size())
                 # the eval path's logits are bf16 at B=32: the unsuffixed keys
                 suffix = ("" if dtype == torch.bfloat16 else "_f32") + (
                     "" if b == EVAL_BATCH else f"_b{b}")
                 entry.update({f"ms{suffix}": ms, f"plain_ms{suffix}": plain,
-                              f"bound_ms{suffix}": b_ms, f"device_ms{suffix}": kernel_ms})
+                              f"bound_ms{suffix}": b_ms, f"device_ms{suffix}": kernel_ms or None,
+                              f"splits{suffix}": plan.splits})
                 entry["bound_by"] = b_by
-                print(f"fused_softmax_decode B={b} (64x64x21 {str(dtype)[6:]}): {ms:.4f} ms per "
-                      f"call, {kernel_ms:.4f} ms of kernel (torch.profiler), plain {plain:.4f} "
-                      f"ms, bound {b_ms:.4f} ms ({b_by}); no single PyTorch call computes it, "
-                      f"on {smi}")
+                device = (f"{kernel_ms:.4f} ms of kernel (torch.profiler)" if kernel_ms > 0 else
+                          "kernel time not measured (the profiler recorded no device event)")
+                share = f", {b_ms / kernel_ms:.1%} of it" if kernel_ms > 0 else ""
+                print(f"fused_softmax_decode B={b} (64x64x21 {str(dtype)[6:]}, S={plan.splits} "
+                      f"ranges of {plan.range_px} px per sample): {ms:.4f} ms per call, "
+                      f"{device}, plain {plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}){share}; no "
+                      f"single PyTorch call computes it, on {smi}")
 
     with tempfile.TemporaryDirectory() as tmp:
         cfg = eval_cfg(tmp)

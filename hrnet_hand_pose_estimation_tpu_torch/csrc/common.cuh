@@ -2,6 +2,8 @@
 // plain C interface; see ops/kernels/_build.py).
 #pragma once
 
+#include <math.h>
+
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
@@ -78,6 +80,31 @@ __device__ inline uint2 pack8(const signed char (&q)[8]) {
            ((unsigned)(unsigned char)q[4 * h + 2] << 16) |
            ((unsigned)(unsigned char)q[4 * h + 3] << 24);
   return make_uint2(w[0], w[1]);
+}
+
+// max(a, b), NaN if either is (fmaxf drops a NaN): a softmax's max over
+// logits of which one is NaN is NaN, so that merge_softmax carries it
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float d;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
+}
+
+// Merge the online-softmax state (m, s, su, sv) of some pixels -- their max
+// and sum e, sum e*u, sum e*v with e = exp(x - m) -- into P by one rescale
+// (the head v1's and the softmax decode's).  A state that saw only -inf
+// logits (m = -inf, s = 0) adds nothing; a NaN max or sum makes P's sums NaN.
+__device__ inline void merge_softmax(float4& P, float m, float s, float su, float sv) {
+  if (m == -INFINITY && s == 0.0f) return;
+  if (m > P.x) {
+    const float f = expf(P.x - m);   // 0 while P is empty
+    P = make_float4(m, P.y * f + s, P.z * f + su, P.w * f + sv);
+  } else {
+    const float f = expf(m - P.x);
+    P.y += s * f;
+    P.z += su * f;
+    P.w += sv * f;
+  }
 }
 
 // acc * a + c in f32, rounded twice: the dequant epilogue

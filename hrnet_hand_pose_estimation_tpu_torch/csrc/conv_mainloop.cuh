@@ -46,6 +46,47 @@ __device__ __forceinline__ unsigned smem_u32(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
 
+// Bulk copies (the Tensor Memory Accelerator's 1D form) that complete on an
+// mbarrier, for the heads' weight rings (fused_head_decode.cu, head_v1.cu).
+// Measured on the H100 (PERF.md), a w32 block of the head with every MMA
+// removed spent 76K cycles of a pass on a ring of 16-byte cp.async copies and
+// 62K on bulk copies.
+__device__ __forceinline__ void mbar_init(unsigned addr, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(addr), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(unsigned addr, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(addr), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(unsigned addr, unsigned parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n"
+      "}\n" ::"r"(addr),
+      "r"(parity)
+      : "memory");
+}
+
+// bytes (a multiple of 16) from global src to shared dst, completing on mbar
+__device__ __forceinline__ void bulk_g2s(unsigned dst, const void* src, unsigned bytes,
+                                         unsigned mbar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(dst), "l"(src), "r"(bytes), "r"(mbar)
+      : "memory");
+}
+
+// two floats as one bf16x2 word, low half first
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
 // 16-byte asynchronous copy global -> shared; `valid == false` writes 16 zero
 // bytes and reads nothing (src must still be a mapped address)
 __device__ __forceinline__ void cp_async16(unsigned dst, const void* src, bool valid) {

@@ -69,9 +69,6 @@
 // input_scales): the four branches arrive as int8 (B, h, w, C_i) with
 // x_i ~= sa_i * xq_i; the wrapper folds sa_i into W_i in f32 before the bf16
 // cast.  The branch tensors are then half the bytes.
-//
-// hrnet_softmax_decode (one block per (sample, joint) over f32 logits in
-// device memory) stays for the first version of the head, csrc/head_v1.cu.
 #include <math.h>
 
 #include <cooperative_groups.h>
@@ -122,52 +119,12 @@ __device__ __forceinline__ void ldsm_x2_trans(unsigned (&r)[2], unsigned addr) {
                : "r"(addr));
 }
 
-// The weight ring's slabs arrive by bulk copies (the Tensor Memory
-// Accelerator's 1D form) that complete on an mbarrier per stage: one request
-// per slab.  Measured on the H100 (PERF.md), a w32 block with every MMA
-// removed spent 76K cycles of a pass on a ring of 16-byte cp.async copies
-// (conv_mainloop.cuh's) and 62K on this one.
-__device__ __forceinline__ void mbar_init(unsigned addr, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(addr), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(unsigned addr, unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(addr), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(unsigned addr, unsigned parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@!p bra WAIT;\n"
-      "}\n" ::"r"(addr),
-      "r"(parity)
-      : "memory");
-}
-
-// bytes (a multiple of 16) from global src to shared dst, completing on mbar
-__device__ __forceinline__ void bulk_g2s(unsigned dst, const void* src, unsigned bytes,
-                                         unsigned mbar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
-      ::"r"(dst), "l"(src), "r"(bytes), "r"(mbar)
-      : "memory");
-}
-
 // A slab row is 32 bf16 (64 bytes, no pad); its 16-byte piece v is stored at
 // v ^ ((r >> 1) & 3) (the wrapper lays the weights out so), which puts the
 // 8 rows of an ldmatrix phase on 8 different bank groups.  The address of
 // columns cg * 8 .. of row r:
 __device__ __forceinline__ unsigned slab_addr(unsigned base, int r, int cg) {
   return base + r * 64 + ((cg ^ ((r >> 1) & 3)) << 4);
-}
-
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const unsigned*>(&v);
 }
 
 __host__ __device__ inline int round16(int v) { return (v + 15) / 16 * 16; }
@@ -762,44 +719,6 @@ int launch_head(const HeadArgs& a, int B, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-__device__ inline float block_reduce(float v, bool is_max, float* red) {
-  for (int off = 16; off > 0; off /= 2) {
-    const float o = __shfl_xor_sync(0xffffffffu, v, off);
-    v = is_max ? fmaxf(v, o) : v + o;
-  }
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  __syncthreads();   // red may still be read by a previous reduction
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  v = red[0];
-  for (int i = 1; i < kWarps; ++i) v = is_max ? fmaxf(v, red[i]) : v + red[i];
-  return v;
-}
-
-__global__ void __launch_bounds__(kThreads) softmax_decode_kernel(const float* logits, float* out,
-                                                                  int K, int H0, int W0) {
-  __shared__ float red[kWarps];
-  const int k = blockIdx.x, b = blockIdx.y, HW = H0 * W0;
-  const float* l = logits + ((size_t)b * K + k) * HW;
-  float m = -INFINITY;
-  for (int p = threadIdx.x; p < HW; p += kThreads) m = fmaxf(m, l[p]);
-  m = block_reduce(m, true, red);
-  float s = 0.0f, su = 0.0f, sv = 0.0f;
-  for (int p = threadIdx.x; p < HW; p += kThreads) {
-    const float e = expf(l[p] - m);
-    s += e;
-    su += e * (float)(p % W0);
-    sv += e * (float)(p / W0);
-  }
-  s = block_reduce(s, false, red);
-  su = block_reduce(su, false, red);
-  sv = block_reduce(sv, false, red);
-  if (threadIdx.x == 0) {
-    out[((size_t)b * K + k) * 2 + 0] = su / s;
-    out[((size_t)b * K + k) * 2 + 1] = sv / s;
-  }
-}
-
 }  // namespace
 }  // namespace hrnet
 
@@ -894,13 +813,4 @@ extern "C" int hrnet_head_fused_attributes(int in_int8, int whole, void* out) {
   o[1] = (int)attr.localSizeBytes;
   o[2] = (int)attr.sharedSizeBytes;
   return (int)err;
-}
-
-// logits (B, K, H0 * W0) f32 -> (B, K, 2): the decode launch of the first
-// version of the head (csrc/head_v1.cu)
-extern "C" int hrnet_softmax_decode(const void* logits, void* out, int B, int K, int H0, int W0,
-                                    void* stream) {
-  softmax_decode_kernel<<<dim3(K, B), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(logits), static_cast<float*>(out), K, H0, W0);
-  return (int)cudaGetLastError();
 }

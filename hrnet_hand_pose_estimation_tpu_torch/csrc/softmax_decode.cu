@@ -13,155 +13,217 @@
 // 8 and K to 128 lanes; none of that is needed here: the logits are read in
 // place, in their NHWK layout.
 //
-// Bound: the bytes of the logits, read once (B*H*W*K*4 = 11 MB at B=32 for
-// 64x64x21 float32, 3.3 us at 3.35 TB/s); the arithmetic (one expf and a few
-// FMAs per element) is far below the card's float32 rate.  So the design
-// reads every logit exactly once, coalesced, and keeps everything else on
-// chip:
+// Bound: the bytes of the logits, read once (B*H*W*K*2 = 5.5 MB at B=32 for
+// 64x64x21 bfloat16, 1.6 us at 3.35 TB/s); the arithmetic (one expf and a
+// few FMAs per element) is far below the card's float32 rate.  A design of
+// one block per sample with one online-softmax chain per thread was bound by
+// that chain (a load, an expf and a rescale branch per element, ~171 deep)
+// and filled 32 of 132 SMs at B=32.  This one splits the plane:
 //
-// - one block per sample; thread t = p * K + k of the block's P * K threads
-//   owns joint k and the pixels p, p + P, p + 2P, ...  A pass of the block
-//   over P consecutive pixels reads P * K consecutive logits, so every
-//   load of a warp is contiguous (K is innermost in memory);
-// - each thread keeps an online softmax of its pixels in registers: a
-//   running max m and the sums s = sum e, su = sum e*u, sv = sum e*v taken
-//   relative to m, rescaled by exp(m_old - m_new) when the max grows.  One
-//   read of HBM, where a two-pass softmax would read the plane twice;
-// - the P partial states of each joint are merged in shared memory by one
-//   thread per joint, which divides once at the end, as the TPU kernel does.
+// - Grid (S, B): sample b's plane splits into S contiguous pixel ranges, one
+//   block each (S = 8 where the plane has 8 pixels: 1024 blocks at B=128);
+//   the S blocks of a sample form a thread-block cluster.
+// - A block copies its range into shared memory once (16-byte loads, scalar
+//   head and tail where the range's bytes do not start or end on 16), in
+//   pieces of at most 32 KB (with the pixels' (u, v)).
+// - Per piece, warp w takes the joints k = w, w + 8, ...; per joint two
+//   passes over shared memory, each lane over 4 pixels at a time (their
+//   loads and exps independent): first the exact max m, then sum e, sum e*u
+//   and sum e*v with e = exp(x - m) and (u, v) from a per-piece table, no
+//   rescale in the chain; warp shuffles reduce the lanes, and one rescale
+//   merges the piece into the joint's state in shared memory.
+// - The cluster combines its blocks' states per joint through distributed
+//   shared memory (block r the joints k % S == r), one rescale per block,
+//   and divides once.
 //
 // The arithmetic is IEEE: expf (not __expf) and a true division.  A plane of
-// equal logits decodes to exactly ((W-1)/2, (H-1)/2); a plane with one logit
-// far above the rest decodes to exactly that pixel (every other e_p and
-// every rescale factor underflows to 0).  A NaN logit makes its joint NaN,
-// as the plain softmax does.  The temperature is read through a device
-// pointer (the model's trainable_temp) or passed by value, so the launch
-// never waits for the device.
+// equal logits decodes to exactly ((W-1)/2, (H-1)/2) (every e is 1 and every
+// rescale 1, the sums exact integers); a plane with one logit far above the
+// rest decodes to exactly that pixel (every other e and the other blocks'
+// rescale factors underflow to 0).  A -inf logit adds 0; an all -inf plane
+// gives NaN and a NaN logit makes its joint NaN, as the plain softmax does.
+// The temperature is read through a device pointer (the model's
+// trainable_temp) or passed by value, so the launch never waits for the
+// device.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+#include <cooperative_groups.h>
+
+#include "conv_mainloop.cuh"
 
 namespace {
+
+namespace cg = cooperative_groups;
+
+constexpr int kThreads = 256;
+constexpr int kBlocksPerSM = 4;       // 1024 threads: 64 registers a thread
+constexpr int kUnroll = 4;            // pixels a lane has in flight
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxK = 1024;
+constexpr int kMaxSplit = 8;          // the portable cluster size
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
 
-// Online-softmax state of one thread, or of a merged group of threads.
-struct State {
-  float m, s, su, sv;
-};
+__host__ __device__ inline int state_bytes(int K) { return (K * 16 + 127) / 128 * 128; }
+// the per-pixel (u, v) table of a piece, whole 16-byte units
+__host__ __device__ inline int uv_bytes(int piece) { return (piece * 8 + 15) / 16 * 16; }
 
-// Add one element x at pixel (u, v) to the state.
-__device__ __forceinline__ void push(State& st, float x, float u, float v) {
-  if (x > st.m) {
-    // the new max: rescale what was summed relative to the old one (exactly
-    // 0 on the first element, whose old max is -inf and sums are 0)
-    const float r = expf(st.m - x);
-    st.s = st.s * r + 1.0f;
-    st.su = st.su * r + u;
-    st.sv = st.sv * r + v;
-    st.m = x;
-  } else {
-    // x == -inf contributes exactly 0, also while m is still -inf; a NaN x
-    // fails both compares and makes the sums NaN
-    const float e = (x == -INFINITY) ? 0.0f : expf(x - st.m);
-    st.s += e;
-    st.su += e * u;
-    st.sv += e * v;
+template <typename T>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSM) softmax_decode_kernel(
+    const T* __restrict__ logits, const float* __restrict__ temp_ptr, float temp_value,
+    float* __restrict__ out, int HW, int W, int K, int range, int piece) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float4* state = reinterpret_cast<float4*>(smem);          // per joint (m, s, su, sv)
+  float2* uv = reinterpret_cast<float2*>(smem + state_bytes(K));   // per pixel of a piece
+  unsigned char* buf = smem + state_bytes(K) + uv_bytes(piece);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int rank = (int)cluster.block_rank(), S = (int)cluster.num_blocks(), b = blockIdx.y;
+  const float temp = temp_ptr != nullptr ? *temp_ptr : temp_value;
+  const int p_begin = rank * range, p_end = min(HW, p_begin + range);
+  for (int k = tid; k < K; k += kThreads) state[k] = make_float4(-INFINITY, 0.0f, 0.0f, 0.0f);
+
+  for (int p0 = p_begin; p0 < p_end; p0 += piece) {
+    const int np = min(piece, p_end - p0);
+    __syncthreads();   // the previous piece is read (and the states are set)
+    // the piece's np * K logits, at the same offset from a 16-byte boundary
+    // in shared memory as in device memory
+    const T* src = logits + ((size_t)b * HW + p0) * K;
+    const int n = np * K;
+    const int shift = (int)(reinterpret_cast<uintptr_t>(src) & 15);
+    T* x = reinterpret_cast<T*>(buf + shift);
+    const int head = min(n, ((16 - shift) & 15) / (int)sizeof(T));
+    const int nv = (n - head) * (int)sizeof(T) / 16;
+    const int tail = head + nv * 16 / (int)sizeof(T);
+    for (int i = tid; i < head; i += kThreads) x[i] = src[i];
+    const uint4* src16 = reinterpret_cast<const uint4*>(src + head);
+    uint4* dst16 = reinterpret_cast<uint4*>(x + head);
+    for (int i = tid; i < nv; i += kThreads) dst16[i] = __ldg(src16 + i);
+    for (int i = tail + tid; i < n; i += kThreads) x[i] = src[i];
+    // each pixel's (u, v), shared by the K joints
+    for (int q = tid; q < np; q += kThreads) {
+      const int p = p0 + q, row = p / W;
+      uv[q] = make_float2((float)(p - row * W), (float)row);
+    }
+    __syncthreads();
+
+    for (int k = warp; k < K; k += kWarps) {
+      // each lane kUnroll pixels at once, 32 apart: independent loads, exps
+      // and sums in flight
+      float mu[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) mu[u] = -INFINITY;
+      for (int q0 = lane; q0 < np; q0 += 32 * kUnroll) {
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          const int q = q0 + 32 * u;
+          if (q < np) mu[u] = hrnet::max_nan(mu[u], to_float(x[q * K + k]) * temp);
+        }
+      }
+      float m = mu[0];
+#pragma unroll
+      for (int u = 1; u < kUnroll; ++u) m = hrnet::max_nan(m, mu[u]);
+      for (int o = 16; o > 0; o /= 2) m = hrnet::max_nan(m, __shfl_xor_sync(0xffffffffu, m, o));
+      // a range of -inf logits (m = -inf) adds nothing; else e = exp(x - m)
+      // is 0 for x = -inf, and a NaN x makes m and every e NaN
+      float su_[kUnroll][3];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) su_[u][0] = su_[u][1] = su_[u][2] = 0.0f;
+      if (m != -INFINITY) {
+        for (int q0 = lane; q0 < np; q0 += 32 * kUnroll) {
+#pragma unroll
+          for (int u = 0; u < kUnroll; ++u) {
+            const int q = q0 + 32 * u;
+            if (q < np) {
+              const float e = expf(to_float(x[q * K + k]) * temp - m);
+              const float2 c = uv[q];
+              su_[u][0] += e;
+              su_[u][1] += e * c.x;
+              su_[u][2] += e * c.y;
+            }
+          }
+        }
+      }
+      float s = su_[0][0], su = su_[0][1], sv = su_[0][2];
+#pragma unroll
+      for (int u = 1; u < kUnroll; ++u) {
+        s += su_[u][0];
+        su += su_[u][1];
+        sv += su_[u][2];
+      }
+      for (int o = 16; o > 0; o /= 2) {
+        s += __shfl_xor_sync(0xffffffffu, s, o);
+        su += __shfl_xor_sync(0xffffffffu, su, o);
+        sv += __shfl_xor_sync(0xffffffffu, sv, o);
+      }
+      if (lane == 0) hrnet::merge_softmax(state[k], m, s, su, sv);
+    }
   }
+
+  // the cluster's ranges combined per joint; block r takes joints k % S == r
+  cluster.sync();
+  for (int k = rank + tid * S; k < K; k += kThreads * S) {
+    float4 P = make_float4(-INFINITY, 0.0f, 0.0f, 0.0f);
+    for (int r = 0; r < S; ++r) {
+      const float4 q = cluster.map_shared_rank(state, r)[k];
+      hrnet::merge_softmax(P, q.x, q.y, q.z, q.w);
+    }
+    float* o = out + ((size_t)b * K + k) * 2;
+    o[0] = P.z / P.y;
+    o[1] = P.w / P.y;
+  }
+  cluster.sync();   // no block leaves while the others read its states
 }
 
 template <typename T>
-__global__ void softmax_decode_kernel(const T* __restrict__ logits, const float* __restrict__ temp_ptr,
-                                      float temp_value, float* __restrict__ out, int HW, int W,
-                                      int K, int P) {
-  extern __shared__ float smem[];   // 4 * P * K floats: m, s, su, sv per thread
-  const int b = blockIdx.x;
-  const int t = threadIdx.x;        // t = p * K + k, t < P * K
-  const int nt = P * K;
-  const int p0 = t / K;
-  const float temp = temp_ptr != nullptr ? *temp_ptr : temp_value;
-  const T* x = logits + static_cast<size_t>(b) * HW * K;
-
-  State st{-INFINITY, 0.0f, 0.0f, 0.0f};
-  if (t < nt) {
-    int pix = p0;
-    int row = pix / W;
-    int col = pix - row * W;
-    const size_t stride = static_cast<size_t>(P) * K;
-    size_t idx = static_cast<size_t>(t);
-    const int drow = P / W;         // P = drow * W + dcol
-    const int dcol = P - drow * W;
-#pragma unroll 4
-    for (; pix < HW; pix += P, idx += stride) {
-      push(st, to_float(x[idx]) * temp, static_cast<float>(col), static_cast<float>(row));
-      col += dcol;
-      row += drow;
-      if (col >= W) {
-        col -= W;
-        row += 1;
-      }
-    }
-  }
-  float* sm = smem;
-  float* ss = smem + nt;
-  float* su = smem + 2 * nt;
-  float* sv = smem + 3 * nt;
-  if (t < nt) {
-    sm[t] = st.m;
-    ss[t] = st.s;
-    su[t] = st.su;
-    sv[t] = st.sv;
-  }
-  __syncthreads();
-  if (t < K) {
-    float m = -INFINITY;
-    for (int p = 0; p < P; ++p) m = fmaxf(m, sm[p * K + t]);
-    float s = 0.0f, eu = 0.0f, ev = 0.0f;
-    for (int p = 0; p < P; ++p) {
-      const float mp = sm[p * K + t];
-      // a thread that saw no finite element (m = -inf, sums 0) adds 0; an
-      // all -inf plane gives NaN, as the plain softmax does
-      const float r = (mp == -INFINITY && m != -INFINITY) ? 0.0f : expf(mp - m);
-      s += ss[p * K + t] * r;
-      eu += su[p * K + t] * r;
-      ev += sv[p * K + t] * r;
-    }
-    float* o = out + (static_cast<size_t>(b) * K + t) * 2;
-    o[0] = eu / s;
-    o[1] = ev / s;
-  }
+int launch(const void* logits, const float* temp, float temp_value, void* out, int B, int HW,
+           int W, int K, int splits, int range, int piece, int smem, cudaStream_t stream) {
+  static int raised[hrnet::kMaxDevices] = {};
+  cudaError_t err = hrnet::raise_smem(softmax_decode_kernel<T>, smem, raised);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(splits, B, 1);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, softmax_decode_kernel<T>, static_cast<const T*>(logits), temp,
+                           temp_value, static_cast<float*>(out), HW, W, K, range, piece);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
-
-// Threads per block: the largest P * K <= kTargetThreads (at least K).
-constexpr int kTargetThreads = 512;
-constexpr int kMaxK = 1024;
 
 }  // namespace
 
 // logits (B, H, W, K) contiguous on the card, float32 (is_bf16 = 0) or
 // bfloat16 (is_bf16 = 1); temp: a float32 device pointer, or null to use
-// temp_value; out (B, K, 2) float32.
+// temp_value; out (B, K, 2) float32.  The plan of softmax_decode.py::
+// decode_plan: `splits` blocks per sample of ceil(H*W / splits) pixels each,
+// read in pieces of `piece` pixels, `smem` bytes.
 extern "C" int hrnet_fused_softmax_decode(const void* logits, const void* temp, float temp_value,
                                           void* out, int B, int H, int W, int K, int is_bf16,
-                                          void* stream) {
-  if (B < 1 || H < 1 || W < 1 || K < 1 || K > kMaxK ||
-      static_cast<long long>(H) * W > 2147483647LL / K)
+                                          int splits, int piece, int smem, void* stream) {
+  const long long HW = (long long)H * W;
+  const int es = is_bf16 ? 2 : 4;
+  if (B < 1 || B > 65535 || H < 1 || W < 1 || K < 1 || K > kMaxK ||
+      HW > 2147483647LL / K / 4 || splits < 1 || splits > kMaxSplit || splits > HW ||
+      piece < 1 || smem != state_bytes(K) + uv_bytes(piece) + piece * K * es + 16 ||
+      smem > hrnet::kSmemLimit)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int HW = H * W;
-  const int P = K >= kTargetThreads ? 1 : kTargetThreads / K;
-  const int threads = ((P * K + 31) / 32) * 32;
-  const size_t smem = 4 * static_cast<size_t>(P) * K * sizeof(float);
+  const int range = (int)((HW + splits - 1) / splits);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* tp = static_cast<const float*>(temp);
-  if (is_bf16) {
-    softmax_decode_kernel<__nv_bfloat16><<<B, threads, smem, s>>>(
-        static_cast<const __nv_bfloat16*>(logits), tp, temp_value, static_cast<float*>(out), HW,
-        W, K, P);
-  } else {
-    softmax_decode_kernel<float><<<B, threads, smem, s>>>(
-        static_cast<const float*>(logits), tp, temp_value, static_cast<float*>(out), HW, W, K, P);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return is_bf16 ? launch<__nv_bfloat16>(logits, tp, temp_value, out, B, (int)HW, W, K, splits,
+                                         range, piece, smem, s)
+                 : launch<float>(logits, tp, temp_value, out, B, (int)HW, W, K, splits, range,
+                                 piece, smem, s);
 }

@@ -51,11 +51,12 @@ SIGNATURES = {
     "hrnet_head_fused": (_P,) * 14 + (_I,) * 28 + (_P,),
     # in_int8, whole, out (3 ints: registers, local bytes, static shared bytes)
     "hrnet_head_fused_attributes": (_I, _I, _P),
-    # logits, out, B, K, H0, W0, stream
-    "hrnet_softmax_decode": (_P, _P) + (_I,) * 4 + (_P,),
-    # x0, x1, x2, x3, taps, w_head, b_head, w_final, b_final, temp, logits,
-    # B, H0, s1, s2, s3, C0, C1, C2, C3, N, K, Kp, stream
-    "hrnet_head_v1_logits": (_P,) * 11 + (_I,) * 12 + (_P,),
+    # x0, x1, x2, x3, wstream, b_head, b_final, temp, taps, out, B, H0, s1, s2, s3,
+    # C0, C1, C2, C3 (padded to multiples of 8), ctot, Np, K, then the plan: wgs,
+    # cluster, tiles, stages, SR1, SR2, SR3, smem; stream
+    "hrnet_head_v1": (_P,) * 10 + (_I,) * 20 + (_P,),
+    # joint_groups, out (3 ints: registers, local bytes, static shared bytes)
+    "hrnet_head_v1_attributes": (_I, _P),
     # x, out, w, scale, bias, sa, B, H, W, Cin, Cinp, Ho, Wo, Cout, KH, KW, stride, pad,
     # relu, then the plan: TR, TW, HR, HC, ldh, KB, WM, MT, NT, NB, stages, smem; stream
     "hrnet_conv_int8": (_P,) * 6 + (_I,) * 25 + (_P,),
@@ -72,8 +73,9 @@ SIGNATURES = {
     "hrnet_stem_s2d": (_P,) * 6 + (_I,) * 7 + (_P,),
     # joints, vis, out, B, K, res, win, sig2, stream
     "hrnet_gaussian_targets": (_P,) * 3 + (_I,) * 4 + (_F, _P),
-    # logits, temp (or null), temp_value, out, B, H, W, K, is_bf16, stream
-    "hrnet_fused_softmax_decode": (_P, _P, _F, _P) + (_I,) * 5 + (_P,),
+    # logits, temp (or null), temp_value, out, B, H, W, K, is_bf16, then the plan:
+    # splits, piece, smem; stream
+    "hrnet_fused_softmax_decode": (_P, _P, _F, _P) + (_I,) * 8 + (_P,),
 }
 
 _lock = threading.Lock()

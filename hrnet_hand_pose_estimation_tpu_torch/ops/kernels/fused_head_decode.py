@@ -387,41 +387,51 @@ _WEIGHTS: "OrderedDict[tuple, tuple]" = OrderedDict()
 _WEIGHTS_LOCK = threading.Lock()
 
 
+def _cached(srcs: Sequence[torch.Tensor], key: tuple, make):
+    """``make()``, made once per parameter tensors ``srcs`` and ``key`` and
+    kept for the next calls (a serving loop calls with the same ones): an
+    entry holds weak references and is used only while they still name the
+    same tensors at the same ``_version``, so new or modified parameters are
+    laid out anew.  Inference tensors have no version counter: they are laid
+    out per call."""
+    if any(t.is_inference() for t in srcs):
+        return make()
+    key = (key, tuple((id(t), t._version) for t in srcs))
+    with _WEIGHTS_LOCK:
+        hit = _WEIGHTS.get(key)
+        if hit is not None and all(r() is t for r, t in zip(hit[0], srcs)):
+            _WEIGHTS.move_to_end(key)
+            return hit[1]
+    value = make()
+    with _WEIGHTS_LOCK:
+        _WEIGHTS[key] = ([weakref.ref(t) for t in srcs], value)
+        while len(_WEIGHTS) > 8:
+            _WEIGHTS.popitem(last=False)
+    return value
+
+
 def _kernel_weights(xs: Sequence[torch.Tensor], params: HeadParams,
                     input_scales: Optional[Sequence], plan: HeadPlan) -> tuple:
     """The weights at the kernel's pitches (rows C_i rounded up to 16,
     columns N rounded up to 32, the final conv's K columns up to 32 per
     joint group) in ``slab_layout``, and b_head padded: (w_0..w_3, w_final,
-    b_head).  Made once per parameter tensors and kept for the next calls
-    (a serving loop calls with the same ones): an entry holds weak
-    references and is used only while they still name the same tensors at
-    the same ``_version``, so new or modified parameters are laid out anew.
-    Inference tensors have no version counter: they are laid out per call."""
+    b_head), made once per parameter tensors (``_cached``)."""
     srcs = [params.w_head, params.b_head, params.w_final]
     srcs += [sa for sa in (input_scales or ()) if isinstance(sa, torch.Tensor)]
-    key = None
-    if not any(t.is_inference() for t in srcs):
-        key = (tuple(x.shape[3] for x in xs), plan.cp, plan.np, plan.joint_groups,
-               tuple((id(t), t._version) for t in srcs),
-               None if input_scales is None else
-               tuple(None if isinstance(sa, torch.Tensor) else float(sa) for sa in input_scales))
-        with _WEIGHTS_LOCK:
-            hit = _WEIGHTS.get(key)
-            if hit is not None and all(r() is t for r, t in zip(hit[0], srcs)):
-                _WEIGHTS.move_to_end(key)
-                return hit[1]
-    np_, n = plan.np, params.w_final.shape[0]
-    w_slices = [slab_layout(_pad2(w, cp, np_)) for w, cp in
-                zip(branch_weights(xs, params, input_scales), plan.cp)]
-    w_final = slab_layout(_pad2(params.w_final.to(torch.bfloat16), np_,
-                                plan.joint_groups * JOINT_GROUP), plan.joint_groups)
-    b_head = torch.nn.functional.pad(params.b_head, (0, np_ - n)).contiguous()
-    if key is not None:
-        with _WEIGHTS_LOCK:
-            _WEIGHTS[key] = ([weakref.ref(t) for t in srcs], (w_slices, w_final, b_head))
-            while len(_WEIGHTS) > 8:
-                _WEIGHTS.popitem(last=False)
-    return w_slices, w_final, b_head
+    key = ("v2", tuple(x.shape[3] for x in xs), plan.cp, plan.np, plan.joint_groups,
+           None if input_scales is None else
+           tuple(None if isinstance(sa, torch.Tensor) else float(sa) for sa in input_scales))
+
+    def make():
+        np_, n = plan.np, params.w_final.shape[0]
+        w_slices = [slab_layout(_pad2(w, cp, np_)) for w, cp in
+                    zip(branch_weights(xs, params, input_scales), plan.cp)]
+        w_final = slab_layout(_pad2(params.w_final.to(torch.bfloat16), np_,
+                                    plan.joint_groups * JOINT_GROUP), plan.joint_groups)
+        b_head = torch.nn.functional.pad(params.b_head, (0, np_ - n)).contiguous()
+        return w_slices, w_final, b_head
+
+    return _cached(srcs, key, make)
 
 
 def fused_head_decode_v2(xs: Sequence[torch.Tensor], params: HeadParams,
@@ -560,14 +570,135 @@ def _taps_v1(sizes: Tuple[int, ...], dst: int, device: str) -> torch.Tensor:
     return torch.from_numpy(taps).to(device)
 
 
+V1_CHUNK = 96                # head columns per chunk: the head wgmma's N (csrc kNC)
+V1_SLAB = V1_CHUNK * 128     # bytes of one ring stage: 96 rows of 64 bf16 (kSlab)
+V1_KBLOCK = 64 * 128         # bytes of one K block of 64 feat rows (kKBlock)
+V1_WARPS = 8                 # consumer warps: two warpgroups of 64 rows
+
+
+class HeadV1Plan(NamedTuple):
+    """The one launch of ``csrc/head_v1.cu`` for one call."""
+
+    cp: Tuple[int, ...]     # each branch's channels as the kernel reads them: C_i rounded up to 8
+    ctot: int               # feat width the head GEMM runs at: sum(cp) rounded up to 16
+    np: int                 # head width the kernel runs at: N rounded up to 96
+    joint_groups: int       # groups of 32 joints: ceil(K / 32)
+    kblocks: int            # 64-column K blocks of feat
+    chunks: int             # 96-column chunks of the head
+    warpgroups: int         # consumer warpgroups with rows: a tile is 64 * warpgroups pixels
+    tiles: int              # tiles per sample
+    cluster: int            # blocks per sample, one thread-block cluster
+    block_tiles: int        # tiles each block walks (the last ones may lie past the map)
+    stages: int             # depth of the weight ring
+    src_rows: Tuple[int, int, int]   # source rows of branches 1-3 a tile stages, at most
+    smem: int               # dynamic shared memory bytes
+    grid: Tuple[int, int]   # (cluster, B)
+
+
+def _v1_smem(warpgroups: int, kblocks: int, stages: int, h0: int, np_: int,
+             joint_groups: int, stage_bytes: int) -> int:
+    """Shared memory of a v1 plan, as ``csrc/head_v1.cu::v1_layout`` lays it
+    out (each part rounded up to 128 bytes, 1024 bytes to align the base)."""
+    return (1024 + _take(warpgroups * kblocks * V1_KBLOCK) + _take(stages * V1_SLAB)
+            + _take(stage_bytes) + _take(48 * h0) + _take(4 * np_)
+            + _take(4 * JOINT_GROUP * joint_groups)
+            + _take(16 * V1_WARPS * JOINT_GROUP * joint_groups)
+            + _take(16 * JOINT_GROUP * joint_groups) + 2 * _take(8 * stages) + _take(16))
+
+
+def _v1_staging(sizes: Tuple[int, ...], h0: int, cp: Tuple[int, ...], tile_px: int):
+    """(bytes, source rows of branches 1-3 at most) a tile of ``tile_px``
+    pixels stages: per branch, the source rows from the lower row tap of its
+    first image row to the upper one of its last."""
+    taps = _taps_v1(tuple(sizes), h0, "cpu").numpy()
+    hw = h0 * h0
+    rows = [1, 1, 1]
+    for p0 in range(0, hw, tile_px):
+        y0, y1 = p0 // h0, (min(hw, p0 + tile_px) - 1) // h0
+        for i in range(3):
+            rows[i] = max(rows[i], int(taps[i, 1, y1]) - int(taps[i, 0, y0]) + 1)
+    nbytes = sum(_take(2 * r * s * c) for r, s, c in zip(rows, sizes, cp[1:]))
+    return nbytes, tuple(rows)
+
+
+@lru_cache(maxsize=64)
+def head_v1_plan(b: int, h0: int, widths: Tuple[int, ...], n: int, k: int,
+                 sizes: Tuple[int, ...]) -> HeadV1Plan:
+    """The v1 kernel's plan for a square ``h0`` map, branch ``widths``, head
+    width ``n``, ``k`` joints and square branches 1-3 of ``sizes``: tiles of
+    128 pixels (two warpgroups) with
+    the deepest ring of 3-6 slabs that fits beside the tile's staged rows,
+    else tiles of 64 pixels with the deepest ring of 2-6 slabs that fits; a
+    cluster of the most blocks (a power of two, at most 8) that the tiles
+    fill, each block streaming its own weight slabs.
+    Raises ValueError where K > 128 or a 64-row feat tile does not fit in
+    shared memory."""
+    if not 0 < k <= MAX_JOINTS:
+        raise ValueError(f"v1 takes K <= {MAX_JOINTS} joints, got {k}")
+    if b < 1 or h0 < 1 or n < 1 or min(widths) < 1:
+        raise ValueError(f"empty head input: B {b}, map {h0}, widths {widths}, N {n}")
+    cp = tuple(-(-c // 8) * 8 for c in widths)
+    ctot = -(-sum(cp) // 16) * 16
+    np_ = -(-n // V1_CHUNK) * V1_CHUNK
+    joint_groups = -(-k // JOINT_GROUP)
+    kblocks = -(-ctot // 64)
+    for warpgroups, depths in ((2, (6, 5, 4, 3)), (1, (6, 5, 4, 3, 2))):
+        stage_bytes, src_rows = _v1_staging(sizes, h0, cp, 64 * warpgroups)
+        for stages in depths:
+            smem = _v1_smem(warpgroups, kblocks, stages, h0, np_, joint_groups, stage_bytes)
+            if smem <= _build.SMEM_LIMIT:
+                tiles = -(-h0 * h0 // (64 * warpgroups))
+                cluster = 1 << (min(MAX_BANDS, tiles).bit_length() - 1)
+                return HeadV1Plan(cp, ctot, np_, joint_groups, kblocks, np_ // V1_CHUNK,
+                                  warpgroups, tiles, cluster, -(-tiles // cluster), stages,
+                                  src_rows, smem, (cluster, b))
+    raise ValueError(f"v1's feat tile of 64 rows x {ctot} columns does not fit in shared memory "
+                     f"(branch widths {widths})")
+
+
+def _swizzle128(t: torch.Tensor) -> torch.Tensor:
+    """t (..., R, 8, 8): rows of eight 16-byte pieces.  Row r's piece q
+    takes piece q ^ (r % 8): the 128-byte swizzle in which wgmma reads a
+    K-major operand."""
+    rows = torch.arange(t.shape[-3], device=t.device)
+    idx = torch.arange(8, device=t.device)[None, :] ^ (rows[:, None] % 8)
+    return torch.gather(t, -2, idx[:, :, None].expand(t.shape[-3:]).expand(t.shape)).contiguous()
+
+
+def v1_weight_stream(params: HeadParams, widths: Tuple[int, ...], plan: HeadV1Plan) -> torch.Tensor:
+    """The v1 kernel's weights as the slabs it streams, (chunks, kblocks +
+    joint_groups, 6144) bf16: per 96-column chunk c of the head, the
+    kblocks slabs of w_head^T (96 head columns x 64 feat rows, K-major,
+    ``_swizzle128``), then per group of 32 joints the chunk's rows of
+    w_final^T (32 joints x the chunk's 96 head columns as two K blocks of
+    64, the second half empty; 8 KB of the 12 KB slab).  Branch i's rows of
+    w_head sit at feat column cp_0 + .. + cp_{i-1}; every padding row and
+    column is zero."""
+    n, k = params.w_final.shape
+    dev, bf16 = params.w_head.device, torch.bfloat16
+    offs, feat = np.cumsum([0, *widths]), np.cumsum([0, *plan.cp])
+    wh = torch.zeros((plan.np, plan.kblocks * 64), dtype=bf16, device=dev)
+    for i in range(4):
+        wh[:n, feat[i]:feat[i] + widths[i]] = params.w_head[offs[i]:offs[i + 1]].t().to(bf16)
+    heads = _swizzle128(wh.reshape(plan.chunks, V1_CHUNK, plan.kblocks, 8, 8).permute(0, 2, 1, 3, 4))
+    wf = torch.zeros((plan.joint_groups * JOINT_GROUP, plan.chunks, 128), dtype=bf16, device=dev)
+    wf[:k, :, :V1_CHUNK] = _pad2(params.w_final.t().to(bf16), k, plan.np).reshape(
+        k, plan.chunks, V1_CHUNK)
+    finals = _swizzle128(wf.reshape(plan.joint_groups, JOINT_GROUP, plan.chunks, 2, 8, 8)
+                         .permute(2, 0, 3, 1, 4, 5))
+    finals = finals.reshape(plan.chunks, plan.joint_groups, -1)
+    finals = torch.nn.functional.pad(finals, (0, V1_SLAB // 2 - finals.shape[-1]))
+    return torch.cat([heads.reshape(plan.chunks, plan.kblocks, -1), finals], dim=1).contiguous()
+
+
 def fused_head_decode(xs: Sequence[torch.Tensor], params: HeadParams) -> torch.Tensor:
     """v1 of the fused head: xs 4 square NHWC branch tensors (B, s_i, s_i,
     C_i) of any float dtype (cast to bf16) -> (B, K, 2) f32.
 
-    CUDA tensors run the kernel (two launches: the head with its gathered
-    upsample to logits, then the softmax decode) and CPU tensors the plain
+    CUDA tensors run the kernel (one launch, plan ``head_v1_plan``: any
+    widths whose 64-row feat tile fits, K <= 128) and CPU tensors the plain
     twin; any other device raises.  ``launches`` counts the kernel's
-    launches (2 per call).
+    launches (1 per call).
     """
     _validate_v1(xs, params)
     dev = xs[0].device
@@ -575,38 +706,44 @@ def fused_head_decode(xs: Sequence[torch.Tensor], params: HeadParams) -> torch.T
         return head_decode_v1_reference(xs, params)
     if dev.type != "cuda":
         raise ValueError(f"fused_head_decode runs on cuda or cpu, not {dev}")
-    b, h0, w0, _ = xs[0].shape
-    c = _offsets(xs)[-1]
+    b, h0 = xs[0].shape[:2]
     n, k = params.w_final.shape
-    if any(x.shape[3] % 8 for x in xs) or c % 16 or n % 16:
-        raise ValueError(f"the kernel needs every C_i % 8 == 0, their sum % 16 == 0 and head "
-                         f"width % 16 == 0, got {[x.shape[3] for x in xs]}, {n}")
-    xs = [x.to(torch.bfloat16).contiguous() for x in xs]
-    kp = (k + 15) // 16 * 16
-    w_head = params.w_head.to(torch.bfloat16).contiguous()
-    w_final = torch.zeros((n, kp), dtype=torch.bfloat16, device=dev)
-    w_final[:, :k] = params.w_final
-    b_head, b_final = params.b_head.contiguous(), params.b_final.contiguous()
-    temp = params.temp.contiguous()
-    # 16-byte vector loads of the branches, 32-byte WMMA tiles of w_head
-    if any(x.data_ptr() % 16 for x in xs) or w_head.data_ptr() % 32:
-        raise ValueError("the kernel needs 16-byte aligned branches and a 32-byte aligned w_head")
-    taps = _taps_v1(tuple(x.shape[1] for x in xs[1:]), h0, str(dev))
-    logits = torch.empty((b, k, h0 * w0), dtype=torch.float32, device=dev)
+    widths = tuple(int(x.shape[3]) for x in xs)
+    sizes = tuple(int(x.shape[1]) for x in xs[1:])
+    plan = head_v1_plan(int(b), int(h0), widths, int(n), int(k), sizes)
+    # channels padded with zeros to multiples of 8: whole 16-byte rows to copy
+    xs = [x.to(torch.bfloat16) for x in xs]
+    xs = [(x if x.shape[3] == cp else torch.nn.functional.pad(x, (0, cp - x.shape[3]))).contiguous()
+          for x, cp in zip(xs, plan.cp)]
+    if any(x.data_ptr() % 16 for x in xs):
+        raise ValueError("the kernel needs 16-byte aligned branches")
+    wstream, b_head = _cached(
+        [params.w_head, params.b_head, params.w_final], ("v1", widths, plan.np, plan.ctot),
+        lambda: (v1_weight_stream(params, widths, plan),
+                 torch.nn.functional.pad(params.b_head, (0, plan.np - n)).contiguous()))
+    b_final, temp = params.b_final.contiguous(), params.temp.contiguous()
+    taps = _taps_v1(sizes, int(h0), str(dev))
     out = torch.empty((b, k, 2), dtype=torch.float32, device=dev)
-
-    lib = _build.lib()
-    stream = _build.stream_ptr(dev)
-    err = lib.hrnet_head_v1_logits(
-        *(x.data_ptr() for x in xs), taps.data_ptr(), w_head.data_ptr(), b_head.data_ptr(),
-        w_final.data_ptr(), b_final.data_ptr(), temp.data_ptr(), logits.data_ptr(),
-        b, h0, *(x.shape[1] for x in xs[1:]), *(x.shape[3] for x in xs), n, k, kp, stream)
-    _build.check(err, "hrnet_head_v1_logits")
-    fused_head_decode.launches += 1
-    err = lib.hrnet_softmax_decode(logits.data_ptr(), out.data_ptr(), b, k, h0, w0, stream)
-    _build.check(err, "hrnet_softmax_decode")
+    err = _build.lib().hrnet_head_v1(
+        *(x.data_ptr() for x in xs), wstream.data_ptr(), b_head.data_ptr(), b_final.data_ptr(),
+        temp.data_ptr(), taps.data_ptr(), out.data_ptr(), b, h0, *sizes, *plan.cp, plan.ctot,
+        plan.np, k, plan.warpgroups, plan.cluster, plan.block_tiles, plan.stages,
+        *plan.src_rows, plan.smem, _build.stream_ptr(dev))
+    _build.check(err, "hrnet_head_v1")
     fused_head_decode.launches += 1
     return out
+
+
+def head_v1_attributes(plan: HeadV1Plan) -> dict:
+    """The registers per thread, local (spill) bytes per thread and static
+    shared bytes (``cudaFuncGetAttributes``) of the v1 kernel instance that
+    runs ``plan`` (one per number of joint groups)."""
+    import ctypes
+
+    vals = (ctypes.c_int * 3)()
+    _build.check(_build.lib().hrnet_head_v1_attributes(plan.joint_groups, vals),
+                 "hrnet_head_v1_attributes")
+    return dict(registers=vals[0], local_bytes=vals[1], static_smem=vals[2])
 
 
 fused_head_decode.launches = 0

@@ -33,7 +33,7 @@ from hrnet_hand_pose_estimation_tpu_torch.ops.kernels.int8_chain import (
     basic_chain_int8_reference, bottleneck_chain_int8_reference, fused_basic_chain_int8,
     fused_bottleneck_chain_int8)
 from hrnet_hand_pose_estimation_tpu_torch.ops.kernels.softmax_decode import (
-    fused_softmax_decode, softmax_decode_reference)
+    decode_plan, fused_softmax_decode, softmax_decode_reference, softmax_decode_split_reference)
 from hrnet_hand_pose_estimation_tpu_torch.parallel import train_step as TS
 from hrnet_hand_pose_estimation_tpu_torch.utils.weights import init_variables
 
@@ -758,6 +758,33 @@ def test_softmax_decode_kernel_exact_planes(cuda):
     assert out[1, 4].tolist() == [37.0, 10.0]
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_softmax_decode_kernel_nan_and_inf(cuda, dtype):
+    """B4's -inf and NaN rules against the twin, NaN where the twin has
+    NaN and within 1e-4 px elsewhere: a 2x4 plane (8 ranges of one pixel)
+    with one NaN logit; on 64x64 planes a joint whose first range of 512
+    px is all NaN, one NaN amid -inf, -inf over part of a joint, over a
+    whole range and over a whole joint (NaN)."""
+    small = f32(np.random.default_rng(3).normal(size=(2, 2, 4, 3)), cuda)
+    small[0, 1, 2, 1] = float("nan")
+    x = f32(np.random.default_rng(4).normal(size=(2, 64, 64, 21)) * 3.0, cuda)
+    x.view(2, 4096, 21)[0, :512, 5] = float("nan")
+    x.view(2, 4096, 21)[1, :, 6] = -float("inf")
+    x[1, 40, 3, 6] = float("nan")
+    x[0, :, :8, 1] = -float("inf")
+    x.view(2, 4096, 21)[1, 512:1024, 2] = -float("inf")
+    x[0, :, :, 3] = -float("inf")
+    for logits, temp in ((small, 1.0), (x, torch.tensor(1.7, device=cuda))):
+        logits = logits.to(dtype)
+        got = fused_softmax_decode(logits, temp).cpu()
+        want = softmax_decode_reference(logits, temp).cpu()
+        assert torch.equal(torch.isnan(got), torch.isnan(want))
+        ok = ~torch.isnan(want)
+        assert (got[ok] - want[ok]).abs().max().item() <= 1e-4
+    assert torch.isnan(got[0, 5]).all() and torch.isnan(got[1, 6]).all()
+    assert torch.isnan(got[0, 3]).all() and not torch.isnan(got[0, 1]).any()
+
+
 def test_softmax_decode_kernel_refuses_bad_input(cuda):
     x = torch.zeros(2, 8, 8, 21, device=cuda)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
@@ -869,8 +896,8 @@ def test_basic_int8_kernel_tile_edges_and_layouts(cuda, n_major, batch, h, w, c)
 
 @pytest.mark.parametrize("batch", [1, 3, 32])
 def test_head_v1_kernel_matches_twin(cuda, batch):
-    """v1 of the head at the w32 widths on a 64x64 map: two launches per
-    call (logits, then the softmax decode); within 0.05 px of the twin."""
+    """v1 of the head at the w32 widths on a 64x64 map: one launch per
+    call; within 0.05 px of the twin."""
     rng = np.random.default_rng(batch)
     widths = (32, 64, 128, 256)
     xs = [bf16(np.abs(rng.normal(size=(batch, 64 >> i, 64 >> i, c))), cuda)
@@ -882,7 +909,57 @@ def test_head_v1_kernel_matches_twin(cuda, batch):
     before = fused_head_decode.launches
     got = fused_head_decode(xs, params)
     torch.cuda.synchronize()
-    assert fused_head_decode.launches == before + 2
+    assert fused_head_decode.launches == before + 1
     want = head_decode_v1_reference(xs, params)
     assert got.shape == (batch, k, 2) and want.std().item() > 0.5
     assert (got - want).abs().max().item() <= 0.05
+
+
+# the branch widths of the HRNet widths and of experiments/synthetic_smoke.yaml
+V1_WIDTHS = {"w18": (18, 36, 72, 144), "w32": (32, 64, 128, 256), "w40": (40, 80, 160, 320),
+             "w48": (48, 96, 192, 384), "smoke": (8, 16, 32, 64)}
+
+
+@pytest.mark.parametrize("name,k,batch", [(n, 21, b) for n in V1_WIDTHS for b in (1, 4)]
+                         + [("w32", 128, 2), ("w18", 128, 1), ("smoke", 128, 3), ("w48", 70, 2)])
+def test_head_v1_kernel_takes_every_width(cuda, name, k, batch):
+    """C10: v1 at every width JAX's v1 takes, channels that are no multiple
+    of 8 (w18), Ctot 600 (w40), the 128-row feat tile that does not fit
+    (w48), the smoke model's 16x16 map, K up to 128: one launch, within
+    0.05 px of the twin.  The final conv's weights are drawn at 0.3 on the
+    16x16 map, so that the coordinates spread there too."""
+    rng = np.random.default_rng(batch + k)
+    widths = V1_WIDTHS[name]
+    h0 = 16 if name == "smoke" else 64
+    xs = [bf16(np.abs(rng.normal(size=(batch, h0 >> i, h0 >> i, c))), cuda)
+          for i, c in enumerate(widths)]
+    n = sum(widths)
+    params = HeadParams(f32(rng.normal(size=(n, n)) * 0.05, cuda), f32(rng.normal(size=n) * 0.1, cuda),
+                        f32(rng.normal(size=(n, k)) * (0.3 if name == "smoke" else 0.1), cuda),
+                        f32(rng.normal(size=k) * 0.1, cuda), f32(np.float32(1.3), cuda))
+    before = fused_head_decode.launches
+    got = fused_head_decode(xs, params)
+    torch.cuda.synchronize()
+    assert fused_head_decode.launches == before + 1
+    want = head_decode_v1_reference(xs, params)
+    assert got.shape == (batch, k, 2) and want.std().item() > 0.5
+    assert (got - want).abs().max().item() <= 0.05
+
+
+@pytest.mark.parametrize("batch", [1, 32, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_softmax_decode_kernel_splits(cuda, batch, dtype):
+    """B4 at the eval path's 64x64x21 planes with the plan's split of each
+    plane over a cluster (8 ranges of 512 px at every B): one launch,
+    within 1e-4 px of the twin and of the split's plain mirror."""
+    rng = np.random.default_rng(batch)
+    x = f32(rng.normal(size=(batch, 64, 64, 21)) * 3.0, cuda).to(dtype)
+    temp = torch.tensor(1.7, device=cuda)
+    plan = decode_plan(batch, 64, 64, 21, x.element_size())
+    before = fused_softmax_decode.launches
+    got = fused_softmax_decode(x, temp)
+    torch.cuda.synchronize()
+    assert fused_softmax_decode.launches == before + 1
+    assert (got - softmax_decode_reference(x, temp)).abs().max().item() <= 1e-4
+    mirror = softmax_decode_split_reference(x, temp, plan.splits, plan.piece_px)
+    assert (got.double() - mirror).abs().max().item() <= 1e-4

@@ -17,7 +17,8 @@ from hrnet_hand_pose_estimation_tpu.ops.pallas.decode_kernel import (
     fused_softmax_decode as jax_fused_softmax_decode)
 from hrnet_hand_pose_estimation_tpu_torch.ops import decode as D
 from hrnet_hand_pose_estimation_tpu_torch.ops.kernels.softmax_decode import (
-    fused_softmax_decode, softmax_decode_reference)
+    MAX_SPLITS, PIECE_BYTES, decode_plan, fused_softmax_decode, softmax_decode_reference,
+    softmax_decode_split_reference)
 
 torch.set_num_threads(1)
 
@@ -91,6 +92,70 @@ def test_wrapper_refuses_bad_input():
         fused_softmax_decode(torch.zeros(1, 2, 2, 1025))
     with pytest.raises(ValueError, match="cuda or cpu"):
         fused_softmax_decode(torch.zeros(1, 4, 4, 2, device="meta"))
+
+
+@pytest.mark.parametrize("batch", [1, 3, 32, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_plan_fills_the_card(batch, dtype):
+    """B4's split at the eval path's 64x64x21 planes: 8 ranges of 512 pixels
+    (S * B >= 264 blocks from B=33 on), a bf16 range in one 32 KB piece, an
+    f32 range in two, and the shared memory the kernel lays out (the
+    states, one piece with its pixels' (u, v), 16 bytes of alignment)."""
+    size = torch.empty((), dtype=dtype).element_size()
+    plan = decode_plan(batch, 64, 64, 21, size)
+    assert plan.splits == MAX_SPLITS and plan.range_px == 512
+    assert plan.piece_px * (21 * size + 8) <= PIECE_BYTES
+    assert -(-plan.range_px // plan.piece_px) == size // 2
+    assert plan.smem == 384 + -(-plan.piece_px * 8 // 16) * 16 + plan.piece_px * 21 * size + 16
+    assert decode_plan(batch, 1, 3, 21, size).splits <= 3          # never more ranges than pixels
+
+
+def twin64(logits, temp):
+    """The twin's formula, softmax then expectations, in float64."""
+    b, h, w, k = logits.shape
+    t = temp.double() if isinstance(temp, torch.Tensor) else temp
+    p = torch.softmax(logits.double().reshape(b, h * w, k) * t, dim=1)
+    idx = torch.arange(h * w)
+    return torch.stack([(p * (idx % w).double()[:, None]).sum(1),
+                        (p * (idx // w).double()[:, None]).sum(1)], dim=-1)
+
+
+@pytest.mark.parametrize("splits", list(range(1, 17)))
+def test_split_reference_matches_the_twin(splits):
+    """The kernel's order of operations (ranges, pieces, one rescale per
+    merge) against the twin on ragged batches and non-square planes, with
+    pieces of the whole range and of 5 pixels, T as a float and a tensor:
+    1e-5 px of the twin's formula in float64 and 1e-4 px of the float32
+    twin (float32's own rounding; the kernel's tolerance)."""
+    for shape in ((5, 16, 16, 21), (2, 12, 16, 21), (1, 7, 5, 3), (3, 9, 13, 21)):
+        rng = np.random.default_rng(sum(shape))
+        x = torch.from_numpy((rng.normal(size=shape) * 3).astype(np.float32))
+        for temp in (1.0, torch.tensor(2.5)):
+            for piece in (None, 5):
+                got = softmax_decode_split_reference(x, temp, splits, piece)
+                assert got.shape == (shape[0], shape[3], 2)
+                assert (got - twin64(x, temp)).abs().max().item() <= 1e-5
+                assert (got.float() - softmax_decode_reference(x, temp)).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("splits,piece", [(1, None), (3, None), (8, 7), (16, 1)])
+def test_split_reference_exact_planes(splits, piece):
+    """Flat planes decode to exactly the centre and a single peak to exactly
+    its pixel, however the plane is split; -inf adds nothing, an all -inf
+    plane is NaN, as the plain softmax gives."""
+    flat = torch.zeros(2, 16, 12, 3)
+    got = softmax_decode_split_reference(flat, 2.5, splits, piece)
+    assert (got[..., 0] == 5.5).all() and (got[..., 1] == 7.5).all()
+    peak = torch.from_numpy(np.random.default_rng(1).normal(size=(2, 16, 16, 4)).astype(np.float32))
+    peak[1, 3, 11, 2] = 1e4
+    assert softmax_decode_split_reference(peak, 2.5, splits, piece)[1, 2].tolist() == [11.0, 3.0]
+    x = peak.clone()
+    x[0, :, :8, 1] = -float("inf")
+    x[0, :, :, 3] = -float("inf")
+    got = softmax_decode_split_reference(x, 1.0, splits, piece)
+    want = softmax_decode_reference(x, 1.0)
+    assert (got[0, 1].float() - want[0, 1]).abs().max().item() <= 1e-4
+    assert torch.isnan(got[0, 3]).all() and torch.isnan(want[0, 3]).all()
 
 
 def _peaky_maps(rng, shape=(3, 16, 16, 21)):
