@@ -2,7 +2,7 @@
 """Times one checkout of the PyTorch port on one NVIDIA card, for comparing
 two commits on the same card in one call.
 
-    python3 chip_ab.py <root> <label>             # the three serving steps and five kernels
+    python3 chip_ab.py <root> <label>             # the three serving steps and eight kernels
     python3 chip_ab.py <root> <label> --profile   # per-kernel device time of the int8 step
 
 ``<root>`` is a directory holding ``hrnet_hand_pose_estimation_tpu_torch``
@@ -14,7 +14,8 @@ On pose_hrnet_w32 softmax at 256x256, random weights from seed 0, B=128,
 CUDA events after warm-up, it prints one line
 ``AB {"label", "step_default", "step_new", "step_int8", "head", "layer1",
 "stem_layer1", "layer1_int8", "branch_int8", "head_v1", "decode_b32",
-"decode_b128"}`` in ms: the default bf16 step, the bf16 step with
+"decode_b128", "targets_b32", "targets_b128", "targets_device_b32",
+"targets_device_b128"}`` in ms: the default bf16 step, the bf16 step with
 ``pallas_branches=True, fuse_stem_layer1=True``, the int8 step on uint8
 images, and ``fused_head_decode_v2``, ``fused_bottleneck_chain``,
 ``fused_stem_layer1`` and ``fused_bottleneck_chain_int8`` alone on the
@@ -22,7 +23,9 @@ serving paths' inputs, ``fused_basic_chain_int8`` summed over the int8
 path's 26 branch inputs (params from ``prepare_branch_int8``),
 ``fused_head_decode`` (v1) on the default bf16 path's branch tensors, and
 the device time per call (``torch.profiler``, 20 calls) of
-``fused_softmax_decode`` on bf16 64x64x21 logits at B=32 and B=128.  With
+``fused_softmax_decode`` on bf16 64x64x21 logits at B=32 and B=128, and
+``fused_gaussian_targets`` (64x64x21, sigma 2, seeded joints) per call
+(CUDA events, 50 calls) and in device time at B=32 and B=128.  With
 ``--profile`` it prints ``AB2 <label> total <ms>`` and the 14 largest
 per-kernel device times of one int8 step (``torch.profiler``, 3 steps).
 Exits non-zero without a card.
@@ -56,6 +59,8 @@ from hrnet_hand_pose_estimation_tpu_torch.ops.kernels.fused_head_decode import (
     fused_head_decode, fused_head_decode_v2)
 from hrnet_hand_pose_estimation_tpu_torch.ops.kernels.int8_chain import (  # noqa: E402
     fused_basic_chain_int8, fused_bottleneck_chain_int8)
+from hrnet_hand_pose_estimation_tpu_torch.ops.kernels.gaussian_targets import (  # noqa: E402
+    fused_gaussian_targets)
 from hrnet_hand_pose_estimation_tpu_torch.ops.kernels.softmax_decode import (  # noqa: E402
     fused_softmax_decode)
 from hrnet_hand_pose_estimation_tpu_torch.ops.s2d import space_to_depth  # noqa: E402
@@ -152,6 +157,9 @@ with torch.inference_mode():
     l1_int8, branches = int8_kernel_inputs()
     temp = torch.tensor(1.7, device=dev)
     logits = {b: (torch.randn(b, 64, 64, 21, device=dev) * 3).to(torch.bfloat16) for b in (32, 128)}
+    joints = {b: torch.from_numpy(np.random.default_rng(b).uniform(
+        2, 62, size=(b, 21, 2)).astype(np.float32)).to(dev) for b in (32, 128)}
+    vis = {b: torch.ones(b, 21, device=dev) for b in (32, 128)}
     out = dict(label=label,
                step_default=time_ms(lambda: fast(weights, big)),
                step_new=time_ms(lambda: new(weights, big)),
@@ -165,5 +173,11 @@ with torch.inference_mode():
                                for c in branches),
                head_v1=time_ms(lambda: fused_head_decode(xs, weights.head)),
                **{f"decode_b{b}": device_busy(lambda: fused_softmax_decode(x, temp), 20)[1] or None
-                  for b, x in logits.items()})
+                  for b, x in logits.items()},
+               **{f"targets_b{b}": time_ms(lambda: fused_gaussian_targets(j, vis[b], 64, 2.0),
+                                           iters=50, warmup=5)
+                  for b, j in joints.items()},
+               **{f"targets_device_b{b}": device_busy(
+                   lambda: fused_gaussian_targets(j, vis[b], 64, 2.0), 20)[1] or None
+                  for b, j in joints.items()})
 print("AB " + json.dumps(out), flush=True)

@@ -18,7 +18,10 @@ B=32 and B=128) at the flagship's shape classes in each (CUDA events, a
 subprocess per variant; the ``v1_`` variants time v1 alone), and the
 softmax decode (``csrc/softmax_decode.cu``) with each plane split into 1,
 2, 4 or 8 ranges (every variant; the ``b4_`` variants, and every variant
-under ``--b4``, time it alone). The variants' outputs are
+under ``--b4``, time it alone), and the Gaussian targets
+(``csrc/gaussian_targets.cu``) with one part of its design undone (the
+``b5_`` variants, and every variant under ``--b5``, time it alone at B=32
+and B=128; their outputs stay right). The other variants' outputs are
 wrong by design, except ``fdiv``, the former quantization by ``__fdiv_rn``,
 whose output hashes must equal ``base``'s. Then it checks on the card that
 the kernel's quantization, ``float(double(x) * (1.0 / double(sa)))``, rounds
@@ -29,6 +32,7 @@ and the powers of two from 2^-14 to 2^6 and their predecessors.
     python3 chip_ablation.py                  # all variants
     python3 chip_ablation.py base fdiv        # some
     python3 chip_ablation.py --b4 base b4_regs32   # the softmax decode alone
+    python3 chip_ablation.py --b5 base b5_no_table b5_scalar b5_one_row   # B5 alone
 
 Prints one JSON line per variant, the check, the card's name and power
 limit. Needs one CUDA card and nvcc; exits non-zero without them.
@@ -172,6 +176,18 @@ VARIANTS = {
     # B4 (csrc/softmax_decode.cu) with 8 blocks per SM (32 registers a thread)
     "b4_regs32": [("csrc/softmax_decode.cu", "constexpr int kBlocksPerSM = 4;",
                    "constexpr int kBlocksPerSM = 8;")],
+    # B5 (csrc/gaussian_targets.cu and its plan), one part of the design
+    # undone: expf per element, 4-byte stores, one row per block, bands
+    # sized for 1024 blocks, streaming stores (st.global.cs); outputs stay
+    # right, so each variant is also checked against its twin
+    "b5_no_table": [("ops/kernels/gaussian_targets.py",
+                     "table = 8 * joints + lut <= SMEM_LIMIT", "table = False")],
+    "b5_scalar": [("csrc/gaussian_targets.cu", "  *reinterpret_cast<float4*>(p) = v;",
+                   "  p[0] = v.x;\n  p[1] = v.y;\n  p[2] = v.z;\n  p[3] = v.w;")],
+    "b5_one_row": [("ops/kernels/gaussian_targets.py", "MAX_ROWS = 16", "MAX_ROWS = 1")],
+    "b5_min1024": [("ops/kernels/gaussian_targets.py", "MIN_BLOCKS = 512", "MIN_BLOCKS = 1024")],
+    "b5_cs": [("csrc/gaussian_targets.cu", "  *reinterpret_cast<float4*>(p) = v;",
+               "  __stcs(reinterpret_cast<float4*>(p), v);")],
 }
 
 CHECK_CU = r'''
@@ -231,6 +247,39 @@ def decode_splits(dev) -> dict:
     return res
 
 
+def targets_times(dev) -> dict:
+    """B5 at the train step's shape (64x64x21, sigma 2) on seeded joints at
+    B=32 and B=128: ms per call (CUDA events, 50 calls), device ms
+    (torch.profiler, 20 calls), the plan, and max|kernel - twin|."""
+    import numpy as np
+    import torch
+
+    from chip_timing import device_busy
+    from hrnet_hand_pose_estimation_tpu_torch.ops.kernels.gaussian_targets import (
+        fused_gaussian_targets, gaussian_targets_reference, targets_plan)
+
+    res = {}
+    for b in (32, 128):
+        rng = np.random.default_rng(b)
+        j = torch.from_numpy(rng.uniform(2, 62, size=(b, 21, 2)).astype(np.float32)).to(dev)
+        v = torch.ones(b, 21, device=dev)
+        call = lambda: fused_gaussian_targets(j, v, 64, 2.0)
+        err = (call() - gaussian_targets_reference(j, v, 64, 2.0)).abs().max().item()
+        for _ in range(5):
+            call()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(50):
+            call()
+        end.record()
+        torch.cuda.synchronize()
+        res[f"fused_gaussian_targets B={b}"] = dict(
+            ms=round(start.elapsed_time(end) / 50, 5), device_ms=round(device_busy(call, 20)[1], 5),
+            plan=targets_plan(b, 21, 64, 2.0)._asdict(), max_abs_err=err)
+    return res
+
+
 def make(name):
     dst = OUT / name
     shutil.rmtree(dst, ignore_errors=True)
@@ -246,7 +295,7 @@ def make(name):
     return dst
 
 
-def time_variant(where: str, b4_only: bool) -> None:
+def time_variant(where: str, only: str) -> None:
     """Runs in a subprocess with the variant's copy first on sys.path."""
     import numpy as np
     import torch
@@ -260,8 +309,11 @@ def time_variant(where: str, b4_only: bool) -> None:
         raise SystemExit(f"imported the package from {_build.CSRC}, not from {where}")
     dev, rng = torch.device("cuda"), np.random.default_rng(0)
     v1_only = Path(where).name.startswith("v1_")
-    if b4_only or Path(where).name.startswith("b4_"):
+    if only == "--b4" or Path(where).name.startswith("b4_"):
         print(json.dumps({Path(where).name: decode_splits(dev)}), flush=True)
+        return
+    if only == "--b5" or Path(where).name.startswith("b5_"):
+        print(json.dumps({Path(where).name: targets_times(dev)}), flush=True)
         return
 
     def ms(fn, iters=20):
@@ -388,15 +440,15 @@ def main(names) -> int:
     if not torch.cuda.is_available():
         print("chip_ablation.py needs a CUDA card", file=sys.stderr)
         return 1
-    b4 = [n for n in names if n == "--b4"]
-    names = [n for n in names if n != "--b4"] or list(VARIANTS)
+    only = [n for n in names if n in ("--b4", "--b5")][:1]
+    names = [n for n in names if n not in ("--b4", "--b5")] or list(VARIANTS)
     dirs = [make(n) for n in names]
     build = "from hrnet_hand_pose_estimation_tpu_torch.ops.kernels import _build; _build.build()"
     procs = [subprocess.Popen([sys.executable, "-c", build], cwd=d) for d in dirs]
     if any(p.wait() for p in procs):
         return 1
     for d in dirs:
-        if subprocess.call([sys.executable, __file__, "--time", str(d), *b4]):
+        if subprocess.call([sys.executable, __file__, "--time", str(d), *only]):
             return 1
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
@@ -406,6 +458,6 @@ def main(names) -> int:
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--time"]:
-        time_variant(sys.argv[2], sys.argv[3:] == ["--b4"])
+        time_variant(sys.argv[2], (sys.argv[3:] or [""])[0])
     else:
         sys.exit(main(sys.argv[1:]))

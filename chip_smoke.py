@@ -54,6 +54,15 @@ batch) against the same evaluation decoded by the twin, the int8 serving
 evaluation, the evaluation tool's artifacts, and the inference tool's
 three serving functions.
 
+Then the multi-view 3D path at the full width of
+experiments/LearnableTriangulation/VolTriangulation_v1.yaml
+(pose_hrnet_volumetric w32 at 256/64, a 64^3 cube of 500 mm, softmax
+aggregation, 4 views, B=4) on the synthetic multi-view set: the vol, alg
+and ransac nets and the dlt mode of ``core/evaluator3d.Evaluator3D``, each
+forward one softmax-decode launch and within stated limits of the same
+forward decoded by the kernel's twin, one ``Evaluator3D.run``, the
+evaluate_3d tool, and the time of each net and of its parts.
+
     python3 chip_smoke.py
 
 Needs one CUDA card and nvcc; exits non-zero without them.  Prints one line
@@ -104,7 +113,7 @@ from hrnet_hand_pose_estimation_tpu_torch.ops.kernels.fused_head_decode import (
     HeadParams, fused_head_decode, fused_head_decode_v2, head_decode_reference,
     head_decode_v1_reference, head_kernel_attributes, head_plan, head_v1_attributes, head_v1_plan)
 from hrnet_hand_pose_estimation_tpu_torch.ops.kernels.gaussian_targets import (
-    fused_gaussian_targets, gaussian_targets_reference)
+    fused_gaussian_targets, gaussian_targets_reference, targets_plan)
 from hrnet_hand_pose_estimation_tpu_torch.ops.kernels import int8_chain as I8
 from hrnet_hand_pose_estimation_tpu_torch.ops.kernels.int8_chain import (
     basic_chain_int8_reference, bottleneck_chain_int8_reference, fused_basic_chain_int8,
@@ -1472,6 +1481,21 @@ def ragged_joints(device):
     return torch.from_numpy(joints).to(device), torch.from_numpy(vis).to(device)
 
 
+def ragged_shape_joints(device, b, k, res):
+    """(b, k) joints on a res map with the same edge cases, for the shapes
+    whose rows of res * K floats are no multiple of 4."""
+    rng = np.random.default_rng((6, b, k, res))
+    joints = rng.uniform(0, res, size=(b, k, 2)).astype(np.float32)
+    joints[0, 0] = (-0.5, -0.5)
+    joints[0, 1] = (res, 10.0)
+    joints[-1, 2] = (res + 6.0, res + 16.0)
+    joints[-1, 3] = (-3.0, 5.0)
+    joints[-1, 4] = (res - 0.01, 0.0)
+    vis = np.ones((b, k), np.float32)
+    vis[-1, 5] = 0.0
+    return torch.from_numpy(joints).to(device), torch.from_numpy(vis).to(device)
+
+
 def targets_work(out):
     """Bound of the targets kernel: the output written once (the joints are
     bytes-negligible but counted); ~16 float32 operations per element inside
@@ -1517,38 +1541,58 @@ def train_phases(smi, kernels):
     sigma, res = 2.0, 64
     with phase("train kernel checks"):
         worst = 0.0
-        for label, (joints, vis) in (
-                ("B=32", (lambda b: (b["pose2d"], b["visibility"]))(train_batch(20, 32, dev))),
-                ("B=128", (lambda b: (b["pose2d"], b["visibility"]))(train_batch(21, 128, dev))),
-                ("ragged B=3", ragged_joints(dev))):
-            for sig in ((1.0, 1.5, 2.0) if label.startswith("ragged") else (sigma,)):
-                got = fused_gaussian_targets(joints, vis, res, sig)
-                want = gaussian_targets_reference(joints, vis, res, sig)
+        cases = [("B=32", (lambda b: (b["pose2d"], b["visibility"]))(train_batch(20, 32, dev)),
+                  res, (sigma,)),
+                 ("B=128", (lambda b: (b["pose2d"], b["visibility"]))(train_batch(21, 128, dev)),
+                  res, (sigma,)),
+                 ("ragged B=3", ragged_joints(dev), res, (1.0, 1.5, 2.0))]
+        # rows of res * K % 4 != 0 floats: every band's scalar head and tail;
+        # sigma 30 has no room for the exp table (expf per element)
+        for b, k, r in ((1, 17, 63), (3, 17, 63), (3, 21, 63), (32, 17, 64)):
+            j, v = ragged_shape_joints(dev, b, k, r)
+            cases.append((f"ragged B={b} K={k} res={r}", (j, v), r, (1.5, 2.0, 30.0)))
+        for label, (joints, vis), r, sigmas in cases:
+            for sig in sigmas:
+                plan = targets_plan(joints.shape[0], joints.shape[1], r, sig)
+                before = fused_gaussian_targets.launches
+                got = fused_gaussian_targets(joints, vis, r, sig)
+                want = gaussian_targets_reference(joints, vis, r, sig)
                 torch.cuda.synchronize()
                 err = (got - want).abs().max().item()
                 print(f"gaussian targets {label} sigma {sig}: max|kernel - plain| {err:.3g} "
-                      f"(limit 1e-6), nonzero {(want > 0).float().mean().item():.4f}")
-                if not err <= 1e-6:
+                      f"(limit 1e-6), zeros alike {torch.equal(got == 0, want == 0)}, nonzero "
+                      f"{(want > 0).float().mean().item():.4f}; plan {plan._asdict()}")
+                if not (err <= 1e-6 and torch.equal(got == 0, want == 0)
+                        and fused_gaussian_targets.launches == before + 1):
                     raise AssertionError(f"targets kernel disagrees with its twin: {err}")
                 worst = max(worst, err)
         entry = dict(name="fused_gaussian_targets", route="cuda",
                      source="hrnet_hand_pose_estimation_tpu_torch/csrc/gaussian_targets.cu",
                      replaces="hrnet_hand_pose_estimation_tpu/ops/pallas/decode_kernel.py:123",
                      max_abs_err=worst, library_ms=None)
-        for b, seed in ((32, 20), (128, 21)):
+        for b, seed, was in ((32, 20, 0.0241), (128, 21, 0.0329)):
             tb = train_batch(seed, b, dev)
             j, v = tb["pose2d"], tb["visibility"]
             out = fused_gaussian_targets(j, v, res, sigma)
             ms = time_ms(lambda: fused_gaussian_targets(j, v, res, sigma), 50, warmup=5)
+            # the kernel's own device time: back-to-back calls are paced by
+            # the wrapper's host work when that is longer
+            _, kernel_ms, _ = device_busy(lambda: fused_gaussian_targets(j, v, res, sigma), 20)
             plain = time_ms(lambda: gaussian_targets_reference(j, v, res, sigma), 10)
             b_ms, b_by = targets_work(out)
+            plan = targets_plan(b, 21, res, sigma)
             suffix = "" if b == 32 else f"_b{b}"
             entry.update({f"ms{suffix}": ms, f"plain_ms{suffix}": plain,
-                          f"bound_ms{suffix}": b_ms})
+                          f"bound_ms{suffix}": b_ms, f"device_ms{suffix}": kernel_ms or None,
+                          f"was_ms{suffix}": was, f"rows{suffix}": plan.rows})
             entry["bound_by"] = b_by
-            print(f"fused_gaussian_targets B={b} (64x64x21, sigma 2): {ms:.4f} ms, plain "
-                  f"{plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}); no single PyTorch call "
-                  f"computes it, on {smi}")
+            device = (f"{kernel_ms:.4f} ms of kernel (torch.profiler), {b_ms / kernel_ms:.1%} of "
+                      f"the bound" if kernel_ms > 0 else "kernel time not measured (the "
+                      "profiler recorded no device event)")
+            print(f"fused_gaussian_targets B={b} (64x64x21, sigma 2; bands of {plan.rows} rows, "
+                  f"{b * plan.bands} blocks, table {plan.table}): {ms:.4f} ms per call (was "
+                  f"{was} before the redesign), {device}, plain {plain:.4f} ms, bound "
+                  f"{b_ms:.4f} ms ({b_by}); no single PyTorch call computes it, on {smi}")
             del tb, out
 
     cfg = train_cfg()
@@ -1951,6 +1995,237 @@ def eval_phases(smi, kernels):
     kernels.append(entry)
 
 
+# -- the multi-view 3D inference and evaluation path ------------------------
+
+MV_BATCH = 4                # IMAGES_PER_GPU of VolTriangulation_v1.yaml
+MV_VIEWS = 4                # DATASET.NUM_VIEWS (the default)
+MV_KINDS = ("vol", "alg", "ransac")
+# 3D limits of a forward decoded by B4 against the same forward decoded by
+# its twin (<= 1e-4 px apart): (mm, relative).  The vol net's bf16 V2V may
+# round a few voxels otherwise: one voxel of its 500 mm / 64 cube (3.5 mm
+# measured on an H100); alg and ransac scale heatmap coords to the
+# nets' 640x480 default where Synthetic_mv's cameras are 256 px wide (as in
+# the JAX package), so their random nets' DLTs land up to ~100 m out, where
+# a point moves by |x|^2 / (f baseline) per px of its detections
+MV_3D_LIMIT = {"vol": (7.8, 1e-3), "alg": (1.0, 1e-2), "ransac": (1.0, 1e-2),
+               "dlt": (1.0, 1e-3)}
+VOL_YAML = (Path(__file__).resolve().parent / "experiments" / "LearnableTriangulation"
+            / "VolTriangulation_v1.yaml")
+
+
+def mv_cfg(kind: str, out_dir: str = ""):
+    """The MODEL section of experiments/LearnableTriangulation/
+    VolTriangulation_v1.yaml set in code (the card's machine may lack
+    PyYAML): pose_hrnet_volumetric w32 at 256/64, VOLUME_SIZE 64,
+    CUBOID_SIZE 500, softmax aggregation, VOLUME_SOFTMAX, VOL_CONFIDENCES
+    on, ALG_CONFIDENCES off; the softmax decode on (HEATMAP_SOFTMAX, as the
+    VolTriangulation_MHP_v2..v9 configs set it; v1 leaves the default);
+    Synthetic_mv at 256/64 in place of MHP_mv, 4 views, B=4, bf16."""
+    cfg = load_config(opts=[
+        "MODEL.NAME", "pose_hrnet_volumetric", "MODEL.TRIANGULATION_MODEL_NAME", kind,
+        "MODEL.HEATMAP_SOFTMAX", True, "MODEL.VOLUME_SIZE", 64, "MODEL.CUBOID_SIZE", 500.0,
+        "MODEL.VOLUME_AGGREGATION_METHOD", "softmax", "MODEL.VOLUME_SOFTMAX", True,
+        "MODEL.VOL_CONFIDENCES", True, "MODEL.ALG_CONFIDENCES", False, "MODEL.SIGMA", 2,
+        "DATASET.DATASET", ["Synthetic_mv"], "DATASET.TEST_DATASET", ["Synthetic_mv"],
+        "DATASET.NUM_VIEWS", MV_VIEWS, "TEST.IMAGES_PER_GPU", MV_BATCH, "WORKERS", 4,
+        "EXP_NAME", "chip_smoke_eval3d", "OUTPUT_DIR", out_dir], freeze=False)
+    cfg.MODEL.EXTRA.merge_from_mapping(POSE_HIGH_RESOLUTION_NET_EXTRA)
+    return cfg.freeze()
+
+
+def mv_gate(label, kind, got, twin):
+    """(2D max |d| in heatmap px, 3D max |d| mm): a forward decoded by B4
+    against the same forward decoded by its twin."""
+    kp2d, kp3d = got
+    t2d, t3d = twin
+    scale = 1.0 if kind in ("vol", "dlt") else torch.tensor([640 / 64, 480 / 64], device=kp2d.device)
+    d2 = ((kp2d - t2d) / scale).abs().max().item()
+    d3 = (kp3d - t3d).abs()
+    mm, rel = MV_3D_LIMIT[kind]
+    limit3 = mm + rel * t3d.abs()
+    print(f"{label}: B4 vs its twin, 2D max |d| {d2:.3g} heatmap px (limit 1e-3), 3D max |d| "
+          f"{d3.max().item():.4g} mm (limit {mm} mm + {rel} |x|); 2D spread "
+          f"{kp2d.std().item():.3f}, |3D| up to {t3d.abs().max().item():.4g} mm")
+    if not (d2 <= 1e-3 and bool((d3 <= limit3).all())):
+        raise AssertionError(f"{label}: B4 and its twin part: 2D {d2}, 3D {d3.max().item()}")
+    if not (torch.isfinite(kp2d).all() and torch.isfinite(kp3d).all()):
+        raise AssertionError(f"{label}: a keypoint is not finite")
+
+
+def mv_phases(smi, kernels):
+    """The multi-view 3D path at full width: the vol, alg and ransac nets
+    and the dlt mode, each forward one B4 launch and within the stated
+    limits of the same forward decoded by B4's twin; one Evaluator3D.run;
+    the evaluate_3d tool; the time of each net and its parts."""
+    from hrnet_hand_pose_estimation_tpu_torch.core.evaluator3d import Evaluator3D
+    from hrnet_hand_pose_estimation_tpu_torch.models import triangulation as TRI
+    from hrnet_hand_pose_estimation_tpu_torch.ops import geometry as GEO
+    from hrnet_hand_pose_estimation_tpu_torch.ops import volumetric as VOL
+    from hrnet_hand_pose_estimation_tpu_torch.tools import evaluate_3d as tool_eval3d
+
+    dev = torch.device("cuda")
+    b4 = next(k for k in kernels if k["name"] == "fused_softmax_decode")
+    b4["launches_3d"] = 0
+    evs = {}
+    with phase("3D main path"), tempfile.TemporaryDirectory() as tmp:
+        loader = make_test_dataloader(mv_cfg("vol", tmp))["Synthetic_mv"]
+        batch = next(iter(loader))
+        orig = tuple(loader.dataset.orig_img_size)
+        images = torch.from_numpy(batch["imgs"]).to(dev)
+        print(f"Synthetic_mv batch: images {tuple(images.shape)}, orig size {orig}")
+        for kind in MV_KINDS + ("dlt",):
+            cfg = mv_cfg("alg" if kind == "dlt" else kind, tmp)
+            if kind == "dlt":
+                model, state = build_model(cfg), init_variables(cfg, 0, device=dev)
+            else:
+                model = TRI.build_triangulation_net(cfg)
+                state = init_variables(cfg, 0, device=dev, net=kind)
+            ev = Evaluator3D(cfg, model, state, mode="dlt" if kind == "dlt" else "model",
+                             device=dev)
+            proj = ev.projections(batch, orig)
+            zero_counters()
+            with torch.no_grad():
+                kp2d, kp3d = ev.forward(images, proj)
+                if kind == "dlt":
+                    kp3d = GEO.triangulate_batch(kp2d * torch.tensor(
+                        [orig[0] / 64, orig[1] / 64], device=dev), proj, method="sii")
+            torch.cuda.synchronize()
+            launches = counters()
+            want = {fn.__name__: 0 for fn in COUNTED}
+            want["fused_softmax_decode"] = 1
+            print(f"3D {kind} forward B={MV_BATCH} x {MV_VIEWS} views: kp2d "
+                  f"{tuple(kp2d.shape)}, kp3d {tuple(kp3d.shape)}, CUDA launches {launches}")
+            if launches != want:
+                raise AssertionError(f"3D {kind} forward launches {launches}, want {want}")
+            b4["launches_3d"] += launches["fused_softmax_decode"]
+            with patched(TRI, "softmax_decode", softmax_decode_reference), patched(
+                    EV, "softmax_decode", softmax_decode_reference), torch.no_grad():
+                t2d, t3d = ev.forward(images, proj)
+                if kind == "dlt":
+                    t3d = GEO.triangulate_batch(t2d * torch.tensor(
+                        [orig[0] / 64, orig[1] / 64], device=dev), proj, method="sii")
+            if counters()["fused_softmax_decode"] != 1:
+                raise AssertionError("the twin forward launched B4")
+            mv_gate(f"3D {kind}", kind, (kp2d, kp3d), (t2d, t3d))
+            evs[kind] = (ev, proj)
+
+        ev, _ = evs["vol"]
+        loader.dataset.length = 2 * MV_BATCH
+        zero_counters()
+        results = ev.run(loader, output_dir=tmp)
+        torch.cuda.synchronize()
+        launched = counters()["fused_softmax_decode"]
+        b4["launches_3d"] += launched
+        out = Path(tmp) / "eval3D_results_chip_smoke_eval3d"
+        shapes = tuple(np.loadtxt(out / f).shape for f in (
+            "mse2d_each_joint.txt", "mse3d_each_joint.txt", "PCK2d.txt", "PCK3d.txt"))
+        print(f"Evaluator3D vol, {len(loader)} batches of {MV_BATCH} x {MV_VIEWS} views: B4 "
+              f"launches {launched}; results {json.dumps(results)}; artifacts {shapes}")
+        if launched != len(loader) or not all(np.isfinite(v) for v in results.values()):
+            raise AssertionError(f"Evaluator3D: launches {launched}, results {results}")
+        if shapes != ((21,), (21,), (2, 49), (2, 50)):
+            raise AssertionError(f"eval3D artifacts of shapes {shapes}")
+
+    with phase("3D tools"), tempfile.TemporaryDirectory() as tmp:
+        if importlib.util.find_spec("yaml") is not None:
+            cmd = [sys.executable, "-m", "hrnet_hand_pose_estimation_tpu_torch.tools.evaluate_3d",
+                   "--cfg", str(VOL_YAML), "--device", "cuda", "--out", tmp,
+                   "DATASET.TEST_DATASET", "['Synthetic_mv']", "MODEL.HEATMAP_SOFTMAX", "True",
+                   "EXP_NAME", "tool3d"]
+            res = subprocess.run(cmd, capture_output=True, text=True,
+                                 cwd=Path(__file__).resolve().parent, timeout=300)
+            tail = (res.stdout + res.stderr).strip().splitlines()[-7:]
+            print(f"python -m ...tools.evaluate_3d --cfg {VOL_YAML.name} --device cuda "
+                  f"(Synthetic_mv, the softmax decode): rc {res.returncode}; " + " ".join(
+                      line.strip() for line in tail))
+            if res.returncode != 0:
+                raise AssertionError(f"evaluate_3d failed:\n{res.stdout}\n{res.stderr}")
+            if np.loadtxt(Path(tmp) / "eval3D_results_tool3d" / "PCK3d.txt").shape != (2, 50):
+                raise AssertionError("evaluate_3d wrote no PCK3d.txt")
+        else:
+            print("no PyYAML on this machine: tools.evaluate_3d.evaluate in process on the "
+                  "config built in code")
+            res = tool_eval3d.evaluate(mv_cfg("vol", tmp), out=tmp, device=dev)
+            print(f"tools.evaluate_3d.evaluate: {json.dumps(res)}")
+            if not all(np.isfinite(v) for v in res.values()):
+                raise AssertionError(f"evaluate_3d results not finite: {res}")
+
+    with phase("3D timing"), torch.no_grad():
+        # each net's batch and its parts, CUDA events; parts on the inputs
+        # the forward gives them, in the forward's dtypes
+        ev, proj = evs["vol"]
+        net = ev.model
+        cfg = ev.cfg
+        b, v = images.shape[:2]
+        flat = images.reshape(b * v, *images.shape[2:])
+
+        def head():
+            with TS.compute_autocast(cfg, dev):
+                return net.backbone.forward_head(flat)
+
+        out = head()
+        logits, temp = out.heatmaps, out.temperature
+        k = logits.shape[-1]
+        kp2d = fused_softmax_decode(logits, temp).reshape(b, v, k, 2)
+        side, cuboid = net.volume_size, net.cuboid_size
+        zero = torch.zeros(b, device=dev)
+
+        def cube():
+            base = GEO.triangulate_eigh(kp2d[:, :, 9], proj)
+            return VOL.rotate_coord_volume(VOL.build_coord_volume(base, cuboid, side), zero,
+                                           (0, 1, 0), center=base)
+
+        coords = cube()
+
+        def process():
+            with net._compute(dev):
+                return net.process_features(out.features.to(net.dtype).permute(0, 3, 1, 2))
+
+        feats = process().permute(0, 2, 3, 1)
+        feats = feats.reshape(b, v, *feats.shape[1:])
+        vols = VOL.unproject_heatmaps(feats, proj, coords, "softmax")
+
+        def v2v():
+            with net._compute(dev):
+                return net.volume_net(vols.to(net.dtype))
+
+        vout = v2v()
+        full = {}
+        for kind, (e, p) in evs.items():
+            full[kind] = time_ms(lambda: e.forward(images, p), 5, warmup=2)
+        # alg / ransac triangulate at the original image's scale
+        pts = (kp2d * torch.tensor([640 / 64, 480 / 64], device=dev)).transpose(1, 2)
+        prj = proj[:, None].expand(b, k, v, 3, 4)
+        pairs = v * (v - 1) // 2
+        parts = {
+            f"backbone (forward_head, bf16 autocast, B*V={b * v})": time_ms(head, 5),
+            "decode (B4)": time_ms(lambda: fused_softmax_decode(logits, temp), 20),
+            f"DLT eigh (alg, {b * k} systems)": time_ms(
+                lambda: GEO.triangulate_batch(kp2d, proj, method="eigh"), 20),
+            "DLT sii (dlt)": time_ms(lambda: GEO.triangulate_batch(kp2d, proj, method="sii"), 20),
+            f"RANSAC ({pairs} pairs + the inliers: {(pairs + 1) * b * k} systems)": time_ms(
+                lambda: GEO.triangulate_ransac(pts, prj), 20),
+            "base point + cube (vol)": time_ms(cube, 20),
+            "process_features (1x1 conv to 32)": time_ms(process, 20),
+            f"unprojection ({side}^3 x {v} views x {feats.shape[-1]} ch)": time_ms(
+                lambda: VOL.unproject_heatmaps(feats, proj, coords, "softmax"), 5),
+            "V2V (cuDNN 3D convs, bf16)": time_ms(v2v, 5),
+            "3D soft-argmax": time_ms(lambda: VOL.integrate_volumes_with_coordinates(
+                vout, coords), 10),
+        }
+        torch.cuda.reset_peak_memory_stats()
+        ev.forward(images, proj)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        print(f"3D forward per batch of {MV_BATCH} x {MV_VIEWS} views at 256/64 (ms, CUDA "
+              f"events): " + json.dumps({k: round(t, 3) for k, t in full.items()})
+              + f"; vol peak memory {peak:.2f} GiB, on {smi}")
+        print("3D parts, vol net's inputs (ms, CUDA events, each timed alone): "
+              + json.dumps({k: round(t, 4) for k, t in parts.items()}) + f", on {smi}")
+        b4["ms_3d"] = parts["decode (B4)"]
+        del evs, ev, net, vols, vout
+
+
 # -- C9: the repo's smoke model served on the card --------------------------
 
 SMOKE_YAML = Path(__file__).resolve().parent / "experiments" / "synthetic_smoke.yaml"
@@ -2297,6 +2572,7 @@ def main() -> int:
     del weights, state, new_infer
     train_phases(smi, kernels)
     eval_phases(smi, kernels)
+    mv_phases(smi, kernels)
 
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -7,9 +7,9 @@ for joint multi-dataset training like the reference (build.py:66-97).
 
 The batch is ``IMAGES_PER_GPU`` for one device: the JAX package multiplies
 it by ``jax.local_device_count()``; multi-GPU data parallelism is ROADMAP
-A11.  The port has the synthetic 2D dataset so far: every other registered
-name raises ``NotImplementedError`` naming the ROADMAP item that ports its
-reader.
+A11.  The port has the synthetic 2D and multi-view datasets so far: every
+other registered name raises ``NotImplementedError`` naming the ROADMAP
+item that ports its reader.
 """
 
 from __future__ import annotations
@@ -20,7 +20,7 @@ import numpy as np
 
 from ..ops.targets import gaussian_targets_np
 from .pipeline import DataLoader
-from .synthetic import SyntheticDataset
+from .synthetic import SyntheticDataset, SyntheticMultiViewDataset
 from .transforms import build_transforms
 
 
@@ -66,8 +66,8 @@ for _name in ("RHD_kpt", "RHD_twohands_kpt", "RHD_fullframe_kpt", "Frei_kpt", "F
               "MHP_seq", "COCO", "MPII", "RHD", "RHD_twohands", "Frei", "FreiHand", "MHP",
               "Panoptic", "Panoptic_kpt", "STB"):
     register_dataset(_name)(_not_ported(_name, "A10"))
-# the calibrated multi-view synthetic set belongs to the 3D stack
-register_dataset("Synthetic_mv")(_not_ported("Synthetic_mv", "A9"))
+# the calibrated multi-view synthetic set of the 3D stack
+register_dataset("Synthetic_mv")(SyntheticMultiViewDataset)
 
 
 def build_dataset(cfg, name: str, is_train: bool):

@@ -158,11 +158,39 @@ class HRNetOutput(NamedTuple):
     - heatmaps: (B, H, W, K) probabilities (softmax head) or logits (plain)
     - features: (B, H, W, 480) concat of the upsampled branches
     - temperature: scalar softmax temperature (softmax head) or None
+    - confidences: (B, N) per-joint (alg) or per-channel (vol) confidences
+      of the volumetric backbone's head, or None
     """
 
     heatmaps: torch.Tensor
     features: torch.Tensor
     temperature: Optional[torch.Tensor] = None
+    confidences: Optional[torch.Tensor] = None
+
+
+class GlobalAveragePoolingHead(nn.Module):
+    """Confidence head of the volumetric backbone (reference
+    pose_hrnet_volumetric.py:22-57; JAX ``models/hrnet.py:275-293``): two
+    Conv+BN -> 2x2 max-pool -> ReLU blocks, a global average pool, then a
+    512-256-n MLP with a sigmoid.  Children carry the reference names
+    (``features.0/1/4/5``, ``head.0/2/4``).  NHWC in, (B, n) float32 out:
+    the MLP runs in float32 outside any autocast, as the JAX head's Dense
+    layers do."""
+
+    def __init__(self, in_channels: int, out_features: int):
+        super().__init__()
+        self.features = nn.Sequential(
+            nn.Conv2d(in_channels, 512, 3, 1, 1, bias=True), batch_norm(512),
+            nn.MaxPool2d(2, 2), nn.ReLU(),
+            nn.Conv2d(512, 256, 3, 1, 1, bias=True), batch_norm(256),
+            nn.MaxPool2d(2, 2), nn.ReLU())
+        self.head = nn.Sequential(nn.Linear(256, 512), nn.ReLU(), nn.Linear(512, 256),
+                                  nn.ReLU(), nn.Linear(256, out_features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.features(x.permute(0, 3, 1, 2))
+        with torch.autocast(y.device.type, enabled=False):
+            return torch.sigmoid(self.head(y.float().mean(dim=(2, 3))))
 
 
 class PoseHRNet(nn.Module):
@@ -176,7 +204,8 @@ class PoseHRNet(nn.Module):
 
     def __init__(self, stage2: StageCfg, stage3: StageCfg, stage4: StageCfg,
                  num_joints: int = 21, head: str = "softmax",
-                 trainable_softmax: bool = False, final_conv_kernel: int = 1):
+                 trainable_softmax: bool = False, final_conv_kernel: int = 1,
+                 vol_confidences: bool = False, alg_confidences: bool = False):
         super().__init__()
         if head not in ("plain", "softmax"):
             raise ValueError(f"unknown head {head!r}")
@@ -205,6 +234,12 @@ class PoseHRNet(nn.Module):
             nn.ReLU(),
             nn.Conv2d(total, num_joints, final_conv_kernel, 1, pad, bias=True),
         )
+        # the volumetric backbone's confidence head over the features (JAX
+        # models/hrnet.py:398-402): per joint for alg, 32 channels for vol
+        self.confidence_kind = "alg" if alg_confidences else ("vol" if vol_confidences else None)
+        if self.confidence_kind:
+            self.add_module(f"{self.confidence_kind}_confidences", GlobalAveragePoolingHead(
+                total, num_joints if alg_confidences else 32))
         if head == "softmax":
             # always a parameter, as in the JAX model: when it is frozen the
             # forward stops its gradient, so the optimizer still holds it
@@ -246,6 +281,11 @@ class PoseHRNet(nn.Module):
         y = self.last_layer(features.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
         return y, features
 
+    def _confidences(self, features: torch.Tensor) -> Optional[torch.Tensor]:
+        if self.confidence_kind is None:
+            return None
+        return getattr(self, f"{self.confidence_kind}_confidences")(features)
+
     def _temperature(self) -> Optional[torch.Tensor]:
         if self.head == "plain":
             return None
@@ -260,15 +300,25 @@ class PoseHRNet(nn.Module):
         y, _ = self._logits(x)
         return y, self._temperature()
 
+    def forward_head(self, x: torch.Tensor) -> HRNetOutput:
+        """x: (B, H, W, 3) NHWC image -> HRNetOutput whose ``heatmaps`` are
+        the head's NHWK logits before the spatial softmax (in the last
+        conv's dtype), with the features, temperature and confidences of
+        ``forward``: the triangulation nets decode these logits with
+        ``ops.decode.softmax_decode``."""
+        y, features = self._logits(x)
+        return HRNetOutput(y, features, self._temperature(), self._confidences(features))
+
     def forward(self, x: torch.Tensor,
                 layer1: Optional[Callable[[torch.Tensor], torch.Tensor]] = None) -> HRNetOutput:
         """x: (B, H, W, 3) NHWC image -> HRNetOutput with NHWC maps.
         ``layer1`` is passed on to ``forward_backbone``."""
         y, features = self._logits(x, layer1)
         temp = self._temperature()
+        conf = self._confidences(features)
         if temp is None:
-            return HRNetOutput(y.float(), features, None)
-        return HRNetOutput(spatial_softmax(y, temp), features, temp)
+            return HRNetOutput(y.float(), features, None, conf)
+        return HRNetOutput(spatial_softmax(y, temp), features, temp, conf)
 
 
 def hrnet_from_cfg(cfg, head: str = "softmax", **overrides) -> PoseHRNet:

@@ -51,8 +51,21 @@ class BatchNorm(nn.BatchNorm2d):
         return y
 
 
+class BatchNorm3d(BatchNorm):
+    """``BatchNorm`` over NCDHW volumes (V2V's BatchNorm3d, flax semantics
+    in training as ``BatchNorm``)."""
+
+    def _check_input_dim(self, x: torch.Tensor) -> None:
+        if x.dim() != 5:
+            raise ValueError(f"expected a 5D (N, C, D, H, W) input, got {x.dim()}D")
+
+
 def batch_norm(features: int) -> BatchNorm:
     return BatchNorm(features, eps=BN_EPS, momentum=BN_MOMENTUM)
+
+
+def batch_norm3d(features: int) -> BatchNorm3d:
+    return BatchNorm3d(features, eps=BN_EPS, momentum=BN_MOMENTUM)
 
 
 def fold_bn(weight: torch.Tensor, conv_bias: Optional[torch.Tensor], bn_weight: torch.Tensor,

@@ -1,8 +1,9 @@
 """Model registrations (port of the JAX package's ``models/zoo.py:15-26``).
 
 Names match the reference's ``MODEL.NAME`` strings.  The port registers the
-models it has so far: the HRNet with the plain and the softmax head, and
-the softmax head with its temperature always trainable.
+models it has so far: the HRNet with the plain and the softmax head, the
+volumetric backbone (the softmax head with its confidence heads), and the
+softmax head with its temperature always trainable.
 """
 
 from __future__ import annotations
@@ -22,6 +23,17 @@ def _pose_hrnet_softmax(cfg):
     """HRNet + spatial-softmax head with (optionally trainable) temperature
     (reference lib/models/pose_hrnet_softmax.py:563)."""
     return hrnet_from_cfg(cfg, head="softmax")
+
+
+@register("pose_hrnet_volumetric")
+def _pose_hrnet_volumetric(cfg):
+    """Softmax HRNet + confidence heads; backbone of the triangulation nets
+    (reference lib/models/pose_hrnet_volumetric.py:675)."""
+    return hrnet_from_cfg(
+        cfg, head="softmax",
+        vol_confidences=bool(cfg.MODEL.VOL_CONFIDENCES),
+        alg_confidences=bool(cfg.MODEL.ALG_CONFIDENCES),
+    )
 
 
 @register("pose_hrnet_trainable_softmax")

@@ -71,8 +71,8 @@ SIGNATURES = {
     "hrnet_basic_int8_block": (_P,) * 9 + (_I,) * 12 + (_P,),
     # x_s2d, y, ws1, bs1, ws2, bs2, B, Hs, Ws, then the plan: TH, TW, stages, smem; stream
     "hrnet_stem_s2d": (_P,) * 6 + (_I,) * 7 + (_P,),
-    # joints, vis, out, B, K, res, win, sig2, stream
-    "hrnet_gaussian_targets": (_P,) * 3 + (_I,) * 4 + (_F, _P),
+    # joints, vis, out, B, K, res, win, sig2, then the plan: rows, table, smem; stream
+    "hrnet_gaussian_targets": (_P,) * 3 + (_I,) * 4 + (_F,) + (_I,) * 3 + (_P,),
     # logits, temp (or null), temp_value, out, B, H, W, K, is_bf16, then the plan:
     # splits, piece, smem; stream
     "hrnet_fused_softmax_decode": (_P, _P, _F, _P) + (_I,) * 8 + (_P,),

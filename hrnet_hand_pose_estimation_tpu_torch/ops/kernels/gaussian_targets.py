@@ -15,20 +15,64 @@ visibility is > 0 and ``0 <= trunc(u), trunc(v) < res`` (so -0.5 truncates
 to 0 and is in range).  The JAX package's ``ops/targets.gaussian_targets``
 takes the product of two exps; the kernel, like the TPU one, takes the exp
 of the sum: they differ by an ulp or so (atol 1e-6 in the tests).
+
+``targets_plan`` is the kernel's launch plan: how many output rows a block
+writes, and whether the exp values come from a shared-memory table
+(``exp_table``, the values ``exp(-n / 2 sigma^2)`` for n = 0 .. 2 win^2 that
+the kernel fills per block).
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from . import _build
 
+# the plan's rules (csrc/gaussian_targets.cu): at least MIN_BLOCKS blocks of
+# 256 threads where the batch allows (four or more per SM), bands of at most
+# MAX_ROWS rows, and the joint and exp tables within the 48 KB of dynamic
+# shared memory a block gets without an opt-in
+MIN_BLOCKS = 512
+MAX_ROWS = 16
+SMEM_LIMIT = 48 * 1024
+
 
 def window(sigma: float) -> tuple[int, float]:
     """(win, 2 sigma^2): the window half-width, computed on the host as the
     JAX package does, and the divisor as a float32 value."""
     return int(3 * sigma + 1), float(np.float32(2.0 * float(sigma) ** 2))
+
+
+class TargetsPlan(NamedTuple):
+    rows: int      # output rows per block (a band), a power of two
+    bands: int     # blocks per sample, ceil(res / rows)
+    table: bool    # exp values from the shared-memory table
+    smem: int      # dynamic shared memory per block, bytes
+
+
+def targets_plan(batch: int, joints: int, res: int, sigma: float = 2.0) -> TargetsPlan:
+    """The kernel's launch plan for (batch, res, res, joints) targets: the
+    widest band (power of two, at most MAX_ROWS rows) that still gives
+    MIN_BLOCKS blocks, and the exp table where it fits beside the joints."""
+    win, _ = window(sigma)
+    rows = 1
+    while (rows < MAX_ROWS and 2 * rows <= res
+           and batch * -(-res // (2 * rows)) >= MIN_BLOCKS):
+        rows *= 2
+    lut = (2 * win * win + 1) * 4
+    table = 8 * joints + lut <= SMEM_LIMIT
+    return TargetsPlan(rows, -(-res // rows), table, 8 * joints + (lut if table else 0))
+
+
+def exp_table(sigma: float) -> torch.Tensor:
+    """The kernel's table: float32 ``exp(-n / 2 sigma^2)`` for n = 0 ..
+    2 win^2, the same expression the twin evaluates per element."""
+    win, sig2 = window(sigma)
+    n = torch.arange(2 * win * win + 1, dtype=torch.float32)
+    return torch.exp(-n / sig2)
 
 
 def _validate(joints: torch.Tensor, visibility: torch.Tensor, output_res: int) -> None:
@@ -68,7 +112,8 @@ def fused_gaussian_targets(joints: torch.Tensor, visibility: torch.Tensor,
                            output_res: int, sigma: float = 2.0) -> torch.Tensor:
     """(B, K, 2) f32 joints + (B, K) f32 visibility -> (B, res, res, K) f32.
 
-    CUDA tensors run the kernel (one launch) and CPU tensors the plain twin;
+    CUDA tensors run the kernel (one launch, ``targets_plan``) and CPU
+    tensors the plain twin;
     any other device, dtype or shape raises.  ``launches`` counts the
     kernel's launches.
     """
@@ -83,10 +128,14 @@ def fused_gaussian_targets(joints: torch.Tensor, visibility: torch.Tensor,
     win, sig2 = window(sigma)
     joints = joints.contiguous()
     visibility = visibility.contiguous()
+    if b > 65535 or res > 65535 or k > 4096:
+        raise ValueError(f"fused_gaussian_targets takes B, res <= 65535 and K <= 4096, got "
+                         f"B={b}, res={res}, K={k}")
+    plan = targets_plan(b, k, res, sigma)
     out = torch.empty((b, res, res, k), dtype=torch.float32, device=dev)
     err = _build.lib().hrnet_gaussian_targets(
         joints.data_ptr(), visibility.data_ptr(), out.data_ptr(), b, k, res, win, sig2,
-        _build.stream_ptr(dev))
+        plan.rows, int(plan.table), plan.smem, _build.stream_ptr(dev))
     _build.check(err, "hrnet_gaussian_targets")
     fused_gaussian_targets.launches += 1
     return out

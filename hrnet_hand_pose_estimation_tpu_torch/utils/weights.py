@@ -1,18 +1,22 @@
 """Weights for the port: from the JAX variable tree, or made from a seed.
 
 ``from_jax_variables`` maps the JAX package's PoseHRNet ``{"params",
-"batch_stats"}`` tree (numpy leaves) onto the port's ``state_dict``.  It
-keeps its own copy of the name rules of the JAX package's
-``utils/torch_convert.py`` (reference torch name -> flax path), inverted:
-flax path -> torch name, HWIO kernels -> OIHW weights, and BN
-``scale/bias/mean/var`` -> ``weight/bias/running_mean/running_var``.
+"batch_stats"}`` tree (numpy leaves), or a triangulation net's (the
+PoseHRNet under ``backbone``, with ``process_features`` and the V2V
+``volume_net``), onto the port's ``state_dict``.  It keeps its own copy of
+the name rules of the JAX package's ``utils/torch_convert.py`` (reference
+torch name -> flax path), inverted: flax path -> torch name, HWIO / DHWIO
+kernels -> OIHW / OIDHW weights, a transposed conv's kernel flipped in
+space back to torch's (I, O, D, H, W), Dense (in, out) -> Linear (out, in),
+and BN ``scale/bias/mean/var`` -> ``weight/bias/running_mean/running_var``.
 
 ``from_jax_train_state`` maps a JAX ``TrainState`` (parameters, BN
 statistics, the optax state and the step) onto the port's
 ``parallel/train_step.TrainState.state_dict()`` payload.
 
-``init_variables`` makes a random state for a config from a numpy seed, for
-runs on a machine without JAX (the card's).
+``init_variables`` makes a random state for a config (or for one of its
+triangulation nets) from a numpy seed, for runs on a machine without JAX
+(the card's).
 """
 
 from __future__ import annotations
@@ -50,8 +54,30 @@ _RULES = (
     (r"^head_cb/conv$", lambda m: "last_layer.0"),
     (r"^head_cb/bn$", lambda m: "last_layer.1"),
     (r"^final_conv$", lambda m: "last_layer.3"),
+    # the volumetric backbone's confidence head; {conf} is vol_ or alg_confidences
+    (r"^confidence_head/cb([12])/(conv|bn)$",
+     lambda m: "{conf}.features." + str(4 * (int(m[1]) - 1) + (m[2] == "bn"))),
+    (r"^confidence_head/fc([123])$", lambda m: "{conf}.head." + str(2 * (int(m[1]) - 1))),
 )
 _SUB = {"conv": "0", "bn": "1"}
+
+# V2V (the JAX package's models/v2v.py tree -> the reference torch names;
+# the inverse of torch_convert._resolve_v2v / _resolve_res3d)
+_RES3D = {"conv1": "res_branch.0", "bn1": "res_branch.1", "conv2": "res_branch.3",
+          "bn2": "res_branch.4", "skip_conv": "skip_con.0", "skip_bn": "skip_con.1"}
+_V2V_RULES = (
+    (r"^front1/(conv|bn)$", lambda m: f"front_layers.0.block.{_SUB[m[1]]}"),
+    (r"^front([234])/(\w+)$", lambda m: f"front_layers.{int(m[1]) - 1}.{_RES3D[m[2]]}"),
+    (r"^(enc|skip|dec_res)(\d)/(\w+)$",
+     lambda m: f"encoder_decoder.{_LEVEL[m[1]]}{m[2]}.{_RES3D[m[3]]}"),
+    (r"^mid/(\w+)$", lambda m: f"encoder_decoder.mid_res.{_RES3D[m[1]]}"),
+    (r"^dec_up(\d)/(deconv|bn)$",
+     lambda m: f"encoder_decoder.decoder_upsample{m[1]}.block.{0 if m[2] == 'deconv' else 1}"),
+    (r"^back1/(\w+)$", lambda m: f"back_layers.0.{_RES3D[m[1]]}"),
+    (r"^back([23])/(conv|bn)$", lambda m: f"back_layers.{int(m[1]) - 1}.block.{_SUB[m[2]]}"),
+    (r"^out$", lambda m: "output_layer"),
+)
+_LEVEL = {"enc": "encoder_res", "skip": "skip_res", "dec_res": "decoder_res"}
 
 # (collection, leaf) -> torch field
 _FIELD = {
@@ -63,12 +89,45 @@ _FIELD = {
 }
 
 
-def _torch_name(path: str) -> Optional[str]:
-    for pattern, build in _RULES:
+def _match(rules, path: str) -> Optional[str]:
+    for pattern, build in rules:
         m = re.match(pattern, path)
         if m:
-            return build(m)
+            try:
+                return build(m)
+            except KeyError:          # a V2V leaf module name with no place
+                return None
     return None
+
+
+def _torch_name(path: str, net: bool = False, conf: str = "vol_confidences") -> Optional[str]:
+    """flax module path -> the port's module name.  ``net``: the tree of a
+    triangulation net (its PoseHRNet under ``backbone``)."""
+    if net:
+        if path == "process_features":
+            return "process_features.0"
+        if path.startswith("volume_net/"):
+            name = _match(_V2V_RULES, path[len("volume_net/"):])
+            return None if name is None else "volume_net." + name
+        if not path.startswith("backbone/"):
+            return None
+        name = _torch_name(path[len("backbone/"):], conf=conf)
+        return None if name is None else "backbone." + name
+    name = _match(_RULES, path)
+    return None if name is None else name.format(conf=conf)
+
+
+def _weight(arr: np.ndarray, name: str) -> np.ndarray:
+    """A flax kernel -> the torch weight of module ``name``."""
+    if arr.ndim == 2:                                      # Dense (in, out) -> (out, in)
+        return arr.T
+    if arr.ndim == 4:                                      # HWIO -> OIHW
+        return arr.transpose(3, 2, 0, 1)
+    if "decoder_upsample" in name:
+        # flax's ConvTranspose runs a regular conv on the dilated input, so
+        # its kernel is torch's flipped in space (torch_convert.py:77-84)
+        return arr[::-1, ::-1, ::-1].transpose(3, 4, 0, 1, 2)
+    return arr.transpose(4, 3, 0, 1, 2)                    # DHWIO -> OIDHW
 
 
 def _leaves(tree: Mapping, prefix=()):
@@ -81,27 +140,36 @@ def _leaves(tree: Mapping, prefix=()):
 
 def from_jax_variables(variables: Mapping, model: Optional[nn.Module] = None
                        ) -> Dict[str, torch.Tensor]:
-    """JAX PoseHRNet variables (numpy leaves) -> the port's state_dict.
+    """JAX PoseHRNet or triangulation-net variables (numpy leaves) -> the
+    port's state_dict.
 
     Raises ``KeyError`` on any leaf it cannot place.  With ``model``, it
     also raises on any key of ``model.state_dict()`` left unfilled and on a
-    shape that differs.  BN ``num_batches_tracked`` counters are set to 0.
+    shape that differs, and places the JAX ``confidence_head`` where the
+    model has it (``alg_confidences`` or else ``vol_confidences``).  BN
+    ``num_batches_tracked`` counters are set to 0.
     """
     out: Dict[str, torch.Tensor] = {}
     unplaced = []
+    params = variables.get("params", {})
+    net = "volume_net" in params or "backbone" in params.get("backbone", {})
+    conf = "vol_confidences"
+    if model is not None and any(".alg_confidences." in "." + k for k in model.state_dict()):
+        conf = "alg_confidences"
+    temp = ("backbone", "trainable_temp") if net else ("trainable_temp",)
     for coll in ("params", "batch_stats"):
         for path, leaf in _leaves(variables.get(coll, {})):
             arr = np.asarray(leaf, dtype=np.float32)
-            if coll == "params" and path == ("trainable_temp",):
-                out["trainable_temp"] = torch.from_numpy(arr.copy())
+            if coll == "params" and path == temp:
+                out[".".join(temp)] = torch.from_numpy(arr.copy())
                 continue
-            name = _torch_name("/".join(path[:-1]))
+            name = _torch_name("/".join(path[:-1]), net, conf)
             field = _FIELD.get((coll, path[-1]))
             if name is None or field is None:
                 unplaced.append(f"{coll}/{'/'.join(path)}")
                 continue
             if path[-1] == "kernel":
-                arr = arr.transpose(3, 2, 0, 1)           # HWIO -> OIHW
+                arr = _weight(arr, name)
             out[f"{name}.{field}"] = torch.from_numpy(np.array(arr, order="C"))
     unknown = set(variables) - {"params", "batch_stats"}
     unplaced += sorted(unknown)
@@ -180,31 +248,46 @@ _DAMPED_BN = re.compile(r"branches\.\d+\.\d+\.bn2$|fuse_layers\.")
 
 
 @torch.no_grad()
-def init_variables(cfg, seed: int = 0, device="cpu", damp: bool = True
-                   ) -> Dict[str, torch.Tensor]:
-    """A random PoseHRNet state_dict for ``cfg`` from a numpy seed.
+def init_variables(cfg, seed: int = 0, device="cpu", damp: bool = True,
+                   net: Optional[str] = None) -> Dict[str, torch.Tensor]:
+    """A random PoseHRNet state_dict for ``cfg`` from a numpy seed (with the
+    confidence head of ``pose_hrnet_volumetric`` where the config names
+    it), or with ``net`` ('alg', 'ransac', 'vol') the state_dict of that
+    triangulation net (``models.triangulation.build_triangulation_net``).
 
-    Convs are He-scaled normals and BN affine parameters random around 1 and
-    0.  With ``damp``, the BNs that close a residual branch in stages 2-4 or
-    feed a fuse layer scale by 0.03-0.1 instead: at full w32 depth an
-    undamped random HRNet is chaotic, so a one-ulp change of layer1's bf16
-    output moves the decoded joints by pixels (``chip_conditioning.py``
-    measures it).  Layer1 and the head are never damped.  The BN running
-    statistics are then set to the statistics of one forward of two random
-    images (made from the same seed) on ``device``, so every layer sees
-    normalized activations as in a trained net, and the statistics sit well
-    away from 0 and 1, which exercises BN folding.  Returns CPU tensors.
+    Convs and linear layers are He-scaled normals and BN affine parameters
+    random around 1 and 0.  With ``damp``, the BNs that close a residual
+    branch in stages 2-4 or feed a fuse layer scale by 0.03-0.1 instead: at
+    full w32 depth an undamped random HRNet is chaotic, so a one-ulp change
+    of layer1's bf16 output moves the decoded joints by pixels
+    (``chip_conditioning.py`` measures it).  Layer1 and the head are never
+    damped.  The BN running statistics are then set to the statistics of
+    one forward of two random images (made from the same seed) on
+    ``device``, so every layer sees normalized activations as in a trained
+    net, and the statistics sit well away from 0 and 1, which exercises BN
+    folding; a net's V2V statistics to those of one forward of a random
+    non-negative volume of its ``VOLUME_SIZE``.  Returns CPU tensors.
     """
     from ..models.hrnet import hrnet_from_cfg
+    from ..models.triangulation import build_triangulation_net
 
     rng = np.random.default_rng(seed)
-    model = hrnet_from_cfg(cfg, head="softmax")
+    if net is not None:
+        model = build_triangulation_net(cfg, net, dtype=torch.float32)
+        backbone = model.backbone
+    else:
+        conf = {}
+        if str(cfg.MODEL.NAME) == "pose_hrnet_volumetric":
+            conf = dict(vol_confidences=bool(cfg.MODEL.VOL_CONFIDENCES),
+                        alg_confidences=bool(cfg.MODEL.ALG_CONFIDENCES))
+        model = backbone = hrnet_from_cfg(cfg, head="softmax", **conf)
     for name, mod in model.named_modules():
-        if isinstance(mod, nn.Conv2d):
-            fan_in = mod.in_channels * mod.kernel_size[0] * mod.kernel_size[1]
-            std = np.sqrt(2.0 / fan_in)
+        if isinstance(mod, (nn.Conv2d, nn.Conv3d, nn.ConvTranspose3d, nn.Linear)):
+            # He-scaled; a transposed conv of stride = kernel sees each input once
+            fan_in = (mod.weight.shape[0] if isinstance(mod, nn.ConvTranspose3d)
+                      else mod.weight[0].numel())
             mod.weight.copy_(torch.from_numpy(
-                rng.normal(0.0, std, mod.weight.shape).astype(np.float32)))
+                rng.normal(0.0, np.sqrt(2.0 / fan_in), mod.weight.shape).astype(np.float32)))
             if mod.bias is not None:
                 mod.bias.copy_(torch.from_numpy(
                     rng.normal(0.0, 0.1, mod.bias.shape).astype(np.float32)))
@@ -221,7 +304,11 @@ def init_variables(cfg, seed: int = 0, device="cpu", damp: bool = True
         if isinstance(mod, nn.BatchNorm2d):
             mod.train()
             mod.momentum = 1.0       # running stats := this batch's stats
-    model(images.to(device))
+    backbone(images.to(device))
+    if net == "vol":
+        s = int(cfg.MODEL.VOLUME_SIZE)
+        model.volume_net(torch.from_numpy(np.abs(rng.normal(size=(1, s, s, s, 32))).astype(
+            np.float32)).to(device))
     model.eval()
     for mod in model.modules():
         if isinstance(mod, nn.BatchNorm2d):

@@ -633,6 +633,27 @@ def test_gaussian_targets_kernel_matches_twin(cuda, res, sigma, batch):
     assert torch.equal(got == 0, want == 0)          # exactly 0 outside the windows
 
 
+@pytest.mark.parametrize("batch", [1, 3])
+@pytest.mark.parametrize("res,k,sigma", [(63, 17, 2.0), (63, 21, 1.5), (64, 17, 2.0),
+                                         (61, 21, 30.0)])
+def test_gaussian_targets_kernel_ragged_shapes(cuda, batch, res, k, sigma):
+    """Rows of res * K % 4 != 0 floats reach the scalar head and tail of
+    every band; sigma 30 has no room for the exp table (expf per element)."""
+    from hrnet_hand_pose_estimation_tpu_torch.ops.kernels.gaussian_targets import targets_plan
+
+    rng = np.random.default_rng(res * 10 + k + batch)
+    joints, vis = edge_joints(rng, batch, k, res)
+    j, v = f32(joints, cuda), f32(vis, cuda)
+    before = fused_gaussian_targets.launches
+    got = fused_gaussian_targets(j, v, res, sigma)
+    torch.cuda.synchronize()
+    want = gaussian_targets_reference(j, v, res, sigma)
+    assert fused_gaussian_targets.launches == before + 1
+    assert targets_plan(batch, k, res, sigma).table == (sigma < 10)
+    assert (got - want).abs().max().item() <= 1e-6
+    assert torch.equal(got == 0, want == 0)
+
+
 def test_gaussian_targets_kernel_refuses_bad_input(cuda):
     j = torch.zeros(2, 21, 2, device=cuda)
     v = torch.ones(2, 21, device=cuda)
@@ -963,3 +984,87 @@ def test_softmax_decode_kernel_splits(cuda, batch, dtype):
     assert (got - softmax_decode_reference(x, temp)).abs().max().item() <= 1e-4
     mirror = softmax_decode_split_reference(x, temp, plan.splits, plan.piece_px)
     assert (got.double() - mirror).abs().max().item() <= 1e-4
+
+
+# -- the multi-view 3D inference and evaluation slice ------------------------
+
+def mv_cameras(b, v, f, c):
+    """(B, V, 3, 4) projections of cameras 900 mm out, 0.9 rad apart on a
+    ring and tilted about x, with focal f and principal point c."""
+    K = np.array([[f, 0, c[0]], [0, f, c[1]], [0, 0, 1]], np.float32)
+    projs = []
+    for i in range(v):
+        ang, tx = 0.3 + 0.9 * i, 0.2 + 0.15 * i
+        ry = np.array([[np.cos(ang), 0, np.sin(ang)], [0, 1, 0], [-np.sin(ang), 0, np.cos(ang)]])
+        rx = np.array([[1, 0, 0], [0, np.cos(tx), -np.sin(tx)], [0, np.sin(tx), np.cos(tx)]])
+        projs.append(K @ np.concatenate([rx @ ry, [[0], [0], [900.0]]], 1))
+    return torch.from_numpy(np.broadcast_to(np.stack(projs), (b, v, 3, 4)).astype(np.float32).copy())
+
+
+def small_3d_cfg(**opts):
+    cfg = small_cfg().clone()
+    cfg.defrost()
+    cfg.merge_from_list(["MODEL.HEATMAP_SOFTMAX", True, "MODEL.VOLUME_SIZE", 32,
+                         "MODEL.CUBOID_SIZE", 400.0, "MODEL.VOL_CONFIDENCES", False,
+                         "TPU.COMPUTE_DTYPE", "float32"] + [x for kv in opts.items() for x in kv])
+    return cfg.freeze()
+
+
+@pytest.mark.parametrize("kind,opts", [("alg", {"MODEL.ALG_CONFIDENCES": True}), ("ransac", {}),
+                                       ("vol", {}), ("vol", {"MODEL.VOL_CONFIDENCES": True,
+                                                             "MODEL.VOLUME_AGGREGATION_METHOD":
+                                                                 "conf_norm"})])
+def test_triangulation_net_on_card_matches_cpu(cuda, kind, opts):
+    """Each net at small widths (V2V at 32^3), float32 with TF32 off, on the
+    card against the same net on the CPU: one B4 launch per forward, the 2D
+    keypoints within 1e-3 heatmap px, the 3D ones within 0.5 mm + 1e-3."""
+    from hrnet_hand_pose_estimation_tpu_torch.models.triangulation import build_triangulation_net
+
+    cfg = small_3d_cfg(**opts)
+    state = init_variables(cfg, 0, net=kind)
+    rng = np.random.default_rng(7)
+    images = torch.from_numpy(rng.normal(size=(2, 3, 64, 64, 3)).astype(np.float32))
+    proj = mv_cameras(2, 3, *((15.0, (7.5, 7.5)) if kind == "vol" else (600.0, (320.0, 240.0))))
+    nets = []
+    for dev in ("cpu", cuda):
+        net = build_triangulation_net(cfg, kind, dtype=torch.float32)
+        net.load_state_dict(state)
+        nets.append(net.to(dev))
+    with torch.no_grad():
+        want = nets[0](images, proj)
+        before = fused_softmax_decode.launches
+        got = nets[1](images.to(cuda), proj.to(cuda))
+        torch.cuda.synchronize()
+    assert fused_softmax_decode.launches == before + 1
+    scale = 1.0 if kind == "vol" else torch.tensor([640 / 16, 480 / 16])
+    assert ((got.keypoints_2d.cpu() - want.keypoints_2d) / scale).abs().max().item() <= 1e-3
+    d3 = (got.keypoints_3d.cpu() - want.keypoints_3d).abs()
+    assert (d3 <= 0.5 + 1e-3 * want.keypoints_3d.abs()).all(), d3.max().item()
+    if kind == "vol":
+        assert got.volumes.shape == (2, 32, 32, 32, 21)
+        assert (got.volumes.double().sum(dim=(1, 2, 3)) - 1).abs().max().item() <= 1e-4
+
+
+def test_evaluator3d_dlt_mode_on_card_matches_cpu(cuda):
+    """The dlt mode's forward (the 2D model per view, decoded by B4: one
+    launch) and its SII DLT on the card against the CPU."""
+    from hrnet_hand_pose_estimation_tpu_torch.core.evaluator3d import Evaluator3D
+    from hrnet_hand_pose_estimation_tpu_torch.ops.geometry import triangulate_batch
+
+    cfg = small_3d_cfg()
+    state = init_variables(cfg, 0)
+    rng = np.random.default_rng(8)
+    images = torch.from_numpy(rng.normal(size=(2, 3, 64, 64, 3)).astype(np.float32))
+    proj = mv_cameras(2, 3, 600.0, (320.0, 240.0))
+    out = []
+    for dev in ("cpu", cuda):
+        ev = Evaluator3D(cfg, build_model(cfg), state, mode="dlt", device=dev)
+        before = fused_softmax_decode.launches
+        kp2d, kp3d = ev.forward(images.to(dev), proj.to(dev))
+        torch.cuda.synchronize()
+        assert kp3d is None
+        assert fused_softmax_decode.launches == before + (dev != "cpu")
+        kp2d = kp2d * torch.tensor([640 / 16, 480 / 16], device=dev)
+        out.append((kp2d.cpu(), triangulate_batch(kp2d, proj.to(dev), method="sii").cpu()))
+    assert ((out[1][0] - out[0][0]) / torch.tensor([40.0, 30.0])).abs().max().item() <= 1e-3
+    assert torch.allclose(out[1][1], out[0][1], rtol=1e-3, atol=0.5)

@@ -81,7 +81,10 @@ def test_port_imports_no_jax():
         "             'ops.kernels.softmax_decode', 'ops.decode', 'ops.image', 'ops.volumetric',\n"
         "             'data.transforms', 'data.build', 'core.evaluator', 'utils.summary',\n"
         "             'tools._common', 'tools.evaluate_2d', 'tools.inference',\n"
-        "             'tools.calibrate', 'tools.train', 'ops.upsample'):\n"
+        "             'tools.calibrate', 'tools.train', 'ops.upsample', 'ops.cameras',\n"
+        "             'ops.geometry', 'models.v2v', 'models.triangulation',\n"
+        "             'core.evaluator3d', 'tools.evaluate_3d', 'tools.infer_3d',\n"
+        "             'tools.dlt_check'):\n"
         "    assert port.__name__ + '.' + name in sys.modules, name\n"
         "assert not any(m.split('.')[0] in ('jax', 'flax', 'cv2', 'yaml') for m in sys.modules"
         " if sys.modules[m] is not None)\n"

@@ -182,7 +182,8 @@ def test_synthetic_batches_match_jax(tiny_cfg, is_train):
 
 def test_registry_covers_jax_names_and_unported_readers_raise(tiny_cfg):
     """Every name of the JAX registry is registered; the synthetic sets
-    build, the rest raise NotImplementedError naming their ROADMAP item."""
+    (2D and, since the 3D slice, the multi-view one) build, the rest raise
+    NotImplementedError naming their ROADMAP item."""
     jcfg = _data_cfg(tiny_cfg)
     cfg = _port_cfg(jcfg)
     assert sorted(B._DATASETS) == sorted(JB._lazy_registry())
@@ -190,8 +191,8 @@ def test_registry_covers_jax_names_and_unported_readers_raise(tiny_cfg):
     for name in ("RHD_kpt", "FreiHand", "COCO", "STB", "Panoptic_kpt"):
         with pytest.raises(NotImplementedError, match="A10"):
             B.build_dataset(cfg, name, is_train=True)
-    with pytest.raises(NotImplementedError, match="A9"):
-        B.build_dataset(cfg, "Synthetic_mv", is_train=True)
+    mv = B.build_dataset(cfg, "Synthetic_mv", is_train=True)
+    assert len(mv) > 0 and mv[0]["imgs"].shape[0] == int(cfg.DATASET.NUM_VIEWS)
     with pytest.raises(KeyError, match="Unknown dataset"):
         B.build_dataset(cfg, "nope", is_train=True)
 

@@ -21,7 +21,8 @@ from hrnet_hand_pose_estimation_tpu.ops.targets import gaussian_targets as jax_t
 from hrnet_hand_pose_estimation_tpu.ops.targets import gaussian_targets_np as jax_targets_np
 from hrnet_hand_pose_estimation_tpu_torch.ops import decode, flip
 from hrnet_hand_pose_estimation_tpu_torch.ops.kernels.gaussian_targets import (
-    fused_gaussian_targets, gaussian_targets_reference, window)
+    MIN_BLOCKS, SMEM_LIMIT, TargetsPlan, exp_table, fused_gaussian_targets,
+    gaussian_targets_reference, targets_plan, window)
 from hrnet_hand_pose_estimation_tpu_torch.ops.targets import gaussian_targets, gaussian_targets_np
 
 torch.set_num_threads(1)
@@ -63,6 +64,50 @@ def test_twin_matches_jax_and_pallas(res, sigma, win):
     assert not got[0, ..., 1].any() and not got[1, ..., 2].any() and not got[1, ..., 3].any()
     assert not got[0, ..., 7].any()                  # invisible
     assert got[2, 0, res - 1, 4] == 1.0              # (res - 0.01, -0.99) -> (res - 1, 0)
+
+
+def test_band_plan():
+    """B5's plan: bands of a power of two rows, at most 16, as wide as keeps
+    MIN_BLOCKS blocks; the exp table when it fits beside the joints."""
+    assert targets_plan(32, 21, 64) == TargetsPlan(4, 16, True, 8 * 21 + 99 * 4)
+    assert targets_plan(128, 21, 64) == TargetsPlan(16, 4, True, 8 * 21 + 99 * 4)
+    assert targets_plan(3, 17, 63) == TargetsPlan(1, 63, True, 8 * 17 + 99 * 4)
+    assert targets_plan(64, 17, 63, 1.5) == TargetsPlan(8, 8, True, 8 * 17 + 51 * 4)
+    for b in (1, 2, 7, 32, 33, 100, 128, 4096):
+        for res in (1, 2, 16, 63, 64, 256):
+            plan = targets_plan(b, 21, res)
+            assert plan.rows & (plan.rows - 1) == 0 and 1 <= plan.rows <= min(16, res)
+            assert plan.bands == -(-res // plan.rows)
+            if plan.rows > 1:                       # no wider band while it keeps the grid
+                assert b * plan.bands >= MIN_BLOCKS
+            if plan.rows < 16 and 2 * plan.rows <= res:  # the widest such band
+                assert b * -(-res // (2 * plan.rows)) < MIN_BLOCKS
+    wide = targets_plan(32, 21, 64, sigma=30.0)      # win 91: 16,563 exp values
+    assert not wide.table and wide.smem == 8 * 21
+    assert targets_plan(32, 4096, 64).smem <= SMEM_LIMIT
+
+
+@pytest.mark.parametrize("sigma", [1.0, 1.5, 2.0, 3.0, 7.3])
+def test_exp_table_gives_the_twins_floats(sigma):
+    """B5 reads lut[dx^2 + dy^2] where the twin evaluates exp(-(dx^2 +
+    dy^2) / 2 sigma^2): the same float32 expression, so the table lookup
+    reproduces every output of the twin bit for bit (ragged K, a map of odd
+    width, invalid joints)."""
+    res, k = 63, 17
+    joints, vis = edge_joints(res, seed=int(sigma * 10), b=3, k=k)
+    j, v = torch.from_numpy(joints), torch.from_numpy(vis)
+    want = gaussian_targets_reference(j, v, res, sigma)
+    win, _ = window(sigma)
+    lut = exp_table(sigma)
+    assert lut.shape == (2 * win * win + 1,)
+    tx, ty = torch.trunc(j[..., 0]), torch.trunc(j[..., 1])
+    valid = (v > 0) & (tx >= 0) & (ty >= 0) & (tx < res) & (ty < res)
+    px = torch.arange(res)
+    dx = (px[None, None, :, None] - tx.long()[:, None, None, :]).expand(3, res, res, k)
+    dy = (px[None, :, None, None] - ty.long()[:, None, None, :]).expand(3, res, res, k)
+    inside = (dx.abs() <= win) & (dy.abs() <= win) & valid[:, None, None, :]
+    got = torch.where(inside, lut[torch.where(inside, dx * dx + dy * dy, 0)], 0.0)
+    assert torch.equal(got, want) and (want > 0).any()
 
 
 def test_numpy_targets_equal_jax():
