@@ -240,7 +240,7 @@ def decode_splits(dev) -> dict:
         for splits in (1, 2, 4, 8):
             def call():
                 _build.check(_build.lib().hrnet_fused_softmax_decode(
-                    x.data_ptr(), None, 1.7, out.data_ptr(), b, 64, 64, 21, 1, splits,
+                    x.data_ptr(), None, 1.7, out.data_ptr(), None, b, 64, 64, 21, 1, splits,
                     plan.piece_px, plan.smem, torch.cuda.current_stream().cuda_stream), "decode")
             res[f"fused_softmax_decode B={b} bf16 S={splits} device"] = round(
                 device_busy(call, 20)[1], 5)

@@ -63,6 +63,19 @@ forward one softmax-decode launch and within stated limits of the same
 forward decoded by the kernel's twin, one ``Evaluator3D.run``, the
 evaluate_3d tool, and the time of each net and of its parts.
 
+Last, 3D training (``core/trainer3d``, ``core/trainer3d_gan``) with the
+MODEL, LOSS and TRAIN sections of VolTriangulation_MHP_v2.yaml (vol, B=2),
+AlgTriangulation_MHP_v1.yaml (alg, B=4) and VolTriangulation_MHP_GAN_v1.yaml
+(B=2, cut from 8) set in code, 4 views of Synthetic_mv: the softmax
+decode's backward kernel against its twin (dx, dT, two runs bit-equal) and
+timed at B=8 and B=128; three vol steps, each one forward and one backward
+decode launch, the frozen parameters bit-unchanged and every other group
+moved, one validation; the vol and alg steps in float32 against the same
+steps decoded by the twin (held to a witness, the twin moved by 1e-4 px);
+two WGAN batches (critic weights within the clip, the generator's running
+statistics moved only by its supervised step); each step's time, peak
+memory and the decode's share of it; the train3d tool.
+
     python3 chip_smoke.py
 
 Needs one CUDA card and nvcc; exits non-zero without them.  Prints one line
@@ -2226,6 +2239,510 @@ def mv_phases(smi, kernels):
         del evs, ev, net, vols, vout
 
 
+# -- the 3D training path ---------------------------------------------------
+
+T3_VIEWS = 4
+T3_VOL_BATCH = 2            # IMAGES_PER_GPU of VolTriangulation_MHP_v2.yaml
+T3_ALG_BATCH = 4            # of AlgTriangulation_MHP_v1.yaml
+T3_GAN_BATCH = 2            # VolTriangulation_MHP_GAN_v1.yaml has 8: cut to save chip time
+T3_STEPS = 3
+# B4's backward against its twin: float32 1e-5 of the largest |dx|; bf16
+# one bfloat16 ulp of each element (the two round float32 values a few
+# ulps apart) plus the same; dT 1e-4 of sum |x g_z| (a sum over B*H*W*K
+# terms that cancel)
+B4B_LIMIT = {torch.float32: (0.0, 1e-5), torch.bfloat16: (2.0 ** -7, 1e-5)}
+B4B_DT_LIMIT = 1e-4
+# the float32 step decoded by B4 against the same step decoded by its twin:
+# relative differences of the total loss and of each parameter group's
+# gradient (norm-wise), and the share of each group's updated parameters
+# that differ by more than 1 % of its largest update (adam's first step
+# moves each by +-LR, so a gradient whose sign rounding flips moves its
+# parameter by 2 LR), held to 3 times those of a witness step decoded by
+# the twin moved by B4's forward limit (1e-4 px, alternating in sign), plus
+# 1e-5 (loss) or 1e-3 (gradients).  A group whose witness difference
+# exceeds 0.1 fails the phase: there the step is chaotic in the decode (a
+# DLT landing far out, MV_3D_LIMIT; a nearest voxel of the VCE loss
+# flipping), so its limit would say nothing of B4, and every group that is
+# compared must be held
+T3_WITNESS_PX, T3_WITNESS_FACTOR, T3_CHAOTIC = 1e-4, 3.0, 0.1
+T3_FLOOR = {"loss": 1e-5}
+T3_GRAD_FLOOR = 1e-3
+SMOKE3D_YAML = Path(__file__).resolve().parent / "experiments" / "synthetic_vol_smoke.yaml"
+
+
+def train3d_cfg(kind: str, out_dir: str, batch: int, gan: bool = False, dtype: str = "bfloat16"):
+    """The MODEL, LOSS and TRAIN sections of experiments/LearnableTriangulation/
+    VolTriangulation_MHP_v2.yaml (kind 'vol'), AlgTriangulation_MHP_v1.yaml
+    ('alg') or VolTriangulation_MHP_GAN_v1.yaml (gan) set in code (the
+    card's machine may lack PyYAML): pose_hrnet_volumetric w32 at 256/64;
+    vol: VOL_CONFIDENCES, TRAINABLE_SOFTMAX, a 64^3 cube of 500 mm, softmax
+    aggregation, losses pose2d 0.1 + pose3d 1.0 + VCE 0.01 (GAN: pose3d +
+    VCE 0.01, KCS factor 0.01, N_CRITIC 3, CLIP_VALUE 0.01); alg:
+    ALG_CONFIDENCES, pose3d only; adam at LR 1e-4 with PROCESS_FEATURE_LR
+    and VOLUME_NET_LR 1e-3.  HEATMAP_SOFTMAX on for both (the alg YAML
+    leaves the default, an argmax decode that gives its DLT loss no
+    gradient; the backbone it names was trained with the softmax head).
+    Synthetic_mv with 4 views in place of MHP_mv."""
+    vol = kind == "vol"
+    cfg = load_config(opts=[
+        "MODEL.NAME", kind, "MODEL.TRIANGULATION_MODEL_NAME", kind,
+        "MODEL.BACKBONE_NAME", "pose_hrnet_volumetric", "MODEL.HEATMAP_SOFTMAX", True,
+        "MODEL.TRAINABLE_SOFTMAX", vol, "MODEL.VOLUME_SIZE", 64, "MODEL.CUBOID_SIZE", 500.0,
+        "MODEL.VOLUME_AGGREGATION_METHOD", "softmax", "MODEL.VOLUME_SOFTMAX", True,
+        "MODEL.VOL_CONFIDENCES", vol, "MODEL.ALG_CONFIDENCES", not vol, "MODEL.SIGMA", 2,
+        "MODEL.N_CRITIC", 3, "MODEL.CLIP_VALUE", 0.01,
+        "LOSS.WITH_HEATMAP_LOSS", False, "LOSS.WITH_POSE2D_LOSS", vol and not gan,
+        "LOSS.POSE2D_LOSS_FACTOR", 0.1, "LOSS.WITH_POSE3D_LOSS", True,
+        "LOSS.POSE3D_LOSS_FACTOR", 1.0, "LOSS.WITH_VOLUMETRIC_CE_LOSS", vol,
+        "LOSS.VOLUMETRIC_LOSS_FACTOR", 0.01, "LOSS.WITH_KCS_LOSS", gan,
+        "LOSS.KCS_LOSS_FACTOR", 0.01,
+        "TRAIN.OPTIMIZER", "adam", "TRAIN.LR", 1e-4, "TRAIN.PROCESS_FEATURE_LR", 1e-3,
+        "TRAIN.VOLUME_NET_LR", 1e-3, "TRAIN.LR_FACTOR", 0.1, "TRAIN.LR_STEP", [8, 16, 24],
+        "TRAIN.IMAGES_PER_GPU", batch, "TEST.IMAGES_PER_GPU", batch,
+        "DATASET.DATASET", ["Synthetic_mv"], "DATASET.TEST_DATASET", ["Synthetic_mv"],
+        "DATASET.NUM_VIEWS", T3_VIEWS, "WORKERS", 4, "PRINT_FREQ", 1,
+        "TPU.COMPUTE_DTYPE", dtype, "EXP_NAME", f"chip_smoke_train3d_{kind}",
+        "OUTPUT_DIR", out_dir], freeze=False)
+    cfg.MODEL.EXTRA.merge_from_mapping(POSE_HIGH_RESOLUTION_NET_EXTRA)
+    return cfg.freeze()
+
+
+def t3_batches(cfg, dev, n: int, is_train: bool = True):
+    from hrnet_hand_pose_estimation_tpu_torch.core.trainer3d import batch_for_step
+    from hrnet_hand_pose_estimation_tpu_torch.data.build import make_dataloader
+    from hrnet_hand_pose_estimation_tpu_torch.data.pipeline import to_device
+
+    loader = make_dataloader(cfg, is_train)["Synthetic_mv"]
+    it = iter(loader)
+    return [batch_for_step(to_device(next(it), dev)) for _ in range(n)]
+
+
+def t3_model(cfg, kind: str, dev, dtype=torch.bfloat16):
+    """The net with ``init_variables(cfg, 0, net=kind)``, in train mode on
+    the card, with its optimizer, state and step."""
+    from hrnet_hand_pose_estimation_tpu_torch.core import trainer3d as T3
+    from hrnet_hand_pose_estimation_tpu_torch.models import triangulation as TRI
+
+    net = TRI.build_triangulation_net(cfg, dtype=dtype)
+    net.load_state_dict(init_variables(cfg, 0, device=dev, net=kind))
+    net.to(dev).train()
+    tx = T3.make_optimizer_3d(cfg, net, 1000)
+    state = TS.TrainState(net, tx)
+    return net, state, T3.make_train_step_3d(cfg, net, tx, (256, 256))
+
+
+def snapshot(state):
+    return (state.params.clone(), {k: v.clone() for k, v in state.opt_state.items()},
+            state.stats.clone(), state.counts.clone(), state.step.clone())
+
+
+def restore(state, snap):
+    params, opt, stats, counts, step = snap
+    state.params.copy_(params)
+    state.opt_state = {k: v.clone() for k, v in opt.items()}
+    state.stats.copy_(stats)
+    state.counts.copy_(counts)
+    state.step = step.clone()
+
+
+def group_slices(model, state):
+    """{label: [(name, slice of the flat buffers)]} by ``freeze_labels``."""
+    from hrnet_hand_pose_estimation_tpu_torch.core.trainer3d import freeze_labels
+
+    labels = freeze_labels(model)
+    out, off = {}, 0
+    for name, p in model.named_parameters():
+        out.setdefault(labels[name], []).append((name, slice(off, off + p.numel())))
+        off += p.numel()
+    return out
+
+
+def decode_moved(logits, temperature):
+    """The witness decode: the twin's, each coordinate moved by
+    ``T3_WITNESS_PX`` with alternating sign."""
+    out = softmax_decode_reference(logits, temperature)
+    sign = 1.0 - 2.0 * (torch.arange(out.numel(), device=out.device) % 2).to(out.dtype)
+    return out + T3_WITNESS_PX * sign.reshape(out.shape)
+
+
+def grads_vs_twin(label, state, step, batch, gen_state, groups):
+    """One float32 step decoded by B4, by its twin and by the witness
+    (``decode_moved``), from the same state and generator state: the B4
+    step's total loss and each group's gradient against the twin step's,
+    held as ``T3_WITNESS_*`` say.  Returns (differences, limits held)."""
+    from hrnet_hand_pose_estimation_tpu_torch.models import triangulation as TRI
+
+    snap = snapshot(state)
+    gen = torch.Generator(device=state.params.device)
+    runs = {}
+    for name, decode, want in (("kernel", TRI.softmax_decode, (1, 1)),
+                               ("twin", softmax_decode_reference, (0, 0)),
+                               ("witness", decode_moved, (0, 0))):
+        restore(state, snap)
+        gen.set_state(gen_state)
+        with patched(TRI, "softmax_decode", decode):
+            zero_counters()
+            fused_softmax_decode.launches_bwd = 0
+            _, losses = step(state, batch, gen)
+            torch.cuda.synchronize()
+        launched = (fused_softmax_decode.launches, fused_softmax_decode.launches_bwd)
+        if launched != want:
+            raise AssertionError(f"{label}: B4 launches {launched} in the {name} step")
+        runs[name] = (state.grads.clone(), float(losses["total_loss"]), state.params.clone())
+    restore(state, snap)
+    gt, lt, pt = runs["twin"]
+    moved = pt - snap[0]
+
+    def rel(name):
+        """Relative differences from the twin step: the loss, each group's
+        gradient (norm-wise) and, as ``<group> params``, the share of its
+        parameters whose update differs by more than 1 % of the group's
+        largest update."""
+        g, loss, prm = runs[name]
+        out = {"loss": abs(loss - lt) / abs(lt)}
+        for group, items in groups.items():
+            if group != "frozen":
+                idx = torch.cat([torch.arange(s.start, s.stop, device=g.device)
+                                 for _, s in items])
+                out[group] = ((g[idx] - gt[idx]).norm() / gt[idx].norm().clamp_min(1e-30)).item()
+                step = moved[idx].abs().max()
+                out[f"{group} params"] = ((prm[idx] - pt[idx]).abs() > 0.01 * step).float().mean(
+                    ).item()
+        return out
+
+    got, wit = rel("kernel"), rel("witness")
+    fmt = lambda d: json.dumps({k: float(f"{v:.3g}") for k, v in d.items()})
+    held = {k: T3_WITNESS_FACTOR * wit[k] + T3_FLOOR.get(k, T3_GRAD_FLOOR) for k in got}
+    print(f"{label}: float32 step decoded by B4 vs by its twin, same state and cuboid angle, "
+          f"relative differences {fmt(got)}; the witness's (the twin moved by "
+          f"{T3_WITNESS_PX} px) {fmt(wit)}; held to {fmt(held)}")
+    chaotic = sorted(k for k in groups if k != "frozen" and wit[k] > T3_CHAOTIC)
+    if chaotic:
+        raise AssertionError(f"{label}: groups {chaotic} are chaotic in the decode (witness "
+                             f"gradient > {T3_CHAOTIC}): the check says nothing of them")
+    if not all(got[k] <= held[k] for k in held):
+        raise AssertionError(f"{label}: B4 step and twin step part: {got}, limits {held}")
+    return got, held
+
+
+def decode_bwd_work(x):
+    """Bound of B4's backward: the logits read once and dx written once (the
+    (B, K, 2) state, coordinates and gradient are noise); ~12 float32
+    operations per logit (the exp, the normalisation, the two
+    coordinates' terms, dx and the dT product)."""
+    return bound(0, 12 * x.numel(), 2 * nbytes([x]))
+
+
+def train3d_phases(smi, kernels):
+    """B4's backward kernel against its twin and timed; the vol and alg nets'
+    3D train step at full width (one B4 forward and one backward launch per
+    step, frozen groups unchanged, the step against the twin-decoded step);
+    the WGAN trainer; the steps' time; the train3d tool."""
+    from hrnet_hand_pose_estimation_tpu_torch.core.trainer3d import Trainer3D
+    from hrnet_hand_pose_estimation_tpu_torch.core.trainer3d_gan import TrainerGAN3D
+    from hrnet_hand_pose_estimation_tpu_torch.models import triangulation as TRI
+    from hrnet_hand_pose_estimation_tpu_torch.ops.kernels import softmax_decode as SD
+
+    dev = torch.device("cuda")
+    b4 = next(k for k in kernels if k["name"] == "fused_softmax_decode")
+    entry = dict(name="softmax_decode_backward", route="cuda",
+                 source="hrnet_hand_pose_estimation_tpu_torch/csrc/softmax_decode.cu",
+                 replaces="hrnet_hand_pose_estimation_tpu/ops/pallas/decode_kernel.py:69",
+                 note="B4's backward: the TPU kernel has no VJP (JAX differentiates its plain "
+                      "decode); the port's 3D train step decodes through B4",
+                 library_ms=None, launches=0)
+    with phase("3D train kernel checks"):
+        gen = torch.Generator(device=dev).manual_seed(7)
+        worst_dx, worst_dt = 0.0, 0.0
+        # offset 1: the logits a contiguous view one element into a larger
+        # buffer, not 16-byte aligned (the wrapper copies them for the kernel)
+        for b, h, w, k, dtype, tensor_temp, offset in (
+                (8, 64, 64, 21, torch.bfloat16, True, 0),
+                (8, 64, 64, 21, torch.float32, True, 0),
+                (3, 48, 40, 17, torch.float32, False, 0),
+                (3, 48, 40, 17, torch.bfloat16, False, 0),
+                (3, 48, 40, 17, torch.bfloat16, True, 1),
+                (3, 48, 40, 17, torch.float32, False, 1)):
+            x = (torch.randn(b, h, w, k, device=dev, generator=gen) * 3).to(dtype)
+            g = torch.randn(b, k, 2, device=dev, generator=gen)
+            temp = torch.tensor(1.7, device=dev, requires_grad=True) if tensor_temp else 1.7
+
+            def grads():
+                if offset:
+                    buf = torch.cat([x.new_zeros(offset), x.flatten()]).requires_grad_(True)
+                    xr = buf[offset:].view(x.shape)
+                    if xr.data_ptr() % 16 == 0:
+                        raise AssertionError("the offset view is 16-byte aligned")
+                else:
+                    xr = x.clone().requires_grad_(True)
+                inputs = (xr, temp) if tensor_temp else (xr,)
+                return torch.autograd.grad(fused_softmax_decode(xr, temp), inputs, g)
+
+            got, again = grads(), grads()
+            tv = temp.detach() if tensor_temp else temp
+            dx_t, dt_t = SD.softmax_decode_backward_reference(
+                x, tv, SD.softmax_decode_stats_reference(x, tv), g)
+            torch.cuda.synchronize()
+            ulp, rel = B4B_LIMIT[dtype]
+            err = (got[0].float() - dx_t.float()).abs()
+            lim = ulp * dx_t.float().abs() + rel * dx_t.float().abs().max()
+            ratio = (err / lim.clamp_min(1e-30)).max().item()
+            worst_dx = max(worst_dx, err.max().item())
+            equal = all(torch.equal(a, c) for a, c in zip(got, again))
+            msg = (f"B4 backward {b}x{h}x{w}x{k} {str(dtype)[6:]} T "
+                   f"{'tensor' if tensor_temp else 'float'}"
+                   f"{', logits misaligned' if offset else ''}: max|dx - twin| "
+                   f"{err.max().item():.3g}"
+                   f" ({ratio:.3g} of the limit {ulp:g} |dx| + {rel:g} max|dx|)")
+            if tensor_temp:
+                scale = (x.float() * (dx_t.float() / 1.7)).abs().sum().item()
+                dterr = abs(got[1].item() - dt_t.item()) / scale
+                worst_dt = max(worst_dt, dterr)
+                msg += (f", dT {got[1].item():.6g} vs {dt_t.item():.6g} ({dterr:.3g} of sum "
+                        f"|x g_z|, limit {B4B_DT_LIMIT})")
+                if not dterr <= B4B_DT_LIMIT:
+                    raise AssertionError(msg)
+            print(msg + f"; two runs bit-equal: {equal}")
+            if not ratio <= 1.0 or not equal:
+                raise AssertionError(msg)
+        entry["max_abs_err"] = worst_dx
+        entry["dtemp_rel_err"] = worst_dt
+        temp = torch.tensor(1.7, device=dev)
+        for b in (8, TIME_BATCH):
+            x = (torch.randn(b, 64, 64, 21, device=dev, generator=gen) * 3).to(torch.bfloat16)
+            g = torch.randn(b, 21, 2, device=dev, generator=gen)
+            stats = torch.empty(b, 21, 2, device=dev)
+            coords = SD._launch_forward(x, temp, stats)
+            call = lambda: SD._launch_backward(x, temp, stats, coords, g, True)
+            ms = time_ms(call, 50, warmup=5)
+            plain = time_ms(lambda: SD.softmax_decode_backward_reference(x, temp, stats, g), 10)
+            _, dev_ms, _ = device_busy(call, steps=20)
+            b_ms, b_by = decode_bwd_work(x)
+            suffix = "" if b == 8 else f"_b{b}"
+            entry.update({f"ms{suffix}": ms, f"plain_ms{suffix}": plain, f"bound_ms{suffix}": b_ms,
+                          f"device_ms{suffix}": dev_ms or None})
+            entry["bound_by"] = b_by
+            share = f", bound {b_ms / dev_ms:.1%} of it" if dev_ms > 0 else ""
+            print(f"softmax_decode_backward B={b} (64x64x21 bf16, {SD.decode_bwd_blocks(x.numel(), 2)}"
+                  f" blocks, with dT): {ms:.4f} ms per call, "
+                  + (f"{dev_ms:.4f} ms of kernel (torch.profiler)" if dev_ms > 0 else
+                     "kernel time not measured (no device event)")
+                  + f", plain {plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}){share}; no single "
+                  f"PyTorch call computes it, on {smi}")
+
+    runs = {}
+    with phase("3D train main path (vol)"), tempfile.TemporaryDirectory() as tmp:
+        cfg = train3d_cfg("vol", tmp, T3_VOL_BATCH)
+        net = TRI.build_triangulation_net(cfg)
+        from hrnet_hand_pose_estimation_tpu_torch.data.build import make_dataloader
+
+        loaders = make_dataloader(cfg, True)
+        vals = make_dataloader(cfg, False)
+        vals["Synthetic_mv"].dataset.length = 2 * T3_VOL_BATCH
+        trainer = Trainer3D(cfg, net, loaders, vals, output_dir=tmp, device=dev)
+        net.load_state_dict(init_variables(cfg, 0, device=dev, net="vol"))
+        state = trainer.state
+        groups = group_slices(net, state)
+        batches = t3_batches(cfg, dev, T3_STEPS)
+        before = state.params.clone()
+        for i, batch in enumerate(batches):
+            zero_counters()
+            fused_softmax_decode.launches_bwd = 0
+            trainer.state, losses = trainer.train_step(state, batch, trainer.generator)
+            torch.cuda.synchronize()
+            launched = counters()
+            want = {fn.__name__: 0 for fn in COUNTED}
+            want["fused_softmax_decode"] = 1
+            host = {k: round(float(v), 5) for k, v in losses.items()}
+            print(f"3D train vol step {i} (B={T3_VOL_BATCH} x {T3_VIEWS} views, bf16): {host}; "
+                  f"launches {launched}, B4 backward {fused_softmax_decode.launches_bwd}")
+            if launched != want or fused_softmax_decode.launches_bwd != 1:
+                raise AssertionError(f"vol step launches {launched}, "
+                                     f"backward {fused_softmax_decode.launches_bwd}")
+            if not all(np.isfinite(v) for v in host.values()) or host["nonfinite_grads"]:
+                raise AssertionError(f"vol step losses {host}")
+            entry["launches"] += 1
+            b4["launches_train3d"] = b4.get("launches_train3d", 0) + 1
+        moved = {}
+        for group, items in groups.items():
+            moved[group] = sum(not torch.equal(state.params[s], before[s]) for _, s in items)
+            if group == "frozen" and moved[group]:
+                raise AssertionError(f"{moved[group]} frozen parameters moved")
+            if group != "frozen" and not moved[group]:
+                raise AssertionError(f"no parameter of group {group} moved")
+        print(f"vol after {T3_STEPS} steps: tensors moved per group {json.dumps(moved)} of "
+              + json.dumps({g: len(v) for g, v in groups.items()}))
+        zero_counters()
+        fused_softmax_decode.launches_bwd = 0
+        val = trainer.validate(0)
+        torch.cuda.synchronize()
+        n_val = len(vals["Synthetic_mv"])
+        print(f"vol validate: {json.dumps(val)}; {n_val} batches, B4 forward launches "
+              f"{fused_softmax_decode.launches}, backward {fused_softmax_decode.launches_bwd}")
+        if (fused_softmax_decode.launches, fused_softmax_decode.launches_bwd) != (n_val, 0) \
+                or not np.isfinite(val["epe3d_mm"]):
+            raise AssertionError(f"vol validate: {val}")
+        b4["launches_train3d"] += n_val
+        runs["vol"] = (cfg, trainer.train_step, state, batches[0], trainer.generator)
+        # the step against the twin-decoded step, float32 (TF32 off, cuDNN deterministic)
+        torch.backends.cudnn.deterministic = True
+        try:
+            cfg32 = train3d_cfg("vol", tmp, T3_VOL_BATCH, dtype="float32")
+            net32, st32, step32 = t3_model(cfg32, "vol", dev, torch.float32)
+            grads_vs_twin("3D train vol", st32, step32, batches[0],
+                          torch.Generator(device=dev).manual_seed(3).get_state(),
+                          group_slices(net32, st32))
+            del net32, st32, step32
+        finally:
+            torch.backends.cudnn.deterministic = False
+        entry["launches"] += 1          # the kernel step of the comparison
+        b4["launches_train3d"] += 1
+
+    with phase("3D train main path (alg)"), tempfile.TemporaryDirectory() as tmp:
+        cfg = train3d_cfg("alg", tmp, T3_ALG_BATCH)
+        net, state, step = t3_model(cfg, "alg", dev)
+        batches = t3_batches(cfg, dev, 1)
+        zero_counters()
+        fused_softmax_decode.launches_bwd = 0
+        _, losses = step(state, batches[0], None)
+        torch.cuda.synchronize()
+        if (fused_softmax_decode.launches, fused_softmax_decode.launches_bwd) != (1, 1):
+            raise AssertionError("alg step: not one B4 forward and one backward launch")
+        entry["launches"] += 1
+        b4["launches_train3d"] += 1
+        named = dict(zip(state.param_names, torch.split(
+            state.grads, [p.numel() for p in net.parameters()])))
+        norms = {}
+        for prefix in ("backbone.stage4.", "backbone.last_layer."):
+            g = torch.cat([v for n, v in named.items() if n.startswith(prefix)])
+            norms[prefix[:-1]] = g.norm().item()
+            if not (torch.isfinite(g).all() and g.abs().max() > 0):
+                raise AssertionError(f"alg step: gradient of {prefix} zero or not finite")
+        print(f"3D train alg step (B={T3_ALG_BATCH} x {T3_VIEWS} views, bf16, pose3d loss "
+              f"only): {json.dumps({k: round(float(v), 4) for k, v in losses.items()})}; "
+              f"gradient norms {json.dumps(norms)}")
+        runs["alg"] = (cfg, step, state, batches[0], None)
+        torch.backends.cudnn.deterministic = True
+        try:
+            cfg32 = train3d_cfg("alg", tmp, T3_ALG_BATCH, dtype="float32")
+            net32, st32, step32 = t3_model(cfg32, "alg", dev, torch.float32)
+            grads_vs_twin("3D train alg", st32, step32, batches[0],
+                          torch.Generator(device=dev).get_state(),
+                          {"stage4 + last_layer": [
+                              (n, s) for n, s in group_slices(net32, st32)["main"]
+                              if n.startswith(("backbone.stage4.", "backbone.last_layer."))]})
+            del net32, st32, step32
+        finally:
+            torch.backends.cudnn.deterministic = False
+        entry["launches"] += 1
+        b4["launches_train3d"] += 1
+
+    with phase("3D GAN"), tempfile.TemporaryDirectory() as tmp:
+        from hrnet_hand_pose_estimation_tpu_torch.data.build import make_dataloader
+
+        cfg = train3d_cfg("vol", tmp, T3_GAN_BATCH, gan=True)
+        net = TRI.build_triangulation_net(cfg)
+        trainer = TrainerGAN3D(cfg, net, make_dataloader(cfg, True), {}, output_dir=tmp,
+                               device=dev)
+        net.load_state_dict(init_variables(cfg, 0, device=dev, net="vol"))
+        moved = {"critic": [], "base": [], "adv": []}
+
+        def watched(name, fn, state_of):
+            def call(*args):
+                st = state_of(args)
+                before = st.stats.clone()
+                out = fn(*args)
+                moved[name].append(not torch.equal(st.stats, before))
+                return out
+            return call
+
+        trainer._critic_step = watched("critic", trainer._critic_step, lambda a: a[1])
+        trainer._base_step = watched("base", trainer._base_step, lambda a: a[0])
+        trainer._gen_adv_step = watched("adv", trainer._gen_adv_step, lambda a: a[0])
+        from hrnet_hand_pose_estimation_tpu_torch.data.pipeline import to_device
+
+        it = iter(trainer.train_loaders["Synthetic_mv"])
+        for i in range(2):
+            losses = trainer.train_batch(to_device(next(it), dev))
+            host = {k: round(float(v), 5) for k, v in losses.items()}
+            print(f"3D GAN batch {i} (vol, B={T3_GAN_BATCH} x {T3_VIEWS} views, N_CRITIC 3): "
+                  f"{host}")
+            if not all(np.isfinite(v) for v in host.values()):
+                raise AssertionError(f"GAN losses {host}")
+        top = max(p.detach().abs().max().item() for p in trainer.critic.parameters())
+        print(f"critic weights max |w| {top:.6g} (clip 0.01); running statistics moved by the "
+              f"critic steps {moved['critic']}, base steps {moved['base']}, adversarial steps "
+              f"{moved['adv']}")
+        if top > 0.01 or any(moved["critic"]) or any(moved["adv"]) or not all(moved["base"]):
+            raise AssertionError("GAN: a critic weight outside the clip, or the running "
+                                 "statistics moved outside the base step")
+        del trainer, net
+
+    with phase("3D train timing"):
+        for kind, (cfg, step, state, batch, gen) in runs.items():
+            run = lambda: step(state, batch, gen)
+            ms = time_ms(run, 5, warmup=2)
+            torch.cuda.reset_peak_memory_stats()
+            run()
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            wall, busy, top = device_busy(run, steps=3)
+            fwd = sum(t for n, t in top if "softmax_decode_kernel" in n)
+            bwd = sum(t for n, t in top if "softmax_decode_bwd_kernel" in n)
+            bsz = T3_VOL_BATCH if kind == "vol" else T3_ALG_BATCH
+            print(f"3D train {kind} step B={bsz} x {T3_VIEWS} views at 256/64 (bf16): {ms:.3f} ms "
+                  f"per step (CUDA events), peak memory {peak:.2f} GiB; profiler: wall "
+                  f"{wall:.3f} ms, kernels {busy:.3f} ms ({busy / wall:.1%} busy); B4 forward "
+                  f"{fwd:.4f} ms + backward {bwd:.4f} ms of kernel per step "
+                  f"({(fwd + bwd) / max(busy, 1e-9):.2%} of the device time), on {smi}")
+            entry[f"step_ms_{kind}"] = ms
+            entry[f"device_ms_in_step_{kind}"] = bwd
+            b4[f"device_ms_in_train_step_{kind}"] = fwd
+        del runs
+
+    with phase("train3d tool"), tempfile.TemporaryDirectory() as tmp:
+        overrides = ["MODEL.VOLUME_SIZE", "32", "TRAIN.IMAGES_PER_GPU", "8",
+                     "TEST.IMAGES_PER_GPU", "8", "OUTPUT_DIR", tmp]
+        if importlib.util.find_spec("yaml") is not None:
+            cmd = [sys.executable, "-m", "hrnet_hand_pose_estimation_tpu_torch.tools.train3d",
+                   "--cfg", str(SMOKE3D_YAML), "--device", "cuda", *overrides]
+            res = subprocess.run(cmd, capture_output=True, text=True,
+                                 cwd=Path(__file__).resolve().parent, timeout=300)
+            log = res.stdout + res.stderr
+            lines = [ln for ln in log.splitlines() if "Epoch[" in ln or "Validate3D" in ln]
+            print(f"python -m ...tools.train3d --cfg {SMOKE3D_YAML.name} --device cuda "
+                  f"{' '.join(overrides[:6])}: rc {res.returncode}; " + " | ".join(
+                      ln.split(" ", 2)[-1][:140] for ln in lines[-3:]))
+            if res.returncode != 0 or "Validate3D[0]" not in log:
+                raise AssertionError(f"train3d failed:\n{log[-3000:]}")
+        else:
+            from hrnet_hand_pose_estimation_tpu_torch.tools import train3d as tool_train3d
+
+            print("no PyYAML on this machine: tools.train3d.train in process on "
+                  "synthetic_vol_smoke.yaml's tree built in code")
+            cfg = load_config(opts=[
+                "EXP_NAME", "synthetic_vol_smoke", "MODEL.NAME", "vol",
+                "MODEL.TRIANGULATION_MODEL_NAME", "vol", "MODEL.IMAGE_SIZE", [64, 64],
+                "MODEL.HEATMAP_SIZE", [16, 16], "MODEL.HEATMAP_SOFTMAX", True,
+                "MODEL.VOLUME_SIZE", 32, "MODEL.CUBOID_SIZE", 400.0,
+                "MODEL.VOLUME_AGGREGATION_METHOD", "softmax", "DATASET.NUM_VIEWS", 2,
+                "DATASET.DATASET", ["Synthetic_mv"], "DATASET.TEST_DATASET", ["Synthetic_mv"],
+                "LOSS.WITH_HEATMAP_LOSS", False, "LOSS.WITH_POSE2D_LOSS", True,
+                "LOSS.WITH_POSE3D_LOSS", True, "LOSS.WITH_VOLUMETRIC_CE_LOSS", True,
+                "TRAIN.IMAGES_PER_GPU", 8, "TEST.IMAGES_PER_GPU", 8, "TRAIN.BEGIN_EPOCH", 0,
+                "TRAIN.END_EPOCH", 1, "TRAIN.LR", 1e-3, "TRAIN.LR_STEP", [1], "WORKERS", 2,
+                "OUTPUT_DIR", tmp], freeze=False)
+            stage = lambda n: dict(NUM_MODULES=1, NUM_BRANCHES=n, BLOCK="BASIC",
+                                   NUM_BLOCKS=[1] * n, NUM_CHANNELS=list(SMOKE_WIDTHS[:n]),
+                                   FUSE_METHOD="SUM")
+            cfg.MODEL.EXTRA.merge_from_mapping(dict(FINAL_CONV_KERNEL=1, STAGE2=stage(2),
+                                                    STAGE3=stage(3), STAGE4=stage(4)))
+            trainer = tool_train3d.train(cfg.freeze(), dev, output_dir=tmp)
+            print(f"tools.train3d.train: {trainer.ckpt.epochs()} epochs checkpointed, "
+                  f"best {trainer.best_loss:.4g} mm")
+    kernels.append(entry)
+
+
 # -- C9: the repo's smoke model served on the card --------------------------
 
 SMOKE_YAML = Path(__file__).resolve().parent / "experiments" / "synthetic_smoke.yaml"
@@ -2573,6 +3090,7 @@ def main() -> int:
     train_phases(smi, kernels)
     eval_phases(smi, kernels)
     mv_phases(smi, kernels)
+    train3d_phases(smi, kernels)
 
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -37,6 +37,20 @@ from .metrics import (PoseMetricState, default_thresholds_2d, default_thresholds
                       pck_auc)
 
 
+def build_projections(cfg, intrinsic: torch.Tensor, extrinsics: torch.Tensor, orig_size,
+                      kind: str) -> torch.Tensor:
+    """P = K' [R|t] per view, (B, V, 3, 4) float32 from (B, 3, 3) intrinsics
+    and (B, V, 3, 4) extrinsics: K rescaled from the original image
+    ``orig_size`` (W, H) to the heatmap for the volumetric net (``kind``
+    containing 'vol'; reference function3D.py:88-93), kept at the original
+    scale for alg and ransac (JAX ``core/trainer3d.py:92-102``)."""
+    hm = int(cfg.MODEL.HEATMAP_SIZE[0])
+    K = intrinsic.float()
+    if "vol" in kind:
+        K = update_after_resize(K, (orig_size[1], orig_size[0]), (hm, hm))
+    return compose_projection(K[:, None], extrinsics.float())
+
+
 class Evaluator3D:
     def __init__(self, cfg, model, variables: Optional[Mapping] = None, mode: str = "model",
                  mesh=None, device="cuda"):
@@ -75,15 +89,13 @@ class Evaluator3D:
         return kp2d.reshape(b, v, -1, 2), None
 
     def projections(self, batch: Mapping, orig_size) -> torch.Tensor:
-        """(B, V, 3, 4) float32 projections on the device: K [R|t], with K
-        rescaled to the heatmap for the volumetric net (JAX :91-97)."""
+        """(B, V, 3, 4) float32 projections on the device (``build_projections``;
+        the dlt mode keeps K at the original scale)."""
         K = torch.as_tensor(np.asarray(batch["intrinsic_matrix"], np.float32), device=self.device)
         E = torch.as_tensor(np.asarray(batch["extrinsic_matrices"], np.float32),
                             device=self.device)
-        hm = int(self.cfg.MODEL.HEATMAP_SIZE[0])
-        if self.mode == "model" and "vol" in self.kind:
-            K = update_after_resize(K, (orig_size[1], orig_size[0]), (hm, hm))
-        return compose_projection(K[:, None], E)
+        return build_projections(self.cfg, K, E, orig_size,
+                                 self.kind if self.mode == "model" else "dlt")
 
     def run(self, loader, views: Optional[Sequence[int]] = None,
             output_dir: Optional[str] = None) -> Dict[str, float]:

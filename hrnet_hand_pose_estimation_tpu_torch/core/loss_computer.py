@@ -1,6 +1,6 @@
-"""Config-driven 2D loss assembly for the train and eval steps.
+"""Config-driven 2D and 3D loss assembly for the train and eval steps.
 
-Port of the JAX package's ``core/loss_computer.py:18-76`` (the reference's
+Port of the JAX package's ``core/loss_computer.py`` (the reference's
 ``AverageMeter.computeLosses``, lib/core/function.py:1319-1378): model
 outputs and batch targets -> ``(total, {name: value})`` with the
 ``LOSS.*_FACTOR`` weights, under the JAX package's keys.
@@ -68,6 +68,51 @@ class LossComputer2D:
                 jl = L.joint_angle_loss(rel_pred)
                 out["jointangle_loss"] = jl
                 total = total + self.f_jointangle * jl
+
+        out["total_loss"] = total
+        return total, out
+
+
+class LossComputer3D:
+    """3D losses: pose3d + volumetric CE + KCS, with the 2D terms of
+    ``LossComputer2D`` (reference function3D.py:159-198)."""
+
+    def __init__(self, cfg):
+        lc = cfg.LOSS
+        self.loss2d = LossComputer2D(cfg)
+        self.with_pose3d = bool(lc.WITH_POSE3D_LOSS)
+        self.with_vce = bool(lc.WITH_VOLUMETRIC_CE_LOSS)
+        self.with_kcs = bool(lc.WITH_KCS_LOSS)
+        self.f_pose3d = float(lc.POSE3D_LOSS_FACTOR)
+        self.f_vce = float(lc.VOLUMETRIC_LOSS_FACTOR)
+        self.f_kcs = float(lc.KCS_LOSS_FACTOR)
+
+    def __call__(self, pose3d_pred: Optional[torch.Tensor] = None,
+                 pose3d_gt: Optional[torch.Tensor] = None,
+                 coord_volumes: Optional[torch.Tensor] = None,
+                 volumes_pred: Optional[torch.Tensor] = None,
+                 validity: Optional[torch.Tensor] = None,
+                 **loss2d_kwargs) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        if loss2d_kwargs:
+            total, out = self.loss2d(**loss2d_kwargs)
+        else:
+            device = next(t.device for t in (pose3d_pred, volumes_pred) if t is not None)
+            total, out = torch.zeros((), dtype=torch.float32, device=device), {}
+
+        if self.with_pose3d and pose3d_pred is not None:
+            p3 = L.joints_3d_mse_loss(pose3d_pred, pose3d_gt)
+            out["pose3d_loss"] = p3
+            total = total + self.f_pose3d * p3
+
+        if self.with_vce and volumes_pred is not None:
+            v = L.volumetric_ce_loss(coord_volumes, volumes_pred, pose3d_gt, validity)
+            out["volumetric_ce_loss"] = v
+            total = total + self.f_vce * v
+
+        if self.with_kcs and pose3d_pred is not None:
+            k = L.kcs_loss(pose3d_pred, pose3d_gt)
+            out["kcs_loss"] = k
+            total = total + self.f_kcs * k
 
         out["total_loss"] = total
         return total, out

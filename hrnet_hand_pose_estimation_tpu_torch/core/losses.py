@@ -6,8 +6,8 @@ per-sample loops.  Each is ``f(pred, target, ...) -> 0-d float32 tensor``
 and differentiable.  The reductions are the reference's, unconventional ones
 included: heatmap losses sum over H, W and average over B, K; the joint
 losses without visibility divide by K, not B*K (loss.py:50).  The 3D losses
-(``joints_3d_mse_loss``, ``volumetric_ce_loss``, ``kcs_loss``) are not
-ported yet.
+``joints_3d_mse_loss``, ``volumetric_ce_loss`` and ``kcs_loss`` are the JAX
+package's ``core/losses.py:106-110, 169-206``.
 """
 
 from __future__ import annotations
@@ -17,7 +17,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..data.legends import BONE_PARENTS_REF
+from ..data.legends import BONE_PARENTS_REF, KC_MATRIX
 
 
 def _norm(v: torch.Tensor) -> torch.Tensor:
@@ -93,6 +93,12 @@ def joints_ohkm_mse_loss(output: torch.Tensor, target: torch.Tensor,
     return torch.mean(torch.sum(topv, dim=1) / topk)
 
 
+def joints_3d_mse_loss(pose3d_pred: torch.Tensor, pose3d_gt: torch.Tensor) -> torch.Tensor:
+    """Joints3DMSELoss (reference loss.py:137-148): the sum of the joints'
+    Euclidean errors over the batch, divided by K.  (B, K, 3) each."""
+    return torch.sum(_norm(pose3d_gt.float() - pose3d_pred.float())) / pose3d_pred.shape[1]
+
+
 def bone_length_loss(pose_pred: torch.Tensor, pose_gt: torch.Tensor) -> torch.Tensor:
     """BoneLengthLoss (reference loss.py:150-177): the 20 bones between
     consecutive joint indices (data/legends.py BONE_PARENTS_REF); the sum
@@ -147,3 +153,41 @@ def scale_pose(pose: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
     rel = pose.float() - pose[:, 0:1, :].float()
     ref_len = _norm(rel[:, 9, :] - rel[:, 0, :])
     return rel / torch.clamp(ref_len, min=eps)[:, None, None]
+
+
+def volumetric_ce_loss(coord_volumes: torch.Tensor, volumes_pred: torch.Tensor,
+                       keypoints_gt: torch.Tensor, validity: torch.Tensor) -> torch.Tensor:
+    """VolumetricCELoss (reference loss.py:225-256), loop-free: per joint,
+    -log(prob + 1e-6) of the voxel whose centre is nearest the ground truth,
+    weighted by validity and averaged over B*K.
+
+    coord_volumes (B, X, Y, Z, 3) voxel centres in world mm; volumes_pred
+    (B, X, Y, Z, K) probabilities; keypoints_gt (B, K, 3); validity (B, K) or
+    (B, K, 1).  The nearest voxel is the argmin over the flattened volume of
+    ||c||^2 - 2 c.k + ||k||^2, the JAX package's formula; ``torch.argmin``
+    returns the first index of a tie on the CPU and on the card alike, as
+    ``jnp.argmin`` does.
+    """
+    b, _, _, _, k = volumes_pred.shape
+    cv = coord_volumes.reshape(b, -1, 3).float()                       # (B, V, 3)
+    kp = keypoints_gt.float()                                          # (B, K, 3)
+    d = (torch.sum(cv ** 2, dim=-1)[:, :, None]
+         - 2.0 * torch.einsum("bvc,bkc->bvk", cv, kp)
+         + torch.sum(kp ** 2, dim=-1)[:, None, :])
+    nearest = torch.argmin(d, dim=1)                                   # (B, K)
+    vols = volumes_pred.reshape(b, -1, k).float()
+    probs = torch.gather(vols, 1, nearest[:, None, :])[:, 0, :]        # (B, K)
+    val = validity.reshape(b, k).float()
+    return torch.sum(val * (-torch.log(probs + 1e-6))) / (b * k)
+
+
+def kcs_loss(pose3d_pred: torch.Tensor, pose3d_gt: torch.Tensor) -> torch.Tensor:
+    """Kinematic-chain-space loss (reference function3D.py:159-189): the MSE
+    between the Gram matrices of ``KC_MATRIX @ pose3d`` (the bone vectors)."""
+    kc = torch.as_tensor(KC_MATRIX, dtype=torch.float32, device=pose3d_pred.device)
+
+    def gram(p):
+        bones = torch.einsum("jk,bkc->bjc", kc, p.float())
+        return torch.einsum("bjc,bkc->bjk", bones, bones)
+
+    return torch.mean((gram(pose3d_pred) - gram(pose3d_gt)) ** 2)

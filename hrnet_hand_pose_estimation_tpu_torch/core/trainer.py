@@ -9,7 +9,8 @@ device:
 - accumulates the epoch's loss averages on the device and syncs with the
   host only every ``PRINT_FREQ`` steps, to log them;
 - skips the batches of a dataset that flags ``exception``;
-- validates with the eval step and ``LossComputer2D``;
+- validates with the eval step and ``LossComputer2D``, dumping the first
+  validation batch of each epoch as images with ``DEBUG.DEBUG``;
 - saves a checkpoint every epoch and a best-model snapshot at the lowest
   validation total, and resumes from the newest checkpoint with
   ``AUTO_RESUME``.
@@ -168,10 +169,25 @@ class Trainer:
     def validate(self, epoch: int) -> Dict[str, float]:
         loss_computer = LossComputer2D(self.cfg)
         meter = AverageMeter()
-        for loader in self.val_loaders.values():
+        debug_dumped = False
+        for name, loader in self.val_loaders.items():
             for batch in device_prefetch(iter(loader), self.device, depth=2):
                 step_batch = _batch_for_step(batch)
                 out = self.eval_step(self.state, step_batch)
+                if self.cfg.DEBUG.DEBUG and not debug_dumped:
+                    # the first val batch of each epoch as image grids under the
+                    # run dir (reference utils/vis.py:193-240, JAX core/trainer.py:248-263)
+                    from ..utils.vis import save_debug_images
+
+                    hm_scale = step_batch["images"].shape[1] / out["heatmaps"].shape[1]
+                    pose2d = step_batch.get("pose2d")
+                    save_debug_images(
+                        self.cfg, step_batch["images"],
+                        None if pose2d is None else pose2d * hm_scale,
+                        out["pose2d_pred"] * hm_scale, step_batch.get("target_heatmaps"),
+                        out["heatmaps"],
+                        prefix=os.path.join(self.output_dir, f"debug_e{epoch}_{name}"))
+                    debug_dumped = True
                 _, loss_dict = loss_computer(
                     heatmaps_pred=out["heatmaps"], heatmaps_gt=step_batch.get("target_heatmaps"),
                     pose2d_pred=out["pose2d_pred"], pose2d_gt=step_batch.get("pose2d"),

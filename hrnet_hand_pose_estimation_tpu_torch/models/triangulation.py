@@ -1,14 +1,15 @@
 """Learnable multi-view triangulation networks, in PyTorch.
 
 Port of the JAX package's ``models/triangulation.py`` (reference
-lib/models/triangulation.py), inference side:
+lib/models/triangulation.py):
 
 - ``AlgebraicTriangulationNet``: backbone 2D -> rescale to the original
   image -> (confidence-weighted) DLT by eigh;
 - ``RANSACTriangulationNet``: backbone 2D -> RANSAC DLT over every view pair;
 - ``VolumetricTriangulationNet``: backbone features -> a 1x1 conv to 32
   channels -> a cuboid around the DLT'd middle-finger root (joint 9) ->
-  unprojection -> V2V -> 3D soft-argmax.
+  unprojection -> V2V -> 3D soft-argmax;
+- ``Discriminator``: the WGAN critic of the 3D GAN trainer.
 
 Views fold into the batch for the backbone.  The backbone stops at its
 head's logits (``PoseHRNet.forward_head``); the 2D keypoints of a softmax
@@ -19,8 +20,7 @@ Decoding and geometry run in float32 outside any autocast; the volumetric
 net runs ``process_features`` and V2V in ``dtype`` (bfloat16 by default,
 as the JAX net) and the unprojection in the features' dtype.
 
-Not ported yet: ``Discriminator`` (the WGAN critic; it comes with the 3D
-GAN trainer) and the CPM-backed ``vol_CPM`` (CPM is ROADMAP A10).  The
+Not ported yet: the CPM-backed ``vol_CPM`` (CPM is ROADMAP A10).  The
 reference config keys ``USE_GT_MIDDLEROOT`` and ``SCALE_KEYPOINTS_3D`` are
 read nowhere in the JAX package, and the port ignores them too.
 """
@@ -202,6 +202,26 @@ class VolumetricTriangulationNet(nn.Module):
         return Triangulation3DOutput(
             keypoints_3d=kp3d, keypoints_2d=kp2d, heatmaps=hm, confidences=vol_conf,
             volumes=volumes, coord_volumes=coord_volumes, base_points=base)
+
+
+class Discriminator(nn.Module):
+    """WGAN critic over [pose3d | KCS Gram] features (reference
+    triangulation.py:20-44, JAX :196-208): three dense layers, ReLU between,
+    a scalar score.  ``in_features`` is the feature width (21*3 + 20*20 for
+    ``core.trainer3d_gan.critic_features``); JAX's Dense kernels (in, out)
+    load as the Linear weights (out, in)."""
+
+    def __init__(self, in_features: int, hidden: int = 100):
+        super().__init__()
+        self.fc1 = nn.Linear(in_features, hidden)
+        self.fc2 = nn.Linear(hidden, hidden)
+        self.fc3 = nn.Linear(hidden, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.reshape(x.shape[0], -1).float()
+        x = torch.relu(self.fc1(x))
+        x = torch.relu(self.fc2(x))
+        return self.fc3(x)
 
 
 def build_triangulation_net(cfg, kind: Optional[str] = None,

@@ -2,8 +2,11 @@
 
 Names match the reference's ``MODEL.NAME`` strings.  The port registers the
 models it has so far: the HRNet with the plain and the softmax head, the
-volumetric backbone (the softmax head with its confidence heads), and the
-softmax head with its temperature always trainable.
+volumetric backbone (the softmax head with its confidence heads), the
+softmax head with its temperature always trainable, and the 3D
+triangulation nets under the reference's ``MODEL.TRIANGULATION_MODEL_NAME``
+keys (JAX ``models/zoo.py:190-217``); ``vol_CPM`` raises until CPM is
+ported (ROADMAP A10).
 """
 
 from __future__ import annotations
@@ -42,3 +45,18 @@ def _pose_hrnet_trainable_softmax(cfg):
     MODEL.TRAINABLE_SOFTMAX says (JAX package models/zoo.py:40-44; the
     shipped training configs name it)."""
     return hrnet_from_cfg(cfg, head="softmax", trainable_softmax=True)
+
+
+# 3D triangulation nets, keyed like the reference tools/train3D.py:152-158
+def _triangulation(kind: str):
+    def build(cfg):
+        from .triangulation import build_triangulation_net
+
+        return build_triangulation_net(cfg, kind)
+
+    build.__doc__ = f"The {kind!r} triangulation net (models/triangulation.py)."
+    return build
+
+
+for _kind in ("alg", "ransac", "vol", "vol_CPM"):
+    register(_kind)(_triangulation(_kind))

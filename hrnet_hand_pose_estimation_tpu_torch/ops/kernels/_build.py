@@ -73,9 +73,12 @@ SIGNATURES = {
     "hrnet_stem_s2d": (_P,) * 6 + (_I,) * 7 + (_P,),
     # joints, vis, out, B, K, res, win, sig2, then the plan: rows, table, smem; stream
     "hrnet_gaussian_targets": (_P,) * 3 + (_I,) * 4 + (_F,) + (_I,) * 3 + (_P,),
-    # logits, temp (or null), temp_value, out, B, H, W, K, is_bf16, then the plan:
-    # splits, piece, smem; stream
-    "hrnet_fused_softmax_decode": (_P, _P, _F, _P) + (_I,) * 8 + (_P,),
+    # logits, temp (or null), temp_value, out, stats (or null), B, H, W, K, is_bf16,
+    # then the plan: splits, piece, smem; stream
+    "hrnet_fused_softmax_decode": (_P, _P, _F, _P, _P) + (_I,) * 8 + (_P,),
+    # logits, temp (or null), temp_value, stats, coords, grad, dx, partials, counter,
+    # dtemp (the last three null without dT), B, H, W, K, is_bf16, vector, blocks; stream
+    "hrnet_softmax_decode_bwd": (_P, _P, _F) + (_P,) * 7 + (_I,) * 6 + (_P,),
 }
 
 _lock = threading.Lock()

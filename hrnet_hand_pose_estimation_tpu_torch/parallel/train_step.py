@@ -106,6 +106,7 @@ def make_lr_schedule(cfg, steps_per_epoch: int) -> Callable[[torch.Tensor], torc
 
 
 _INT32_MAX = 2 ** 31 - 1
+RMSPROP_DECAY = 0.9         # optax.rmsprop's default decay (torch.optim.RMSprop's alpha is 0.99)
 
 
 def _increment(count: torch.Tensor) -> torch.Tensor:
@@ -114,32 +115,53 @@ def _increment(count: torch.Tensor) -> torch.Tensor:
 
 
 class Optimizer:
-    """optax's ``adam``, ``adamw`` and ``sgd`` on flat float32 buffers.
+    """optax's ``adam``, ``adamw``, ``sgd`` and ``rmsprop`` on flat float32 buffers.
 
     State (a dict of tensors on the parameters' device), as optax keeps it:
-    adam/adamw ``count`` (int32), ``mu``, ``nu``; sgd ``trace``; every kind
-    ``sched_count`` (int32), the LR schedule's own count.  ``update`` is
-    pure: it returns the updates and the new state, with the arithmetic in
-    optax's order and float32 (so a state carried over from JAX continues
-    the same trajectory).
+    adam/adamw ``count`` (int32), ``mu``, ``nu``; sgd ``trace``; rmsprop
+    ``nu``; every kind ``sched_count`` (int32), the LR schedule's own count.
+    ``update`` is pure: it returns the updates and the new state, with the
+    arithmetic in optax's order and float32 (so a state carried over from
+    JAX continues the same trajectory).
+
+    ``lr_scale`` (adam only), a float32 vector over the flat parameters,
+    makes one adam of optax's ``multi_transform`` of adams whose schedules
+    are the base one times a constant per group, with ``set_to_zero`` where
+    the scale is 0: the update is ``-(sched(count) * scale) * u`` (each
+    group's ``scale_by_learning_rate``), and the gradient of a 0-scale
+    element is dropped before the moments, so its moments stay 0 as the
+    frozen group keeps none and its update is 0.  rmsprop is optax's
+    ``rmsprop`` (decay 0.9, eps 1e-8 inside the square root, nu from 0):
+    ``nu = 0.1 g^2 + 0.9 nu``, ``u = g * rsqrt(nu + eps)``.
     """
 
     def __init__(self, kind: str, schedule: Callable, weight_decay: float = 0.0,
                  momentum: float = 0.9, nesterov: bool = False,
-                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
-        if kind not in ("adam", "adamw", "sgd"):
+                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+                 lr_scale: Optional[torch.Tensor] = None):
+        if kind not in ("adam", "adamw", "sgd", "rmsprop"):
             raise ValueError(f"unknown optimizer {kind!r}")
+        if lr_scale is not None and kind != "adam":
+            raise ValueError(f"lr_scale is for adam, not {kind!r}")
         self.kind = kind
         self.schedule = schedule
         self.weight_decay = float(weight_decay)
         self.momentum = float(momentum)
         self.nesterov = bool(nesterov)
         self.b1, self.b2, self.eps = float(b1), float(b2), float(eps)
+        self.lr_scale = None if lr_scale is None else lr_scale.to(torch.float32)
 
     def init(self, params: torch.Tensor) -> Dict[str, torch.Tensor]:
         zero = torch.zeros((), dtype=torch.int32, device=params.device)
+        if self.lr_scale is not None:
+            if self.lr_scale.shape != params.shape:
+                raise ValueError(f"lr_scale {tuple(self.lr_scale.shape)} for parameters "
+                                 f"{tuple(params.shape)}")
+            self.lr_scale = self.lr_scale.to(params.device)
         if self.kind == "sgd":
             return {"trace": torch.zeros_like(params), "sched_count": zero}
+        if self.kind == "rmsprop":
+            return {"nu": torch.zeros_like(params), "sched_count": zero}
         return {"count": zero, "mu": torch.zeros_like(params), "nu": torch.zeros_like(params),
                 "sched_count": zero.clone()}
 
@@ -151,7 +173,16 @@ class Optimizer:
             trace = grads + self.momentum * state["trace"]
             u = grads + self.momentum * trace if self.nesterov else trace
             new["trace"] = trace
+        elif self.kind == "rmsprop":
+            # optax.scale_by_rms (eps_in_sqrt): EMA of g^2, then g * rsqrt(nu + eps)
+            nu = (1 - RMSPROP_DECAY) * (grads * grads) + RMSPROP_DECAY * state["nu"]
+            u = torch.rsqrt(nu + self.eps) * grads
+            new["nu"] = nu
         else:
+            if self.lr_scale is not None:
+                # the frozen group (scale 0) keeps no moments: its gradient is dropped
+                grads = torch.where(self.lr_scale == 0, torch.zeros((), dtype=grads.dtype,
+                                                                     device=grads.device), grads)
             # optax.scale_by_adam: EMA of g and g^2, bias-corrected at count + 1
             b1, b2 = self.b1, self.b2
             mu = (1 - b1) * grads + b1 * state["mu"]
@@ -169,6 +200,8 @@ class Optimizer:
         # optax.scale_by_learning_rate: -lr(count) * u, then count + 1
         lr = self.schedule(state["sched_count"])
         new["sched_count"] = _increment(state["sched_count"])
+        if self.lr_scale is not None:
+            lr = lr * self.lr_scale
         return -lr * u, new
 
 

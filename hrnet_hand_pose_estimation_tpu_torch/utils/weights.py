@@ -11,7 +11,8 @@ space back to torch's (I, O, D, H, W), Dense (in, out) -> Linear (out, in),
 and BN ``scale/bias/mean/var`` -> ``weight/bias/running_mean/running_var``.
 
 ``from_jax_train_state`` maps a JAX ``TrainState`` (parameters, BN
-statistics, the optax state and the step) onto the port's
+statistics, the optax state, the 3D trainer's per-group one included, and
+the step) onto the port's
 ``parallel/train_step.TrainState.state_dict()`` payload.
 
 ``init_variables`` makes a random state for a config (or for one of its
@@ -152,7 +153,8 @@ def from_jax_variables(variables: Mapping, model: Optional[nn.Module] = None
     out: Dict[str, torch.Tensor] = {}
     unplaced = []
     params = variables.get("params", {})
-    net = "volume_net" in params or "backbone" in params.get("backbone", {})
+    net = ("volume_net" in params or "process_features" in params
+           or "backbone" in params.get("backbone", {}))
     conf = "vol_confidences"
     if model is not None and any(".alg_confidences." in "." + k for k in model.state_dict()):
         conf = "alg_confidences"
@@ -192,15 +194,57 @@ def from_jax_variables(variables: Mapping, model: Optional[nn.Module] = None
     return out
 
 
-def _param_tree(tree: Mapping, names, what: str) -> Dict[str, torch.Tensor]:
+def _is_masked(leaf) -> bool:
+    """optax's ``MaskedNode``, the place of a leaf outside a masked group."""
+    return type(leaf).__name__ == "MaskedNode"
+
+
+def _unmasked(tree: Mapping) -> Dict:
+    """``tree`` without its ``MaskedNode`` leaves."""
+    out = {}
+    for key, val in tree.items():
+        if isinstance(val, Mapping):
+            sub = _unmasked(val)
+            if sub:
+                out[key] = sub
+        elif not _is_masked(val):
+            out[key] = val
+    return out
+
+
+def _param_tree(tree: Mapping, names, what: str, partial: bool = False
+                ) -> Dict[str, torch.Tensor]:
     """A tree shaped like the JAX params (an optimizer moment) -> {port
-    parameter name: tensor}; raises unless it covers exactly ``names``."""
-    out = from_jax_variables({"params": tree})
-    if set(out) != set(names):
-        missing, extra = sorted(set(names) - set(out)), sorted(set(out) - set(names))
+    parameter name: tensor}; raises unless it covers exactly ``names`` (a
+    subset of them with ``partial``: a masked group's moment)."""
+    out = from_jax_variables({"params": _unmasked(tree)})
+    missing = sorted(set(names) - set(out)) if not partial else []
+    extra = sorted(set(out) - set(names))
+    if missing or extra:
         raise KeyError(f"{what}: port parameters left unfilled {missing[:5]}, "
                        f"leaves with no port parameter {extra[:5]}")
     return out
+
+
+def _read_nodes(nodes, names, opt: Dict, what: str, partial: bool = False) -> None:
+    """The fields of one optax chain's states into the port's ``opt``."""
+    for node in nodes:
+        fields = tuple(getattr(node, "_fields", ("?",)))
+        if fields == ():
+            continue
+        if set(fields) == {"count", "mu", "nu"}:
+            opt["count"] = torch.tensor(int(np.asarray(node.count)), dtype=torch.int32)
+            opt.setdefault("mu", {}).update(_param_tree(node.mu, names, f"{what} adam mu",
+                                                        partial))
+            opt.setdefault("nu", {}).update(_param_tree(node.nu, names, f"{what} adam nu",
+                                                        partial))
+        elif fields == ("trace",):
+            opt["trace"] = _param_tree(node.trace, names, "sgd trace")
+        elif fields == ("count",):
+            opt["sched_count"] = torch.tensor(int(np.asarray(node.count)), dtype=torch.int32)
+        else:
+            raise KeyError(f"optimizer state {type(node).__name__}{fields} has no place "
+                           "in the port")
 
 
 def from_jax_train_state(state, model: nn.Module) -> Dict:
@@ -208,11 +252,14 @@ def from_jax_train_state(state, model: nn.Module) -> Dict:
     the payload of the port's ``TrainState.load_state_dict``.
 
     Carries the parameters and BN statistics (``from_jax_variables``,
-    strict), the step, and the optax state of ``make_optimizer``'s chains,
-    read by field name (no optax import): ``ScaleByAdamState`` -> count, mu,
+    strict), the step, and the optax state, read by field name (no optax
+    import): ``make_optimizer``'s chains (``ScaleByAdamState`` -> count, mu,
     nu; ``TraceState`` -> trace; ``ScaleByScheduleState`` -> the schedule's
-    count; ``EmptyState`` (adamw's weight decay) carries nothing.  Raises on
-    any other optimizer state and on a leaf it cannot place.
+    count; ``EmptyState``, adamw's weight decay, carries nothing) and the 3D
+    trainer's ``multi_transform`` (``inner_states`` per label, each a
+    ``MaskedState`` around an adam chain or ``set_to_zero``'s empty state):
+    the groups' moments fill one flat adam's, the frozen group's are 0.
+    Raises on any other optimizer state and on a leaf it cannot place.
     """
     get = (lambda key: state[key]) if isinstance(state, Mapping) else (
         lambda key: getattr(state, key))
@@ -221,25 +268,47 @@ def from_jax_train_state(state, model: nn.Module) -> Dict:
     names = [n for n, _ in model.named_parameters()]
     params = {n: sd[n] for n in names}
     opt: Dict = {}
-    for node in get("opt_state"):
-        fields = tuple(getattr(node, "_fields", ("?",)))
-        if fields == ():
-            continue
-        if set(fields) == {"count", "mu", "nu"}:
-            opt["count"] = torch.tensor(int(np.asarray(node.count)), dtype=torch.int32)
-            opt["mu"] = _param_tree(node.mu, names, "adam mu")
-            opt["nu"] = _param_tree(node.nu, names, "adam nu")
-        elif fields == ("trace",):
-            opt["trace"] = _param_tree(node.trace, names, "sgd trace")
-        elif fields == ("count",):
-            opt["sched_count"] = torch.tensor(int(np.asarray(node.count)), dtype=torch.int32)
-        else:
-            raise KeyError(f"optimizer state {type(node).__name__}{fields} has no place "
-                           "in the port")
+    opt_state = get("opt_state")
+    if hasattr(opt_state, "inner_states"):
+        counts = set()
+        for label, masked in opt_state.inner_states.items():
+            inner = masked.inner_state
+            group: Dict = {}
+            _read_nodes([inner] if hasattr(inner, "_fields") else list(inner), names, group,
+                        f"group {label!r}", partial=True)
+            counts.add((int(group.get("count", -1)), int(group.get("sched_count", -1))))
+            for key in ("mu", "nu"):
+                opt.setdefault(key, {}).update(group.get(key, {}))
+            for key in ("count", "sched_count"):
+                if key in group:
+                    opt[key] = group[key]
+        counts.discard((-1, -1))
+        if len(counts) > 1:
+            raise ValueError(f"the groups' counts differ: {sorted(counts)}")
+        for key in ("mu", "nu"):
+            for n in names:
+                opt[key].setdefault(n, torch.zeros_like(params[n]))
+    else:
+        _read_nodes(opt_state, names, opt, "optimizer")
     return {"step": torch.tensor(int(np.asarray(get("step"))), dtype=torch.int32),
             "params": params,
             "batch_stats": {k: v for k, v in sd.items() if k not in params},
             "opt_state": opt}
+
+
+def discriminator_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The JAX ``Discriminator``'s params ({fc1, fc2, fc3}: Dense kernel (in,
+    out), bias) -> the port's ``models.triangulation.Discriminator``
+    state_dict (Linear weight (out, in))."""
+    out = {}
+    for name in ("fc1", "fc2", "fc3"):
+        layer = params[name]
+        out[f"{name}.weight"] = torch.from_numpy(np.array(np.asarray(layer["kernel"],
+                                                                     np.float32).T))
+        out[f"{name}.bias"] = torch.from_numpy(np.array(layer["bias"], np.float32))
+    if set(params) != {"fc1", "fc2", "fc3"}:
+        raise KeyError(f"Discriminator params {sorted(params)}: want fc1, fc2, fc3")
+    return out
 
 
 # the BNs that close a residual branch of stages 2-4 (basic-block bn2) or

@@ -1068,3 +1068,131 @@ def test_evaluator3d_dlt_mode_on_card_matches_cpu(cuda):
         out.append((kp2d.cpu(), triangulate_batch(kp2d, proj.to(dev), method="sii").cpu()))
     assert ((out[1][0] - out[0][0]) / torch.tensor([40.0, 30.0])).abs().max().item() <= 1e-3
     assert torch.allclose(out[1][1], out[0][1], rtol=1e-3, atol=0.5)
+
+
+# -- B4's backward and the 3D train step ------------------------------------
+
+@pytest.mark.parametrize("shape", [(8, 64, 64, 21), (3, 48, 40, 17), (2, 7, 5, 3), (1, 1, 1, 1)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tensor_temp", [True, False])
+def test_softmax_decode_backward_matches_twin(cuda, shape, dtype, tensor_temp):
+    """The backward kernel against ``softmax_decode_backward_reference``:
+    dx within one bfloat16 ulp of each element (bf16) plus 1e-5 of the
+    largest, dT within 1e-4 of sum |x g_z|; two runs bit-equal; one
+    backward launch per backward."""
+    from hrnet_hand_pose_estimation_tpu_torch.ops.kernels import softmax_decode as SD
+
+    gen = torch.Generator(device=cuda).manual_seed(sum(shape))
+    x = (torch.randn(*shape, device=cuda, generator=gen) * 3).to(dtype)
+    g = torch.randn(shape[0], shape[3], 2, device=cuda, generator=gen)
+    temp = torch.tensor(1.7, device=cuda, requires_grad=True) if tensor_temp else 1.7
+
+    def grads():
+        xr = x.clone().requires_grad_(True)
+        return torch.autograd.grad(fused_softmax_decode(xr, temp),
+                                   (xr, temp) if tensor_temp else (xr,), g)
+
+    before = fused_softmax_decode.launches_bwd
+    got, again = grads(), grads()
+    torch.cuda.synchronize()
+    assert fused_softmax_decode.launches_bwd == before + 2
+    tv = temp.detach() if tensor_temp else temp
+    dx, dt = SD.softmax_decode_backward_reference(x, tv, SD.softmax_decode_stats_reference(x, tv), g)
+    ulp = 2.0 ** -7 if dtype == torch.bfloat16 else 0.0
+    err = (got[0].float() - dx.float()).abs()
+    assert got[0].dtype == dtype
+    assert (err <= ulp * dx.float().abs() + 1e-5 * dx.float().abs().max() + 1e-30).all()
+    if tensor_temp:
+        scale = (x.float() * dx.float() / 1.7).abs().sum().item()
+        assert abs(got[1].item() - dt.item()) <= 1e-4 * scale + 1e-12
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tensor_temp", [True, False])
+def test_softmax_decode_backward_misaligned_view(cuda, dtype, tensor_temp):
+    """Logits that are a contiguous view one element into a larger buffer
+    (not 16-byte aligned, as a batch slice can be): the wrapper copies them
+    for the kernel's 16-byte loads, so the gradients are bit-equal to those
+    of an aligned copy, with one backward launch each."""
+    shape = (3, 48, 40, 17)
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    x = (torch.randn(*shape, device=cuda, generator=gen) * 3).to(dtype)
+    g = torch.randn(shape[0], shape[3], 2, device=cuda, generator=gen)
+    temp = torch.tensor(1.7, device=cuda, requires_grad=True) if tensor_temp else 1.7
+
+    def grads(xr):
+        return torch.autograd.grad(fused_softmax_decode(xr, temp),
+                                   (xr, temp) if tensor_temp else (xr,), g)
+
+    buf = torch.cat([x.new_zeros(1), x.flatten()]).requires_grad_(True)
+    view = buf[1:].view(shape)
+    assert view.is_contiguous() and view.data_ptr() % 16 != 0
+    before = fused_softmax_decode.launches_bwd
+    got = grads(view)
+    want = grads(x.clone().requires_grad_(True))
+    torch.cuda.synchronize()
+    assert fused_softmax_decode.launches_bwd == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_softmax_decode_backward_refuses_bad_input(cuda):
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        fused_softmax_decode(torch.zeros(1, 4, 4, 3, device=cuda, dtype=torch.float16,
+                                         requires_grad=True), 1.0)
+    with pytest.raises(ValueError, match="temperature on"):
+        fused_softmax_decode(torch.zeros(1, 4, 4, 3, device=cuda, requires_grad=True),
+                             torch.ones((), requires_grad=True))
+
+
+@pytest.mark.parametrize("kind", ["alg", "vol"])
+def test_train_step_3d_on_card_matches_cpu(cuda, kind):
+    """One float32 3D train step (TF32 off) at small widths on the card and on
+    the CPU: one B4 forward and one backward launch on the card, a finite
+    loss and a non-zero head gradient; for alg the total loss within 1e-3
+    of the CPU's and the head's gradient within 1e-2 in norm (the vol step
+    is chaotic at this size: V2V's innermost BNs normalise 2 values, see
+    tests/test_torch_trainer3d_vol.py)."""
+    from hrnet_hand_pose_estimation_tpu_torch.core import trainer3d as T3
+    from hrnet_hand_pose_estimation_tpu_torch.models.triangulation import (
+        build_triangulation_net)
+
+    cfg = small_3d_cfg(**{"MODEL.TRIANGULATION_MODEL_NAME": kind, "LOSS.WITH_HEATMAP_LOSS": False,
+                          "LOSS.WITH_POSE2D_LOSS": kind == "vol", "LOSS.WITH_POSE3D_LOSS": True,
+                          "LOSS.WITH_VOLUMETRIC_CE_LOSS": kind == "vol",
+                          "TRAIN.OPTIMIZER": "adam"})
+    state_dict = init_variables(cfg, 0, net=kind)
+    rng = np.random.default_rng(9)
+    # the cameras of test_triangulation_net_on_card_matches_cpu as K and [R|t]
+    # at the original scale (vol: a 64 px image, rescaled to the 16 px map)
+    f, c = (60.0, 30.0) if kind == "vol" else (600.0, 320.0)
+    K = torch.tensor([[f, 0, c], [0, f, c if kind == "vol" else 240.0], [0, 0, 1]])
+    ext = mv_cameras(2, 2, 1.0, (0.0, 0.0))           # an identity K: [R|t]
+    batch = {"images": torch.from_numpy(rng.normal(size=(2, 2, 64, 64, 3)).astype(np.float32)),
+             "pose2d": torch.from_numpy(rng.uniform(2, 14, size=(2, 2, 21, 2)).astype(np.float32)),
+             "pose3d": torch.from_numpy(rng.uniform(-100, 100, size=(2, 21, 3)).astype(np.float32)),
+             "visibility": torch.ones(2, 2, 21), "intrinsic_matrix": K.expand(2, 3, 3).clone(),
+             "extrinsic_matrices": ext}
+    out = []
+    for dev in ("cpu", cuda):
+        net = build_triangulation_net(cfg, kind, dtype=torch.float32)
+        net.load_state_dict(state_dict)
+        net.to(dev).train()
+        tx = T3.make_optimizer_3d(cfg, net, 1000)
+        state = TS.TrainState(net, tx)
+        step = T3.make_train_step_3d(cfg, net, tx, (64, 64) if kind == "vol" else (640, 480))
+        launches = (fused_softmax_decode.launches, fused_softmax_decode.launches_bwd)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        _, losses = step(state, {k: v.to(dev) for k, v in batch.items()}, gen)
+        torch.cuda.synchronize()
+        n = int(dev != "cpu")
+        assert (fused_softmax_decode.launches, fused_softmax_decode.launches_bwd) == (
+            launches[0] + n, launches[1] + n)
+        named = dict(zip(state.param_names, torch.split(
+            state.grads, [p.numel() for p in net.parameters()])))
+        head = torch.cat([v for k, v in named.items() if k.startswith("backbone.last_layer.")])
+        out.append((float(losses["total_loss"]), head.cpu()))
+    if kind == "alg":
+        assert abs(out[1][0] - out[0][0]) <= 1e-3 * abs(out[0][0])
+        assert (out[1][1] - out[0][1]).norm() <= 1e-2 * out[0][1].norm()
+    assert out[1][1].abs().max() > 0 and np.isfinite(out[1][0])
