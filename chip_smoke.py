@@ -63,7 +63,7 @@ forward one softmax-decode launch and within stated limits of the same
 forward decoded by the kernel's twin, one ``Evaluator3D.run``, the
 evaluate_3d tool, and the time of each net and of its parts.
 
-Last, 3D training (``core/trainer3d``, ``core/trainer3d_gan``) with the
+Then 3D training (``core/trainer3d``, ``core/trainer3d_gan``) with the
 MODEL, LOSS and TRAIN sections of VolTriangulation_MHP_v2.yaml (vol, B=2),
 AlgTriangulation_MHP_v1.yaml (alg, B=4) and VolTriangulation_MHP_GAN_v1.yaml
 (B=2, cut from 8) set in code, 4 views of Synthetic_mv: the softmax
@@ -75,6 +75,23 @@ steps decoded by the twin (held to a witness, the twin moved by 1e-4 px);
 two WGAN batches (critic weights within the clip, the generator's running
 statistics moved only by its supervised step); each step's time, peak
 memory and the decode's share of it; the train3d tool.
+
+Last, the CPM family and the cross-view fusion net, with sections of their
+YAMLs set in code: CPM (experiments/MHP/MHP_CPM_v1.yaml at 256 with
+HEATMAP_SIZE 32, since CPM's maps are the input / 8, ROADMAP C14; B=8):
+the forward on the card in float32 against the CPU and in bf16 against
+float32, train steps at the YAML's LR 1e-3 (reported) and at 1e-5 (the
+loss must fall), one eval batch, and tools.train on
+experiments/synthetic_cpm_smoke.yaml; the fusion net
+(experiments/MHP/MHP_HRNet_w48_fusion_v1.yaml: w48 at 256/64, 4 views,
+B=1): three train steps, each one B4 forward and one B4 backward launch,
+one float32 step against the same step decoded by B4's twin (held to a
+witness), the step's time, peak memory and B4's share; vol_CPM
+(VolTriangulation_MHP_CPM_v1.yaml at 256/32 with TRIANGULATION_MODEL_NAME
+'vol_CPM', C14; a 64^3 cube, 4 views, B=2 cut from 8): the forward with
+the YAML's argmax decode and with the softmax decode (one B4 launch,
+against its twin), one Trainer3D step with every parameter JAX's labels
+freeze bit-unchanged, and the train3d tool.
 
     python3 chip_smoke.py
 
@@ -114,7 +131,7 @@ from hrnet_hand_pose_estimation_tpu_torch.data.pipeline import DataLoader
 from hrnet_hand_pose_estimation_tpu_torch.data.synthetic import SyntheticDataset
 from hrnet_hand_pose_estimation_tpu_torch.models import build_model
 from hrnet_hand_pose_estimation_tpu_torch.models.hrnet import hrnet_from_cfg
-from hrnet_hand_pose_estimation_tpu_torch.ops.decode import soft_argmax
+from hrnet_hand_pose_estimation_tpu_torch.ops.decode import hard_argmax, soft_argmax
 from hrnet_hand_pose_estimation_tpu_torch.ops.kernels import _build
 from hrnet_hand_pose_estimation_tpu_torch.ops.kernels import fused_bottleneck as FB
 from hrnet_hand_pose_estimation_tpu_torch.ops.kernels.conv_int8 import (SiteQ, conv_int8,
@@ -2268,6 +2285,8 @@ T3_WITNESS_PX, T3_WITNESS_FACTOR, T3_CHAOTIC = 1e-4, 3.0, 0.1
 T3_FLOOR = {"loss": 1e-5}
 T3_GRAD_FLOOR = 1e-3
 SMOKE3D_YAML = Path(__file__).resolve().parent / "experiments" / "synthetic_vol_smoke.yaml"
+# B4's forward and backward kernels as torch.profiler names them (substrings)
+B4_KERNEL_NAMES = ("softmax_decode_kernel", "softmax_decode_bwd_kernel")
 
 
 def train3d_cfg(kind: str, out_dir: str, batch: int, gan: bool = False, dtype: str = "bfloat16"):
@@ -2349,12 +2368,29 @@ def group_slices(model, state):
     """{label: [(name, slice of the flat buffers)]} by ``freeze_labels``."""
     from hrnet_hand_pose_estimation_tpu_torch.core.trainer3d import freeze_labels
 
-    labels = freeze_labels(model)
+    return name_groups(model, freeze_labels(model).get)
+
+
+def name_groups(model, label):
+    """{label(name): [(name, slice of the flat buffers)]}."""
     out, off = {}, 0
     for name, p in model.named_parameters():
-        out.setdefault(labels[name], []).append((name, slice(off, off + p.numel())))
+        out.setdefault(label(name), []).append((name, slice(off, off + p.numel())))
         off += p.numel()
     return out
+
+
+def step_cost(run, decode_names=()):
+    """(ms per step by CUDA events, peak GiB, profiler wall ms, kernel ms,
+    {decode kernel: ms per step})."""
+    ms = time_ms(run, 5, warmup=2)
+    torch.cuda.reset_peak_memory_stats()
+    run()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    wall, busy, top = device_busy(run, steps=3)
+    parts = {k: sum(t for n, t in top if k in n) for k in decode_names}
+    return ms, peak, wall, busy, parts
 
 
 def decode_moved(logits, temperature):
@@ -2365,25 +2401,31 @@ def decode_moved(logits, temperature):
     return out + T3_WITNESS_PX * sign.reshape(out.shape)
 
 
-def grads_vs_twin(label, state, step, batch, gen_state, groups):
+def grads_vs_twin(label, state, step, batch, gen_state, groups, module=None):
     """One float32 step decoded by B4, by its twin and by the witness
     (``decode_moved``), from the same state and generator state: the B4
     step's total loss and each group's gradient against the twin step's,
-    held as ``T3_WITNESS_*`` say.  Returns (differences, limits held)."""
+    held as ``T3_WITNESS_*`` say.  The decode is ``module.softmax_decode``
+    (the triangulation nets' by default); with ``gen_state`` None the step
+    is ``step(state, batch)``.  Returns (differences, limits held)."""
     from hrnet_hand_pose_estimation_tpu_torch.models import triangulation as TRI
 
+    module = TRI if module is None else module
     snap = snapshot(state)
     gen = torch.Generator(device=state.params.device)
     runs = {}
-    for name, decode, want in (("kernel", TRI.softmax_decode, (1, 1)),
+    for name, decode, want in (("kernel", module.softmax_decode, (1, 1)),
                                ("twin", softmax_decode_reference, (0, 0)),
                                ("witness", decode_moved, (0, 0))):
         restore(state, snap)
-        gen.set_state(gen_state)
-        with patched(TRI, "softmax_decode", decode):
+        args = (state, batch)
+        if gen_state is not None:
+            gen.set_state(gen_state)
+            args += (gen,)
+        with patched(module, "softmax_decode", decode):
             zero_counters()
             fused_softmax_decode.launches_bwd = 0
-            _, losses = step(state, batch, gen)
+            _, losses = step(*args)
             torch.cuda.synchronize()
         launched = (fused_softmax_decode.launches, fused_softmax_decode.launches_bwd)
         if launched != want:
@@ -2680,15 +2722,9 @@ def train3d_phases(smi, kernels):
 
     with phase("3D train timing"):
         for kind, (cfg, step, state, batch, gen) in runs.items():
-            run = lambda: step(state, batch, gen)
-            ms = time_ms(run, 5, warmup=2)
-            torch.cuda.reset_peak_memory_stats()
-            run()
-            torch.cuda.synchronize()
-            peak = torch.cuda.max_memory_allocated() / 2 ** 30
-            wall, busy, top = device_busy(run, steps=3)
-            fwd = sum(t for n, t in top if "softmax_decode_kernel" in n)
-            bwd = sum(t for n, t in top if "softmax_decode_bwd_kernel" in n)
+            ms, peak, wall, busy, parts = step_cost(
+                lambda: step(state, batch, gen), B4_KERNEL_NAMES)
+            fwd, bwd = (parts[k] for k in B4_KERNEL_NAMES)
             bsz = T3_VOL_BATCH if kind == "vol" else T3_ALG_BATCH
             print(f"3D train {kind} step B={bsz} x {T3_VIEWS} views at 256/64 (bf16): {ms:.3f} ms "
                   f"per step (CUDA events), peak memory {peak:.2f} GiB; profiler: wall "
@@ -2741,6 +2777,437 @@ def train3d_phases(smi, kernels):
             print(f"tools.train3d.train: {trainer.ckpt.epochs()} epochs checkpointed, "
                   f"best {trainer.best_loss:.4g} mm")
     kernels.append(entry)
+
+
+# -- A10, first part: CPM, the cross-view fusion net and vol_CPM -------------
+
+# CPM's belief maps are the input / 8: at 256 they are 32x32, where
+# MHP_CPM_v1.yaml and VolTriangulation_MHP_CPM_v1.yaml set HEATMAP_SIZE 64,
+# on which the JAX package's steps fail (ROADMAP C14).  The card runs 256/32.
+CPM_IMAGE, CPM_HM = 256, 32
+CPM_BATCH = 8               # MHP_CPM_v1 trains at 1 and v2 at 32 images a card
+CPM_STEPS = 10
+# the steps that must lower the loss run at LR 1e-5: from a random init,
+# adam at the YAML's 1e-3 throws the six-stage CPM's loss from 66 to 1e18
+# on its second step and leaves its ReLUs dead (measured on an H100); three
+# steps at 1e-3 are reported beside them
+CPM_CHECK_LR = 1e-5
+CPM_YAML = Path(__file__).resolve().parent / "experiments" / "synthetic_cpm_smoke.yaml"
+FUSION_VIEWS, FUSION_BATCH, FUSION_STEPS = 4, 1, 3     # MHP_HRNet_w48_fusion_v1
+VOLCPM_BATCH = 2            # VolTriangulation_MHP_CPM_v1.yaml has 8: cut to save chip time
+# the card's float32 CPM forward against the CPU's, relative to the largest
+# belief; the bf16 forward against the card's float32 one (27 bf16 convs in
+# a row, no normalisation: a few % of the largest value)
+CPM_F32_LIMIT, CPM_BF16_LIMIT = 1e-4, 0.05
+
+
+def cpm_cfg(out_dir: str, **extra):
+    """The MODEL, LOSS and TRAIN sections of experiments/MHP/MHP_CPM_v1.yaml
+    set in code (the card's machine may lack PyYAML): CPM at 256, heatmap
+    loss only, adam at LR 1e-3 (LR_FACTOR 0.5 at epochs 8/16/24), no flip
+    test; HEATMAP_SIZE 32 (C14), B=8, the synthetic set in place of
+    MHP_CPM_kpt, bf16."""
+    opts = ["MODEL.NAME", "CPM", "MODEL.NUM_JOINTS", 21, "MODEL.IMAGE_SIZE", [CPM_IMAGE] * 2,
+            "MODEL.HEATMAP_SIZE", [CPM_HM] * 2, "MODEL.SIGMA", 2, "MODEL.HEATMAP_SOFTMAX", False,
+            "LOSS.WITH_HEATMAP_LOSS", True, "LOSS.HEATMAP_LOSS_FACTOR", 1.0,
+            "LOSS.WITH_POSE2D_LOSS", False, "TRAIN.OPTIMIZER", "adam", "TRAIN.LR", 1e-3,
+            "TRAIN.LR_FACTOR", 0.5, "TRAIN.LR_STEP", [8, 16, 24], "TRAIN.IMAGES_PER_GPU",
+            CPM_BATCH, "TEST.IMAGES_PER_GPU", CPM_BATCH, "TEST.FLIP_TEST", False,
+            "DATASET.DATASET", ["Synthetic_kpt"], "DATASET.TEST_DATASET", ["Synthetic_kpt"],
+            "WORKERS", 4, "PRINT_FREQ", 1, "EXP_NAME", "chip_smoke_cpm", "OUTPUT_DIR", out_dir]
+    for key, val in extra.items():
+        opts += [key, val]
+    return load_config(opts=opts)
+
+
+def w48_extra():
+    extra = json.loads(json.dumps(POSE_HIGH_RESOLUTION_NET_EXTRA))
+    for stage in ("STAGE2", "STAGE3", "STAGE4"):
+        extra[stage]["NUM_CHANNELS"] = [c * 3 // 2 for c in extra[stage]["NUM_CHANNELS"]]
+    return extra
+
+
+def fusion_cfg(out_dir: str, dtype: str = "bfloat16"):
+    """The MODEL, LOSS and TRAIN sections of experiments/MHP/
+    MHP_HRNet_w48_fusion_v1.yaml set in code: multiview_pose_hrnet on the
+    w48 HRNet at 256/64, 4 views, the aggregation on, HEATMAP_SOFTMAX and
+    TRAINABLE_SOFTMAX on, the pose2d loss (factor 0.1) on the raw and the
+    fused maps, adam at LR 1e-3, B=1; Synthetic_mv in place of MHP_mv."""
+    cfg = load_config(opts=[
+        "MODEL.NAME", "multiview_pose_hrnet", "MODEL.IMAGE_SIZE", [256, 256],
+        "MODEL.HEATMAP_SIZE", [64, 64], "MODEL.SIGMA", 2, "MODEL.HEATMAP_SOFTMAX", True,
+        "MODEL.TRAINABLE_SOFTMAX", True, "MODEL.AGGRE", True, "DATASET.NUM_VIEWS", FUSION_VIEWS,
+        "DATASET.DATASET", ["Synthetic_mv"], "DATASET.TEST_DATASET", ["Synthetic_mv"],
+        "LOSS.WITH_HEATMAP_LOSS", False, "LOSS.WITH_POSE2D_LOSS", True,
+        "LOSS.POSE2D_LOSS_FACTOR", 0.1, "TRAIN.OPTIMIZER", "adam", "TRAIN.LR", 1e-3,
+        "TRAIN.LR_FACTOR", 0.1, "TRAIN.LR_STEP", [20, 40, 50], "TRAIN.IMAGES_PER_GPU",
+        FUSION_BATCH, "WORKERS", 4, "TPU.COMPUTE_DTYPE", dtype, "EXP_NAME", "chip_smoke_fusion",
+        "OUTPUT_DIR", out_dir], freeze=False)
+    cfg.MODEL.EXTRA.merge_from_mapping(w48_extra())
+    return cfg.freeze()
+
+
+def volcpm_cfg(out_dir: str, batch: int, softmax: bool = False, length: int = 0):
+    """The MODEL, LOSS and TRAIN sections of experiments/LearnableTriangulation/
+    VolTriangulation_MHP_CPM_v1.yaml set in code: the CPM backbone at 256, a
+    64^3 cube of 500 mm, softmax aggregation, VOLUME_SOFTMAX, the argmax 2D
+    decode (HEATMAP_SOFTMAX off; ``softmax`` turns it on), losses heatmap 0.1
+    + pose3d 1.0 + VCE 0.01, adam at LR 1e-4 with PROCESS_FEATURE_LR and
+    VOLUME_NET_LR 1e-3.  TRIANGULATION_MODEL_NAME 'vol_CPM' (the YAML leaves
+    the default 'alg', C14) and HEATMAP_SIZE 32 (C14); B cut from 8;
+    Synthetic_mv with 4 views in place of MHP_CPM_mv, bf16."""
+    return load_config(opts=[
+        "MODEL.NAME", "vol_CPM", "MODEL.TRIANGULATION_MODEL_NAME", "vol_CPM",
+        "MODEL.BACKBONE_NAME", "CPM_volumetric", "MODEL.IMAGE_SIZE", [CPM_IMAGE] * 2,
+        "MODEL.HEATMAP_SIZE", [CPM_HM] * 2, "MODEL.SIGMA", 2, "MODEL.HEATMAP_SOFTMAX", softmax,
+        "MODEL.TRAINABLE_SOFTMAX", False, "MODEL.CUBOID_SIZE", 500.0, "MODEL.VOLUME_SIZE", 64,
+        "MODEL.VOLUME_MULTIPLIER", 1.0, "MODEL.VOLUME_SOFTMAX", True,
+        "MODEL.VOLUME_AGGREGATION_METHOD", "softmax", "MODEL.VOL_CONFIDENCES", True,
+        "MODEL.ALG_CONFIDENCES", False, "LOSS.WITH_HEATMAP_LOSS", True,
+        "LOSS.HEATMAP_LOSS_FACTOR", 0.1, "LOSS.WITH_POSE2D_LOSS", False,
+        "LOSS.WITH_POSE3D_LOSS", True, "LOSS.POSE3D_LOSS_FACTOR", 1.0,
+        "LOSS.WITH_VOLUMETRIC_CE_LOSS", True, "LOSS.VOLUMETRIC_LOSS_FACTOR", 0.01,
+        "TRAIN.OPTIMIZER", "adam", "TRAIN.LR", 1e-4, "TRAIN.PROCESS_FEATURE_LR", 1e-3,
+        "TRAIN.VOLUME_NET_LR", 1e-3, "TRAIN.LR_FACTOR", 0.1, "TRAIN.LR_STEP", [8, 16, 24],
+        "TRAIN.IMAGES_PER_GPU", batch, "TEST.IMAGES_PER_GPU", batch,
+        "TRAIN.BEGIN_EPOCH", 0, "TRAIN.END_EPOCH", 1,
+        "DATASET.DATASET", ["Synthetic_mv"], "DATASET.TEST_DATASET", ["Synthetic_mv"],
+        "DATASET.NUM_VIEWS", T3_VIEWS, "WORKERS", 4, "PRINT_FREQ", 1,
+        "EXP_NAME", "chip_smoke_vol_cpm", "OUTPUT_DIR", out_dir])
+
+
+def first_batch(cfg, dev, is_train: bool = True):
+    """The first batch of the config's first loader, as the 2D steps read it."""
+    from hrnet_hand_pose_estimation_tpu_torch.core.trainer import _batch_for_step
+    from hrnet_hand_pose_estimation_tpu_torch.data.build import make_dataloader
+    from hrnet_hand_pose_estimation_tpu_torch.data.pipeline import to_device
+
+    loader = next(iter(make_dataloader(cfg, is_train).values()))
+    return _batch_for_step(to_device(next(iter(loader)), dev))
+
+
+def volcpm_projections(cfg, batch):
+    """The vol net's heatmap-scale projections of a Synthetic_mv batch (its
+    images are the original ones, 256 px)."""
+    from hrnet_hand_pose_estimation_tpu_torch.core.evaluator3d import build_projections
+
+    return build_projections(cfg, batch["intrinsic_matrix"], batch["extrinsic_matrices"],
+                             (CPM_IMAGE, CPM_IMAGE), "vol_CPM")
+
+
+def cpm_phases(smi, kernels):
+    """CPM at 256 (its only width), B=8: the forward on the card against the
+    same forward in float32 on the CPU, train steps, one eval batch, the
+    train tool on synthetic_cpm_smoke.yaml.  CPM runs no kernel of the port
+    (JAX's CPM reaches no Pallas kernel): its counters stay at 0."""
+    from hrnet_hand_pose_estimation_tpu_torch.core.train_variants import pick_train_step
+
+    dev = torch.device("cuda")
+    none = {fn.__name__: 0 for fn in COUNTED}
+    with phase("CPM forward"), tempfile.TemporaryDirectory() as tmp:
+        cfg = cpm_cfg(tmp)
+        state = init_variables(cfg, 0)
+        model = build_model(cfg)
+        model.load_state_dict(state)
+        model.to(dev)
+        batch = first_batch(cfg, dev, False)
+        x, cm = batch["images"], batch["centermaps"]
+        zero_counters()
+        with torch.no_grad():
+            f32 = model(x, cm)
+            with torch.autocast("cuda", dtype=torch.bfloat16):
+                low = model(x, cm)
+        torch.cuda.synchronize()
+        if counters() != none:
+            raise AssertionError(f"CPM launched a kernel of the port: {counters()}")
+        cpu = build_model(cfg)
+        cpu.load_state_dict(state)
+        with torch.no_grad():
+            want = cpu(x[:2].cpu(), cm[:2].cpu())
+        d32 = max((a[:2].cpu() - b).abs().max().item() / b.abs().max().item()
+                  for a, b in zip(f32, want))
+        scale = f32[-1].abs().max().item()
+        d16 = (low[-1] - f32[-1]).abs()
+        agree = (hard_argmax(low[-1][..., 1:]) == hard_argmax(f32[-1][..., 1:])).all(-1)
+        print(f"CPM forward B={CPM_BATCH} at {CPM_IMAGE} ({CPM_HM}x{CPM_HM}x22 beliefs, six "
+              f"stages): float32 on the card vs the CPU (2 samples, TF32 off) max |d| "
+              f"{d32:.3g} of the largest belief (limit {CPM_F32_LIMIT}); bf16 vs float32 on "
+              f"the card max |d| {d16.max().item() / scale:.4f}, mean "
+              f"{d16.mean().item() / scale:.5f} of the largest belief {scale:.4g} (limit "
+              f"{CPM_BF16_LIMIT}), argmax joints equal {agree.float().mean().item():.1%}")
+        if not (d32 <= CPM_F32_LIMIT and d16.max().item() <= CPM_BF16_LIMIT * scale
+                and torch.isfinite(low[-1]).all()):
+            raise AssertionError(f"CPM forward: float32 {d32}, bf16 {d16.max().item() / scale}")
+        with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
+            fwd_ms = time_ms(lambda: model(x, cm), 10)
+        print(f"CPM bf16 forward B={CPM_BATCH} at {CPM_IMAGE}: {fwd_ms:.3f} ms (CUDA events), "
+              f"{CPM_BATCH / fwd_ms * 1e3:.1f} images/s on {smi}")
+        del model, cpu, f32, low, want
+
+    with phase("CPM train"), tempfile.TemporaryDirectory() as tmp:
+        batch = first_batch(cpm_cfg(tmp), dev)
+        print(f"CPM train batch: images {tuple(batch['images'].shape)}, centre maps "
+              f"{tuple(batch['centermaps'].shape)}, targets "
+              f"{tuple(batch['target_heatmaps'].shape)}")
+        for lr, n in ((1e-3, 3), (CPM_CHECK_LR, CPM_STEPS)):
+            cfg = cpm_cfg(tmp, **{"TRAIN.LR": lr})
+            model = build_model(cfg)
+            state, tx = TS.create_train_state(cfg, model, 1000, device=dev)
+            step = pick_train_step(cfg, model, tx)
+            losses = []
+            zero_counters()
+            for _ in range(n):
+                state, out = step(state, batch)
+                losses.append(out)
+            torch.cuda.synchronize()
+            host = [float(o["total_loss"]) for o in losses]
+            skipped = sum(float(o["nonfinite_grads"]) for o in losses)
+            print(f"CPM {n} bf16 steps B={CPM_BATCH} (adam at LR {lr:g} from flax's "
+                  f"lecun-normal init, one batch): total loss "
+                  f"{[float(f'{v:.5g}') for v in host]}, skipped steps {skipped:.0f}")
+            if counters() != none or not all(np.isfinite(host)) or skipped:
+                raise AssertionError(f"CPM steps: {host}, skipped {skipped}, {counters()}")
+        if not host[-1] < 0.9 * host[0]:
+            raise AssertionError(f"CPM loss did not fall at LR {CPM_CHECK_LR}: {host}")
+        ms, peak, wall, busy, _ = step_cost(lambda: step(state, batch))
+        print(f"CPM train step B={CPM_BATCH} at {CPM_IMAGE} (bf16): {ms:.3f} ms (CUDA events), "
+              f"peak memory {peak:.2f} GiB; profiler wall {wall:.3f} ms, kernels {busy:.3f} ms "
+              f"({busy / wall:.1%} busy), on {smi}")
+
+        zero_counters()
+        out = TS.make_eval_step(cfg, model)(state, first_batch(cfg, dev, False))
+        torch.cuda.synchronize()
+        hm, pose = out["heatmaps"], out["pose2d_pred"]
+        spread = pose.std().item()
+        print(f"CPM eval batch: heatmaps {tuple(hm.shape)} {hm.dtype}, pose2d "
+              f"{tuple(pose.shape)} in [{pose.min().item():.0f}, {pose.max().item():.0f}], "
+              f"spread {spread:.2f} px")
+        if (hm.shape != (CPM_BATCH, CPM_HM, CPM_HM, 21) or not torch.isfinite(hm).all()
+                or pose.min() < 0 or pose.max() > CPM_HM - 1 or counters() != none
+                or not spread > 0.5):
+            raise AssertionError("CPM eval batch")
+        del model, state, tx, step
+
+    with phase("CPM train tool"), tempfile.TemporaryDirectory() as tmp:
+        if importlib.util.find_spec("yaml") is not None:
+            cmd = [sys.executable, "-m", "hrnet_hand_pose_estimation_tpu_torch.tools.train",
+                   "--cfg", str(CPM_YAML), "--device", "cuda", "OUTPUT_DIR", tmp]
+            res = subprocess.run(cmd, capture_output=True, text=True,
+                                 cwd=Path(__file__).resolve().parent, timeout=300)
+            log = res.stdout + res.stderr
+            lines = [ln for ln in log.splitlines() if "Epoch[" in ln or "Validate[" in ln]
+            print(f"python -m ...tools.train --cfg {CPM_YAML.name} --device cuda: rc "
+                  f"{res.returncode}; " + " | ".join(ln.split(" ", 2)[-1][:140]
+                                                      for ln in lines[-2:]))
+            if res.returncode != 0 or "Validate[0]" not in log:
+                raise AssertionError(f"tools.train on the CPM smoke config failed:\n{log[-3000:]}")
+        else:
+            from hrnet_hand_pose_estimation_tpu_torch.core.trainer import Trainer
+            from hrnet_hand_pose_estimation_tpu_torch.data.build import make_dataloader
+
+            cfg = load_config(opts=[
+                "EXP_NAME", "synthetic_cpm_smoke", "WORKERS", 2, "PRINT_FREQ", 2,
+                "DATASET.DATASET", ["Synthetic_kpt"], "DATASET.TEST_DATASET", ["Synthetic_kpt"],
+                "DATASET.SIGMA", 2, "MODEL.NAME", "CPM", "MODEL.IMAGE_SIZE", [64, 64],
+                "MODEL.HEATMAP_SIZE", [8, 8], "MODEL.SIGMA", 2, "MODEL.HEATMAP_SOFTMAX", False,
+                "LOSS.WITH_HEATMAP_LOSS", True, "TRAIN.IMAGES_PER_GPU", 4,
+                "TRAIN.BEGIN_EPOCH", 0, "TRAIN.END_EPOCH", 1, "TRAIN.OPTIMIZER", "adam",
+                "TRAIN.LR", 1e-3, "TRAIN.LR_STEP", [1], "TEST.IMAGES_PER_GPU", 4,
+                "OUTPUT_DIR", tmp])
+            print("no PyYAML on this machine: the train tool's Trainer in process on "
+                  "synthetic_cpm_smoke.yaml's tree built in code")
+            trainer = Trainer(cfg, build_model(cfg), make_dataloader(cfg, True),
+                              make_dataloader(cfg, False), output_dir=tmp, device=dev)
+            trainer.fit()
+            print(f"Trainer.fit: {trainer.ckpt.epochs()} epochs checkpointed, best val "
+                  f"{trainer.best_loss:.4g}")
+            if trainer.ckpt.epochs() != [0] or not np.isfinite(trainer.best_loss):
+                raise AssertionError("CPM Trainer.fit")
+
+
+def fusion_phases(smi, kernels):
+    """The fusion net at w48, 256/64, 4 views, B=1: three train steps, each
+    one B4 forward and one B4 backward launch (the raw branch's decode); one
+    float32 step against the same step decoded by B4's twin, held to a
+    witness; the step's time, peak memory and B4's share."""
+    from hrnet_hand_pose_estimation_tpu_torch.core import train_variants as TV
+
+    dev = torch.device("cuda")
+    b4 = next(k for k in kernels if k["name"] == "fused_softmax_decode")
+    b4b = next(k for k in kernels if k["name"] == "softmax_decode_backward")
+    b4["launches_fusion"] = b4b["launches_fusion"] = 0
+    with phase("fusion train"), tempfile.TemporaryDirectory() as tmp:
+        cfg = fusion_cfg(tmp)
+        weights = init_variables(cfg, 0, device=dev)
+        model = build_model(cfg)
+        state, tx = TS.create_train_state(cfg, model, 1000, device=dev)
+        model.load_state_dict(weights)
+        step = TV.pick_train_step(cfg, model, tx)
+        batch = first_batch(cfg, dev)
+        n_fc = model.aggregation.pair_fc.numel()
+        print(f"fusion net w48: {sum(p.numel() for p in model.parameters()) / 1e6:.1f}M "
+              f"parameters, pair_fc {tuple(model.aggregation.pair_fc.shape)} "
+              f"({n_fc * 4 / 2 ** 20:.0f} MiB float32); batch images "
+              f"{tuple(batch['images'].shape)}, targets {tuple(batch['target_heatmaps'].shape)}")
+        want = {fn.__name__: 0 for fn in COUNTED}
+        want["fused_softmax_decode"] = 1
+        for i in range(FUSION_STEPS):
+            zero_counters()
+            fused_softmax_decode.launches_bwd = 0
+            state, losses = step(state, batch)
+            torch.cuda.synchronize()
+            host = {k: round(float(v), 5) for k, v in losses.items()}
+            print(f"fusion step {i} (B={FUSION_BATCH} x {FUSION_VIEWS} views, bf16): {host}; "
+                  f"launches {counters()}, B4 backward {fused_softmax_decode.launches_bwd}")
+            if counters() != want or fused_softmax_decode.launches_bwd != 1:
+                raise AssertionError(f"fusion step launches {counters()}, backward "
+                                     f"{fused_softmax_decode.launches_bwd}")
+            if not all(np.isfinite(v) for v in host.values()) or host["nonfinite_grads"]:
+                raise AssertionError(f"fusion step losses {host}")
+            b4["launches_fusion"] += 1
+            b4b["launches_fusion"] += 1
+        ms, peak, wall, busy, parts = step_cost(lambda: step(state, batch), B4_KERNEL_NAMES)
+        fwd, bwd = (parts[k] for k in B4_KERNEL_NAMES)
+        print(f"fusion train step B={FUSION_BATCH} x {FUSION_VIEWS} views, w48 at 256/64 (bf16): "
+              f"{ms:.3f} ms per step (CUDA events), peak memory {peak:.2f} GiB; profiler: wall "
+              f"{wall:.3f} ms, kernels {busy:.3f} ms ({busy / wall:.1%} busy); B4 forward "
+              f"{fwd:.4f} ms + backward {bwd:.4f} ms of kernel per step "
+              f"({(fwd + bwd) / max(busy, 1e-9):.2%} of the device time), on {smi}")
+        b4["device_ms_in_fusion_step"], b4b["device_ms_in_fusion_step"] = fwd, bwd
+        b4b["step_ms_fusion"] = ms
+        del model, state, tx, step
+
+    with phase("fusion float32 step vs twin"), tempfile.TemporaryDirectory() as tmp:
+        cfg = fusion_cfg(tmp, "float32")
+        model = build_model(cfg)
+        state, tx = TS.create_train_state(cfg, model, 1000, device=dev)
+        model.load_state_dict(weights)
+        groups = name_groups(model, lambda n: {"backbone.trainable_temp": "temperature",
+                                               "aggregation.pair_fc": "aggregation"}.get(
+                                                   n, "backbone"))
+        torch.backends.cudnn.deterministic = True
+        try:
+            grads_vs_twin("fusion step", state, TV.pick_train_step(cfg, model, tx),
+                          first_batch(cfg, dev), None, groups, module=TV)
+        finally:
+            torch.backends.cudnn.deterministic = False
+        b4["launches_fusion"] += 1
+        b4b["launches_fusion"] += 1
+        del model, state, tx, weights
+
+
+def volcpm_gate(net, images, proj, cfg, out):
+    """The softmax-decoded vol_CPM forward against the same forward decoded
+    by B4's twin: the 2D keypoints within 1e-3 heatmap px; the 3D ones
+    within 3x the witness's distance (the twin moved by ``T3_WITNESS_PX``)
+    plus 1 mm.  A random CPM's cube and bf16 V2V move the 3D keypoints by
+    tens of mm for a 1e-5 px change of the base detections (measured), so
+    MV_3D_LIMIT's one voxel would test the net, not B4."""
+    from hrnet_hand_pose_estimation_tpu_torch.models import triangulation as TRI
+
+    runs = {}
+    for name, decode in (("twin", softmax_decode_reference), ("witness", decode_moved)):
+        with patched(TRI, "softmax_decode", decode), torch.no_grad(), \
+                TS.compute_autocast(cfg, images.device):
+            runs[name] = net(images, proj)
+    twin = runs["twin"]
+    d2 = (out.keypoints_2d - twin.keypoints_2d).abs().max().item()
+    d3 = (out.keypoints_3d - twin.keypoints_3d).norm(dim=-1).max().item()
+    w2 = (runs["witness"].keypoints_2d - twin.keypoints_2d).abs().max().item()
+    w3 = (runs["witness"].keypoints_3d - twin.keypoints_3d).norm(dim=-1).max().item()
+    limit = T3_WITNESS_FACTOR * w3 + 1.0
+    print(f"vol_CPM: B4 vs its twin, 2D max |d| {d2:.3g} heatmap px (limit 1e-3), 3D max "
+          f"distance {d3:.4g} mm (limit {limit:.4g} mm = {T3_WITNESS_FACTOR:g} x the witness's "
+          f"{w3:.4g} mm + 1; the witness moves the 2D by {w2:.3g} px); |3D| up to "
+          f"{twin.keypoints_3d.abs().max().item():.4g} mm")
+    if not (d2 <= 1e-3 and d3 <= limit and torch.isfinite(out.keypoints_3d).all()):
+        raise AssertionError(f"vol_CPM: B4 and its twin part: 2D {d2}, 3D {d3} mm")
+
+
+def volcpm_phases(smi, kernels):
+    """vol_CPM at VolTriangulation_MHP_CPM_v1's widths (256, a 64^3 cube,
+    4 views), B=2: the forward with the YAML's argmax decode (no B4 launch)
+    and with the softmax decode (one B4 launch, against its twin); one
+    Trainer3D step with every parameter the JAX labels freeze bit-unchanged;
+    the train3d tool."""
+    from hrnet_hand_pose_estimation_tpu_torch.core.trainer3d import Trainer3D, freeze_labels
+    from hrnet_hand_pose_estimation_tpu_torch.data.build import make_dataloader
+    from hrnet_hand_pose_estimation_tpu_torch.models import triangulation as TRI
+    from hrnet_hand_pose_estimation_tpu_torch.tools import train3d as tool_train3d
+
+    dev = torch.device("cuda")
+    b4 = next(k for k in kernels if k["name"] == "fused_softmax_decode")
+    b4["launches_vol_cpm"] = 0
+    with phase("vol_CPM forward"), tempfile.TemporaryDirectory() as tmp:
+        batches = t3_batches(volcpm_cfg(tmp, VOLCPM_BATCH), dev, 1, is_train=False)
+        batch = batches[0]
+        for softmax in (False, True):
+            cfg = volcpm_cfg(tmp, VOLCPM_BATCH, softmax=softmax)
+            net = TRI.build_triangulation_net(cfg)
+            net.load_state_dict(init_variables(cfg, 0, device=dev, net="vol_CPM"))
+            net.to(dev).eval()
+            proj = volcpm_projections(cfg, batch)
+            zero_counters()
+            with torch.no_grad(), TS.compute_autocast(cfg, dev):
+                out = net(batch["images"], proj)
+            torch.cuda.synchronize()
+            want = {fn.__name__: 0 for fn in COUNTED}
+            want["fused_softmax_decode"] = int(softmax)
+            decode = "softmax" if softmax else "argmax"
+            print(f"vol_CPM forward B={VOLCPM_BATCH} x {T3_VIEWS} views ({decode} decode): "
+                  f"heatmaps {tuple(out.heatmaps.shape)}, kp3d "
+                  f"{tuple(out.keypoints_3d.shape)}, volumes {tuple(out.volumes.shape)}, "
+                  f"launches {counters()}")
+            if counters() != want or not torch.isfinite(out.keypoints_3d).all():
+                raise AssertionError(f"vol_CPM forward: launches {counters()}")
+            b4["launches_vol_cpm"] += int(softmax)
+            if softmax:
+                volcpm_gate(net, batch["images"], proj, cfg, out)
+            run = lambda: net(batch["images"], proj)
+            with torch.no_grad(), TS.compute_autocast(cfg, dev):
+                ms = time_ms(run, 5)
+            print(f"vol_CPM forward ({decode}) B={VOLCPM_BATCH} x "
+                  f"{T3_VIEWS} views at 256, 64^3 (bf16): {ms:.3f} ms (CUDA events) on {smi}")
+            del net
+
+    with phase("vol_CPM Trainer3D step"), tempfile.TemporaryDirectory() as tmp:
+        cfg = volcpm_cfg(tmp, VOLCPM_BATCH)
+        net = TRI.build_triangulation_net(cfg)
+        trainer = Trainer3D(cfg, net, make_dataloader(cfg, True), {}, output_dir=tmp, device=dev)
+        net.load_state_dict(init_variables(cfg, 0, device=dev, net="vol_CPM"))
+        state = trainer.state
+        labels = freeze_labels(net)
+        groups = name_groups(net, labels.get)
+        before = state.params.clone()
+        batch = t3_batches(cfg, dev, 1)[0]
+        zero_counters()
+        trainer.state, losses = trainer.train_step(state, batch, trainer.generator)
+        torch.cuda.synchronize()
+        host = {k: round(float(v), 5) for k, v in losses.items()}
+        moved = {g: sum(not torch.equal(state.params[s], before[s]) for _, s in items)
+                 for g, items in groups.items()}
+        print(f"vol_CPM Trainer3D step (B={VOLCPM_BATCH} x {T3_VIEWS} views, bf16): {host}; "
+              f"launches {counters()}; tensors moved per group {json.dumps(moved)} of "
+              + json.dumps({g: len(v) for g, v in groups.items()})
+              + f" (main: CPM's stage 4, {sum(1 for n in labels if labels[n] == 'main')} tensors)")
+        if moved["frozen"] or not all(moved[g] for g in ("main", "process", "volume")):
+            raise AssertionError(f"vol_CPM step moved {moved}")
+        if not all(np.isfinite(v) for v in host.values()) or host["nonfinite_grads"]:
+            raise AssertionError(f"vol_CPM step losses {host}")
+        ms, peak, wall, busy, _ = step_cost(
+            lambda: trainer.train_step(state, batch, trainer.generator))
+        print(f"vol_CPM train step B={VOLCPM_BATCH} x {T3_VIEWS} views at 256, 64^3 (bf16): "
+              f"{ms:.3f} ms (CUDA events), peak memory {peak:.2f} GiB; profiler wall "
+              f"{wall:.3f} ms, kernels {busy:.3f} ms ({busy / wall:.1%} busy), on {smi}")
+        del trainer, net, state
+
+    with phase("vol_CPM train3d tool"), tempfile.TemporaryDirectory() as tmp:
+        cfg = volcpm_cfg(tmp, VOLCPM_BATCH)
+        trainer = tool_train3d.train(cfg, dev, output_dir=tmp)
+        print(f"tools.train3d.train on VolTriangulation_MHP_CPM_v1's sections: "
+              f"{trainer.ckpt.epochs()} epochs checkpointed, best {trainer.best_loss:.4g} mm")
+        if trainer.ckpt.epochs() != [0] or not np.isfinite(trainer.best_loss):
+            raise AssertionError("vol_CPM train3d tool")
 
 
 # -- C9: the repo's smoke model served on the card --------------------------
@@ -3091,6 +3558,9 @@ def main() -> int:
     eval_phases(smi, kernels)
     mv_phases(smi, kernels)
     train3d_phases(smi, kernels)
+    cpm_phases(smi, kernels)
+    fusion_phases(smi, kernels)
+    volcpm_phases(smi, kernels)
 
     print(json.dumps({"kernels": kernels}))
     print(smi)

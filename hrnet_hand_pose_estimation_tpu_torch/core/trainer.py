@@ -32,11 +32,13 @@ import torch
 from ..data.pipeline import device_prefetch
 from ..parallel.checkpoint import (CheckpointManager, load_pretrained, load_torch_checkpoint,
                                    merge_pretrained, split_state_dict)
-from ..parallel.train_step import (TrainState, create_train_state, make_eval_step,
-                                   make_train_step)
+from ..parallel.train_step import TrainState, create_train_state, make_eval_step
 from ..utils.logging_utils import ScalarWriter, create_logger
 from .loss_computer import LossComputer2D
 from .metrics import AverageMeter
+from .train_variants import pick_train_step
+
+_ONE_STEP_MODELS = ("CPM", "multiview_pose_hrnet")
 
 
 def _batch_for_step(batch: Dict) -> Dict:
@@ -46,19 +48,12 @@ def _batch_for_step(batch: Dict) -> Dict:
         out["target_heatmaps"] = batch["heatmaps"]
     if "pose2d" in batch:
         out["pose2d"] = batch["pose2d"]
+    if "centermaps" in batch:  # CPM (reference function.py:29-34)
+        out["centermaps"] = batch["centermaps"]
     if "visibility" in batch:
         vis = batch["visibility"]
         out["visibility"] = vis[..., 0] if vis.dim() == out["images"].dim() - 1 else vis
     return out
-
-
-def pick_train_step(cfg, model, tx):
-    """Route by MODEL.NAME like the reference's train_helper dispatch; the
-    CPM and multiview steps are not ported yet."""
-    name = str(cfg.MODEL.NAME)
-    if name in ("CPM", "multiview_pose_hrnet"):
-        raise NotImplementedError(f"the {name} train step is not ported yet")
-    return make_train_step(cfg, model, tx)
 
 
 class Trainer:
@@ -66,7 +61,8 @@ class Trainer:
 
     def __init__(self, cfg, model, train_loaders, val_loaders=None,
                  output_dir: Optional[str] = None, device="cuda"):
-        if int(cfg.TPU.STEPS_PER_DISPATCH) > 1:
+        # CPM and the fusion net keep one step per dispatch, as in JAX
+        if int(cfg.TPU.STEPS_PER_DISPATCH) > 1 and str(cfg.MODEL.NAME) not in _ONE_STEP_MODELS:
             raise NotImplementedError("TPU.STEPS_PER_DISPATCH > 1 (make_train_multistep) is "
                                       "not ported yet")
         self.cfg = cfg
@@ -188,8 +184,11 @@ class Trainer:
                         out["heatmaps"],
                         prefix=os.path.join(self.output_dir, f"debug_e{epoch}_{name}"))
                     debug_dumped = True
+                hm_gt = step_batch.get("target_heatmaps")
+                if hm_gt is not None and hm_gt.shape[-1] == out["heatmaps"].shape[-1] + 1:
+                    hm_gt = hm_gt[..., 1:]   # drop CPM's background channel
                 _, loss_dict = loss_computer(
-                    heatmaps_pred=out["heatmaps"], heatmaps_gt=step_batch.get("target_heatmaps"),
+                    heatmaps_pred=out["heatmaps"], heatmaps_gt=hm_gt,
                     pose2d_pred=out["pose2d_pred"], pose2d_gt=step_batch.get("pose2d"),
                     visibility=step_batch.get("visibility"))
                 meter.update({k: float(v) for k, v in loss_dict.items()},

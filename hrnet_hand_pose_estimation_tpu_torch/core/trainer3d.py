@@ -34,6 +34,7 @@ import torch
 from torch import nn
 
 from ..data.pipeline import device_prefetch
+from ..models.triangulation import VolumetricTriangulationNet
 from ..parallel.checkpoint import CheckpointManager
 from ..parallel.train_step import (Optimizer, TrainState, _check_cfg, apply_guarded_update,
                                    compute_autocast, init_train_weights, make_lr_schedule)
@@ -47,8 +48,18 @@ from .metrics import AverageMeter
 # backbone modules whose JAX paths do (utils/weights.py's _RULES): stage4.*
 # (stage4_m*), last_layer.* (head_cb, final_conv) and the confidence heads
 # (confidence_head).  transition3.* comes from transition3_k, which lacks
-# "stage4", and trainable_temp is frozen by name.
+# "stage4", and trainable_temp is frozen by name.  vol_CPM's CPMVolumetric:
+# JAX's rule reads "stage4" in its path backbone/cpm/stage4/..., CPM's
+# fourth refinement stage (the port's cpm.conv1_stage4, cpm.Mconv*_stage4),
+# which so trains; the rest of the CPM and feat_trunk are frozen.
 _MAIN_MODULES = ("stage4", "last_layer", "vol_confidences", "alg_confidences")
+
+
+def _backbone_label(rest: str) -> str:
+    head, _, sub = rest.partition(".")
+    if head == "cpm":
+        return "main" if sub.split(".")[0].endswith("_stage4") else "frozen"
+    return "main" if head in _MAIN_MODULES else "frozen"
 
 
 def freeze_labels(model: nn.Module) -> Dict[str, str]:
@@ -57,7 +68,8 @@ def freeze_labels(model: nn.Module) -> Dict[str, str]:
     come from: ``process_features.*`` 'process', ``volume_net.*`` 'volume',
     ``backbone.{stage4,last_layer,vol_confidences,alg_confidences}.*``
     'main', the rest of the backbone 'frozen' (``transition3`` and the
-    temperature too)."""
+    temperature too); of a CPM backbone, ``cpm.*_stage4.*`` 'main' and the
+    rest 'frozen'."""
     out = {}
     for name, _ in model.named_parameters():
         top, _, rest = name.partition(".")
@@ -66,7 +78,7 @@ def freeze_labels(model: nn.Module) -> Dict[str, str]:
         elif top == "volume_net":
             out[name] = "volume"
         elif top == "backbone":
-            out[name] = "main" if rest.split(".")[0] in _MAIN_MODULES else "frozen"
+            out[name] = _backbone_label(rest)
         else:
             raise KeyError(f"{name}: not a parameter of a triangulation net")
     return out
@@ -110,7 +122,7 @@ def forward_3d(cfg, model: nn.Module, images: torch.Tensor, proj: torch.Tensor,
     """The net's forward under ``TPU.COMPUTE_DTYPE`` autocast; the volumetric
     net turns its cuboid by an angle from ``generator`` in train mode."""
     with compute_autocast(cfg, images.device):
-        if str(cfg.MODEL.TRIANGULATION_MODEL_NAME) == "vol":
+        if isinstance(model, VolumetricTriangulationNet):
             return model(images, proj, generator)
         return model(images, proj)
 

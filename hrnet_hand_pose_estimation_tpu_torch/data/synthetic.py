@@ -7,15 +7,18 @@ RHD_kpt-compatible record schema.  Samples are a function of
 ``(seed, index)`` (and of the transforms' generator, when they augment).
 A transform chain (``data/transforms.HandTransforms``) is applied as the
 JAX package applies it.  ``SyntheticMultiViewDataset`` (``data/synthetic.py:
-118-192``) is the calibrated multi-view set of the 3D stack.  The CPM
-schema is not ported yet (ROADMAP A10).
+118-192``) is the calibrated multi-view set of the 3D stack.  Under
+``MODEL.NAME == "CPM"`` a sample also carries ``centermaps`` and its
+``heatmaps`` are CPM's (K+1)-channel background-first targets (JAX
+``data/synthetic.py:76-78``, ``:106-114``).
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from ..ops.targets import gaussian_targets_np
+from ..ops.targets import cpm_heatmaps_np, gaussian_targets_np
+from .mhp import _cpm_centermap_np
 from .transforms import normalize_image
 
 
@@ -57,8 +60,6 @@ class SyntheticDataset:
                  transforms=None, length: int = 64, img_size: int = 64,
                  hm_size: int = 16, sigma: float = 2.0, seed: int = 0):
         if cfg is not None:
-            if str(cfg.MODEL.NAME) == "CPM":
-                raise NotImplementedError("the CPM sample schema is not ported yet")
             img_size = int(cfg.MODEL.IMAGE_SIZE[0])
             hm_size = int(cfg.MODEL.HEATMAP_SIZE[0])
             sigma = float(cfg.MODEL.SIGMA)
@@ -70,6 +71,8 @@ class SyntheticDataset:
         self.transforms = transforms
         self.heatmap_generator = heatmap_generator
         self.exception = False
+        # CPM models read centre maps and (K+1)-channel background targets
+        self.cpm = cfg is not None and str(cfg.MODEL.NAME) == "CPM"
 
     def __len__(self) -> int:
         return self.length
@@ -89,7 +92,7 @@ class SyntheticDataset:
         vis = np.ones((21, 1), np.float32)
         hms = (self.heatmap_generator(pose2d, vis[:, 0]) if self.heatmap_generator
                else gaussian_targets_np(pose2d, vis[:, 0], self.hm_size, self.sigma))
-        return {
+        out = {
             "imgs": np.asarray(img, np.float32),
             "pose2d": pose2d.astype(np.float32),
             "heatmaps": hms.astype(np.float32),
@@ -97,6 +100,11 @@ class SyntheticDataset:
             "corner": np.zeros(2, np.float32),
             "crop_size": np.float32(self.img_size),
         }
+        if self.cpm:
+            stride = self.img_size / self.hm_size
+            out["heatmaps"] = cpm_heatmaps_np(pose2d * stride, self.hm_size, self.sigma, stride)
+            out["centermaps"] = _cpm_centermap_np(center.astype(np.float32), self.img_size)
+        return out
 
 
 class SyntheticMultiViewDataset:

@@ -20,9 +20,12 @@ Decoding and geometry run in float32 outside any autocast; the volumetric
 net runs ``process_features`` and V2V in ``dtype`` (bfloat16 by default,
 as the JAX net) and the unprojection in the features' dtype.
 
-Not ported yet: the CPM-backed ``vol_CPM`` (CPM is ROADMAP A10).  The
-reference config keys ``USE_GT_MIDDLEROOT`` and ``SCALE_KEYPOINTS_3D`` are
-read nowhere in the JAX package, and the port ignores them too.
+``vol_CPM`` is the volumetric net on ``models/cpm.CPMVolumetric`` (JAX
+``build_triangulation_net``, keyed on ``vol_CPM`` or ``BACKBONE_NAME ==
+"CPM_volumetric"``): CPM's last-stage joint logits at temperature 1 and
+its 128-channel trunk features.  The reference config keys
+``USE_GT_MIDDLEROOT`` and ``SCALE_KEYPOINTS_3D`` are read nowhere in the
+JAX package, and the port ignores them too.
 """
 
 from __future__ import annotations
@@ -227,19 +230,29 @@ class Discriminator(nn.Module):
 def build_triangulation_net(cfg, kind: Optional[str] = None,
                             dtype: torch.dtype = torch.bfloat16) -> nn.Module:
     """The net named by ``kind`` or ``MODEL.TRIANGULATION_MODEL_NAME``
-    ('alg', 'ransac', 'vol'; reference tools/train3D.py:152-158), in eval
-    mode.  ``dtype`` is the volumetric net's process_features and V2V
-    compute type (the JAX net's default, bfloat16)."""
+    ('alg', 'ransac', 'vol', 'vol_CPM'; reference tools/train3D.py:152-158),
+    in eval mode.  ``dtype`` is the volumetric net's process_features and
+    V2V compute type (the JAX net's default, bfloat16)."""
     kind = kind or str(cfg.MODEL.TRIANGULATION_MODEL_NAME)
-    if kind == "vol_CPM" or str(cfg.MODEL.BACKBONE_NAME) == "CPM_volumetric":
-        raise NotImplementedError("the CPM-backed volumetric net (vol_CPM) is not ported yet: "
-                                  "CPM is ROADMAP A10")
-    if kind not in ("alg", "ransac", "vol"):
+    if kind not in ("alg", "ransac", "vol", "vol_CPM"):
         raise ValueError(f"unknown triangulation model {kind!r}")
-    backbone = hrnet_from_cfg(
-        cfg, head="softmax",
-        vol_confidences=bool(cfg.MODEL.VOL_CONFIDENCES) and kind == "vol",
-        alg_confidences=bool(cfg.MODEL.ALG_CONFIDENCES) and kind == "alg")
+    uses_cpm = kind == "vol_CPM" or str(cfg.MODEL.BACKBONE_NAME) == "CPM_volumetric"
+    if uses_cpm and kind in ("alg", "ransac"):
+        # the JAX package builds this net with no backbone, which fails at its
+        # first forward (ROADMAP C14)
+        raise ValueError(f"the {kind!r} net has no CPM backbone: BACKBONE_NAME "
+                         "'CPM_volumetric' goes with TRIANGULATION_MODEL_NAME 'vol_CPM'")
+    if uses_cpm:
+        from .cpm import CPMVolumetric
+
+        backbone = CPMVolumetric(num_joints=int(cfg.MODEL.NUM_JOINTS))
+        features = backbone.feature_channels
+    else:
+        backbone = hrnet_from_cfg(
+            cfg, head="softmax",
+            vol_confidences=bool(cfg.MODEL.VOL_CONFIDENCES) and kind == "vol",
+            alg_confidences=bool(cfg.MODEL.ALG_CONFIDENCES) and kind == "alg")
+        features = backbone.last_layer[0].in_channels
     use_softmax = bool(cfg.MODEL.HEATMAP_SOFTMAX)
     if kind == "alg":
         net = AlgebraicTriangulationNet(backbone, use_softmax=use_softmax,
@@ -248,7 +261,7 @@ def build_triangulation_net(cfg, kind: Optional[str] = None,
         net = RANSACTriangulationNet(backbone, use_softmax=use_softmax)
     else:
         net = VolumetricTriangulationNet(
-            backbone, features=backbone.last_layer[0].in_channels,
+            backbone, features=features,
             num_joints=int(cfg.MODEL.NUM_JOINTS), volume_size=int(cfg.MODEL.VOLUME_SIZE),
             cuboid_size=float(cfg.MODEL.CUBOID_SIZE),
             aggregation=str(cfg.MODEL.VOLUME_AGGREGATION_METHOD),

@@ -3,10 +3,11 @@
 Names match the reference's ``MODEL.NAME`` strings.  The port registers the
 models it has so far: the HRNet with the plain and the softmax head, the
 volumetric backbone (the softmax head with its confidence heads), the
-softmax head with its temperature always trainable, and the 3D
-triangulation nets under the reference's ``MODEL.TRIANGULATION_MODEL_NAME``
-keys (JAX ``models/zoo.py:190-217``); ``vol_CPM`` raises until CPM is
-ported (ROADMAP A10).
+softmax head with its temperature always trainable, the Convolutional Pose
+Machine (``CPM``, JAX ``models/zoo.py:53-58``), the cross-view fusion net
+(``multiview_pose_hrnet``, JAX ``:176-186``), and the 3D triangulation nets
+under the reference's ``MODEL.TRIANGULATION_MODEL_NAME`` keys (JAX
+``:190-217``; ``vol_CPM`` is the CPM-backed volumetric net).
 """
 
 from __future__ import annotations
@@ -45,6 +46,25 @@ def _pose_hrnet_trainable_softmax(cfg):
     MODEL.TRAINABLE_SOFTMAX says (JAX package models/zoo.py:40-44; the
     shipped training configs name it)."""
     return hrnet_from_cfg(cfg, head="softmax", trainable_softmax=True)
+
+
+@register("CPM")
+def _cpm(cfg):
+    """Convolutional Pose Machine (reference lib/models/CPM.py:171)."""
+    from .cpm import CPM
+
+    return CPM(num_joints=int(cfg.MODEL.NUM_JOINTS)).eval()
+
+
+@register("multiview_pose_hrnet")
+def _multiview_pose_hrnet(cfg):
+    """Cross-view fusion net (reference lib/models/multiview_pose_hrnet.py:74)."""
+    from .multiview_hrnet import MultiViewPoseNet
+
+    return MultiViewPoseNet(hrnet_from_cfg(cfg, head="softmax"),
+                            n_views=int(cfg.DATASET.NUM_VIEWS),
+                            hm_size=int(cfg.MODEL.HEATMAP_SIZE[0]),
+                            aggre=bool(cfg.MODEL.AGGRE)).eval()
 
 
 # 3D triangulation nets, keyed like the reference tools/train3D.py:152-158

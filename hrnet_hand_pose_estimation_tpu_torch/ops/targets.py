@@ -12,6 +12,12 @@ CUDA tensor it launches the hand-written kernel
 (``ops/kernels/gaussian_targets.py``), on a CPU tensor it runs the kernel's
 plain twin.  ``gaussian_targets_np`` is the numpy copy for the host input
 pipeline (``data/synthetic.py``).
+
+CPM's targets (JAX ``ops/targets.py:107-140``, reference
+MHP_CPMDataset.py:193-224): ``gaussian_centermap``, the centre map that
+``models/cpm.CPMVolumetric`` makes on the device when it is given none, and
+``cpm_heatmaps_np``, the (K+1)-channel background-first target of the host
+pipeline.
 """
 
 from __future__ import annotations
@@ -21,7 +27,8 @@ import torch
 
 from .kernels.gaussian_targets import fused_gaussian_targets, gaussian_targets_reference
 
-__all__ = ["gaussian_targets", "gaussian_targets_np", "gaussian_targets_reference"]
+__all__ = ["cpm_heatmaps_np", "gaussian_centermap", "gaussian_targets", "gaussian_targets_np",
+           "gaussian_targets_reference"]
 
 
 def gaussian_targets(joints: torch.Tensor, visibility: torch.Tensor, output_res: int,
@@ -55,3 +62,37 @@ def gaussian_targets_np(joints: np.ndarray, visibility: np.ndarray, output_res: 
     hm = gy[:, :, None, :] * gx[:, None, :, :]
     hm = hm * valid[:, None, None, :].astype(np.float32)
     return hm[0] if single else hm
+
+
+def gaussian_centermap(center: torch.Tensor, res: int, sigma: float = 3.0) -> torch.Tensor:
+    """CPM's single-channel centre map: an unwindowed Gaussian of ``sigma``
+    at ``center``, clipped to <= 1 and zeroed below 0.0099.
+
+    center: (B, 2) [u, v] in input pixels; returns (B, res, res, 1) float32.
+    """
+    px = torch.arange(res, dtype=torch.float32, device=center.device)
+    du = px[None, :] - center[:, 0:1].float()
+    dv = px[None, :] - center[:, 1:2].float()
+    sig2 = 2.0 * float(sigma) ** 2
+    g = torch.exp(-(dv[:, :, None] ** 2 + du[:, None, :] ** 2) / sig2)
+    g = torch.clamp(g, max=1.0) * (g >= 0.0099)
+    return g[..., None]
+
+
+def cpm_heatmaps_np(pose2d: np.ndarray, hm_size: int, sigma: float, stride: float) -> np.ndarray:
+    """CPM's 22-channel target for one sample: channel 0 is the background
+    ``1 - max(joints)``; the joint channels are unwindowed Gaussians at the
+    int-truncated, stride-divided coordinates, clipped to <= 1 and zeroed
+    below 0.0099.  (K, 2) input pixels -> (hm_size, hm_size, K + 1) HWC."""
+    k = pose2d.shape[0]
+    grid = np.arange(hm_size, dtype=np.float32)
+    joints = np.zeros((hm_size, hm_size, k), np.float32)
+    for i in range(k):
+        x = int(pose2d[i, 0]) * 1.0 / stride
+        y = int(pose2d[i, 1]) * 1.0 / stride
+        g = np.exp(-((grid[None, :] - x) ** 2 + (grid[:, None] - y) ** 2) / 2.0 / sigma / sigma)
+        g[g > 1] = 1
+        g[g < 0.0099] = 0
+        joints[:, :, i] = g
+    bg = 1.0 - joints.max(axis=2, keepdims=True)
+    return np.concatenate([bg, joints], axis=2)

@@ -345,10 +345,14 @@ def init_train_weights(model: nn.Module, seed: int) -> None:
     """The JAX package's initial distributions, from a ``torch.Generator``
     seeded with ``seed`` (the numbers are not JAX's): conv kernels
     normal(std 0.001) (models/layers.py conv_init), conv biases 0, BN scale
-    1 and bias 0, running mean 0 and variance 1, the temperature 1."""
+    1 and bias 0, running mean 0 and variance 1, the temperature 1.  A
+    module with its own ``init_train_weights(generator)`` (CPM's convs, the
+    fusion net's pair FCs: flax's default ``lecun_normal``) makes its own."""
     gen = torch.Generator().manual_seed(int(seed))
     for mod in model.modules():
-        if isinstance(mod, nn.Conv2d):
+        if hasattr(mod, "init_train_weights"):
+            mod.init_train_weights(gen)
+        elif isinstance(mod, nn.Conv2d):
             mod.weight.copy_(torch.normal(0.0, 0.001, mod.weight.shape, generator=gen))
             if mod.bias is not None:
                 mod.bias.zero_()
@@ -457,12 +461,48 @@ def make_train_step(cfg, model: nn.Module, tx: Optimizer) -> Callable:
     return step
 
 
+def make_cpm_eval_step(cfg, model: nn.Module) -> Callable:
+    """CPM's eval step (reference function.py:639-644, JAX
+    parallel/train_step.py:308-321): the last stage's belief map without the
+    background channel, no flip TTA, decoded by ``decode_heatmaps`` with
+    HEATMAP_SOFTMAX.  ``step(state, batch)`` reads 'images' and 'centermaps'."""
+    use_softmax = bool(cfg.MODEL.HEATMAP_SOFTMAX)
+
+    @torch.no_grad()
+    def step(state: TrainState, batch: Dict) -> Dict[str, torch.Tensor]:
+        if state.model is not model:
+            raise ValueError("the state belongs to another model")
+        images = batch["images"]
+        was_training = model.training
+        model.eval()
+        try:
+            with compute_autocast(cfg, images.device):
+                heatmaps = model(images, batch["centermaps"])[-1][..., 1:]
+        finally:
+            model.train(was_training)
+        return {"heatmaps": heatmaps, "pose2d_pred": decode_heatmaps(heatmaps, use_softmax)}
+
+    return step
+
+
 def make_eval_step(cfg, model: nn.Module) -> Callable:
     """Eval step (reference core/function.py:681-701): the forward with the
     running BN statistics, optional flip-test TTA, and the decode.
-    ``step(state, batch) -> {'heatmaps', 'pose2d_pred'}``."""
-    if str(cfg.MODEL.NAME) == "CPM":
-        raise NotImplementedError("the CPM eval step is not ported yet")
+    ``step(state, batch) -> {'heatmaps', 'pose2d_pred'}``.  CPM's is
+    ``make_cpm_eval_step``.  The fusion net has none: the JAX step reads
+    ``out.heatmaps``, which its ``MultiViewOutput`` lacks, so it fails when
+    called; the port's step raises then too (ROADMAP C13)."""
+    name = str(cfg.MODEL.NAME)
+    if name == "CPM":
+        return make_cpm_eval_step(cfg, model)
+    if name == "multiview_pose_hrnet":
+        def no_step(state: TrainState, batch: Dict) -> Dict[str, torch.Tensor]:
+            raise NotImplementedError(
+                "multiview_pose_hrnet has no eval step: the JAX package's make_eval_step reads "
+                "out.heatmaps, which MultiViewOutput lacks (ROADMAP C13); train it with "
+                "WITHOUT_EVAL")
+
+        return no_step
     use_softmax = bool(cfg.MODEL.HEATMAP_SOFTMAX)
     flip_test = bool(cfg.TEST.FLIP_TEST)
     shift = bool(cfg.TEST.SHIFT_HEATMAP)

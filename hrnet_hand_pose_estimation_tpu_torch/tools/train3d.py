@@ -2,7 +2,7 @@
 
 Port of the JAX package's ``tools/train3d.py`` (reference
 tools/train3D.py:95-429): build the triangulation net named by
-MODEL.TRIANGULATION_MODEL_NAME ('alg' | 'ransac' | 'vol') and train it on
+MODEL.TRIANGULATION_MODEL_NAME ('alg' | 'ransac' | 'vol' | 'vol_CPM') and train it on
 the multi-view loaders with per-module learning rates and frozen backbone
 layers (``core/trainer3d.Trainer3D``).
 

@@ -25,7 +25,8 @@ def count_params(params: Union[nn.Module, Mapping[str, torch.Tensor]]) -> int:
 def model_summary(model: nn.Module, cfg, batch: int = 1) -> str:
     """One line: parameters (in millions) at the input size, and the conv
     GFLOPs of a forward of ``batch`` images on the model's device (eval
-    mode, so no BN statistic moves)."""
+    mode, so no BN statistic moves).  A model with ``example_inputs(batch,
+    h, w, device)`` (CPM, the fusion net) is given those inputs."""
     h, w = int(cfg.MODEL.IMAGE_SIZE[1]), int(cfg.MODEL.IMAGE_SIZE[0])
     n_params = count_params(model)
     line = f"Model {type(model).__name__}: {n_params / 1e6:.2f}M params @ {h}x{w}"
@@ -43,7 +44,9 @@ def model_summary(model: nn.Module, cfg, batch: int = 1) -> str:
     was_training = model.training
     model.eval()
     try:
-        model(torch.zeros((batch, h, w, 3), dtype=torch.float32, device=device))
+        inputs = (model.example_inputs(batch, h, w, device) if hasattr(model, "example_inputs")
+                  else (torch.zeros((batch, h, w, 3), dtype=torch.float32, device=device),))
+        model(*inputs)
     finally:
         model.train(was_training)
         for handle in handles:

@@ -1,9 +1,11 @@
 """Weights for the port: from the JAX variable tree, or made from a seed.
 
 ``from_jax_variables`` maps the JAX package's PoseHRNet ``{"params",
-"batch_stats"}`` tree (numpy leaves), or a triangulation net's (the
-PoseHRNet under ``backbone``, with ``process_features`` and the V2V
-``volume_net``), onto the port's ``state_dict``.  It keeps its own copy of
+"batch_stats"}`` tree (numpy leaves), a triangulation net's (the PoseHRNet,
+or ``vol_CPM``'s CPMVolumetric, under ``backbone``, with
+``process_features`` and the V2V ``volume_net``), a CPM's, or the fusion
+net's (the PoseHRNet under ``backbone`` and ``aggregation/pair_fc``), onto
+the port's ``state_dict``.  It keeps its own copy of
 the name rules of the JAX package's ``utils/torch_convert.py`` (reference
 torch name -> flax path), inverted: flax path -> torch name, HWIO / DHWIO
 kernels -> OIHW / OIDHW weights, a transposed conv's kernel flipped in
@@ -80,6 +82,18 @@ _V2V_RULES = (
 )
 _LEVEL = {"enc": "encoder_res", "skip": "skip_res", "dec_res": "decoder_res"}
 
+# CPM (the JAX package's models/cpm.py tree -> the reference torch names;
+# the inverse of torch_convert._resolve_cpm)
+_CPM_RULES = (
+    (r"^s1_conv([1-7])$", lambda m: f"conv{m[1]}_stage1"),
+    (r"^trunk/conv([123])$", lambda m: f"conv{m[1]}_stage2"),
+    (r"^stage2/conv_feat$", lambda m: "conv4_stage2"),
+    (r"^stage([3-6])/conv_feat$", lambda m: f"conv1_stage{m[1]}"),
+    (r"^stage([2-6])/mconv([1-5])$", lambda m: f"Mconv{m[2]}_stage{m[1]}"),
+)
+# the fusion net's stacked pair FCs: a leaf of its own, kept as it is
+_PAIR_FC = ("aggregation", "pair_fc")
+
 # (collection, leaf) -> torch field
 _FIELD = {
     ("params", "kernel"): "weight",
@@ -101,9 +115,22 @@ def _match(rules, path: str) -> Optional[str]:
     return None
 
 
-def _torch_name(path: str, net: bool = False, conf: str = "vol_confidences") -> Optional[str]:
+def _cpm_name(path: str) -> Optional[str]:
+    """flax path inside a CPMVolumetric (``cpm/...``, ``feat_trunk/convN``)
+    -> the port's module name."""
+    if path.startswith("cpm/"):
+        name = _match(_CPM_RULES, path[len("cpm/"):])
+        return None if name is None else "cpm." + name
+    m = re.match(r"^feat_trunk/(conv[123])$", path)
+    return f"feat_trunk.{m[1]}" if m else None
+
+
+def _torch_name(path: str, net: bool = False, conf: str = "vol_confidences",
+                cpm: bool = False) -> Optional[str]:
     """flax module path -> the port's module name.  ``net``: the tree of a
-    triangulation net (its PoseHRNet under ``backbone``)."""
+    triangulation net or of the fusion net (its backbone under
+    ``backbone``); ``cpm``: a CPM's tree, or with ``net`` a CPMVolumetric
+    backbone."""
     if net:
         if path == "process_features":
             return "process_features.0"
@@ -112,8 +139,11 @@ def _torch_name(path: str, net: bool = False, conf: str = "vol_confidences") -> 
             return None if name is None else "volume_net." + name
         if not path.startswith("backbone/"):
             return None
-        name = _torch_name(path[len("backbone/"):], conf=conf)
+        rest = path[len("backbone/"):]
+        name = _cpm_name(rest) if cpm else _torch_name(rest, conf=conf)
         return None if name is None else "backbone." + name
+    if cpm:
+        return _match(_CPM_RULES, path)
     name = _match(_RULES, path)
     return None if name is None else name.format(conf=conf)
 
@@ -141,8 +171,8 @@ def _leaves(tree: Mapping, prefix=()):
 
 def from_jax_variables(variables: Mapping, model: Optional[nn.Module] = None
                        ) -> Dict[str, torch.Tensor]:
-    """JAX PoseHRNet or triangulation-net variables (numpy leaves) -> the
-    port's state_dict.
+    """JAX PoseHRNet, triangulation-net, CPM or fusion-net variables (numpy
+    leaves) -> the port's state_dict.
 
     Raises ``KeyError`` on any leaf it cannot place.  With ``model``, it
     also raises on any key of ``model.state_dict()`` left unfilled and on a
@@ -154,7 +184,9 @@ def from_jax_variables(variables: Mapping, model: Optional[nn.Module] = None
     unplaced = []
     params = variables.get("params", {})
     net = ("volume_net" in params or "process_features" in params
-           or "backbone" in params.get("backbone", {}))
+           or "backbone" in params.get("backbone", {}) or "aggregation" in params)
+    cpm = "cpm" in params.get("backbone", {}) if net else any(
+        re.match(r"^(s1_conv\d|trunk|stage\d)$", k) for k in params)
     conf = "vol_confidences"
     if model is not None and any(".alg_confidences." in "." + k for k in model.state_dict()):
         conf = "alg_confidences"
@@ -162,10 +194,10 @@ def from_jax_variables(variables: Mapping, model: Optional[nn.Module] = None
     for coll in ("params", "batch_stats"):
         for path, leaf in _leaves(variables.get(coll, {})):
             arr = np.asarray(leaf, dtype=np.float32)
-            if coll == "params" and path == temp:
-                out[".".join(temp)] = torch.from_numpy(arr.copy())
+            if coll == "params" and path in (temp, _PAIR_FC):
+                out[".".join(path)] = torch.from_numpy(arr.copy())
                 continue
-            name = _torch_name("/".join(path[:-1]), net, conf)
+            name = _torch_name("/".join(path[:-1]), net, conf, cpm)
             field = _FIELD.get((coll, path[-1]))
             if name is None or field is None:
                 unplaced.append(f"{coll}/{'/'.join(path)}")
@@ -321,8 +353,10 @@ def init_variables(cfg, seed: int = 0, device="cpu", damp: bool = True,
                    net: Optional[str] = None) -> Dict[str, torch.Tensor]:
     """A random PoseHRNet state_dict for ``cfg`` from a numpy seed (with the
     confidence head of ``pose_hrnet_volumetric`` where the config names
-    it), or with ``net`` ('alg', 'ransac', 'vol') the state_dict of that
-    triangulation net (``models.triangulation.build_triangulation_net``).
+    it; the ``CPM`` or the ``multiview_pose_hrnet`` one where MODEL.NAME
+    names that), or with ``net`` ('alg', 'ransac', 'vol', 'vol_CPM') the
+    state_dict of that triangulation net
+    (``models.triangulation.build_triangulation_net``).
 
     Convs and linear layers are He-scaled normals and BN affine parameters
     random around 1 and 0.  With ``damp``, the BNs that close a residual
@@ -335,22 +369,29 @@ def init_variables(cfg, seed: int = 0, device="cpu", damp: bool = True,
     ``device``, so every layer sees normalized activations as in a trained
     net, and the statistics sit well away from 0 and 1, which exercises BN
     folding; a net's V2V statistics to those of one forward of a random
-    non-negative volume of its ``VOLUME_SIZE``.  Returns CPU tensors.
+    non-negative volume of its ``VOLUME_SIZE``.  CPM has no BN.  The fusion
+    net's pair FCs are normals of std 1 / sqrt(HW).  Returns CPU tensors.
     """
     from ..models.hrnet import hrnet_from_cfg
+    from ..models.multiview_hrnet import Aggregation
+    from ..models.registry import build_model
     from ..models.triangulation import build_triangulation_net
 
     rng = np.random.default_rng(seed)
+    name = str(cfg.MODEL.NAME)
     if net is not None:
         model = build_triangulation_net(cfg, net, dtype=torch.float32)
         backbone = model.backbone
+    elif name in ("CPM", "multiview_pose_hrnet"):
+        model = build_model(cfg)
+        backbone = getattr(model, "backbone", model)
     else:
         conf = {}
         if str(cfg.MODEL.NAME) == "pose_hrnet_volumetric":
             conf = dict(vol_confidences=bool(cfg.MODEL.VOL_CONFIDENCES),
                         alg_confidences=bool(cfg.MODEL.ALG_CONFIDENCES))
         model = backbone = hrnet_from_cfg(cfg, head="softmax", **conf)
-    for name, mod in model.named_modules():
+    for mod_name, mod in model.named_modules():
         if isinstance(mod, (nn.Conv2d, nn.Conv3d, nn.ConvTranspose3d, nn.Linear)):
             # He-scaled; a transposed conv of stride = kernel sees each input once
             fan_in = (mod.weight.shape[0] if isinstance(mod, nn.ConvTranspose3d)
@@ -361,11 +402,15 @@ def init_variables(cfg, seed: int = 0, device="cpu", damp: bool = True,
                 mod.bias.copy_(torch.from_numpy(
                     rng.normal(0.0, 0.1, mod.bias.shape).astype(np.float32)))
         elif isinstance(mod, nn.BatchNorm2d):
-            lo, hi = (0.03, 0.1) if damp and _DAMPED_BN.search(name) else (0.5, 1.5)
+            lo, hi = (0.03, 0.1) if damp and _DAMPED_BN.search(mod_name) else (0.5, 1.5)
             mod.weight.copy_(torch.from_numpy(
                 rng.uniform(lo, hi, mod.weight.shape).astype(np.float32)))
             mod.bias.copy_(torch.from_numpy(
                 rng.normal(0.0, 0.1, mod.bias.shape).astype(np.float32)))
+    for mod in model.modules():
+        if isinstance(mod, Aggregation):
+            mod.pair_fc.copy_(torch.from_numpy(rng.normal(
+                0.0, 1.0 / np.sqrt(mod.pair_fc.shape[-1]), mod.pair_fc.shape).astype(np.float32)))
     h, w = (int(s) for s in cfg.MODEL.IMAGE_SIZE[::-1])
     images = torch.from_numpy(rng.normal(size=(2, h, w, 3)).astype(np.float32))
     model = model.to(device)
@@ -373,8 +418,9 @@ def init_variables(cfg, seed: int = 0, device="cpu", damp: bool = True,
         if isinstance(mod, nn.BatchNorm2d):
             mod.train()
             mod.momentum = 1.0       # running stats := this batch's stats
-    backbone(images.to(device))
-    if net == "vol":
+    if any(isinstance(m, nn.BatchNorm2d) for m in backbone.modules()):
+        backbone(images.to(device))
+    if net in ("vol", "vol_CPM"):
         s = int(cfg.MODEL.VOLUME_SIZE)
         model.volume_net(torch.from_numpy(np.abs(rng.normal(size=(1, s, s, s, 32))).astype(
             np.float32)).to(device))

@@ -1196,3 +1196,115 @@ def test_train_step_3d_on_card_matches_cpu(cuda, kind):
         assert abs(out[1][0] - out[0][0]) <= 1e-3 * abs(out[0][0])
         assert (out[1][1] - out[0][1]).norm() <= 1e-2 * out[0][1].norm()
     assert out[1][1].abs().max() > 0 and np.isfinite(out[1][0])
+
+
+# -- CPM, the fusion net and vol_CPM ------------------------------------------
+
+def test_cpm_forward_on_card_matches_cpu(cuda):
+    """CPM at 64x64 (seeded ``init_variables`` weights), float32 with TF32
+    off: the six belief maps on the card within 1e-4 of their largest value
+    of the CPU's; the bf16 autocast forward on the card finite, within 5 %
+    of the float32 maps' largest value."""
+    cfg = load_config(opts=["MODEL.NAME", "CPM", "MODEL.IMAGE_SIZE", [64, 64],
+                            "MODEL.HEATMAP_SIZE", [8, 8]])
+    state = init_variables(cfg, 0)
+    rng = np.random.default_rng(11)
+    x = torch.from_numpy(rng.normal(size=(2, 64, 64, 3)).astype(np.float32))
+    cm = torch.from_numpy(rng.uniform(size=(2, 64, 64, 1)).astype(np.float32))
+    out = []
+    for dev in ("cpu", cuda):
+        model = build_model(cfg)
+        model.load_state_dict(state)
+        model.to(dev)
+        with torch.no_grad():
+            out.append([b.cpu() for b in model(x.to(dev), cm.to(dev))])
+    with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
+        low = model(x.to(cuda), cm.to(cuda))[-1].cpu()
+    for got, want in zip(out[1], out[0]):
+        assert got.shape == (2, 8, 8, 22)
+        assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+    scale = out[0][-1].abs().max().item()
+    assert torch.isfinite(low).all() and (low - out[0][-1]).abs().max().item() <= 0.05 * scale
+
+
+def test_mv_step_b4_matches_twin_on_card(cuda):
+    """The fusion net's train step at small widths (2 views, 16x16 maps,
+    float32, TF32 off, cuDNN deterministic): one B4 forward and one backward
+    launch; from the same state, the step decoded by the kernels and the
+    step decoded by B4's twin (and the twin's autograd) give losses within
+    1e-5 and gradients within 1e-4 in norm; the step on the card within
+    1e-3 of the CPU's loss."""
+    from hrnet_hand_pose_estimation_tpu_torch.core import train_variants as TV
+    from hrnet_hand_pose_estimation_tpu_torch.data.synthetic import SyntheticMultiViewDataset
+
+    cfg = small_cfg().clone()
+    cfg.defrost()
+    cfg.merge_from_list(["MODEL.NAME", "multiview_pose_hrnet", "DATASET.NUM_VIEWS", 2,
+                         "MODEL.HEATMAP_SOFTMAX", True, "MODEL.TRAINABLE_SOFTMAX", True,
+                         "LOSS.WITH_HEATMAP_LOSS", True, "LOSS.WITH_POSE2D_LOSS", True,
+                         "TPU.COMPUTE_DTYPE", "float32", "TRAIN.OPTIMIZER", "adam"])
+    cfg.freeze()
+    ds = SyntheticMultiViewDataset(cfg, "training")
+    samples = [ds[i] for i in range(2)]
+    batch = {"images": torch.from_numpy(np.stack([s["imgs"] for s in samples])),
+             "pose2d": torch.from_numpy(np.stack([s["pose2d"] for s in samples])),
+             "visibility": torch.ones(2, 2, 21),
+             "target_heatmaps": torch.from_numpy(np.stack([s["heatmaps"] for s in samples]))}
+    state_dict = init_variables(cfg, 0)
+    runs = {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        for name, dev, decode in (("cpu", "cpu", None), ("kernel", cuda, None),
+                                  ("twin", cuda, softmax_decode_reference)):
+            model = build_model(cfg)
+            st, tx = TS.create_train_state(cfg, model, device=dev)
+            model.load_state_dict(state_dict)
+            step = TV.make_train_step_mv(cfg, model, tx)
+            real = TV.softmax_decode
+            if decode is not None:
+                TV.softmax_decode = decode
+            launches = (fused_softmax_decode.launches, fused_softmax_decode.launches_bwd)
+            try:
+                _, losses = step(st, {k: v.to(dev) for k, v in batch.items()})
+                torch.cuda.synchronize()
+            finally:
+                TV.softmax_decode = real
+            n = int(name == "kernel")
+            assert (fused_softmax_decode.launches, fused_softmax_decode.launches_bwd) == (
+                launches[0] + n, launches[1] + n), name
+            runs[name] = (float(losses["total_loss"]), st.grads.cpu().clone())
+    finally:
+        torch.backends.cudnn.deterministic = False
+    (lk, gk), (lt, gt), (lc, _) = runs["kernel"], runs["twin"], runs["cpu"]
+    assert np.isfinite(lk) and gk.abs().max() > 0
+    assert abs(lk - lt) <= 1e-5 * abs(lt)
+    assert (gk - gt).norm() <= 1e-4 * gt.norm()
+    assert abs(lk - lc) <= 1e-3 * abs(lc)
+
+
+def test_vol_cpm_forward_on_card_matches_cpu(cuda):
+    """vol_CPM at 64x64 (8x8 maps, V2V at 32^3, HEATMAP_SOFTMAX on), float32
+    with TF32 off: one B4 launch per forward on the card, the 2D keypoints
+    within 1e-3 heatmap px and the 3D ones within 0.5 mm + 1e-3 of the CPU's."""
+    from hrnet_hand_pose_estimation_tpu_torch.models.triangulation import build_triangulation_net
+
+    cfg = small_3d_cfg(**{"MODEL.HEATMAP_SIZE": [8, 8]})
+    state = init_variables(cfg, 0, net="vol_CPM")
+    rng = np.random.default_rng(12)
+    images = torch.from_numpy(rng.normal(size=(2, 2, 64, 64, 3)).astype(np.float32))
+    proj = mv_cameras(2, 2, 7.5, (3.5, 3.5))
+    nets = []
+    for dev in ("cpu", cuda):
+        net = build_triangulation_net(cfg, "vol_CPM", dtype=torch.float32)
+        net.load_state_dict(state)
+        nets.append(net.to(dev))
+    with torch.no_grad():
+        want = nets[0](images, proj)
+        before = fused_softmax_decode.launches
+        got = nets[1](images.to(cuda), proj.to(cuda))
+        torch.cuda.synchronize()
+    assert fused_softmax_decode.launches == before + 1
+    assert got.heatmaps.shape == (2, 2, 8, 8, 21)
+    assert (got.keypoints_2d.cpu() - want.keypoints_2d).abs().max().item() <= 1e-3
+    d3 = (got.keypoints_3d.cpu() - want.keypoints_3d).abs()
+    assert (d3 <= 0.5 + 1e-3 * want.keypoints_3d.abs()).all(), d3.max().item()

@@ -122,12 +122,21 @@ def test_init_variables_seeded_and_folding_relevant(tiny_cfg):
 
 
 def test_registry(tiny_cfg):
-    assert registered_models() == ["alg", "pose_hrnet", "pose_hrnet_softmax",
-                                   "pose_hrnet_trainable_softmax", "pose_hrnet_volumetric",
-                                   "ransac", "vol", "vol_CPM"]
+    assert registered_models() == ["CPM", "alg", "multiview_pose_hrnet", "pose_hrnet",
+                                   "pose_hrnet_softmax", "pose_hrnet_trainable_softmax",
+                                   "pose_hrnet_volumetric", "ransac", "vol", "vol_CPM"]
     cfg = port_cfg(tiny_cfg)
     model = build_model(cfg)
     assert isinstance(model, PoseHRNet) and model.head == "softmax" and not model.training
+    from hrnet_hand_pose_estimation_tpu_torch.config import config_from_dict
+    from hrnet_hand_pose_estimation_tpu_torch.models.cpm import CPM
+    from hrnet_hand_pose_estimation_tpu_torch.models.multiview_hrnet import MultiViewPoseNet
+
+    for name, kind in (("CPM", CPM), ("multiview_pose_hrnet", MultiViewPoseNet)):
+        other = config_from_dict(cfg.to_dict(), freeze=False)
+        other.MODEL.NAME = name
+        model = build_model(other.freeze())
+        assert isinstance(model, kind) and not model.training, name
     with pytest.raises(KeyError, match="Registered"):
         from hrnet_hand_pose_estimation_tpu_torch.models import get_builder
         get_builder("pose_cpm_nope")

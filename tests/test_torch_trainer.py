@@ -140,13 +140,14 @@ def test_unported_options_raise(tiny_cfg, tmp_path):
         with pytest.raises(NotImplementedError):
             Trainer(port_cfg(tiny_cfg, tmp_path, **opts), build_model(cfg), train, val,
                     output_dir=str(tmp_path), device="cpu")
-    cpm = port_cfg(tiny_cfg, tmp_path, MODEL__NAME="CPM")
-    with pytest.raises(NotImplementedError, match="CPM"):
-        pick_train_step(cpm, None, None)
-    with pytest.raises(NotImplementedError, match="CPM"):
-        TS.make_eval_step(cpm, None)
-    with pytest.raises(NotImplementedError):
-        SyntheticDataset(cpm)
+    # CPM is ported: its own train and eval steps and samples; JAX keeps it
+    # at one step per dispatch, so STEPS_PER_DISPATCH does not apply to it
+    cpm = port_cfg(tiny_cfg, tmp_path, MODEL__NAME="CPM", MODEL__HEATMAP_SIZE=[8, 8],
+                   TPU__STEPS_PER_DISPATCH=2)
+    assert pick_train_step(cpm, None, None).__qualname__ == "make_train_step_cpm.<locals>.step"
+    assert TS.make_eval_step(cpm, None).__qualname__ == "make_cpm_eval_step.<locals>.step"
+    sample = SyntheticDataset(cpm)[0]
+    assert sample["heatmaps"].shape == (8, 8, 22) and sample["centermaps"].shape == (64, 64, 1)
 
 
 def test_eval_step_matches_jax(tiny_cfg, tmp_path):

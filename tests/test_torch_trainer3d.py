@@ -238,8 +238,9 @@ def test_rmsprop_matches_optax():
 
 def test_build_model_registers_the_triangulation_nets():
     """C11: ``build_model`` builds what ``build_triangulation_net`` builds
-    from the smoke YAML and the LearnableTriangulation YAMLs; vol_CPM raises
-    its A10 error."""
+    from the smoke YAML and the LearnableTriangulation YAMLs; vol_CPM (whose
+    YAMLs leave TRIANGULATION_MODEL_NAME at its default) builds the
+    CPM-backed volumetric net."""
     import glob
 
     from hrnet_hand_pose_estimation_tpu_torch.config import load_config
@@ -256,8 +257,9 @@ def test_build_model_registers_the_triangulation_nets():
     for path in sorted(glob.glob("experiments/LearnableTriangulation/*.yaml")):
         cfg = load_config(path)
         if str(cfg.MODEL.NAME) == "vol_CPM":
-            with pytest.raises(NotImplementedError, match="A10"):
-                build_model(cfg)
+            net = build_model(cfg)
+            assert type(net).__name__ == "VolumetricTriangulationNet"
+            assert type(net.backbone).__name__ == "CPMVolumetric"
         elif str(cfg.MODEL.NAME) in ("alg", "ransac", "vol"):
             kinds[str(cfg.MODEL.NAME)] = type(build_model(cfg)).__name__
     assert kinds == {"alg": "AlgebraicTriangulationNet", "ransac": "RANSACTriangulationNet",

@@ -404,5 +404,6 @@ def test_registry_and_seeded_weights(tiny_cfg):
     for kind in ("alg", "vol"):
         net = build_triangulation_net(cfg, kind)
         net.load_state_dict(init_variables(cfg, 0, net=kind))
-    with pytest.raises(NotImplementedError, match="A10"):
-        build_triangulation_net(cfg, "vol_CPM")
+    net = build_triangulation_net(cfg, "vol_CPM")
+    assert type(net.backbone).__name__ == "CPMVolumetric"
+    net.load_state_dict(init_variables(cfg, 0, net="vol_CPM"))

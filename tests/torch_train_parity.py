@@ -68,6 +68,19 @@ def _recording(log: List):
         jax_ts.apply_guarded_update = real
 
 
+def recorded(monkeypatch, module, log: List) -> None:
+    """Wrap ``module.apply_guarded_update`` (a JAX step module's own
+    reference, e.g. ``core.train_variants``'s) so it logs (grads, new BN
+    statistics) of each step."""
+    real = module.apply_guarded_update
+
+    def rec(cfg, tx, state, grads, new_stats, loss_dict):
+        log.append((grads, new_stats))
+        return real(cfg, tx, state, grads, new_stats, loss_dict)
+
+    monkeypatch.setattr(module, "apply_guarded_update", rec)
+
+
 class JaxTrainer:
     """JAX ``create_train_state`` + ``make_train_step``, run op by op."""
 
