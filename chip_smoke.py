@@ -93,6 +93,20 @@ the YAML's argmax decode and with the softmax decode (one B4 launch,
 against its twin), one Trainer3D step with every parameter JAX's labels
 freeze bit-unchanged, and the train3d tool.
 
+Then the single-image model zoo at its shipped RHD YAMLs' widths, their
+sections set in code, on Synthetic_kpt at 256/64: Swin
+(RHD_SwinTransformer_trainable_softmax_pose2dloss_v1: the float32 forward on
+the card against the CPU, bf16 against float32 held to the CPU's own bf16
+gap, times at B=32 and B=128, Evaluator2D at B=32 with one B4 launch per
+batch against its twin, three train steps at the YAML's LR and a falling
+loss over ten, the step's time, peak memory and busy share, tools.train for
+an epoch); the hamburger (RHD_HRNet_MatrixDecomp_..._v2: w32, R 512, NMF:
+the float32 forward on the card against the CPU, Evaluator2D at B=32
+through B4, the ham's time, tools.evaluate_2d, its steps refused, C16);
+the RVT (RHD_Resnet50_RVT_v1, float32: the card against the CPU's float64,
+the time at B=32, its steps refused, C17); SimpleBaseline (ResNet-50, 3 x
+256 deconvs: forward, three train steps, an eval batch, each timed).
+
     python3 chip_smoke.py
 
 Needs one CUDA card and nvcc; exits non-zero without them.  Prints one line
@@ -3210,6 +3224,426 @@ def volcpm_phases(smi, kernels):
             raise AssertionError("vol_CPM train3d tool")
 
 
+# -- the single-image model zoo ----------------------------------------------
+
+ZOO_IMAGE, ZOO_HM = 256, 64
+SWIN_BATCH = 32             # the forward and eval checks (the YAML evaluates 64 a card)
+SWIN_TRAIN_BATCH = 64       # TRAIN.IMAGES_PER_GPU of RHD_SwinTransformer_..._v1.yaml
+SWIN_STEPS = 10
+# from flax's init: three steps at the YAML's LR are reported, then the
+# pose loss must fall below SWIN_FALL of its first value over SWIN_STEPS
+# steps on one batch at SWIN_CHECK_LR (the pose loss, a distance in pixels
+# from maps that start flat, falls slowly: a few % in 10 steps)
+SWIN_CHECK_LR, SWIN_FALL = 1e-3, 0.97
+ZOO_BATCH = 32              # hamburger evaluation, RVT timing, pose_resnet
+SWIN_YAML = (Path(__file__).resolve().parent / "experiments" / "RHD"
+             / "RHD_SwinTransformer_trainable_softmax_pose2dloss_v1.yaml")
+# bf16 against float32 on the card: no farther than ZOO_WITNESS_FACTOR x the
+# CPU's own bf16 autocast is from its float32 (an independent rounding of
+# the same model), the max with a floor of ZOO_FLOOR_PX as for the HRNet
+ZOO_WITNESS_FACTOR, ZOO_FLOOR_PX = 2.0, 0.25
+# the RVT's float32 forward is ~3e-3 px from the CPU's at full width (its
+# sigmoid x 64 magnifies a float32 ResNet-50 + 12 ViT blocks): the card's is
+# held to the CPU's float64 forward, within this many times the CPU's own
+# float32 distance from it (and 1e-3 px)
+RVT_WITNESS_FACTOR = 2.0
+
+
+def zoo_cfg(name: str, out_dir: str = "", **extra):
+    """The MODEL, LOSS and TRAIN sections of the zoo's shipped YAMLs set in
+    code (the card's machine may lack PyYAML), on Synthetic_kpt at 256/64,
+    bf16 compute, no flip test:
+
+    - swin_transformer: experiments/RHD/RHD_SwinTransformer_trainable_softmax_
+      pose2dloss_v1.yaml (embed 96, depths 2-2-6-2, heads 3-6-12-24, patch
+      4, the mlp FFN, HEATMAP_SOFTMAX with the temperature frozen, the pose
+      loss, adam at LR 1e-3, B=64);
+    - pose_hrnet_hamburger: RHD_HRNet_MatrixDecomp_trainable_softmax_
+      pose2dloss_v2.yaml (w32, R 512, NMF, 6 train and 6 eval steps, the
+      temperature trainable, sgd at LR 0.009; evaluated at B=32, the YAML's
+      1 a card is raised);
+    - my_pose_transformer: RHD_Resnet50_RVT_v1.yaml (ResNet-50, dims 48 x 16
+      heads, depths 10 and 2, patch 4);
+    - pose_resnet: no shipped YAML: SimpleBaseline's own defaults (ResNet-50,
+      3 x 256 deconvs), the heatmap loss, the argmax decode, adam at 1e-3.
+    """
+    common = ["MODEL.NAME", name, "MODEL.IMAGE_SIZE", [ZOO_IMAGE] * 2,
+              "MODEL.HEATMAP_SIZE", [ZOO_HM] * 2, "MODEL.SIGMA", 2, "DATASET.SIGMA", 2,
+              "DATASET.DATASET", ["Synthetic_kpt"], "DATASET.TEST_DATASET", ["Synthetic_kpt"],
+              "TEST.FLIP_TEST", False, "TRAIN.BEGIN_EPOCH", 0, "TRAIN.END_EPOCH", 1,
+              "WORKERS", 4, "PRINT_FREQ", 1, "DEBUG.DEBUG", False,
+              "EXP_NAME", f"chip_smoke_{name}", "OUTPUT_DIR", out_dir]
+    pose_loss = ["LOSS.WITH_HEATMAP_LOSS", False, "LOSS.WITH_POSE2D_LOSS", True,
+                 "LOSS.POSE2D_LOSS_FACTOR", 1.0]
+    model = {
+        "swin_transformer": pose_loss + [
+            "MODEL.DEPTHS", [2, 2, 6, 2], "MODEL.NUM_HEADS", [3, 6, 12, 24], "MODEL.EMB_DIM", [96],
+            "MODEL.PATCH_SIZE", 4, "MODEL.FF_TYPE", "mlp", "MODEL.HEATMAP_SOFTMAX", True,
+            "MODEL.TRAINABLE_SOFTMAX", False, "TRAIN.OPTIMIZER", "adam", "TRAIN.LR", 1e-3,
+            "TRAIN.LR_FACTOR", 0.5, "TRAIN.LR_STEP", [24, 48, 72],
+            "TRAIN.IMAGES_PER_GPU", SWIN_TRAIN_BATCH, "TEST.IMAGES_PER_GPU", SWIN_BATCH],
+        "pose_hrnet_hamburger": pose_loss + [
+            "MODEL.R", 512, "MODEL.HAM_TYPE", "NMF", "MODEL.TRAIN_STEPS", 6,
+            "MODEL.EVAL_STEPS", 6, "MODEL.HEATMAP_SOFTMAX", True, "MODEL.TRAINABLE_SOFTMAX", True,
+            "TRAIN.OPTIMIZER", "sgd", "TRAIN.LR", 0.009, "TRAIN.IMAGES_PER_GPU", 1,
+            "TEST.IMAGES_PER_GPU", ZOO_BATCH],
+        "my_pose_transformer": pose_loss + [
+            "MODEL.BACKBONE_NAME", "resnet50", "MODEL.PATCH_SIZE", 4, "MODEL.DEPTHS", [10, 2],
+            "MODEL.NUM_HEADS", [16, 16], "MODEL.EMB_DIM", [48, 48],
+            "MODEL.HEATMAP_SOFTMAX", True, "MODEL.TRAINABLE_SOFTMAX", True,
+            "TRAIN.OPTIMIZER", "sgd", "TRAIN.LR", 0.009, "TRAIN.IMAGES_PER_GPU", 2],
+        "pose_resnet": [
+            "LOSS.WITH_HEATMAP_LOSS", True, "LOSS.WITH_POSE2D_LOSS", False,
+            "MODEL.HEATMAP_SOFTMAX", False, "TRAIN.OPTIMIZER", "adam", "TRAIN.LR", 1e-3,
+            "TRAIN.IMAGES_PER_GPU", ZOO_BATCH, "TEST.IMAGES_PER_GPU", ZOO_BATCH],
+    }[name]
+    for key, val in extra.items():
+        model += [key, val]
+    cfg = load_config(opts=common + model, freeze=False)
+    if name == "pose_hrnet_hamburger":
+        cfg.MODEL.EXTRA.merge_from_mapping(POSE_HIGH_RESOLUTION_NET_EXTRA)
+    return cfg.freeze()
+
+
+def zoo_pair(cfg, dev):
+    """(the config's model on the card, the same weights on the CPU), eval
+    mode, weights from ``init_variables(cfg, 0)``; and the state."""
+    state = init_variables(cfg, 0, device=dev)
+    models = []
+    for where in (dev, "cpu"):
+        model = build_model(cfg)
+        model.load_state_dict(state)
+        models.append(model.to(where).eval())
+    return models[0], models[1], state
+
+
+def zoo_images(seed: int, batch: int, dev):
+    return torch.from_numpy(np.random.default_rng(seed).normal(
+        size=(batch, ZOO_IMAGE, ZOO_IMAGE, 3)).astype(np.float32)).to(dev)
+
+
+def bf16_gate(label, card, cpu, x):
+    """The card's bf16 decode against its float32 one at x's batch, held to
+    the CPU's own bf16-vs-float32 gap on the first two samples (the
+    witness); the float32 decode on the card against the CPU's (TF32 off)
+    within 1e-3 px.  Returns the float32 card decode."""
+    with torch.no_grad():
+        f32 = soft_argmax(card(x).heatmaps)
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            low = soft_argmax(card(x).heatmaps)
+        want = soft_argmax(cpu(x[:2].cpu()).heatmaps)
+        with torch.autocast("cpu", dtype=torch.bfloat16):
+            cpu_low = soft_argmax(cpu(x[:2].cpu()).heatmaps)
+    torch.cuda.synchronize()
+    d32 = (f32[:2].cpu() - want).abs().max().item()
+    d16 = (low - f32).abs()
+    wit = (cpu_low - want).abs()
+    limit = max(ZOO_FLOOR_PX, ZOO_WITNESS_FACTOR * wit.max().item())
+    spread = f32.std(dim=(0, 1)).min().item()
+    print(f"{label}: float32 card vs CPU (B=2, TF32 off) max {d32:.3g} px (limit 1e-3); bf16 vs "
+          f"float32 on the card (B={x.shape[0]}) max {d16.max().item():.4f} px (first two "
+          f"samples {d16[:2].max().item():.4f}, limit {limit:.4f}), mean {d16.mean().item():.5f} "
+          f"px (limit {ZOO_WITNESS_FACTOR:g} x the witness's {wit.mean().item():.5f}); witness: "
+          f"the CPU's bf16 vs float32 max {wit.max().item():.4f} px; coordinate spread "
+          f"{spread:.3f} px")
+    if not (d32 <= 1e-3 and d16[:2].max().item() <= limit
+            and d16.mean().item() <= ZOO_WITNESS_FACTOR * wit.mean().item()
+            and torch.isfinite(low).all()):
+        raise AssertionError(f"{label}: float32 {d32} px, bf16 {d16.max().item()} px")
+    return f32
+
+
+def zoo_eval(label, cfg, model, dev, tmp, smi):
+    """``Evaluator2D`` std over four synthetic batches: one B4 launch per
+    batch and no other kernel, finite results; then each batch's logits
+    decoded by B4 and by its twin, within 1e-4 px.  Returns (evaluator,
+    loader, launches, ms a batch)."""
+    loader = make_test_dataloader(cfg)["Synthetic_kpt"]
+    loader.dataset.length = loader.batch_size * EVAL_BATCHES
+    ev = Evaluator2D(cfg, model, None, device=dev)
+    zero_counters()
+    results = ev.run(loader, "Synthetic", tmp)
+    torch.cuda.synchronize()
+    launches = counters()
+    want = {fn.__name__: 0 for fn in COUNTED}
+    want["fused_softmax_decode"] = len(loader)
+    print(f"{label} Evaluator2D std, {len(loader)} batches of {loader.batch_size}: CUDA launches "
+          f"{ {k: v for k, v in launches.items() if v} }; results {json.dumps(results)}")
+    if launches != want or not all(np.isfinite(v) for v in results.values()):
+        raise AssertionError(f"{label} eval: launches {launches}, results {results}")
+    worst = 0.0
+    with torch.no_grad():
+        for batch in loader:
+            images = torch.from_numpy(batch["imgs"]).to(dev)
+            with TS.compute_autocast(cfg, dev):
+                logits, temp = model.forward_logits(images)
+            got = fused_softmax_decode(logits, temp)
+            worst = max(worst, (got - softmax_decode_reference(logits, temp)).abs().max().item())
+    images = torch.from_numpy(next(iter(loader))["imgs"]).to(dev)
+    ms = time_ms(lambda: ev.forward(images).cpu(), 5, warmup=2)
+    print(f"{label} eval decode, B4 vs its twin on the same {logits.dtype} logits: max "
+          f"{worst:.3g} px (limit 1e-4); Evaluator2D batch B={loader.batch_size}: {ms:.3f} ms "
+          f"(forward to the .cpu() of the decode, CUDA events), "
+          f"{loader.batch_size / ms * 1e3:.1f} images/s on {smi}")
+    if not worst <= 1e-4:
+        raise AssertionError(f"{label} eval decode: B4 vs twin {worst} px")
+    return ev, loader, launches["fused_softmax_decode"], ms
+
+
+def refused(label, finding, makers):
+    """Each maker raises NotImplementedError naming ``finding``."""
+    for what, make in makers.items():
+        try:
+            make()
+        except NotImplementedError as err:
+            if finding not in str(err):
+                raise AssertionError(f"{label} {what} raised without naming {finding}: {err}")
+        else:
+            raise AssertionError(f"{label} {what} did not raise ({finding})")
+    print(f"{label}: {', '.join(makers)} raise NotImplementedError naming {finding}, as the JAX "
+          "package's fail")
+
+
+def zoo_phases(smi, kernels):
+    """The single-image zoo at its YAMLs' widths on Synthetic_kpt at 256/64:
+    Swin (forward, Evaluator2D through B4, the generic train step,
+    tools.train), the hamburger (forward, Evaluator2D through B4, the ham's
+    time, tools.evaluate_2d, C16), the RVT (forward, C17) and the
+    SimpleBaseline (forward, train steps, eval batch)."""
+    b4 = next(k for k in kernels if k["name"] == "fused_softmax_decode")
+    swin_phases(smi, b4)
+    hamburger_phases(smi, b4)
+    rvt_phases(smi)
+    pose_resnet_phases(smi)
+
+
+def swin_phases(smi, b4):
+    from hrnet_hand_pose_estimation_tpu_torch.core.train_variants import pick_train_step
+
+    dev = torch.device("cuda")
+    none = {fn.__name__: 0 for fn in COUNTED}
+    with phase("swin forward"), tempfile.TemporaryDirectory() as tmp:
+        cfg = zoo_cfg("swin_transformer", tmp)
+        card, cpu, _ = zoo_pair(cfg, dev)
+        x = zoo_images(50, SWIN_BATCH, dev)
+        zero_counters()
+        bf16_gate(f"swin forward ({ZOO_HM}x{ZOO_HM} maps)", card, cpu, x)
+        if counters() != none:
+            raise AssertionError(f"swin forward launched a kernel of the port: {counters()}")
+        for b in (SWIN_BATCH, TIME_BATCH):
+            xb = x if b == SWIN_BATCH else zoo_images(51, b, dev)
+            with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
+                ms = time_ms(lambda: card(xb), 10, warmup=2)
+            print(f"swin bf16 forward B={b} at {ZOO_IMAGE}: {ms:.3f} ms (CUDA events), "
+                  f"{b / ms * 1e3:.1f} images/s on {smi}")
+        del cpu
+
+    with phase("swin eval"), tempfile.TemporaryDirectory() as tmp:
+        ev, _, launched, _ = zoo_eval("swin", cfg, card, dev, tmp, smi)
+        b4["launches_swin"] = launched
+        del ev, card
+
+    with phase("swin train"), tempfile.TemporaryDirectory() as tmp:
+        batch = first_batch(zoo_cfg("swin_transformer", tmp), dev)
+        print(f"swin train batch: images {tuple(batch['images'].shape)}, pose2d "
+              f"{tuple(batch['pose2d'].shape)}")
+        for lr, n in ((1e-3, 3), (SWIN_CHECK_LR, SWIN_STEPS)):
+            cfg = zoo_cfg("swin_transformer", tmp, **{"TRAIN.LR": lr})
+            model = build_model(cfg)
+            state, tx = TS.create_train_state(cfg, model, 1000, device=dev)
+            step = pick_train_step(cfg, model, tx)
+            zero_counters()
+            losses = []
+            for _ in range(n):
+                state, out = step(state, batch)
+                losses.append(out)
+            torch.cuda.synchronize()
+            host = [float(o["total_loss"]) for o in losses]
+            skipped = sum(float(o["nonfinite_grads"]) for o in losses)
+            print(f"swin {n} bf16 steps B={SWIN_TRAIN_BATCH} (adam at LR {lr:g} from flax's "
+                  f"initial distributions, one batch): total loss "
+                  f"{[float(f'{v:.5g}') for v in host]}, skipped steps {skipped:.0f}")
+            if counters() != none or not all(np.isfinite(host)) or skipped:
+                raise AssertionError(f"swin steps: {host}, skipped {skipped}, {counters()}")
+        if not host[-1] < SWIN_FALL * host[0]:
+            raise AssertionError(f"swin loss did not fall at LR {SWIN_CHECK_LR}: {host}")
+        ms, peak, wall, busy, _ = step_cost(lambda: step(state, batch))
+        print(f"swin train step B={SWIN_TRAIN_BATCH} at {ZOO_IMAGE} (bf16): {ms:.3f} ms (CUDA "
+              f"events), peak memory {peak:.2f} GiB; profiler wall {wall:.3f} ms, kernels "
+              f"{busy:.3f} ms ({busy / wall:.1%} busy), on {smi}")
+        del model, state, tx, step
+
+        if importlib.util.find_spec("yaml") is not None:
+            cmd = [sys.executable, "-m", "hrnet_hand_pose_estimation_tpu_torch.tools.train",
+                   "--cfg", str(SWIN_YAML), "--device", "cuda", "DATASET.DATASET",
+                   "['Synthetic_kpt']", "DATASET.TEST_DATASET", "['Synthetic_kpt']",
+                   "TRAIN.BEGIN_EPOCH", "0", "TRAIN.END_EPOCH", "1", "DEBUG.DEBUG", "False",
+                   "WORKERS", "4", "PRINT_FREQ", "1", "AUTO_RESUME", "False", "OUTPUT_DIR", tmp]
+            res = subprocess.run(cmd, capture_output=True, text=True,
+                                 cwd=Path(__file__).resolve().parent, timeout=300)
+            log = res.stdout + res.stderr
+            lines = [ln for ln in log.splitlines() if "Epoch[" in ln or "Validate[" in ln]
+            print(f"python -m ...tools.train --cfg {SWIN_YAML.name} --device cuda (Synthetic_kpt "
+                  f"by opts): rc {res.returncode}; " + " | ".join(ln.split(" ", 2)[-1][:140]
+                                                                for ln in lines[-2:]))
+            if res.returncode != 0 or "Validate[0]" not in log:
+                raise AssertionError(f"tools.train on the swin YAML failed:\n{log[-3000:]}")
+        else:
+            from hrnet_hand_pose_estimation_tpu_torch.data.build import make_dataloader
+
+            cfg = zoo_cfg("swin_transformer", tmp)
+            print("no PyYAML on this machine: the train tool's Trainer in process on the swin "
+                  "YAML's sections built in code")
+            trainer = Trainer(cfg, build_model(cfg), make_dataloader(cfg, True),
+                              make_dataloader(cfg, False), output_dir=tmp, device=dev)
+            trainer.fit()
+            print(f"Trainer.fit: {trainer.ckpt.epochs()} epochs checkpointed, best val "
+                  f"{trainer.best_loss:.4g}")
+            if trainer.ckpt.epochs() != [0] or not np.isfinite(trainer.best_loss):
+                raise AssertionError("swin Trainer.fit")
+
+
+
+def hamburger_phases(smi, b4):
+    dev = torch.device("cuda")
+    none = {fn.__name__: 0 for fn in COUNTED}
+    with phase("hamburger forward"), tempfile.TemporaryDirectory() as tmp:
+        cfg = zoo_cfg("pose_hrnet_hamburger", tmp)
+        card, cpu, state = zoo_pair(cfg, dev)
+        x = zoo_images(52, 1, dev)
+        zero_counters()
+        with torch.no_grad():
+            got = card(x).heatmaps
+            want = cpu(x.cpu()).heatmaps
+        torch.cuda.synchronize()
+        d32 = (soft_argmax(got).cpu() - soft_argmax(want)).abs().max().item()
+        p32 = (got.cpu() - want).abs().max().item()
+        print(f"hamburger float32 forward B=1 (w32, R 512, NMF, 6 eval steps): card vs CPU "
+              f"(TF32 off) decode max {d32:.3g} px (limit 1e-3), probabilities max {p32:.3g}")
+        if counters() != none or not d32 <= 1e-3:
+            raise AssertionError(f"hamburger float32 forward: {d32} px, launches {counters()}")
+        del cpu
+        ev, loader, launched, batch_ms = zoo_eval("hamburger", cfg, card, dev, tmp, smi)
+        b4["launches_hamburger"] = launched
+        images = torch.from_numpy(next(iter(loader))["imgs"]).to(dev)
+        seen = []
+        hook = card.hamburger.ham.register_forward_pre_hook(lambda mod, args: seen.append(args[0]))
+        with torch.no_grad(), TS.compute_autocast(cfg, dev):
+            card.forward_logits(images)
+            hook.remove()
+            ham_in = seen[0]
+            ham_ms = time_ms(lambda: card.hamburger.ham(ham_in), 5, warmup=1)
+        print(f"hamburger's ham (NMF, R 512, 6 steps, float32, TF32 off) on a B={ZOO_BATCH} "
+              f"batch of {tuple(ham_in.shape)}: {ham_ms:.3f} ms (CUDA events), "
+              f"{ham_ms / batch_ms:.1%} of the Evaluator2D batch's {batch_ms:.3f} ms, on {smi}")
+        res = tool_eval.evaluate(cfg, state=state, out=tmp, device=dev)
+        out = Path(tmp) / "eval2D_results_chip_smoke_pose_hrnet_hamburger"
+        shapes = (np.loadtxt(out / "mse2d_each_joint.txt").shape,
+                  np.loadtxt(out / "PCK2d.txt").shape)
+        print(f"tools.evaluate_2d.evaluate on the hamburger: {json.dumps(res)}; artifacts {shapes}")
+        if shapes != ((21,), (2, 49)) or not all(np.isfinite(v) for v in res.values()):
+            raise AssertionError("hamburger evaluate_2d tool")
+        model = build_model(cfg)
+        st, tx = TS.create_train_state(cfg, model, device=dev)
+        refused("hamburger", "C16", {"make_train_step": lambda: TS.make_train_step(cfg, model, tx),
+                                     "make_eval_step": lambda: TS.make_eval_step(cfg, model)})
+        del ev, card, model, st, seen, ham_in
+
+
+
+def rvt_phases(smi):
+    dev = torch.device("cuda")
+    none = {fn.__name__: 0 for fn in COUNTED}
+    with phase("RVT forward"), tempfile.TemporaryDirectory() as tmp:
+        cfg = zoo_cfg("my_pose_transformer", tmp)
+        card, cpu, _ = zoo_pair(cfg, dev)
+        x = zoo_images(53, 2, dev)
+        zero_counters()
+        with torch.no_grad():
+            got = card(x)
+            want = cpu(x.cpu())
+            with torch.autocast("cuda", dtype=torch.bfloat16):
+                same = card(x)
+            exact = cpu.double()(x.cpu().double())
+        torch.cuda.synchronize()
+        d = (got.cpu() - want).abs().max().item()
+        d_exact = (got.cpu().double() - exact).abs().max().item()
+        wit = (want.double() - exact).abs().max().item()
+        limit = max(1e-3, RVT_WITNESS_FACTOR * wit)
+        print(f"RVT forward B=2 (ResNet-50, 2 x 768 wide stages, depths 10 and 2): float32 card vs "
+              f"CPU (TF32 off) max {d:.3g} px; card vs the CPU's float64 {d_exact:.3g} px (limit "
+              f"{limit:.3g} = max(1e-3, {RVT_WITNESS_FACTOR:g} x the witness: the CPU's float32 "
+              f"vs its float64, {wit:.3g} px); poses in [{want.min().item():.2f}, "
+              f"{want.max().item():.2f}]; under a bf16 autocast bit-equal: "
+              f"{torch.equal(same, got)}")
+        if counters() != none or not d_exact <= limit or not torch.equal(same, got):
+            raise AssertionError(f"RVT forward: {d_exact} px from float64, launches {counters()}")
+        xb = zoo_images(54, ZOO_BATCH, dev)
+        with torch.no_grad():
+            ms = time_ms(lambda: card(xb), 5, warmup=2)
+        print(f"RVT float32 forward B={ZOO_BATCH} at {ZOO_IMAGE}: {ms:.3f} ms (CUDA events), "
+              f"{ZOO_BATCH / ms * 1e3:.1f} images/s on {smi}")
+        model = build_model(cfg)
+        st, tx = TS.create_train_state(cfg, model, device=dev)
+        refused("RVT", "C17", {"make_train_step": lambda: TS.make_train_step(cfg, model, tx),
+                               "make_eval_step": lambda: TS.make_eval_step(cfg, model),
+                               "make_forward_fn": lambda: TS.make_forward_fn(cfg, model),
+                               "Evaluator2D": lambda: Evaluator2D(cfg, model, None, device=dev)})
+        del card, cpu, model, st
+
+
+
+def pose_resnet_phases(smi):
+    from hrnet_hand_pose_estimation_tpu_torch.core.train_variants import pick_train_step
+
+    dev = torch.device("cuda")
+    none = {fn.__name__: 0 for fn in COUNTED}
+    with phase("pose_resnet"), tempfile.TemporaryDirectory() as tmp:
+        cfg = zoo_cfg("pose_resnet", tmp)
+        model = build_model(cfg)
+        model.load_state_dict(init_variables(cfg, 0, device=dev))
+        model.to(dev).eval()
+        x = zoo_images(55, ZOO_BATCH, dev)
+        zero_counters()
+        with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
+            out = model(x)
+            fwd_ms = time_ms(lambda: model(x), 10, warmup=2)
+        print(f"pose_resnet bf16 forward B={ZOO_BATCH} at {ZOO_IMAGE} (ResNet-50, 3 x 256 deconvs): "
+              f"logits {tuple(out.heatmaps.shape)}, {fwd_ms:.3f} ms (CUDA events), "
+              f"{ZOO_BATCH / fwd_ms * 1e3:.1f} images/s on {smi}")
+        if out.heatmaps.shape != (ZOO_BATCH, ZOO_HM, ZOO_HM, 21) or not torch.isfinite(
+                out.heatmaps).all():
+            raise AssertionError("pose_resnet forward")
+        batch = first_batch(cfg, dev)
+        model = build_model(cfg)
+        state, tx = TS.create_train_state(cfg, model, 1000, device=dev)
+        step = pick_train_step(cfg, model, tx)
+        losses = []
+        for _ in range(3):
+            state, o = step(state, batch)
+            losses.append(o)
+        torch.cuda.synchronize()
+        host = [float(o["total_loss"]) for o in losses]
+        ms, peak, wall, busy, _ = step_cost(lambda: step(state, batch))
+        print(f"pose_resnet 3 bf16 train steps B={ZOO_BATCH} (heatmap loss, adam at 1e-3): "
+              f"{[float(f'{v:.5g}') for v in host]}; step {ms:.3f} ms (CUDA events), peak memory "
+              f"{peak:.2f} GiB, kernels {busy:.3f} of {wall:.3f} ms ({busy / wall:.1%} busy), "
+              f"on {smi}")
+        if not all(np.isfinite(host)) or sum(float(o["nonfinite_grads"]) for o in losses):
+            raise AssertionError(f"pose_resnet steps {host}")
+        eval_step = TS.make_eval_step(cfg, model)
+        vbatch = first_batch(cfg, dev, False)
+        res = eval_step(state, vbatch)
+        ev_ms = time_ms(lambda: eval_step(state, vbatch), 5, warmup=1)
+        pose = res["pose2d_pred"]
+        print(f"pose_resnet eval batch B={ZOO_BATCH} (argmax decode): pose2d {tuple(pose.shape)} "
+              f"in [{pose.min().item():.0f}, {pose.max().item():.0f}], {ev_ms:.3f} ms (CUDA "
+              f"events) on {smi}")
+        if counters() != none or pose.shape != (ZOO_BATCH, 21, 2) or pose.min() < 0 \
+                or pose.max() > ZOO_HM - 1:
+            raise AssertionError(f"pose_resnet eval batch, launches {counters()}")
+
+
 # -- C9: the repo's smoke model served on the card --------------------------
 
 SMOKE_YAML = Path(__file__).resolve().parent / "experiments" / "synthetic_smoke.yaml"
@@ -3561,6 +3995,7 @@ def main() -> int:
     cpm_phases(smi, kernels)
     fusion_phases(smi, kernels)
     volcpm_phases(smi, kernels)
+    zoo_phases(smi, kernels)
 
     print(json.dumps({"kernels": kernels}))
     print(smi)

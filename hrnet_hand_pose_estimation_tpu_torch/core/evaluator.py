@@ -4,12 +4,15 @@ Port of the JAX package's ``core/evaluator.py`` (reference
 tools/evaluate_2D.py:149-296), on one device:
 
 - batch forward over the eval loader and decode.  With
-  ``MODEL.HEATMAP_SOFTMAX`` and a softmax head the forward stops at the
-  head's logits (``PoseHRNet.forward_logits``) and ``ops.decode.softmax_decode``
+  ``MODEL.HEATMAP_SOFTMAX`` and a softmax head (``model.head == "softmax"``:
+  ``PoseHRNet``, ``PoseHRNetHamburger``, ``SwinPose``) the forward stops at
+  the head's logits (``forward_logits``) and ``ops.decode.softmax_decode``
   decodes them: the hand-written kernel on a card, computing exactly the
   JAX package's ``soft_argmax(spatial_softmax(y, T))``.  Otherwise the maps
   are decoded as the JAX package decodes them: ``soft_argmax`` of the raw
-  maps (a plain head with ``HEATMAP_SOFTMAX``), or the argmax;
+  maps (a plain head, or SimpleBaseline's logits, with ``HEATMAP_SOFTMAX``),
+  or the argmax.  The RVT (``my_pose_transformer``) has no maps: the
+  evaluator raises, as JAX's fails (ROADMAP C17);
 - rescale heatmap-space predictions to the original image, as the reader
   declares (``dataset.rescale``): crop_size/hm + corner, else orig_size/hm;
 - visibility-masked per-joint EPE + PCK over thresholds 1..49 px;
@@ -18,8 +21,8 @@ tools/evaluate_2D.py:149-296), on one device:
 - wall-clock fps with the reference's 20-batch warm-up skip.
 
 ``serving='int8'`` evaluates the port's int8 W8A8 serving path instead
-(``core/quant_infer``), calibrated on the first eval batch or loaded from
-a saved record.  Multi-GPU evaluation (``mesh=``) is ROADMAP A11.
+(``core/quant_infer``, the HRNet's only), calibrated on the first eval
+batch or loaded from a saved record.  Multi-GPU evaluation (``mesh=``) is ROADMAP A11.
 """
 
 from __future__ import annotations
@@ -33,7 +36,8 @@ import torch
 
 from ..ops.decode import decode_heatmaps, softmax_decode
 from ..parallel.checkpoint import join_state_dict
-from ..parallel.train_step import compute_autocast
+from ..parallel.train_step import compute_autocast, refuse_unsupported
+from ..utils.weights import ZOO_MODELS
 from .metrics import PoseMetricState, default_thresholds_2d, pck_at, pck_auc
 
 
@@ -49,8 +53,12 @@ class Evaluator2D:
         if mesh is not None:
             raise NotImplementedError("multi-GPU evaluation (mesh=) is not ported yet "
                                       "(ROADMAP A11)")
+        refuse_unsupported(cfg, "2D evaluator")
         if serving not in ("std", "int8"):
             raise ValueError(f"unknown serving mode: {serving!r}")
+        if serving == "int8" and str(cfg.MODEL.NAME) in ZOO_MODELS:
+            raise ValueError(f"serving='int8' serves the HRNet only; {cfg.MODEL.NAME} "
+                             "evaluates with serving='std'")
         if serving == "int8" and not cfg.MODEL.HEATMAP_SOFTMAX:
             # the int8 serving path decodes via the fused softmax soft-argmax
             # head; on a non-softmax config its metrics would measure the

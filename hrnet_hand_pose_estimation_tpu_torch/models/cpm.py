@@ -35,6 +35,7 @@ from torch import nn
 
 from ..ops.targets import gaussian_centermap
 from .hrnet import HRNetOutput
+from .layers import compute_dtype, lecun_normal_
 
 STAGES = (2, 3, 4, 5, 6)
 
@@ -50,8 +51,7 @@ class Conv(nn.Conv2d):
     def init_train_weights(self, gen: torch.Generator) -> None:
         """flax's ``lecun_normal``: a normal of std sqrt(1 / fan_in) / 0.8796
         truncated at two of its std; the bias 0."""
-        std = (1.0 / self.weight[0].numel()) ** 0.5 / 0.87962566103423978
-        nn.init.trunc_normal_(self.weight, 0.0, std, -2.0 * std, 2.0 * std, generator=gen)
+        lecun_normal_(self.weight, self.weight[0].numel(), gen)
         self.bias.zero_()
 
 
@@ -64,12 +64,6 @@ def _trunk(convs: Sequence[nn.Conv2d], x: torch.Tensor) -> torch.Tensor:
     for conv in convs:
         x = _maxpool(torch.relu(conv(x)))
     return x
-
-
-def _compute_dtype(x: torch.Tensor) -> torch.dtype:
-    """The dtype the convs compute in: autocast's where it is on, else x's."""
-    kind = x.device.type
-    return torch.get_autocast_dtype(kind) if torch.is_autocast_enabled(kind) else x.dtype
 
 
 class CPMTrunk(nn.Module):
@@ -147,7 +141,7 @@ class CPM(nn.Module):
         """image (B, H, W, 3), centermap (B, H, W, 1) NHWC -> six (B, H/8, W/8,
         K+1) float32 belief maps, stage 1 first."""
         x = image.to(self.conv1_stage1.weight.dtype).permute(0, 3, 1, 2)
-        center = self.pool_center(centermap.permute(0, 3, 1, 2).to(_compute_dtype(x)))
+        center = self.pool_center(centermap.permute(0, 3, 1, 2).to(compute_dtype(x)))
         y = x
         for i in range(1, 7):
             y = torch.relu(getattr(self, f"conv{i}_stage1")(y))

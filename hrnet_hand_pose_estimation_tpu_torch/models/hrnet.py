@@ -278,8 +278,14 @@ class PoseHRNet(nn.Module):
         # bilinear(align_corners) upsample branches 1..3 and concat -> 480ch
         feats = [xs[0]] + [upsample_bilinear_align_corners(t, (h, w)) for t in xs[1:]]
         features = torch.cat(feats, dim=-1)
-        y = self.last_layer(features.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        y = self.last_layer(self._context(features.permute(0, 3, 1, 2))).permute(0, 2, 3, 1)
         return y, features
+
+    def _context(self, features: torch.Tensor) -> torch.Tensor:
+        """The head's NCHW input from the NCHW features: the features
+        themselves; ``models/hamburger.PoseHRNetHamburger`` puts its context
+        module here."""
+        return features
 
     def _confidences(self, features: torch.Tensor) -> Optional[torch.Tensor]:
         if self.confidence_kind is None:

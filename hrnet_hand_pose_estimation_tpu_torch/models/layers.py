@@ -13,6 +13,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 # torch nn.BatchNorm2d defaults: eps 1e-5, momentum 0.1 (== flax decay 0.9).
@@ -159,3 +160,66 @@ class ResLayer(nn.Sequential):
         blocks = [block_cls(in_features, features, stride, needs_ds)]
         blocks += [block_cls(out, features) for _ in range(1, num_blocks)]
         super().__init__(*blocks)
+
+
+# -- flax's default layers, for the modules the JAX package builds without
+# conv_init (the model zoo: SimpleBaseline, Swin, the RVT transformer) ------
+
+LECUN_TRUNC_STD = 0.87962566103423978    # std of a unit normal truncated at +-2
+
+
+@torch.no_grad()
+def lecun_normal_(weight: torch.Tensor, fan_in: int, gen: torch.Generator) -> None:
+    """flax's ``lecun_normal``: a normal of std sqrt(1 / fan_in) / 0.8796
+    truncated at two of its std."""
+    std = (1.0 / fan_in) ** 0.5 / LECUN_TRUNC_STD
+    nn.init.trunc_normal_(weight, 0.0, std, -2.0 * std, 2.0 * std, generator=gen)
+
+
+def compute_dtype(x: torch.Tensor) -> torch.dtype:
+    """The dtype a module computes in: autocast's where it is on, else x's
+    (flax's ``dtype``)."""
+    kind = x.device.type
+    return torch.get_autocast_dtype(kind) if torch.is_autocast_enabled(kind) else x.dtype
+
+
+class LecunConv2d(nn.Conv2d):
+    """``nn.Conv2d`` trained from flax's default ``nn.Conv`` initialisation:
+    a lecun-normal kernel (fan_in = the kernel's input window), a zero bias."""
+
+    @torch.no_grad()
+    def init_train_weights(self, gen: torch.Generator) -> None:
+        lecun_normal_(self.weight, self.weight[0].numel(), gen)
+        if self.bias is not None:
+            self.bias.zero_()
+
+
+class Dense(nn.Linear):
+    """``nn.Linear`` trained from flax's ``nn.Dense`` initialisation (lecun
+    normal kernel, zero bias).  A flax (in, out) kernel is its weight
+    transposed."""
+
+    @torch.no_grad()
+    def init_train_weights(self, gen: torch.Generator) -> None:
+        lecun_normal_(self.weight, self.in_features, gen)
+        if self.bias is not None:
+            self.bias.zero_()
+
+
+class LayerNorm(nn.LayerNorm):
+    """flax's ``nn.LayerNorm(dtype=float32)``: eps 1e-6 (torch's default is
+    1e-5), computed in float32 outside autocast whatever the input's dtype,
+    float32 out; scale 1 and bias 0 at the start of training."""
+
+    def __init__(self, features: int):
+        super().__init__(features, eps=1e-6)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        with torch.autocast(x.device.type, enabled=False):
+            return F.layer_norm(x.to(torch.promote_types(x.dtype, self.weight.dtype)),
+                                self.normalized_shape, self.weight, self.bias, self.eps)
+
+    @torch.no_grad()
+    def init_train_weights(self, gen: torch.Generator) -> None:
+        self.weight.fill_(1.0)
+        self.bias.zero_()

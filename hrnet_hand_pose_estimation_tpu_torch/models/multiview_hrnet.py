@@ -24,14 +24,15 @@ with ``ops.decode.softmax_decode`` (kernel B4 on the card).
 
 from __future__ import annotations
 
-from contextlib import contextmanager
 from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
 from ..ops.decode import spatial_softmax
+from ..ops.precision import no_tf32
 from .hrnet import PoseHRNet
+from .layers import lecun_normal_
 
 WEIGHTS = (0.4, 0.2, 0.2, 0.2)
 
@@ -43,30 +44,20 @@ class MultiViewOutput(NamedTuple):
     temperature: Optional[torch.Tensor] = None    # the backbone's softmax temperature
 
 
-@contextmanager
-def _no_tf32():
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
-
-
 class _Float32MatMul(torch.autograd.Function):
     """(..., N) @ (N, M) in float32 with TF32 off in both passes."""
 
     @staticmethod
     def forward(ctx, a, b):
         ctx.save_for_backward(a, b)
-        with _no_tf32():
+        with no_tf32():
             return a @ b
 
     @staticmethod
     def backward(ctx, g):
         a, b = ctx.saved_tensors
         ga = gb = None
-        with _no_tf32():
+        with no_tf32():
             if ctx.needs_input_grad[0]:
                 ga = g @ b.t()
             if ctx.needs_input_grad[1]:
@@ -92,9 +83,7 @@ class Aggregation(nn.Module):
     @torch.no_grad()
     def init_train_weights(self, gen: torch.Generator) -> None:
         """flax's ``lecun_normal`` on the (P, HW, HW) tensor: fan_in = HW * P."""
-        fan_in = self.pair_fc.shape[1] * self.pair_fc.shape[0]
-        std = (1.0 / fan_in) ** 0.5 / 0.87962566103423978
-        nn.init.trunc_normal_(self.pair_fc, 0.0, std, -2.0 * std, 2.0 * std, generator=gen)
+        lecun_normal_(self.pair_fc, self.pair_fc.shape[1] * self.pair_fc.shape[0], gen)
 
     def forward(self, heatmaps: torch.Tensor) -> torch.Tensor:
         """(B, V, h, w, K) -> fused (B, V, h, w, K) float32."""

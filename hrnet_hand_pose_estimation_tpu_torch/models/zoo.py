@@ -56,6 +56,39 @@ def _cpm(cfg):
     return CPM(num_joints=int(cfg.MODEL.NUM_JOINTS)).eval()
 
 
+@register("pose_resnet")
+def _pose_resnet(cfg):
+    """SimpleBaseline deconv-head ResNet (reference lib/models/pose_resnet.py:271)."""
+    from .pose_resnet import pose_resnet_from_cfg
+
+    return pose_resnet_from_cfg(cfg)
+
+
+@register("swin_transformer")
+def _swin(cfg):
+    """Swin backbone + pose head (reference lib/models/swin_transformer.py:569-837)."""
+    from .swin import swin_from_cfg
+
+    return swin_from_cfg(cfg)
+
+
+@register("pose_hrnet_hamburger")
+def _hamburger(cfg):
+    """HRNet + matrix-decomposition context head
+    (reference lib/models/pose_hrnet_hamburger.py:17-88)."""
+    from .hamburger import hamburger_from_cfg
+
+    return hamburger_from_cfg(cfg)
+
+
+@register("my_pose_transformer")
+def _my_pose_transformer(cfg):
+    """RVT pooling transformer (reference my_pose_transformer.py:190-370)."""
+    from .transformers import pooling_transformer_from_cfg
+
+    return pooling_transformer_from_cfg(cfg)
+
+
 @register("multiview_pose_hrnet")
 def _multiview_pose_hrnet(cfg):
     """Cross-view fusion net (reference lib/models/multiview_pose_hrnet.py:74)."""

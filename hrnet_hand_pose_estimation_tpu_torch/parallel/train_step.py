@@ -59,6 +59,47 @@ def compute_dtype(cfg) -> torch.dtype:
     return DTYPES[name]
 
 
+# Models whose JAX 2D steps fail, by the step that fails: the port raises
+# where JAX does (ROADMAP C16, C17).
+_HAMBURGER = ("pose_hrnet_hamburger has no {what}: JAX's create_train_state keeps only the "
+              "params and batch_stats collections, and the model reads its ham_bases "
+              "collection (ScopeCollectionNotFound, ROADMAP C16); evaluate it with Evaluator2D, "
+              "make_forward_fn or the tools")
+_RVT = ("my_pose_transformer has no {what}: the model returns a bare (B, K, 2) array, and the "
+        "JAX package's {what} reads its heatmaps (AttributeError, ROADMAP C17); call the "
+        "model itself")
+_NO_STEP = {
+    "train step": {"pose_hrnet_hamburger": _HAMBURGER, "my_pose_transformer": _RVT},
+    "eval step": {"pose_hrnet_hamburger": _HAMBURGER, "my_pose_transformer": _RVT},
+    "forward function": {"my_pose_transformer": _RVT},
+    "2D evaluator": {"my_pose_transformer": _RVT},
+}
+
+
+def refuse_unsupported(cfg, what: str) -> None:
+    """Raise ``NotImplementedError`` where the JAX package's ``what`` ('train
+    step', 'eval step', 'forward function', '2D evaluator') fails on
+    MODEL.NAME."""
+    msg = _NO_STEP[what].get(str(cfg.MODEL.NAME))
+    if msg is not None:
+        raise NotImplementedError(msg.format(what=what))
+
+
+def check_map_size(cfg, heatmaps: torch.Tensor, targets: Optional[torch.Tensor]) -> None:
+    """Raise ``ValueError`` (ROADMAP C18) when the model's maps and the
+    targets (or MODEL.HEATMAP_SIZE without targets) differ in size: a Swin
+    of PATCH_SIZE 2 at 256 gives 128 x 128 maps against HEATMAP_SIZE 64, on
+    which JAX's step fails in the heatmap loss (or, with the pose loss
+    alone, compares coordinates of two scales).  Nothing is resized."""
+    want = (tuple(targets.shape[1:3]) if targets is not None
+            else (int(cfg.MODEL.HEATMAP_SIZE[1]), int(cfg.MODEL.HEATMAP_SIZE[0])))
+    got = tuple(heatmaps.shape[1:3])
+    if got != want:
+        raise ValueError(f"{cfg.MODEL.NAME} gives {got[0]} x {got[1]} maps against "
+                         f"{want[0]} x {want[1]} targets (ROADMAP C18: MODEL.IMAGE_SIZE / "
+                         "MODEL.PATCH_SIZE must be MODEL.HEATMAP_SIZE for swin_transformer)")
+
+
 def _check_cfg(cfg) -> None:
     if str(cfg.TPU.PARAM_DTYPE) != "float32":
         raise NotImplementedError(f"TPU.PARAM_DTYPE {cfg.TPU.PARAM_DTYPE!r}: the port trains "
@@ -346,8 +387,13 @@ def init_train_weights(model: nn.Module, seed: int) -> None:
     seeded with ``seed`` (the numbers are not JAX's): conv kernels
     normal(std 0.001) (models/layers.py conv_init), conv biases 0, BN scale
     1 and bias 0, running mean 0 and variance 1, the temperature 1.  A
-    module with its own ``init_train_weights(generator)`` (CPM's convs, the
-    fusion net's pair FCs: flax's default ``lecun_normal``) makes its own."""
+    module with its own ``init_train_weights(generator)`` makes its own:
+    flax's default ``lecun_normal`` for CPM's convs, the fusion net's pair
+    FCs, and the zoo's ``models.layers.LecunConv2d``, ``Dense`` and
+    transposed convs (where the JAX module has no ``conv_init``), LayerNorm
+    scale 1 and bias 0, Swin's ``truncated_normal(0.02)`` position biases,
+    the RVT's ``uniform(1.0)`` keypoint tokens.  Modules are visited parent
+    first, so a module's own init touches only its own parameters."""
     gen = torch.Generator().manual_seed(int(seed))
     for mod in model.modules():
         if hasattr(mod, "init_train_weights"):
@@ -432,6 +478,7 @@ def make_train_step(cfg, model: nn.Module, tx: Optimizer) -> Callable:
     heads) and ``nonfinite_grads`` (with the guard).
     """
     _check_cfg(cfg)
+    refuse_unsupported(cfg, "train step")
     loss_computer = LossComputer2D(cfg)
     use_softmax = bool(cfg.MODEL.HEATMAP_SOFTMAX)
     detect = bool(cfg.TPU.DETECT_ANOMALY)
@@ -445,6 +492,7 @@ def make_train_step(cfg, model: nn.Module, tx: Optimizer) -> Callable:
         with torch.enable_grad():
             with compute_autocast(cfg, images.device):
                 out = model(images)
+            check_map_size(cfg, out.heatmaps, batch.get("target_heatmaps"))
             pose2d_pred = decode_heatmaps(out.heatmaps, use_softmax)
             total, loss_dict = loss_computer(
                 heatmaps_pred=out.heatmaps, heatmaps_gt=batch.get("target_heatmaps"),
@@ -503,6 +551,7 @@ def make_eval_step(cfg, model: nn.Module) -> Callable:
                 "WITHOUT_EVAL")
 
         return no_step
+    refuse_unsupported(cfg, "eval step")
     use_softmax = bool(cfg.MODEL.HEATMAP_SOFTMAX)
     flip_test = bool(cfg.TEST.FLIP_TEST)
     shift = bool(cfg.TEST.SHIFT_HEATMAP)
@@ -533,6 +582,7 @@ def make_eval_step(cfg, model: nn.Module) -> Callable:
 def make_forward_fn(cfg, model: nn.Module) -> Callable:
     """Plain inference forward: ``fwd(images) -> (heatmaps, pose2d)`` with
     the model's weights and running statistics."""
+    refuse_unsupported(cfg, "forward function")
     use_softmax = bool(cfg.MODEL.HEATMAP_SOFTMAX)
 
     @torch.no_grad()

@@ -43,6 +43,6 @@ def load_weights(cfg, model, model_path: str = "", device="cpu") -> Dict[str, to
     else:
         state = init_variables(cfg, 0, device=device)
         if getattr(model, "head", None) == "plain":
-            state.pop("trainable_temp")
+            state.pop("trainable_temp", None)
     model.load_state_dict(state)
     return state

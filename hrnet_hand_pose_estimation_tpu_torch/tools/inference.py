@@ -78,6 +78,11 @@ def make_serving_fn(cfg, state, mode: str, calib_images=(), device="cuda",
         return make_forward_fn(cfg, model.to(device).eval())
     if mode not in ("fast", "int8"):
         raise SystemExit(f"unknown --serving mode: {mode}")
+    from ..utils.weights import ZOO_MODELS
+
+    if str(cfg.MODEL.NAME) in ZOO_MODELS:
+        raise SystemExit(f"--serving {mode} serves the HRNet only, as in the JAX package; "
+                         f"{cfg.MODEL.NAME} serves with --serving std")
     if not cfg.MODEL.HEATMAP_SOFTMAX:
         raise SystemExit(
             "--serving fast/int8 decode via the fused softmax soft-argmax "

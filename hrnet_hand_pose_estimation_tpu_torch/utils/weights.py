@@ -3,14 +3,19 @@
 ``from_jax_variables`` maps the JAX package's PoseHRNet ``{"params",
 "batch_stats"}`` tree (numpy leaves), a triangulation net's (the PoseHRNet,
 or ``vol_CPM``'s CPMVolumetric, under ``backbone``, with
-``process_features`` and the V2V ``volume_net``), a CPM's, or the fusion
-net's (the PoseHRNet under ``backbone`` and ``aggregation/pair_fc``), onto
-the port's ``state_dict``.  It keeps its own copy of
-the name rules of the JAX package's ``utils/torch_convert.py`` (reference
-torch name -> flax path), inverted: flax path -> torch name, HWIO / DHWIO
-kernels -> OIHW / OIDHW weights, a transposed conv's kernel flipped in
-space back to torch's (I, O, D, H, W), Dense (in, out) -> Linear (out, in),
-and BN ``scale/bias/mean/var`` -> ``weight/bias/running_mean/running_var``.
+``process_features`` and the V2V ``volume_net``), a CPM's, the fusion
+net's (the PoseHRNet under ``backbone`` and ``aggregation/pair_fc``), a
+PoseHRNetHamburger's (with its ``ham_bases`` collection), a PoseResNet's, a
+SwinPose's or an RVT PoolingTransformer's onto the port's ``state_dict``.
+It keeps its own copy of the name rules of the JAX package's
+``utils/torch_convert.py`` (reference torch name -> flax path), inverted:
+flax path -> torch name, HWIO / DHWIO kernels -> OIHW / OIDHW weights, a
+transposed conv's kernel flipped in space back to torch's (I, O, [D,] H,
+W), Dense (in, out) -> Linear (out, in), an attention ``DenseGeneral``'s
+(in, heads, head_dim) or (heads, head_dim, out) kernel -> Linear, LayerNorm
+``scale`` -> ``weight``, and BN ``scale/bias/mean/var`` ->
+``weight/bias/running_mean/running_var``.  Swin's and the RVT's own parts
+have no reference names: their port names are the flax paths.
 
 ``from_jax_train_state`` maps a JAX ``TrainState`` (parameters, BN
 statistics, the optax state, the 3D trainer's per-group one included, and
@@ -61,6 +66,9 @@ _RULES = (
     (r"^confidence_head/cb([12])/(conv|bn)$",
      lambda m: "{conf}.features." + str(4 * (int(m[1]) - 1) + (m[2] == "bn"))),
     (r"^confidence_head/fc([123])$", lambda m: "{conf}.head." + str(2 * (int(m[1]) - 1))),
+    # PoseHRNetHamburger's context module (its trunk and head are the HRNet's)
+    (r"^hamburger/lower_bread$", lambda m: "hamburger.lower_bread"),
+    (r"^hamburger/upper_bread/(conv|bn)$", lambda m: f"hamburger.upper_bread.{_SUB[m[1]]}"),
 )
 _SUB = {"conv": "0", "bn": "1"}
 
@@ -91,8 +99,27 @@ _CPM_RULES = (
     (r"^stage([3-6])/conv_feat$", lambda m: f"conv1_stage{m[1]}"),
     (r"^stage([2-6])/mconv([1-5])$", lambda m: f"Mconv{m[2]}_stage{m[1]}"),
 )
-# the fusion net's stacked pair FCs: a leaf of its own, kept as it is
-_PAIR_FC = ("aggregation", "pair_fc")
+# PoseResNet (the JAX package's models/pose_resnet.py tree -> the reference
+# torch names; the inverse of torch_convert._resolve_pose_resnet).  The RVT's
+# ResNet is the same tree under its own ``backbone``.
+_RESNET_RULES = (
+    (r"^backbone/(conv1|bn1)$", lambda m: m[1]),
+    (r"^backbone/layer(\d)/block(\d+)/cb(\d)/conv$", lambda m: f"layer{m[1]}.{m[2]}.conv{m[3]}"),
+    (r"^backbone/layer(\d)/block(\d+)/cb(\d)/bn$", lambda m: f"layer{m[1]}.{m[2]}.bn{m[3]}"),
+    (r"^backbone/layer(\d)/block(\d+)/downsample/(conv|bn)$",
+     lambda m: f"layer{m[1]}.{m[2]}.downsample.{_SUB[m[3]]}"),
+)
+_POSE_RESNET_RULES = _RESNET_RULES + (
+    (r"^deconv(\d+)$", lambda m: f"deconv_layers.{3 * int(m[1])}"),
+    (r"^deconv_bn(\d+)$", lambda m: f"deconv_layers.{3 * int(m[1]) + 1}"),
+    (r"^final_layer$", lambda m: "final_layer"),
+)
+# flax parameters that are leaves of their own, kept as they are: the
+# fusion net's stacked pair FCs, Swin's relative position bias tables, the
+# RVT's keypoint tokens
+_OWN_LEAVES = ("pair_fc", "rel_pos_bias", "keypoint_tokens")
+# the hamburger's fixed bases: the ham_bases collection -> a buffer
+_HAM_BASES = (("hamburger", "ham", "w"), "hamburger.ham.bases")
 
 # (collection, leaf) -> torch field
 _FIELD = {
@@ -148,10 +175,47 @@ def _torch_name(path: str, net: bool = False, conf: str = "vol_confidences",
     return None if name is None else name.format(conf=conf)
 
 
+def _zoo_name(path: str, kind: str) -> Optional[str]:
+    """flax module path of a PoseResNet, SwinPose or RVT -> the port's name."""
+    if kind == "pose_resnet":
+        return _match(_POSE_RESNET_RULES, path)
+    if kind == "rvt" and path.startswith("backbone/"):
+        name = _match(_RESNET_RULES, path)
+        return None if name is None else "backbone." + name
+    return path.replace("/", ".")
+
+
+def _tree_kind(params: Mapping) -> str:
+    """Which model a JAX params tree (or an optimizer moment shaped like
+    one) belongs to."""
+    if "patch_embed" in params and "embed_norm" in params:
+        return "swin"
+    if "keypoint_tokens" in params:
+        return "rvt"
+    if "final_layer" in params:
+        return "pose_resnet"
+    if ("volume_net" in params or "process_features" in params
+            or "backbone" in params.get("backbone", {}) or "aggregation" in params):
+        return "net"
+    if any(re.match(r"^(s1_conv\d|trunk|stage\d)$", k) for k in params):
+        return "cpm"
+    return "hrnet"
+
+
 def _weight(arr: np.ndarray, name: str) -> np.ndarray:
     """A flax kernel -> the torch weight of module ``name``."""
     if arr.ndim == 2:                                      # Dense (in, out) -> (out, in)
         return arr.T
+    if arr.ndim == 3:
+        # an attention DenseGeneral: (in, heads, head_dim), or (heads,
+        # head_dim, out) for the out projection -> Linear (out, in)
+        if name.endswith(".out"):
+            return arr.reshape(-1, arr.shape[-1]).T
+        return arr.reshape(arr.shape[0], -1).T
+    if arr.ndim == 4 and "deconv_layers" in name:
+        # flax's ConvTranspose (transpose_kernel off) is a plain conv over the
+        # dilated input: torch's kernel flipped in space, (I, O, H, W)
+        return arr[::-1, ::-1].transpose(2, 3, 0, 1)
     if arr.ndim == 4:                                      # HWIO -> OIHW
         return arr.transpose(3, 2, 0, 1)
     if "decoder_upsample" in name:
@@ -171,8 +235,9 @@ def _leaves(tree: Mapping, prefix=()):
 
 def from_jax_variables(variables: Mapping, model: Optional[nn.Module] = None
                        ) -> Dict[str, torch.Tensor]:
-    """JAX PoseHRNet, triangulation-net, CPM or fusion-net variables (numpy
-    leaves) -> the port's state_dict.
+    """JAX PoseHRNet, triangulation-net, CPM, fusion-net, PoseHRNetHamburger,
+    PoseResNet, SwinPose or RVT variables (numpy leaves) -> the port's
+    state_dict.
 
     Raises ``KeyError`` on any leaf it cannot place.  With ``model``, it
     also raises on any key of ``model.state_dict()`` left unfilled and on a
@@ -183,29 +248,35 @@ def from_jax_variables(variables: Mapping, model: Optional[nn.Module] = None
     out: Dict[str, torch.Tensor] = {}
     unplaced = []
     params = variables.get("params", {})
-    net = ("volume_net" in params or "process_features" in params
-           or "backbone" in params.get("backbone", {}) or "aggregation" in params)
-    cpm = "cpm" in params.get("backbone", {}) if net else any(
-        re.match(r"^(s1_conv\d|trunk|stage\d)$", k) for k in params)
+    kind = _tree_kind(params)
+    net = kind == "net"
+    cpm = "cpm" in params.get("backbone", {}) if net else kind == "cpm"
     conf = "vol_confidences"
     if model is not None and any(".alg_confidences." in "." + k for k in model.state_dict()):
         conf = "alg_confidences"
     temp = ("backbone", "trainable_temp") if net else ("trainable_temp",)
-    for coll in ("params", "batch_stats"):
+    for coll in ("params", "batch_stats", "ham_bases"):
         for path, leaf in _leaves(variables.get(coll, {})):
             arr = np.asarray(leaf, dtype=np.float32)
-            if coll == "params" and path in (temp, _PAIR_FC):
+            if coll == "ham_bases" and path == _HAM_BASES[0]:
+                out[_HAM_BASES[1]] = torch.from_numpy(arr.copy())
+                continue
+            if coll == "params" and (path == temp or path[-1] in _OWN_LEAVES):
                 out[".".join(path)] = torch.from_numpy(arr.copy())
                 continue
-            name = _torch_name("/".join(path[:-1]), net, conf, cpm)
+            module = "/".join(path[:-1])
+            name = (_zoo_name(module, kind) if kind in ("swin", "rvt", "pose_resnet")
+                    else _torch_name(module, net, conf, cpm))
             field = _FIELD.get((coll, path[-1]))
-            if name is None or field is None:
+            if name is None or field is None or coll == "ham_bases":
                 unplaced.append(f"{coll}/{'/'.join(path)}")
                 continue
             if path[-1] == "kernel":
                 arr = _weight(arr, name)
+            elif arr.ndim == 2:           # an attention DenseGeneral's (heads, head_dim) bias
+                arr = arr.reshape(-1)
             out[f"{name}.{field}"] = torch.from_numpy(np.array(arr, order="C"))
-    unknown = set(variables) - {"params", "batch_stats"}
+    unknown = set(variables) - {"params", "batch_stats", "ham_bases"}
     unplaced += sorted(unknown)
     if unplaced:
         raise KeyError(f"JAX leaves with no place in the port: {unplaced[:10]}"
@@ -343,6 +414,9 @@ def discriminator_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
     return out
 
 
+# the single-image models of the zoo whose state init_variables makes whole
+ZOO_MODELS = ("pose_resnet", "swin_transformer", "pose_hrnet_hamburger", "my_pose_transformer")
+
 # the BNs that close a residual branch of stages 2-4 (basic-block bn2) or
 # feed another resolution (fuse layers): damped by init_variables
 _DAMPED_BN = re.compile(r"branches\.\d+\.\d+\.bn2$|fuse_layers\.")
@@ -353,13 +427,17 @@ def init_variables(cfg, seed: int = 0, device="cpu", damp: bool = True,
                    net: Optional[str] = None) -> Dict[str, torch.Tensor]:
     """A random PoseHRNet state_dict for ``cfg`` from a numpy seed (with the
     confidence head of ``pose_hrnet_volumetric`` where the config names
-    it; the ``CPM`` or the ``multiview_pose_hrnet`` one where MODEL.NAME
-    names that), or with ``net`` ('alg', 'ransac', 'vol', 'vol_CPM') the
-    state_dict of that triangulation net
-    (``models.triangulation.build_triangulation_net``).
+    it; the model's own where MODEL.NAME names a model of the zoo: ``CPM``,
+    ``multiview_pose_hrnet``, ``pose_resnet``, ``swin_transformer``,
+    ``pose_hrnet_hamburger``, ``my_pose_transformer``), or with ``net``
+    ('alg', 'ransac', 'vol', 'vol_CPM') the state_dict of that triangulation
+    net (``models.triangulation.build_triangulation_net``).
 
-    Convs and linear layers are He-scaled normals and BN affine parameters
-    random around 1 and 0.  With ``damp``, the BNs that close a residual
+    Convs, transposed convs and linear layers are He-scaled normals (a
+    transposed conv's fan-in counts the inputs one output sees), BN and
+    LayerNorm affine parameters random around 1 and 0, Swin's relative
+    position biases normals of std 0.02, the RVT's keypoint tokens and the
+    hamburger's bases uniform in [0, 1).  With ``damp``, the BNs that close a residual
     branch in stages 2-4 or feed a fuse layer scale by 0.03-0.1 instead: at
     full w32 depth an undamped random HRNet is chaotic, so a one-ulp change
     of layer1's bf16 output moves the decoded joints by pixels
@@ -385,6 +463,8 @@ def init_variables(cfg, seed: int = 0, device="cpu", damp: bool = True,
     elif name in ("CPM", "multiview_pose_hrnet"):
         model = build_model(cfg)
         backbone = getattr(model, "backbone", model)
+    elif name in ZOO_MODELS:
+        model = backbone = build_model(cfg)
     else:
         conf = {}
         if str(cfg.MODEL.NAME) == "pose_hrnet_volumetric":
@@ -392,15 +472,24 @@ def init_variables(cfg, seed: int = 0, device="cpu", damp: bool = True,
                         alg_confidences=bool(cfg.MODEL.ALG_CONFIDENCES))
         model = backbone = hrnet_from_cfg(cfg, head="softmax", **conf)
     for mod_name, mod in model.named_modules():
-        if isinstance(mod, (nn.Conv2d, nn.Conv3d, nn.ConvTranspose3d, nn.Linear)):
-            # He-scaled; a transposed conv of stride = kernel sees each input once
-            fan_in = (mod.weight.shape[0] if isinstance(mod, nn.ConvTranspose3d)
-                      else mod.weight[0].numel())
+        if isinstance(mod, (nn.Conv2d, nn.Conv3d, nn.ConvTranspose2d, nn.ConvTranspose3d,
+                            nn.Linear)):
+            # He-scaled; an output of a transposed conv sees (kernel / stride)
+            # inputs per axis (each input once where stride = kernel)
+            fan_in = (mod.weight.shape[0] * int(np.prod([k // s for k, s in zip(
+                mod.kernel_size, mod.stride)]))
+                if isinstance(mod, (nn.ConvTranspose2d, nn.ConvTranspose3d))
+                else mod.weight[0].numel())
             mod.weight.copy_(torch.from_numpy(
                 rng.normal(0.0, np.sqrt(2.0 / fan_in), mod.weight.shape).astype(np.float32)))
             if mod.bias is not None:
                 mod.bias.copy_(torch.from_numpy(
                     rng.normal(0.0, 0.1, mod.bias.shape).astype(np.float32)))
+        elif isinstance(mod, nn.LayerNorm):
+            mod.weight.copy_(torch.from_numpy(
+                rng.uniform(0.5, 1.5, mod.weight.shape).astype(np.float32)))
+            mod.bias.copy_(torch.from_numpy(
+                rng.normal(0.0, 0.1, mod.bias.shape).astype(np.float32)))
         elif isinstance(mod, nn.BatchNorm2d):
             lo, hi = (0.03, 0.1) if damp and _DAMPED_BN.search(mod_name) else (0.5, 1.5)
             mod.weight.copy_(torch.from_numpy(
@@ -411,6 +500,12 @@ def init_variables(cfg, seed: int = 0, device="cpu", damp: bool = True,
         if isinstance(mod, Aggregation):
             mod.pair_fc.copy_(torch.from_numpy(rng.normal(
                 0.0, 1.0 / np.sqrt(mod.pair_fc.shape[-1]), mod.pair_fc.shape).astype(np.float32)))
+    for pname, tensor in list(model.named_parameters()) + list(model.named_buffers()):
+        leaf = pname.rsplit(".", 1)[-1]
+        if leaf == "rel_pos_bias":
+            tensor.copy_(torch.from_numpy(rng.normal(0.0, 0.02, tensor.shape).astype(np.float32)))
+        elif leaf in ("keypoint_tokens", "bases"):
+            tensor.copy_(torch.from_numpy(rng.uniform(0.0, 1.0, tensor.shape).astype(np.float32)))
     h, w = (int(s) for s in cfg.MODEL.IMAGE_SIZE[::-1])
     images = torch.from_numpy(rng.normal(size=(2, h, w, 3)).astype(np.float32))
     model = model.to(device)

@@ -1308,3 +1308,114 @@ def test_vol_cpm_forward_on_card_matches_cpu(cuda):
     assert (got.keypoints_2d.cpu() - want.keypoints_2d).abs().max().item() <= 1e-3
     d3 = (got.keypoints_3d.cpu() - want.keypoints_3d).abs()
     assert (d3 <= 0.5 + 1e-3 * want.keypoints_3d.abs()).all(), d3.max().item()
+
+
+# -- the single-image model zoo ------------------------------------------------
+
+def zoo_cfg(name):
+    """A small config of a zoo model at 64x64 (16x16 maps, small_cfg's
+    HRNet stages for the hamburger), float32."""
+    cfg = small_cfg().clone()
+    cfg.defrost()
+    opts = {"swin_transformer": ["MODEL.EMB_DIM", [16], "MODEL.DEPTHS", [2, 2, 2, 2],
+                                 "MODEL.NUM_HEADS", [2, 2, 2, 2], "MODEL.FF_TYPE", "le_ff"],
+            "pose_hrnet_hamburger": ["MODEL.R", 16, "MODEL.TRAIN_STEPS", 3,
+                                     "MODEL.EVAL_STEPS", 4],
+            "pose_resnet": ["MODEL.EXTRA.NUM_LAYERS", 18,
+                            "MODEL.EXTRA.NUM_DECONV_FILTERS", [32, 32, 32]],
+            "my_pose_transformer": ["MODEL.IMAGE_SIZE", [128, 128], "MODEL.PATCH_SIZE", 2,
+                                    "MODEL.EMB_DIM", [8, 8], "MODEL.DEPTHS", [1, 1],
+                                    "MODEL.NUM_HEADS", [2, 2], "MODEL.BACKBONE_NAME",
+                                    "resnet18"]}[name]
+    cfg.merge_from_list(["MODEL.NAME", name, "MODEL.HEATMAP_SOFTMAX", True,
+                         "MODEL.TRAINABLE_SOFTMAX", True, "TPU.COMPUTE_DTYPE", "float32"] + opts)
+    return cfg.freeze()
+
+
+def zoo_pair(cfg, device):
+    """(the model on the CPU, the same weights on ``device``), eval mode."""
+    state = init_variables(cfg, 0)
+    models = []
+    for dev in ("cpu", device):
+        model = build_model(cfg)
+        model.load_state_dict(state)
+        models.append(model.to(dev).eval())
+    return models
+
+
+@pytest.mark.parametrize("name", ["swin_transformer", "pose_hrnet_hamburger", "pose_resnet",
+                                  "my_pose_transformer"])
+def test_zoo_forward_on_card_matches_cpu(cuda, name):
+    """Each zoo model's float32 forward (TF32 off) on the card: its maps
+    within 1e-4 of their largest value of the CPU's (the RVT's poses within
+    1e-3 px), decoded coordinates within 1e-3 px."""
+    cfg = zoo_cfg(name)
+    cpu, card = zoo_pair(cfg, cuda)
+    size = int(cfg.MODEL.IMAGE_SIZE[0])
+    x = torch.from_numpy(np.random.default_rng(13).normal(size=(2, size, size, 3)).astype(
+        np.float32))
+    with torch.no_grad():
+        want, got = cpu(x), card(x.to(cuda))
+    if name == "my_pose_transformer":
+        assert got.shape == (2, 21, 2)
+        assert (got.cpu() - want).abs().max().item() <= 1e-3
+        return
+    hm, want_hm = got.heatmaps.cpu(), want.heatmaps
+    assert hm.shape == (2, 16, 16, 21)
+    assert (hm - want_hm).abs().max().item() <= 1e-4 * want_hm.abs().max().item()
+    if name != "pose_resnet":      # soft-argmax of probabilities: coordinates
+        d = (TS.decode_heatmaps(hm, True) - TS.decode_heatmaps(want_hm, True)).abs().max()
+        assert d.item() <= 1e-3
+
+
+@pytest.mark.parametrize("name", ["swin_transformer", "pose_hrnet_hamburger"])
+def test_zoo_evaluator_decodes_through_one_b4_launch(cuda, name):
+    """``Evaluator2D`` on the card decodes a swin or hamburger batch with one
+    B4 launch, within 1e-4 px of B4's twin on the same logits."""
+    from hrnet_hand_pose_estimation_tpu_torch.core.evaluator import Evaluator2D
+
+    cfg = zoo_cfg(name)
+    _, card = zoo_pair(cfg, cuda)
+    ev = Evaluator2D(cfg, card, None, device=cuda)
+    assert ev.decode_logits
+    x = torch.from_numpy(np.random.default_rng(14).normal(size=(8, 64, 64, 3)).astype(
+        np.float32)).to(cuda)
+    before = fused_softmax_decode.launches
+    got = ev.forward(x)
+    torch.cuda.synchronize()
+    assert fused_softmax_decode.launches == before + 1
+    with torch.no_grad():
+        logits, temp = card.forward_logits(x)
+    want = softmax_decode_reference(logits, temp)
+    assert got.shape == (8, 21, 2)
+    assert (got - want).abs().max().item() <= 1e-4
+
+
+def test_hamburger_train_gradient_on_card_matches_cpu(cuda):
+    """The hamburger's float32 train-mode gradient (BN on batch statistics,
+    3 ham steps, the last differentiated) of a linear function of its
+    probabilities on the card, TF32 off, against the CPU's float64 gradient
+    of the same weights: within the larger of 1e-3 of max|g| and twice the
+    CPU's own float32 distance from it (this small net's coarsest branch
+    gives its BNs 8 values at B=2: the CPU's float32 gradient is 8e-3 of
+    max|g| from its float64 one)."""
+    cfg = zoo_cfg("pose_hrnet_hamburger")
+    cpu, card = zoo_pair(cfg, cuda)
+    cpu64 = build_model(cfg)
+    cpu64.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(15)
+    x = torch.from_numpy(rng.normal(size=(2, 64, 64, 3)))
+    r = torch.from_numpy(rng.normal(size=(2, 16, 16, 21)))
+    grads = []
+    for model, dev, dtype in ((cpu64, "cpu", torch.float64), (cpu, "cpu", torch.float32),
+                              (card, cuda, torch.float32)):
+        model.to(dtype).train()
+        (model(x.to(dev, dtype)).heatmaps.double() * r.to(dev)).sum().backward()
+        grads.append({n: p.grad.cpu().double() for n, p in model.named_parameters()
+                      if p.grad is not None})
+    exact, cpu32, card32 = grads
+    assert set(exact) == set(cpu32) == set(card32)
+    gmax = max(g.abs().max().item() for g in exact.values())
+    witness = max((cpu32[n] - g).abs().max().item() for n, g in exact.items())
+    gap = max((card32[n] - g).abs().max().item() for n, g in exact.items())
+    assert gap <= max(1e-3 * gmax, 2 * witness), (gap / gmax, witness / gmax)

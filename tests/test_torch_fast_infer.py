@@ -87,7 +87,8 @@ def test_port_imports_no_jax():
         "             'tools.dlt_check', 'core.trainer3d', 'core.trainer3d_gan', 'utils.vis',\n"
         "             'tools.train3d', 'tools.train3d_gan', 'tools.nerf_pose_est',\n"
         "             'models.cpm', 'models.multiview_hrnet', 'core.train_variants',\n"
-        "             'data.mhp'):\n"
+        "             'data.mhp', 'models.pose_resnet', 'models.swin', 'models.hamburger',\n"
+        "             'models.transformers', 'ops.precision'):\n"
         "    assert port.__name__ + '.' + name in sys.modules, name\n"
         "assert not any(m.split('.')[0] in ('jax', 'flax', 'cv2', 'yaml') for m in sys.modules"
         " if sys.modules[m] is not None)\n"

@@ -122,17 +122,25 @@ def test_init_variables_seeded_and_folding_relevant(tiny_cfg):
 
 
 def test_registry(tiny_cfg):
-    assert registered_models() == ["CPM", "alg", "multiview_pose_hrnet", "pose_hrnet",
-                                   "pose_hrnet_softmax", "pose_hrnet_trainable_softmax",
-                                   "pose_hrnet_volumetric", "ransac", "vol", "vol_CPM"]
+    assert registered_models() == ["CPM", "alg", "multiview_pose_hrnet", "my_pose_transformer",
+                                   "pose_hrnet", "pose_hrnet_hamburger", "pose_hrnet_softmax",
+                                   "pose_hrnet_trainable_softmax", "pose_hrnet_volumetric",
+                                   "pose_resnet", "ransac", "swin_transformer", "vol", "vol_CPM"]
     cfg = port_cfg(tiny_cfg)
     model = build_model(cfg)
     assert isinstance(model, PoseHRNet) and model.head == "softmax" and not model.training
     from hrnet_hand_pose_estimation_tpu_torch.config import config_from_dict
     from hrnet_hand_pose_estimation_tpu_torch.models.cpm import CPM
+    from hrnet_hand_pose_estimation_tpu_torch.models.hamburger import PoseHRNetHamburger
     from hrnet_hand_pose_estimation_tpu_torch.models.multiview_hrnet import MultiViewPoseNet
+    from hrnet_hand_pose_estimation_tpu_torch.models.pose_resnet import PoseResNet
+    from hrnet_hand_pose_estimation_tpu_torch.models.swin import SwinPose
+    from hrnet_hand_pose_estimation_tpu_torch.models.transformers import PoolingTransformer
 
-    for name, kind in (("CPM", CPM), ("multiview_pose_hrnet", MultiViewPoseNet)):
+    for name, kind in (("CPM", CPM), ("multiview_pose_hrnet", MultiViewPoseNet),
+                       ("pose_resnet", PoseResNet), ("swin_transformer", SwinPose),
+                       ("pose_hrnet_hamburger", PoseHRNetHamburger),
+                       ("my_pose_transformer", PoolingTransformer)):
         other = config_from_dict(cfg.to_dict(), freeze=False)
         other.MODEL.NAME = name
         model = build_model(other.freeze())
