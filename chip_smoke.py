@@ -107,6 +107,21 @@ the RVT (RHD_Resnet50_RVT_v1, float32: the card against the CPU's float64,
 the time at B=32, its steps refused, C17); SimpleBaseline (ResNet-50, 3 x
 256 deconvs: forward, three train steps, an eval batch, each timed).
 
+Last, the temporal family on seeded frames at 256/64, its YAMLs' sections
+set in code (``temporal_phases``): PoseAggr
+(MHP_HRNet_w32_trainable_softmax_pose2dloss_PoseAggr_v1: w32, 5 frames,
+B=2, the 20-block offset chain in bf16, dilations 3-24: the forward with a
+float32 offset chain on the card against the CPU, the registry's net in
+bf16 against float32 held to the CPU's own gap, one Evaluator2D batch with
+one B4 launch against its twin, the deformable conv's time beside its
+bound, three train steps at the YAML's LR, the step's time, peak memory
+and busy share, v2's SEQ_IDX through the forward); PoseFormer
+(..._PoseFormer_v1: 9 frames, B=1: one B4 launch a forward against its
+twin, the float32 refined pose against the CPU's, one C20 train step with
+one B4 forward and no backward launch and a zero gradient outside the
+backbone, C20 raised at B=2); PredRNN and the TCN at the config defaults
+(T=5, B=2: float32 on the card against the CPU, C19 on their entry points).
+
     python3 chip_smoke.py
 
 Needs one CUDA card and nvcc; exits non-zero without them.  Prints one line
@@ -3644,6 +3659,370 @@ def pose_resnet_phases(smi):
             raise AssertionError(f"pose_resnet eval batch, launches {counters()}")
 
 
+# -- the temporal family ----------------------------------------------------
+
+TEMPORAL_BATCH = 2          # TRAIN / TEST.IMAGES_PER_GPU of the PoseAggr YAMLs
+TEMPORAL_STEPS = 3
+AGGR_SEQ = {"v1": [-2, -1, 0, 1, 2], "v2": [-4, -2, 0, 2, 4]}
+FORMER_SEQ = list(range(-4, 5))
+# PoseFormer's refined pose on the card against the CPU's (both float32,
+# TF32 off; B4 and its twin decode the backbone 1e-5 px apart): 4.05e-6 px
+# on an H100 at the YAML's widths, held to five times that
+FORMER_LIMIT = 2e-5
+# PredRNN's and the TCN's float32 outputs on the card are held to the CPU's
+# float64 forward of the same weights and sequence, relative to its largest
+# value, within this many times the CPU's own float32 distance from it
+RECURRENT_WITNESS_FACTOR = 2.0
+
+
+def temporal_cfg(name: str, version: str = "v1"):
+    """The MODEL, LOSS and TRAIN sections of the temporal YAMLs set in code
+    (w32 at 256/64, bf16 compute, no flip test):
+
+    - pose_hrnet_PoseAggr: experiments/MHP/MHP_HRNet_w32_trainable_softmax_
+      pose2dloss_PoseAggr_v1.yaml (SEQ_IDX -2..2; ``version`` v2: -4..4 in
+      steps of 2), dilations 3-24, the temperature trainable, the pose loss,
+      adam at LR 1e-3, B=2;
+    - pose_hrnet_transformer: ..._PoseFormer_v1.yaml (SEQ_IDX -4..4, B=1,
+      the same loss and optimizer);
+    - HRNet_PredRNN, HRNet_Emb_TCN: no shipped YAML, the config defaults
+      (SEQ_IDX -2..2, N_HIDDEN 4 x 64, EMBEDDING_SIZE 512, TCN_CHANNELS 1024,
+      FILTER_WIDTHS 4 x 3) on the w32 stages, B=2.
+    """
+    opts = ["MODEL.NAME", name, "MODEL.IMAGE_SIZE", [ZOO_IMAGE] * 2,
+            "MODEL.HEATMAP_SIZE", [ZOO_HM] * 2, "MODEL.SIGMA", 2, "TEST.FLIP_TEST", False,
+            "EXP_NAME", f"chip_smoke_{name}", "OUTPUT_DIR", ""]
+    if name in ("pose_hrnet_PoseAggr", "pose_hrnet_transformer"):
+        seq, batch = ((AGGR_SEQ[version], TEMPORAL_BATCH) if name == "pose_hrnet_PoseAggr"
+                      else (FORMER_SEQ, 1))
+        opts += ["DATASET.SEQ_IDX", seq, "MODEL.HEATMAP_SOFTMAX", True,
+                 "MODEL.TRAINABLE_SOFTMAX", True, "MODEL.DILATION_RATES", [3, 6, 12, 18, 24],
+                 "LOSS.WITH_HEATMAP_LOSS", False, "LOSS.WITH_POSE2D_LOSS", True,
+                 "LOSS.POSE2D_LOSS_FACTOR", 1.0, "TRAIN.OPTIMIZER", "adam", "TRAIN.LR", 1e-3,
+                 "TRAIN.LR_FACTOR", 0.5, "TRAIN.LR_STEP", [16, 32, 48], "TRAIN.WD", 1e-4,
+                 "TRAIN.IMAGES_PER_GPU", batch, "TEST.IMAGES_PER_GPU", batch]
+    cfg = load_config(opts=opts, freeze=False)
+    cfg.MODEL.EXTRA.merge_from_mapping(POSE_HIGH_RESOLUTION_NET_EXTRA)
+    return cfg.freeze()
+
+
+def temporal_frames(seed: int, batch: int, t: int, dev):
+    return torch.from_numpy(np.random.default_rng(seed).normal(
+        size=(batch, t, ZOO_IMAGE, ZOO_IMAGE, 3)).astype(np.float32)).to(dev)
+
+
+def temporal_batch(seed: int, frames):
+    """A train batch of seeded frames: centre-frame poses in heatmap pixels,
+    every joint visible, their Gaussian targets from the plain twin."""
+    rng = np.random.default_rng(seed)
+    b = frames.shape[0]
+    pose = torch.from_numpy(rng.uniform(8, ZOO_HM - 8, size=(b, 21, 2)).astype(
+        np.float32)).to(frames.device)
+    vis = torch.ones(b, 21, device=frames.device)
+    return {"images": frames, "pose2d": pose, "visibility": vis,
+            "target_heatmaps": gaussian_targets_reference(pose, vis, ZOO_HM, 2.0)}
+
+
+def train_steps(label, cfg, model, batch, n):
+    """``n`` generic 2D train steps from the train state's init, each with a
+    finite loss and no skipped step.  Returns (state, step)."""
+    state, tx = TS.create_train_state(cfg, model, 1000, device=batch["images"].device)
+    step = TS.make_train_step(cfg, model, tx)
+    losses = []
+    for _ in range(n):
+        state, out = step(state, batch)
+        losses.append(out)
+    torch.cuda.synchronize()
+    host = [float(o["total_loss"]) for o in losses]
+    skipped = sum(float(o["nonfinite_grads"]) for o in losses)
+    print(f"{label}: {n} bf16 train steps B={batch['images'].shape[0]} (adam at LR "
+          f"{float(cfg.TRAIN.LR):g} from the JAX package's initial distributions, one batch): "
+          f"total loss {[float(f'{v:.5g}') for v in host]}, skipped {skipped:.0f}")
+    if not all(np.isfinite(host)) or skipped:
+        raise AssertionError(f"{label} steps: {host}, skipped {skipped}")
+    return state, step
+
+
+def temporal_phases(smi, kernels):
+    """The temporal family at its YAMLs' widths (w32 at 256/64, seeded
+    frames): PoseAggr (forward, Evaluator2D through B4, the deformable
+    conv's time, train steps, v2's frames), PoseFormer (forward through B4,
+    the C20 step, C20 at B=2), PredRNN and the TCN (forwards, C19)."""
+    b4 = next(k for k in kernels if k["name"] == "fused_softmax_decode")
+    pose_aggr_phases(smi, b4)
+    pose_former_phases(smi, b4)
+    predrnn_tcn_phases(smi)
+
+
+def pose_aggr_phases(smi, b4):
+    from hrnet_hand_pose_estimation_tpu_torch.models import pose_aggr
+    from hrnet_hand_pose_estimation_tpu_torch.models.pose_aggr import PoseAggrNet
+    from hrnet_hand_pose_estimation_tpu_torch.ops.deform_conv import deform_conv2d
+
+    dev = torch.device("cuda")
+    none = {fn.__name__: 0 for fn in COUNTED}
+    t = len(AGGR_SEQ["v1"])
+    with phase("PoseAggr forward"):
+        cfg = temporal_cfg("pose_hrnet_PoseAggr")
+        state = init_variables(cfg, 0, device=dev)
+        card = build_model(cfg)
+        card.load_state_dict(state)
+        card.to(dev).eval()
+        x = temporal_frames(60, TEMPORAL_BATCH, t, dev)
+        # the float32 gate: the offset chain in float32 too, card vs CPU
+        nets = []
+        for where in (dev, "cpu"):
+            net = PoseAggrNet(hrnet_from_cfg(cfg, head="plain"), seq_len=t,
+                              dilation_rates=card.dilation_rates, trainable_softmax=True,
+                              offset_dtype=torch.float32)
+            net.load_state_dict(state)
+            nets.append(net.to(where).eval())
+        zero_counters()
+        with torch.no_grad():
+            f32 = soft_argmax(nets[0](x).heatmaps)
+            with torch.autocast("cuda", dtype=torch.bfloat16):
+                low = soft_argmax(card(x).heatmaps)
+            t0 = time.perf_counter()
+            want = soft_argmax(nets[1](x[:1].cpu()).heatmaps)
+            with torch.autocast("cpu", dtype=torch.bfloat16):
+                cpu_low = soft_argmax(card.to("cpu")(x[:1].cpu()).heatmaps)
+            cpu_s = time.perf_counter() - t0
+        card.to(dev)
+        torch.cuda.synchronize()
+        d32 = (f32[:1].cpu() - want).abs().max().item()
+        d16 = (low - f32).abs()
+        wit = (cpu_low - want).abs()
+        limit = max(ZOO_FLOOR_PX, ZOO_WITNESS_FACTOR * wit.max().item())
+        spread = f32.std(dim=(0, 1)).min().item()
+        print(f"PoseAggr forward B={TEMPORAL_BATCH} x {t} frames (w32, 20 offset blocks, "
+              f"dilations 3-24): float32 card vs CPU (the offset chain in float32, TF32 off, "
+              f"B=1) max {d32:.3g} px (limit 1e-3); the registry's net (bf16 offset chain) "
+              f"under a bf16 autocast vs float32 on the card max {d16.max().item():.4f} px "
+              f"(limit {limit:.4f}), mean "
+              f"{d16.mean().item():.5f} (limit {ZOO_WITNESS_FACTOR:g} x the witness's "
+              f"{wit.mean().item():.5f}); witness: the CPU's bf16 vs float32 max "
+              f"{wit.max().item():.4f} px; coordinate spread {spread:.3f} px; CPU forwards "
+              f"{cpu_s:.1f} s")
+        if counters() != none or not (d32 <= 1e-3 and d16.max().item() <= limit
+                                      and d16.mean().item() <= ZOO_WITNESS_FACTOR
+                                      * max(wit.mean().item(), 1e-6)
+                                      and torch.isfinite(low).all()):
+            raise AssertionError(f"PoseAggr forward: float32 {d32} px, bf16 "
+                                 f"{d16.max().item()} px, launches {counters()}")
+        del nets
+
+        # one Evaluator2D batch: B4 decodes the fused logits, one launch
+        ev = Evaluator2D(cfg, card, None, device=dev)
+        zero_counters()
+        coords = ev.forward(x)
+        torch.cuda.synchronize()
+        launches = counters()
+        want = dict(none, fused_softmax_decode=1)
+        with torch.no_grad(), TS.compute_autocast(cfg, dev):
+            logits, temp = card.forward_logits(x)
+        gap = (coords - softmax_decode_reference(logits, temp)).abs().max().item()
+        print(f"PoseAggr Evaluator2D batch B={TEMPORAL_BATCH}: CUDA launches "
+              f"{ {k: v for k, v in launches.items() if v} }; B4 vs its twin on the same "
+              f"{logits.dtype} fused logits max {gap:.3g} px (limit 1e-4)")
+        if launches != want or not gap <= 1e-4 or not torch.isfinite(coords).all():
+            raise AssertionError(f"PoseAggr eval batch: launches {launches}, B4 vs twin {gap}")
+        b4["launches_poseaggr_eval"] = launches["fused_softmax_decode"]
+        b4["ms_poseaggr_eval"] = time_ms(lambda: fused_softmax_decode(logits, temp), 20)
+        b4["bound_ms_poseaggr_eval"] = decode_work(logits, coords)[0]
+        print(f"B4 at PoseAggr's eval batch ({tuple(logits.shape)} {logits.dtype}): "
+              f"{b4['ms_poseaggr_eval']:.4f} ms a call (CUDA events), bound "
+              f"{b4['bound_ms_poseaggr_eval']:.5f} ms, on {smi}")
+        with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
+            fwd_ms, peak, wall, busy, _ = step_cost(lambda: card(x))
+        ev_ms = time_ms(lambda: ev.forward(x).cpu(), 5, warmup=1)
+        print(f"PoseAggr bf16 forward B={TEMPORAL_BATCH} x {t} frames: {fwd_ms:.3f} ms (CUDA "
+              f"events), peak memory {peak:.2f} GiB, kernels {busy:.3f} of {wall:.3f} ms "
+              f"({busy / wall:.1%} busy); Evaluator2D batch {ev_ms:.3f} ms; on {smi}")
+
+        # the deformable conv alone, at the shapes of this forward
+        calls = []
+
+        def recording(*args, **kw):
+            calls.append((args, kw))
+            return deform_conv2d(*args, **kw)
+
+        with patched(pose_aggr, "deform_conv2d", recording), torch.no_grad(), \
+                torch.autocast("cuda", dtype=torch.bfloat16):
+            card(x)
+        per = [time_ms(lambda: deform_conv2d(*a, **kw), 10, warmup=2) for a, kw in calls]
+        hm, off, w = calls[0][0]
+        moved = sum(nbytes([a[0], a[1], a[2]]) for a, _ in calls) + len(calls) * nbytes([hm])
+        flops = len(calls) * 2 * hm.shape[0] * hm.shape[1] * hm.shape[2] * 9 * w.shape[2] \
+            * w.shape[3]
+        dc_bound = max(moved / PEAK_BYTES, flops / PEAK_F32) * 1e3
+        print(f"deform_conv2d at PoseAggr's shapes (x {tuple(hm.shape)}, offsets "
+              f"{tuple(off.shape)}, G=21, five dilations): {sum(per):.3f} ms a forward "
+              f"({', '.join(f'{p:.3f}' for p in per)} per call; CUDA events), "
+              f"{sum(per) / fwd_ms:.1%} of the forward; bound {dc_bound:.4f} ms (bytes "
+              f"{moved / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP float32) on {smi}")
+        del calls, ev, logits
+
+    with phase("PoseAggr train"):
+        batch = temporal_batch(61, x)
+        model = build_model(cfg)
+        zero_counters()
+        state, step = train_steps("PoseAggr", cfg, model, batch, TEMPORAL_STEPS)
+        if counters() != none:
+            raise AssertionError(f"PoseAggr steps launched a kernel of the port: {counters()}")
+        ms, peak, wall, busy, _ = step_cost(lambda: step(state, batch))
+        print(f"PoseAggr train step B={TEMPORAL_BATCH} x {t} frames (bf16): {ms:.3f} ms (CUDA "
+              f"events), peak memory {peak:.2f} GiB, kernels {busy:.3f} of {wall:.3f} ms "
+              f"({busy / wall:.1%} busy), on {smi}")
+        del model, state, step, batch
+
+        cfg2 = temporal_cfg("pose_hrnet_PoseAggr", "v2")
+        v2 = build_model(cfg2)
+        v2.load_state_dict(card.state_dict())
+        v2.to(dev).eval()
+        with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
+            out = v2(temporal_frames(62, TEMPORAL_BATCH, len(AGGR_SEQ["v2"]), dev))
+        sums = out.heatmaps.float().sum(dim=(1, 2))
+        print(f"PoseAggr_v2 (SEQ_IDX {AGGR_SEQ['v2']}) bf16 forward: maps "
+              f"{tuple(out.heatmaps.shape)}, plane sums in [{sums.min().item():.5f}, "
+              f"{sums.max().item():.5f}]")
+        if out.heatmaps.shape != (TEMPORAL_BATCH, ZOO_HM, ZOO_HM, 21) or not (
+                (sums - 1).abs().max().item() <= 1e-3):
+            raise AssertionError("PoseAggr_v2 forward")
+        del v2, card
+
+
+def pose_former_phases(smi, b4):
+    dev = torch.device("cuda")
+    none = {fn.__name__: 0 for fn in COUNTED}
+    f = len(FORMER_SEQ)
+    with phase("PoseFormer forward"):
+        cfg = temporal_cfg("pose_hrnet_transformer")
+        state = init_variables(cfg, 0, device=dev)
+        card, cpu = build_model(cfg), build_model(cfg)
+        card.load_state_dict(state)
+        cpu.load_state_dict(state)
+        card.to(dev).eval()
+        x = temporal_frames(63, 1, f, dev)
+        zero_counters()
+        with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
+            out = card(x)
+        torch.cuda.synchronize()
+        launches = counters()
+        with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
+            logits, temp = card.backbone.forward_logits(x.reshape(f, *x.shape[2:]))
+            got = fused_softmax_decode(logits, temp)
+        gap = (got - softmax_decode_reference(logits, temp)).abs().max().item()
+        with torch.no_grad():
+            f32 = card(x).pose2d_refined
+            want = cpu(x.cpu()).pose2d_refined
+        d32 = (f32.cpu() - want).abs().max().item()
+        print(f"PoseFormer bf16 forward B=1 x {f} frames (w32, ratio 32, depth 4, 8 heads, "
+              f"temporal width 672): refined {tuple(out.pose2d_refined.shape)}, maps "
+              f"{tuple(out.heatmaps.shape)}; CUDA launches "
+              f"{ {k: v for k, v in launches.items() if v} }; B4 vs its twin on the backbone's "
+              f"{logits.dtype} logits max {gap:.3g} px (limit 1e-4); the float32 refined pose "
+              f"card vs CPU (TF32 off) max {d32:.3g} (limit {FORMER_LIMIT:g})")
+        if launches != dict(none, fused_softmax_decode=1) or not gap <= 1e-4 \
+                or not d32 <= FORMER_LIMIT or not torch.isfinite(out.pose2d_refined).all():
+            raise AssertionError(f"PoseFormer forward: launches {launches}, B4 {gap}, f32 {d32}")
+        b4["launches_poseformer_forward"] = launches["fused_softmax_decode"]
+        b4["ms_poseformer"] = time_ms(lambda: fused_softmax_decode(logits, temp), 20)
+        b4["bound_ms_poseformer"] = decode_work(logits, got)[0]
+        print(f"B4 at PoseFormer's backbone ({tuple(logits.shape)} {logits.dtype}): "
+              f"{b4['ms_poseformer']:.4f} ms a call (CUDA events), bound "
+              f"{b4['bound_ms_poseformer']:.5f} ms, on {smi}")
+        with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
+            fwd_ms = time_ms(lambda: card(x), 10, warmup=2)
+        print(f"PoseFormer bf16 forward B=1 x {f} frames: {fwd_ms:.3f} ms (CUDA events) on {smi}")
+        del card, cpu
+
+    with phase("PoseFormer train (C20)"):
+        batch = temporal_batch(64, x)
+        model = build_model(cfg)
+        zero_counters()
+        bwd = fused_softmax_decode.launches_bwd
+        state, step = train_steps("PoseFormer (C20, B=1)", cfg, model, batch, 1)
+        launches, bwd = counters(), fused_softmax_decode.launches_bwd - bwd
+        grads = {n: p.grad for n, p in model.named_parameters()}
+        moved = [n for n, g in grads.items() if not n.startswith("backbone.") and g.any()]
+        trunk = sum(bool(g.any()) for n, g in grads.items() if n.startswith("backbone."))
+        print(f"PoseFormer C20 step: CUDA launches {launches['fused_softmax_decode']} B4 "
+              f"forward, {bwd} B4 backward; nonzero gradients outside the backbone: {moved} "
+              f"(JAX's are zero too: the refined pose enters no loss); backbone tensors with a "
+              f"gradient {trunk}")
+        if launches != dict(none, fused_softmax_decode=1) or bwd or moved or not trunk:
+            raise AssertionError(f"PoseFormer C20 step: {launches}, bwd {bwd}, moved {moved}")
+        b4["launches_poseformer_step"] = 1
+        b4["launches_bwd_poseformer_step"] = bwd
+        ms, peak, wall, busy, _ = step_cost(lambda: step(state, batch))
+        print(f"PoseFormer C20 train step B=1 x {f} frames (bf16): {ms:.3f} ms (CUDA events), "
+              f"peak memory {peak:.2f} GiB, kernels {busy:.3f} of {wall:.3f} ms "
+              f"({busy / wall:.1%} busy), on {smi}")
+        two = temporal_batch(65, temporal_frames(66, 2, f, dev))
+        try:
+            step(state, two)
+        except ValueError as err:
+            if "C20" not in str(err):
+                raise AssertionError(f"PoseFormer B=2 raised without naming C20: {err}")
+            print("PoseFormer train step at B=2 raises ValueError naming C20, before the loss")
+        else:
+            raise AssertionError("PoseFormer train step at B=2 did not raise (C20)")
+        del model, state, step, batch, two
+
+
+def predrnn_tcn_phases(smi):
+    dev = torch.device("cuda")
+    none = {fn.__name__: 0 for fn in COUNTED}
+    for name in ("HRNet_PredRNN", "HRNet_Emb_TCN"):
+        with phase(f"{name} forward"):
+            cfg = temporal_cfg(name)
+            t = len(list(cfg.DATASET.SEQ_IDX))
+            state = init_variables(cfg, 0, device=dev)
+            card, cpu = build_model(cfg), build_model(cfg)
+            card.load_state_dict(state)
+            cpu.load_state_dict(state)
+            card.to(dev).eval()
+            x = temporal_frames(67, TEMPORAL_BATCH, t, dev)
+            zero_counters()
+            with torch.no_grad():
+                got = card(x)
+                want = cpu(x[:1].cpu())
+                exact = cpu.double()(x[:1].cpu().double())
+            torch.cuda.synchronize()
+            if name == "HRNet_PredRNN":
+                out, ref, ex = got[0][:1].cpu(), want[0], exact[0]
+                same = (got[2][:1].cpu() == want[2]).float().mean().item()
+                extra = f"; argmax decodes equal {same:.1%}"
+            else:
+                out, ref, ex, same, extra = got[:1].cpu(), want, exact, 1.0, ""
+            scale = ex.abs().max().item()
+            rel = (out - ref).abs().max().item() / scale
+            rel64 = (out.double() - ex).abs().max().item() / scale
+            wit = (ref.double() - ex).abs().max().item() / scale
+            limit = RECURRENT_WITNESS_FACTOR * wit
+            print(f"{name} float32 forward B={TEMPORAL_BATCH} x {t} frames (the defaults on "
+                  f"w32): output {tuple(got[0].shape if isinstance(got, tuple) else got.shape)}; "
+                  f"the first sequence, TF32 off, relative to the largest value: card vs CPU "
+                  f"{rel:.3g}; card vs the CPU's float64 {rel64:.3g} (limit {limit:.3g} = "
+                  f"{RECURRENT_WITNESS_FACTOR:g} x the witness: the CPU's float32 vs its "
+                  f"float64, {wit:.3g}){extra}")
+            if counters() != none or not (0 < wit and rel64 <= limit) or same < 0.99:
+                raise AssertionError(f"{name} forward: {rel64} from float64 (limit {limit}), "
+                                     f"decodes {same}, {counters()}")
+            with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
+                ms = time_ms(lambda: card(x), 5, warmup=2)
+            print(f"{name} forward B={TEMPORAL_BATCH} x {t} frames (backbone bf16, the "
+                  f"temporal part float32): {ms:.3f} ms (CUDA events) on {smi}")
+            model = build_model(cfg)
+            st, tx = TS.create_train_state(cfg, model, device=dev)
+            refused(name, "C19", {"make_train_step": lambda: TS.make_train_step(cfg, model, tx),
+                                  "make_eval_step": lambda: TS.make_eval_step(cfg, model),
+                                  "make_forward_fn": lambda: TS.make_forward_fn(cfg, model),
+                                  "Evaluator2D": lambda: Evaluator2D(cfg, model, None,
+                                                                     device=dev)})
+            del card, cpu, model, st
+
+
 # -- C9: the repo's smoke model served on the card --------------------------
 
 SMOKE_YAML = Path(__file__).resolve().parent / "experiments" / "synthetic_smoke.yaml"
@@ -3996,6 +4375,7 @@ def main() -> int:
     fusion_phases(smi, kernels)
     volcpm_phases(smi, kernels)
     zoo_phases(smi, kernels)
+    temporal_phases(smi, kernels)
 
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -12,13 +12,30 @@ import time
 import torch
 
 
+def kernel_times(prof, steps: int) -> dict[str, float]:
+    """{kernel name: device ms per step} from a finished ``torch.profiler``
+    window over ``steps`` calls.  The device events are read from the
+    profiler's raw results, ``prof.profiler.kineto_results`` (not public
+    API; as of torch 2.11): ``key_averages()`` would first build a Python
+    event tree of every CPU op too, which takes 10-30 s a window for a train
+    step's ~10,000 launches and measures nothing more.
+    ``tests/test_torch_cuda.py`` holds this sum to ``key_averages()``'s on
+    the card, so that a torch whose raw results differ fails there."""
+    per: dict[str, float] = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != torch.autograd.DeviceType.CUDA:
+            continue                     # CPU ops: their kernels are listed themselves
+        per[e.name()] = per.get(e.name(), 0.0) + e.duration_ns() / 1e6 / steps
+    return per
+
+
 def device_busy(fn, steps: int = 3, tries: int = 3) -> tuple[float, float, list]:
     """(wall ms/step, kernel ms/step, [(kernel, ms/step), ...] largest first)
     from torch.profiler over ``steps`` calls after one call and a
-    synchronize: the device time of every CUDA kernel, summed (one stream:
-    kernels do not overlap).  The profiler now and then records no device
-    event; such a window is retried, up to ``tries`` windows, and a kernel
-    time of 0 means that none recorded one."""
+    synchronize: the device time of every CUDA kernel (``kernel_times``),
+    summed (one stream: kernels do not overlap).  The profiler now and then
+    records no device event; such a window is retried, up to ``tries``
+    windows, and a kernel time of 0 means that none recorded one."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -30,14 +47,7 @@ def device_busy(fn, steps: int = 3, tries: int = 3) -> tuple[float, float, list]
                 fn()
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t) * 1e3 / steps
-        per = {}
-        for e in prof.key_averages():
-            if e.device_type != torch.autograd.DeviceType.CUDA:
-                continue                 # CPU ops: their kernels are listed themselves
-            dt = getattr(e, "self_device_time_total", None)
-            if dt is None:
-                dt = e.self_cuda_time_total
-            per[e.key] = per.get(e.key, 0.0) + dt / 1e3 / steps
+        per = kernel_times(prof, steps)
         if sum(per.values()) > 0:
             break
     top = sorted(per.items(), key=lambda kv: -kv[1])

@@ -5,14 +5,16 @@ tools/evaluate_2D.py:149-296), on one device:
 
 - batch forward over the eval loader and decode.  With
   ``MODEL.HEATMAP_SOFTMAX`` and a softmax head (``model.head == "softmax"``:
-  ``PoseHRNet``, ``PoseHRNetHamburger``, ``SwinPose``) the forward stops at
-  the head's logits (``forward_logits``) and ``ops.decode.softmax_decode``
-  decodes them: the hand-written kernel on a card, computing exactly the
-  JAX package's ``soft_argmax(spatial_softmax(y, T))``.  Otherwise the maps
-  are decoded as the JAX package decodes them: ``soft_argmax`` of the raw
-  maps (a plain head, or SimpleBaseline's logits, with ``HEATMAP_SOFTMAX``),
-  or the argmax.  The RVT (``my_pose_transformer``) has no maps: the
-  evaluator raises, as JAX's fails (ROADMAP C17);
+  ``PoseHRNet``, ``PoseHRNetHamburger``, ``SwinPose``, ``PoseAggrNet`` on
+  (B, T, H, W, 3) frames) the forward stops at the head's logits
+  (``forward_logits``) and ``ops.decode.softmax_decode`` decodes them: the
+  hand-written kernel on a card, computing exactly the JAX package's
+  ``soft_argmax(spatial_softmax(y, T))``.  Otherwise the maps are decoded as
+  the JAX package decodes them: ``soft_argmax`` of the raw maps (a plain
+  head, or SimpleBaseline's logits, with ``HEATMAP_SOFTMAX``), or the
+  argmax.  The RVT (``my_pose_transformer``), ``HRNet_PredRNN`` and
+  ``HRNet_Emb_TCN`` have no maps: the evaluator raises, as JAX's fails
+  (ROADMAP C17, C19);
 - rescale heatmap-space predictions to the original image, as the reader
   declares (``dataset.rescale``): crop_size/hm + corner, else orig_size/hm;
 - visibility-masked per-joint EPE + PCK over thresholds 1..49 px;
@@ -37,7 +39,7 @@ import torch
 from ..ops.decode import decode_heatmaps, softmax_decode
 from ..parallel.checkpoint import join_state_dict
 from ..parallel.train_step import compute_autocast, refuse_unsupported
-from ..utils.weights import ZOO_MODELS
+from ..utils.weights import TEMPORAL_MODELS, ZOO_MODELS
 from .metrics import PoseMetricState, default_thresholds_2d, pck_at, pck_auc
 
 
@@ -56,7 +58,7 @@ class Evaluator2D:
         refuse_unsupported(cfg, "2D evaluator")
         if serving not in ("std", "int8"):
             raise ValueError(f"unknown serving mode: {serving!r}")
-        if serving == "int8" and str(cfg.MODEL.NAME) in ZOO_MODELS:
+        if serving == "int8" and str(cfg.MODEL.NAME) in ZOO_MODELS + TEMPORAL_MODELS:
             raise ValueError(f"serving='int8' serves the HRNet only; {cfg.MODEL.NAME} "
                              "evaluates with serving='std'")
         if serving == "int8" and not cfg.MODEL.HEATMAP_SOFTMAX:
@@ -83,8 +85,9 @@ class Evaluator2D:
 
     @torch.no_grad()
     def forward(self, images: torch.Tensor) -> torch.Tensor:
-        """The standard forward: (B, H, W, 3) images on the device ->
-        (B, K, 2) coordinates in heatmap pixels, on the device."""
+        """The standard forward: (B, H, W, 3) images (a temporal model's (B, T,
+        H, W, 3) frames) on the device -> (B, K, 2) coordinates in heatmap
+        pixels, on the device."""
         with compute_autocast(self.cfg, self.device):
             if self.decode_logits:
                 logits, temperature = self.model.forward_logits(images)

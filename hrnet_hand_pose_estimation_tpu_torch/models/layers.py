@@ -194,6 +194,12 @@ class LecunConv2d(nn.Conv2d):
             self.bias.zero_()
 
 
+class LecunConv1d(nn.Conv1d):
+    """``nn.Conv1d`` trained from flax's default ``nn.Conv`` initialisation."""
+
+    init_train_weights = LecunConv2d.init_train_weights
+
+
 class Dense(nn.Linear):
     """``nn.Linear`` trained from flax's ``nn.Dense`` initialisation (lecun
     normal kernel, zero bias).  A flax (in, out) kernel is its weight

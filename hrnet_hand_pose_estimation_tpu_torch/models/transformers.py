@@ -1,12 +1,22 @@
-"""The RVT pooling transformer (single-image half of the JAX package's
-``models/transformers.py``), in PyTorch.
+"""The transformer pose models of the JAX package's ``models/transformers.py``,
+in PyTorch: the temporal PoseFormer and the RVT pooling transformer.
 
-Port of ``ViTBlock``, ``ConvHeadPooling`` and ``PoolingTransformer``
-(reference lib/models/my_pose_transformer.py:190-370): ResNet features ->
-a patch embedding plus K keypoint tokens -> PiT-style stages of pre-norm
-attention blocks with conv-head pooling between them -> a per-token head
-regressing (u, v) in heatmap coordinates.  The JAX module completes the
-reference's unrunnable forward the same way; the port follows it.
+``PoseTransformer`` (reference lib/models/pose_hrnet_transformer.py:87-245):
+per-frame HRNet decodes -> spatial attention over the joints of each frame
+-> temporal attention over the frames -> a learned weighted mean over the
+frames and a head refining the centre frame's pose.  The backbone's logits
+are computed once: their spatial softmax is the output's ``heatmaps``, and
+with ``use_softmax`` the decode is ``ops.decode.softmax_decode`` of the
+logits (B4 on a card: one launch a forward), the JAX package's
+``soft_argmax(spatial_softmax(logits, T))``; without it the argmax of the
+probabilities, as JAX decodes them.
+
+``ViTBlock``, ``ConvHeadPooling`` and ``PoolingTransformer`` (reference
+lib/models/my_pose_transformer.py:190-370): ResNet features -> a patch
+embedding plus K keypoint tokens -> PiT-style stages of pre-norm attention
+blocks with conv-head pooling between them -> a per-token head regressing
+(u, v) in heatmap coordinates.  The JAX module completes the reference's
+unrunnable forward the same way; the port follows it.
 
 ``MultiHead`` holds flax ``nn.MultiHeadDotProductAttention``'s four
 ``DenseGeneral`` layers as ``nn.Linear``s named ``query``, ``key``,
@@ -15,23 +25,29 @@ reference's unrunnable forward the same way; the port follows it.
 out) the weight (out, heads * head_dim) transposed (``utils/weights.py``).
 flax's ``nn.gelu`` is the tanh approximation and its LayerNorm's eps is 1e-6.
 
-The JAX registry passes no dtype, so the model runs in float32 there, its
-ResNet included: the port runs it in float32 with autocast off inside the
-model, whatever the caller's.  Its output is a bare (B, K, 2) tensor with
-no heatmaps, so the JAX 2D steps, evaluator and forward function fail on it
-(ROADMAP C17) and the port's raise.  ``PoseTransformer`` (the temporal
-model) waits for the temporal slice.
+The JAX registry passes neither model a dtype, so both run in float32 there
+(the RVT's ResNet included; PoseFormer's backbone runs at
+``TPU.COMPUTE_DTYPE``): the port runs them in float32 with autocast off
+inside, whatever the caller's.  The RVT's output is a bare (B, K, 2) tensor
+with no heatmaps, so the JAX 2D steps, evaluator and forward function fail
+on it (ROADMAP C17) and the port's raise.  PoseFormer's output carries the
+backbone's per-frame heatmaps, which JAX's generic steps train and decode
+(ROADMAP C20).  Its modules are named by their flax paths
+(``spatial_block0.attn``, ``frame_weights``), the backbone's by the
+reference's.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.decode import hard_argmax, softmax_decode, spatial_softmax
+from .hrnet import PoseHRNet
 from .layers import Dense, LayerNorm, LecunConv2d
 from .pose_resnet import ResNetBackbone
 
@@ -81,6 +97,67 @@ class ViTBlock(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x + self.attn(self.norm1(x))
         return x + self.fc2(F.gelu(self.fc1(self.norm2(x)), approximate="tanh"))
+
+
+class PoseTransformerOutput(NamedTuple):
+    pose2d_refined: torch.Tensor         # (B, K, 2) the centre frame's refined pose
+    heatmaps: torch.Tensor               # (B*F, h, w, K) per-frame probabilities
+    temperature: Optional[torch.Tensor]
+
+
+class PoseTransformer(nn.Module):
+    """Temporal pose refinement (reference pose_hrnet_transformer.py:87-245).
+    ``backbone`` is a softmax-head ``PoseHRNet``; frames (B, F, H, W, 3)
+    NHWC with F = ``num_frames``."""
+
+    def __init__(self, backbone: PoseHRNet, num_frames: int = 5, num_joints: int = 21,
+                 embed_dim_ratio: int = 32, depth: int = 4, num_heads: int = 8,
+                 use_softmax: bool = True):
+        super().__init__()
+        self.backbone = backbone
+        self.num_frames = num_frames
+        self.num_joints = num_joints
+        self.depth = depth
+        self.use_softmax = use_softmax
+        d, k = embed_dim_ratio, num_joints
+        self.spatial_embed = Dense(2, d)
+        self.spatial_pos = nn.Parameter(torch.zeros(1, k, d))
+        self.temporal_pos = nn.Parameter(torch.zeros(1, num_frames, k * d))
+        for i in range(depth):
+            self.add_module(f"spatial_block{i}", ViTBlock(d, num_heads))
+        self.spatial_norm = LayerNorm(d)
+        for i in range(depth):
+            self.add_module(f"temporal_block{i}", ViTBlock(k * d, num_heads))
+        self.temporal_norm = LayerNorm(k * d)
+        self.frame_weights = nn.Parameter(torch.zeros(num_frames, 1))
+        self.head_norm = LayerNorm(k * d)
+        self.head = Dense(k * d, k * 2)
+
+    @torch.no_grad()
+    def init_train_weights(self, gen: torch.Generator) -> None:
+        """flax's initialisers: zero position embeddings, ``normal(0.02)``
+        frame weights; the layers make their own."""
+        self.spatial_pos.zero_()
+        self.temporal_pos.zero_()
+        self.frame_weights.normal_(0.0, 0.02, generator=gen)
+
+    def forward(self, frames: torch.Tensor) -> PoseTransformerOutput:
+        b, f = frames.shape[:2]
+        k = self.num_joints
+        logits, temp = self.backbone.forward_logits(frames.reshape(b * f, *frames.shape[2:]))
+        with torch.autocast(frames.device.type, enabled=False):
+            heatmaps = spatial_softmax(logits, temp)
+            pose2d = softmax_decode(logits, temp) if self.use_softmax else hard_argmax(heatmaps)
+            x = self.spatial_embed(pose2d) + self.spatial_pos                  # (BF, K, d)
+            for i in range(self.depth):
+                x = getattr(self, f"spatial_block{i}")(x)
+            x = self.spatial_norm(x).reshape(b, f, -1) + self.temporal_pos      # (B, F, K d)
+            for i in range(self.depth):
+                x = getattr(self, f"temporal_block{i}")(x)
+            x = self.temporal_norm(x)
+            pooled = (x * self.frame_weights[None]).sum(dim=1)                   # "bfd,fo->bd"
+            y = self.head(self.head_norm(pooled))
+        return PoseTransformerOutput(y.reshape(b, k, 2), heatmaps, temp)
 
 
 class ConvHeadPooling(nn.Module):

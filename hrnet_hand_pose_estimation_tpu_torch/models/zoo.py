@@ -5,7 +5,10 @@ models it has so far: the HRNet with the plain and the softmax head, the
 volumetric backbone (the softmax head with its confidence heads), the
 softmax head with its temperature always trainable, the Convolutional Pose
 Machine (``CPM``, JAX ``models/zoo.py:53-58``), the cross-view fusion net
-(``multiview_pose_hrnet``, JAX ``:176-186``), and the 3D triangulation nets
+(``multiview_pose_hrnet``, JAX ``:176-186``), the single-image zoo, the
+temporal family (``pose_hrnet_transformer``, ``pose_hrnet_PoseAggr``,
+``HRNet_PredRNN``, ``HRNet_Emb_TCN``, JAX ``:99-173``; their frame count is
+``len(DATASET.SEQ_IDX)``), and the 3D triangulation nets
 under the reference's ``MODEL.TRIANGULATION_MODEL_NAME`` keys (JAX
 ``:190-217``; ``vol_CPM`` is the CPM-backed volumetric net).
 """
@@ -87,6 +90,54 @@ def _my_pose_transformer(cfg):
     from .transformers import pooling_transformer_from_cfg
 
     return pooling_transformer_from_cfg(cfg)
+
+
+@register("pose_hrnet_transformer")
+def _pose_hrnet_transformer(cfg):
+    """Temporal PoseFormer refinement (reference pose_hrnet_transformer.py:87-245)."""
+    from .transformers import PoseTransformer
+
+    return PoseTransformer(hrnet_from_cfg(cfg, head="softmax"),
+                           num_frames=len(list(cfg.DATASET.SEQ_IDX)),
+                           num_joints=int(cfg.MODEL.NUM_JOINTS),
+                           use_softmax=bool(cfg.MODEL.HEATMAP_SOFTMAX)).eval()
+
+
+@register("pose_hrnet_PoseAggr")
+def _pose_aggr(cfg):
+    """Deformable temporal aggregation (reference pose_hrnet_PoseAggr.py:287-738)
+    on a logits backbone: the softmax comes after the aggregation."""
+    from .pose_aggr import PoseAggrNet
+
+    return PoseAggrNet(hrnet_from_cfg(cfg, head="plain"),
+                       seq_len=len(list(cfg.DATASET.SEQ_IDX)),
+                       num_joints=int(cfg.MODEL.NUM_JOINTS),
+                       dilation_rates=tuple(int(d) for d in cfg.MODEL.DILATION_RATES),
+                       heatmap_softmax=bool(cfg.MODEL.HEATMAP_SOFTMAX),
+                       trainable_softmax=bool(cfg.MODEL.TRAINABLE_SOFTMAX)).eval()
+
+
+@register("HRNet_PredRNN")
+def _predrnn(cfg):
+    """HRNet + PredRNN temporal refinement (reference predrnn.py:186-236)."""
+    from .temporal import HRNetPredRNN
+
+    return HRNetPredRNN(hrnet_from_cfg(cfg, head="softmax"),
+                        num_hidden=tuple(int(n) for n in cfg.MODEL.N_HIDDEN),
+                        num_joints=int(cfg.MODEL.NUM_JOINTS)).eval()
+
+
+@register("HRNet_Emb_TCN")
+def _tcn(cfg):
+    """HRNet embeddings + temporal convs (reference hrnet_emb_model.py:186-236)."""
+    from .temporal import HRNetEmbTCN
+
+    return HRNetEmbTCN(hrnet_from_cfg(cfg, head="softmax"),
+                       seq_len=len(list(cfg.DATASET.SEQ_IDX)),
+                       embedding_size=int(cfg.MODEL.EMBEDDING_SIZE),
+                       tcn_channels=int(cfg.MODEL.TCN_CHANNELS),
+                       filter_widths=tuple(int(f) for f in cfg.MODEL.FILTER_WIDTHS),
+                       num_joints=int(cfg.MODEL.NUM_JOINTS)).eval()
 
 
 @register("multiview_pose_hrnet")

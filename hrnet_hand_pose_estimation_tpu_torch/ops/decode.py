@@ -21,10 +21,12 @@ from .kernels.softmax_decode import fused_softmax_decode
 def spatial_softmax(logits: torch.Tensor, temperature: torch.Tensor | float = 1.0) -> torch.Tensor:
     """Softmax over the H*W plane per joint (reference pose_hrnet_softmax.py:520-528).
 
-    ``temperature`` multiplies the logits before the softmax.
+    ``temperature`` multiplies the logits before the softmax, in float32
+    (float64 for float64 logits).
     """
     b, h, w, k = logits.shape
-    x = (logits.float() * temperature).reshape(b, h * w, k)
+    x = (logits.to(torch.promote_types(logits.dtype, torch.float32)) * temperature).reshape(
+        b, h * w, k)
     return torch.softmax(x, dim=1).reshape(b, h, w, k)
 
 

@@ -3,8 +3,8 @@
 On a card, ``torch.backends.cuda.matmul.allow_tf32`` lets cuBLAS round
 float32 operands to TF32 (10 mantissa bits).  The modules whose JAX
 counterparts ask for ``precision=HIGHEST`` (the fusion net's aggregation,
-the hamburger's matrix decomposition) run their products here with TF32 off,
-in the forward and in autograd's backward.
+the hamburger's matrix decomposition, the deformable conv) run their
+products here with TF32 off, in the forward and in autograd's backward.
 """
 
 from __future__ import annotations
@@ -16,13 +16,14 @@ import torch
 
 @contextmanager
 def no_tf32():
-    """TF32 off for cuBLAS float32 matmuls inside the block."""
-    prev = torch.backends.cuda.matmul.allow_tf32
+    """TF32 off for cuBLAS float32 matmuls and cuDNN float32 convs inside the block."""
+    prev = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     try:
         yield
     finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
 
 
 class _BatchedMatMul(torch.autograd.Function):

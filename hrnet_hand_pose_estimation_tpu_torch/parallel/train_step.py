@@ -60,7 +60,7 @@ def compute_dtype(cfg) -> torch.dtype:
 
 
 # Models whose JAX 2D steps fail, by the step that fails: the port raises
-# where JAX does (ROADMAP C16, C17).
+# where JAX does (ROADMAP C16, C17, C19).
 _HAMBURGER = ("pose_hrnet_hamburger has no {what}: JAX's create_train_state keeps only the "
               "params and batch_stats collections, and the model reads its ham_bases "
               "collection (ScopeCollectionNotFound, ROADMAP C16); evaluate it with Evaluator2D, "
@@ -68,11 +68,18 @@ _HAMBURGER = ("pose_hrnet_hamburger has no {what}: JAX's create_train_state keep
 _RVT = ("my_pose_transformer has no {what}: the model returns a bare (B, K, 2) array, and the "
         "JAX package's {what} reads its heatmaps (AttributeError, ROADMAP C17); call the "
         "model itself")
+_PREDRNN = ("HRNet_PredRNN has no {what}: the model returns a tuple (refined maps, maps, poses), "
+            "and the JAX package's {what} reads its heatmaps (AttributeError, ROADMAP C19); "
+            "call the model itself")
+_TCN = ("HRNet_Emb_TCN has no {what}: the model returns a bare (B, K, 2) array, and the JAX "
+        "package's {what} reads its heatmaps (AttributeError, ROADMAP C19); call the model "
+        "itself")
+_EVERY = {"my_pose_transformer": _RVT, "HRNet_PredRNN": _PREDRNN, "HRNet_Emb_TCN": _TCN}
 _NO_STEP = {
-    "train step": {"pose_hrnet_hamburger": _HAMBURGER, "my_pose_transformer": _RVT},
-    "eval step": {"pose_hrnet_hamburger": _HAMBURGER, "my_pose_transformer": _RVT},
-    "forward function": {"my_pose_transformer": _RVT},
-    "2D evaluator": {"my_pose_transformer": _RVT},
+    "train step": dict(_EVERY, pose_hrnet_hamburger=_HAMBURGER),
+    "eval step": dict(_EVERY, pose_hrnet_hamburger=_HAMBURGER),
+    "forward function": _EVERY,
+    "2D evaluator": _EVERY,
 }
 
 
@@ -83,6 +90,23 @@ def refuse_unsupported(cfg, what: str) -> None:
     msg = _NO_STEP[what].get(str(cfg.MODEL.NAME))
     if msg is not None:
         raise NotImplementedError(msg.format(what=what))
+
+
+def check_map_batch(heatmaps: torch.Tensor, batch: Dict) -> None:
+    """Raise ``ValueError`` (ROADMAP C20) when the model's maps neither match
+    the batch of the targets nor broadcast against one target: PoseFormer's
+    backbone gives (B*F, h, w, K) per-frame maps against (B, h, w, K)
+    targets, which JAX's loss broadcasts only at B = 1 (every frame toward
+    the centre frame's pose) and fails on otherwise."""
+    for key in ("target_heatmaps", "pose2d"):
+        target = batch.get(key)
+        if target is not None and target.shape[0] not in (1, heatmaps.shape[0]):
+            raise ValueError(
+                f"the model gives {heatmaps.shape[0]} maps against {target.shape[0]} {key} "
+                "(ROADMAP C20: the JAX package's 2D train step trains the maps the model "
+                "returns, which for pose_hrnet_transformer are its backbone's, one a frame; "
+                "they broadcast against the targets only at one sequence a batch, and the "
+                "refined pose enters no loss)")
 
 
 def check_map_size(cfg, heatmaps: torch.Tensor, targets: Optional[torch.Tensor]) -> None:
@@ -386,14 +410,16 @@ def init_train_weights(model: nn.Module, seed: int) -> None:
     """The JAX package's initial distributions, from a ``torch.Generator``
     seeded with ``seed`` (the numbers are not JAX's): conv kernels
     normal(std 0.001) (models/layers.py conv_init), conv biases 0, BN scale
-    1 and bias 0, running mean 0 and variance 1, the temperature 1.  A
+    1 and bias 0, running mean 0 and variance 1, every temperature 1.  A
     module with its own ``init_train_weights(generator)`` makes its own:
     flax's default ``lecun_normal`` for CPM's convs, the fusion net's pair
     FCs, and the zoo's ``models.layers.LecunConv2d``, ``Dense`` and
     transposed convs (where the JAX module has no ``conv_init``), LayerNorm
     scale 1 and bias 0, Swin's ``truncated_normal(0.02)`` position biases,
-    the RVT's ``uniform(1.0)`` keypoint tokens.  Modules are visited parent
-    first, so a module's own init touches only its own parameters."""
+    the RVT's ``uniform(1.0)`` keypoint tokens, PoseFormer's zero position
+    embeddings and ``normal(0.02)`` frame weights, PoseAggr's
+    ``normal(0.001)`` deform kernels.  Modules are visited parent first, so
+    a module's own init touches only its own parameters."""
     gen = torch.Generator().manual_seed(int(seed))
     for mod in model.modules():
         if hasattr(mod, "init_train_weights"):
@@ -408,8 +434,9 @@ def init_train_weights(model: nn.Module, seed: int) -> None:
             mod.running_mean.zero_()
             mod.running_var.fill_(1.0)
             mod.num_batches_tracked.zero_()
-    if hasattr(model, "trainable_temp"):
-        model.trainable_temp.fill_(1.0)
+    for mod in model.modules():
+        if isinstance(getattr(mod, "trainable_temp", None), nn.Parameter):
+            mod.trainable_temp.fill_(1.0)
 
 
 def create_train_state(cfg, model: nn.Module, steps_per_epoch: int = 1000,
@@ -471,9 +498,13 @@ def compute_autocast(cfg, device: torch.device):
 def make_train_step(cfg, model: nn.Module, tx: Optimizer) -> Callable:
     """The 2D train step: ``step(state, batch) -> (state, losses)``.
 
-    batch: {'images': (B,H,W,3), 'target_heatmaps': (B,h,w,K), 'pose2d':
-    (B,K,2) in heatmap px, 'visibility': (B,K)}, tensors on the model's
-    device.  ``state.model`` must be ``model``.  The losses are 0-d device
+    batch: {'images': (B,H,W,3), or (B,T,H,W,3) frames for a temporal
+    model, 'target_heatmaps': (B,h,w,K), 'pose2d': (B,K,2) in heatmap px,
+    'visibility': (B,K)}, tensors on the model's device.  ``state.model``
+    must be ``model``.  PoseFormer (``pose_hrnet_transformer``) trains as
+    JAX's step does, its backbone's per-frame maps against the targets; maps
+    that neither match the targets' batch nor meet one target raise
+    (ROADMAP C20).  The losses are 0-d device
     tensors: the loss dict of ``LossComputer2D``, the temperature (softmax
     heads) and ``nonfinite_grads`` (with the guard).
     """
@@ -488,10 +519,20 @@ def make_train_step(cfg, model: nn.Module, tx: Optimizer) -> Callable:
             raise ValueError("the state belongs to another model")
         model.train()
         images = batch["images"]
-        stats_before = (state.stats.clone(), state.counts.clone()) if detect else None
+        # frames may give per-frame maps, refused after the forward (C20); the
+        # BN statistics that forward moved are put back then
+        frames = images.dim() == 5
+        stats_before = ((state.stats.clone(), state.counts.clone()) if detect or frames
+                        else None)
         with torch.enable_grad():
             with compute_autocast(cfg, images.device):
                 out = model(images)
+            try:
+                check_map_batch(out.heatmaps, batch)
+            except ValueError:
+                state.stats.copy_(stats_before[0])
+                state.counts.copy_(stats_before[1])
+                raise
             check_map_size(cfg, out.heatmaps, batch.get("target_heatmaps"))
             pose2d_pred = decode_heatmaps(out.heatmaps, use_softmax)
             total, loss_dict = loss_computer(
@@ -537,7 +578,12 @@ def make_eval_step(cfg, model: nn.Module) -> Callable:
     """Eval step (reference core/function.py:681-701): the forward with the
     running BN statistics, optional flip-test TTA, and the decode.
     ``step(state, batch) -> {'heatmaps', 'pose2d_pred'}``.  CPM's is
-    ``make_cpm_eval_step``.  The fusion net has none: the JAX step reads
+    ``make_cpm_eval_step``.  Temporal models take (B, T, H, W, 3) frames;
+    PoseFormer's heatmaps and poses are its backbone's per frame, (B*F, ...),
+    as JAX's step returns them (ROADMAP C20).  With TEST.FLIP_TEST the images'
+    axis 2 flips, as JAX's ``[:, :, ::-1, :]`` does: a frame's H for frames
+    (C20; every shipped temporal YAML sets FLIP_TEST false).  The fusion net
+    has none: the JAX step reads
     ``out.heatmaps``, which its ``MultiViewOutput`` lacks, so it fails when
     called; the port's step raises then too (ROADMAP C13)."""
     name = str(cfg.MODEL.NAME)

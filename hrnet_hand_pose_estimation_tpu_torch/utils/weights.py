@@ -6,16 +6,20 @@ or ``vol_CPM``'s CPMVolumetric, under ``backbone``, with
 ``process_features`` and the V2V ``volume_net``), a CPM's, the fusion
 net's (the PoseHRNet under ``backbone`` and ``aggregation/pair_fc``), a
 PoseHRNetHamburger's (with its ``ham_bases`` collection), a PoseResNet's, a
-SwinPose's or an RVT PoolingTransformer's onto the port's ``state_dict``.
+SwinPose's, an RVT PoolingTransformer's or a temporal model's (PoseAggrNet,
+PoseTransformer, HRNetPredRNN, HRNetEmbTCN) onto the port's ``state_dict``.
 It keeps its own copy of the name rules of the JAX package's
 ``utils/torch_convert.py`` (reference torch name -> flax path), inverted:
 flax path -> torch name, HWIO / DHWIO kernels -> OIHW / OIDHW weights, a
 transposed conv's kernel flipped in space back to torch's (I, O, [D,] H,
-W), Dense (in, out) -> Linear (out, in), an attention ``DenseGeneral``'s
+W), a 1D conv's (W, I, O) kernel -> (O, I, W), Dense (in, out) -> Linear
+(out, in), an attention ``DenseGeneral``'s
 (in, heads, head_dim) or (heads, head_dim, out) kernel -> Linear, LayerNorm
 ``scale`` -> ``weight``, and BN ``scale/bias/mean/var`` ->
-``weight/bias/running_mean/running_var``.  Swin's and the RVT's own parts
-have no reference names: their port names are the flax paths.
+``weight/bias/running_mean/running_var``.  Swin's, the RVT's and the
+temporal models' own parts have no reference names: their port names are
+the flax paths (PoseAggr's ``offset_feats`` chain keeps the reference's
+``_make_layer`` names, as the HRNet's layer1 does).
 
 ``from_jax_train_state`` maps a JAX ``TrainState`` (parameters, BN
 statistics, the optax state, the 3D trainer's per-group one included, and
@@ -114,10 +118,20 @@ _POSE_RESNET_RULES = _RESNET_RULES + (
     (r"^deconv_bn(\d+)$", lambda m: f"deconv_layers.{3 * int(m[1]) + 1}"),
     (r"^final_layer$", lambda m: "final_layer"),
 )
+# PoseAggr's offset chain (a JAX ResLayer under offset_feats)
+_OFFSET_RULES = (
+    (r"^offset_feats/block(\d+)/cb(\d)/(conv|bn)$", lambda m: f"offset_feats.{m[1]}.{m[3]}{m[2]}"),
+    (r"^offset_feats/block(\d+)/downsample/(conv|bn)$",
+     lambda m: f"offset_feats.{m[1]}.downsample.{_SUB[m[2]]}"),
+)
+# the temporal models' own top-level modules (the rest is their backbone)
+_TEMPORAL_KEYS = ("offset_feats", "spatial_embed", "predrnn", "embed")
 # flax parameters that are leaves of their own, kept as they are: the
-# fusion net's stacked pair FCs, Swin's relative position bias tables, the
-# RVT's keypoint tokens
-_OWN_LEAVES = ("pair_fc", "rel_pos_bias", "keypoint_tokens")
+# temperature, the fusion net's stacked pair FCs, Swin's relative position
+# bias tables, the RVT's keypoint tokens, PoseFormer's position embeddings
+# and frame weights, PoseAggr's deform kernels (HWIO, as the port keeps them)
+_OWN_LEAF = re.compile(r"^(trainable_temp|pair_fc|rel_pos_bias|keypoint_tokens|spatial_pos"
+                       r"|temporal_pos|frame_weights|deform_kernel\d+)$")
 # the hamburger's fixed bases: the ham_bases collection -> a buffer
 _HAM_BASES = (("hamburger", "ham", "w"), "hamburger.ham.bases")
 
@@ -176,12 +190,19 @@ def _torch_name(path: str, net: bool = False, conf: str = "vol_confidences",
 
 
 def _zoo_name(path: str, kind: str) -> Optional[str]:
-    """flax module path of a PoseResNet, SwinPose or RVT -> the port's name."""
+    """flax module path of a PoseResNet, SwinPose, RVT or temporal model ->
+    the port's name."""
     if kind == "pose_resnet":
         return _match(_POSE_RESNET_RULES, path)
     if kind == "rvt" and path.startswith("backbone/"):
         name = _match(_RESNET_RULES, path)
         return None if name is None else "backbone." + name
+    if kind == "temporal":
+        if path.startswith("backbone/"):
+            name = _torch_name(path[len("backbone/"):])
+            return None if name is None else "backbone." + name
+        if path.startswith("offset_feats/"):
+            return _match(_OFFSET_RULES, path)
     return path.replace("/", ".")
 
 
@@ -190,6 +211,8 @@ def _tree_kind(params: Mapping) -> str:
     one) belongs to."""
     if "patch_embed" in params and "embed_norm" in params:
         return "swin"
+    if any(k in params for k in _TEMPORAL_KEYS):
+        return "temporal"
     if "keypoint_tokens" in params:
         return "rvt"
     if "final_layer" in params:
@@ -206,6 +229,8 @@ def _weight(arr: np.ndarray, name: str) -> np.ndarray:
     """A flax kernel -> the torch weight of module ``name``."""
     if arr.ndim == 2:                                      # Dense (in, out) -> (out, in)
         return arr.T
+    if arr.ndim == 3 and re.search(r"(^|\.)tcn\d+$", name):   # Conv1d (W, I, O) -> (O, I, W)
+        return arr.transpose(2, 1, 0)
     if arr.ndim == 3:
         # an attention DenseGeneral: (in, heads, head_dim), or (heads,
         # head_dim, out) for the out projection -> Linear (out, in)
@@ -236,8 +261,8 @@ def _leaves(tree: Mapping, prefix=()):
 def from_jax_variables(variables: Mapping, model: Optional[nn.Module] = None
                        ) -> Dict[str, torch.Tensor]:
     """JAX PoseHRNet, triangulation-net, CPM, fusion-net, PoseHRNetHamburger,
-    PoseResNet, SwinPose or RVT variables (numpy leaves) -> the port's
-    state_dict.
+    PoseResNet, SwinPose, RVT or temporal-model variables (numpy leaves) ->
+    the port's state_dict.
 
     Raises ``KeyError`` on any leaf it cannot place.  With ``model``, it
     also raises on any key of ``model.state_dict()`` left unfilled and on a
@@ -254,18 +279,17 @@ def from_jax_variables(variables: Mapping, model: Optional[nn.Module] = None
     conf = "vol_confidences"
     if model is not None and any(".alg_confidences." in "." + k for k in model.state_dict()):
         conf = "alg_confidences"
-    temp = ("backbone", "trainable_temp") if net else ("trainable_temp",)
     for coll in ("params", "batch_stats", "ham_bases"):
         for path, leaf in _leaves(variables.get(coll, {})):
             arr = np.asarray(leaf, dtype=np.float32)
             if coll == "ham_bases" and path == _HAM_BASES[0]:
                 out[_HAM_BASES[1]] = torch.from_numpy(arr.copy())
                 continue
-            if coll == "params" and (path == temp or path[-1] in _OWN_LEAVES):
+            if coll == "params" and _OWN_LEAF.match(path[-1]):
                 out[".".join(path)] = torch.from_numpy(arr.copy())
                 continue
             module = "/".join(path[:-1])
-            name = (_zoo_name(module, kind) if kind in ("swin", "rvt", "pose_resnet")
+            name = (_zoo_name(module, kind) if kind in ("swin", "rvt", "pose_resnet", "temporal")
                     else _torch_name(module, net, conf, cpm))
             field = _FIELD.get((coll, path[-1]))
             if name is None or field is None or coll == "ham_bases":
@@ -416,6 +440,9 @@ def discriminator_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
 
 # the single-image models of the zoo whose state init_variables makes whole
 ZOO_MODELS = ("pose_resnet", "swin_transformer", "pose_hrnet_hamburger", "my_pose_transformer")
+# the temporal models: (B, T, H, W, 3) frames in, T = len(DATASET.SEQ_IDX)
+TEMPORAL_MODELS = ("pose_hrnet_PoseAggr", "pose_hrnet_transformer", "HRNet_PredRNN",
+                   "HRNet_Emb_TCN")
 
 # the BNs that close a residual branch of stages 2-4 (basic-block bn2) or
 # feed another resolution (fuse layers): damped by init_variables
@@ -426,29 +453,32 @@ _DAMPED_BN = re.compile(r"branches\.\d+\.\d+\.bn2$|fuse_layers\.")
 def init_variables(cfg, seed: int = 0, device="cpu", damp: bool = True,
                    net: Optional[str] = None) -> Dict[str, torch.Tensor]:
     """A random PoseHRNet state_dict for ``cfg`` from a numpy seed (with the
-    confidence head of ``pose_hrnet_volumetric`` where the config names
-    it; the model's own where MODEL.NAME names a model of the zoo: ``CPM``,
+    confidence head of ``pose_hrnet_volumetric`` where the config names it;
+    the model's own where MODEL.NAME names a model of the zoo: ``CPM``,
     ``multiview_pose_hrnet``, ``pose_resnet``, ``swin_transformer``,
-    ``pose_hrnet_hamburger``, ``my_pose_transformer``), or with ``net``
-    ('alg', 'ransac', 'vol', 'vol_CPM') the state_dict of that triangulation
-    net (``models.triangulation.build_triangulation_net``).
+    ``pose_hrnet_hamburger``, ``my_pose_transformer`` or a temporal model),
+    or with ``net`` ('alg', 'ransac', 'vol', 'vol_CPM') the state_dict of
+    that triangulation net
+    (``models.triangulation.build_triangulation_net``).
 
-    Convs, transposed convs and linear layers are He-scaled normals (a
-    transposed conv's fan-in counts the inputs one output sees), BN and
-    LayerNorm affine parameters random around 1 and 0, Swin's relative
-    position biases normals of std 0.02, the RVT's keypoint tokens and the
-    hamburger's bases uniform in [0, 1).  With ``damp``, the BNs that close a residual
-    branch in stages 2-4 or feed a fuse layer scale by 0.03-0.1 instead: at
-    full w32 depth an undamped random HRNet is chaotic, so a one-ulp change
-    of layer1's bf16 output moves the decoded joints by pixels
-    (``chip_conditioning.py`` measures it).  Layer1 and the head are never
-    damped.  The BN running statistics are then set to the statistics of
-    one forward of two random images (made from the same seed) on
-    ``device``, so every layer sees normalized activations as in a trained
-    net, and the statistics sit well away from 0 and 1, which exercises BN
-    folding; a net's V2V statistics to those of one forward of a random
-    non-negative volume of its ``VOLUME_SIZE``.  CPM has no BN.  The fusion
-    net's pair FCs are normals of std 1 / sqrt(HW).  Returns CPU tensors.
+    Convs, transposed convs, linear layers, PoseAggr's deform kernels and
+    PoseFormer's frame weights are He-scaled normals (a transposed conv's
+    fan-in counts the inputs one output sees), BN and LayerNorm affine
+    parameters random around 1 and 0, Swin's relative position biases and
+    PoseFormer's position embeddings normals of std 0.02, the RVT's keypoint
+    tokens and the hamburger's bases uniform in [0, 1).  With ``damp``, the
+    BNs that close a residual branch in stages 2-4 or feed a fuse layer
+    scale by 0.03-0.1 instead: at full w32 depth an undamped random HRNet is
+    chaotic, so a one-ulp change of layer1's bf16 output moves the decoded
+    joints by pixels (``chip_conditioning.py`` measures it).  Layer1 and the
+    head are never damped.  The BN running statistics are then set to the
+    statistics of one forward of two random images (made from the same seed;
+    for a temporal model two random sequences of its frames) on ``device``,
+    so every layer sees normalized activations as in a trained net, and the
+    statistics sit well away from 0 and 1, which exercises BN folding; a
+    net's V2V statistics to those of one forward of a random non-negative
+    volume of its ``VOLUME_SIZE``.  CPM has no BN. The fusion net's pair FCs
+    are normals of std 1 / sqrt(HW).  Returns CPU tensors.
     """
     from ..models.hrnet import hrnet_from_cfg
     from ..models.multiview_hrnet import Aggregation
@@ -465,6 +495,9 @@ def init_variables(cfg, seed: int = 0, device="cpu", damp: bool = True,
         backbone = getattr(model, "backbone", model)
     elif name in ZOO_MODELS:
         model = backbone = build_model(cfg)
+    elif name in TEMPORAL_MODELS:
+        model = build_model(cfg)
+        backbone = model
     else:
         conf = {}
         if str(cfg.MODEL.NAME) == "pose_hrnet_volumetric":
@@ -472,8 +505,8 @@ def init_variables(cfg, seed: int = 0, device="cpu", damp: bool = True,
                         alg_confidences=bool(cfg.MODEL.ALG_CONFIDENCES))
         model = backbone = hrnet_from_cfg(cfg, head="softmax", **conf)
     for mod_name, mod in model.named_modules():
-        if isinstance(mod, (nn.Conv2d, nn.Conv3d, nn.ConvTranspose2d, nn.ConvTranspose3d,
-                            nn.Linear)):
+        if isinstance(mod, (nn.Conv1d, nn.Conv2d, nn.Conv3d, nn.ConvTranspose2d,
+                            nn.ConvTranspose3d, nn.Linear)):
             # He-scaled; an output of a transposed conv sees (kernel / stride)
             # inputs per axis (each input once where stride = kernel)
             fan_in = (mod.weight.shape[0] * int(np.prod([k // s for k, s in zip(
@@ -502,12 +535,17 @@ def init_variables(cfg, seed: int = 0, device="cpu", damp: bool = True,
                 0.0, 1.0 / np.sqrt(mod.pair_fc.shape[-1]), mod.pair_fc.shape).astype(np.float32)))
     for pname, tensor in list(model.named_parameters()) + list(model.named_buffers()):
         leaf = pname.rsplit(".", 1)[-1]
-        if leaf == "rel_pos_bias":
+        if leaf in ("rel_pos_bias", "spatial_pos", "temporal_pos"):
             tensor.copy_(torch.from_numpy(rng.normal(0.0, 0.02, tensor.shape).astype(np.float32)))
+        elif leaf.startswith("deform_kernel") or leaf == "frame_weights":
+            fan_in = int(np.prod(tensor.shape[:-1]))
+            tensor.copy_(torch.from_numpy(
+                rng.normal(0.0, np.sqrt(2.0 / fan_in), tensor.shape).astype(np.float32)))
         elif leaf in ("keypoint_tokens", "bases"):
             tensor.copy_(torch.from_numpy(rng.uniform(0.0, 1.0, tensor.shape).astype(np.float32)))
     h, w = (int(s) for s in cfg.MODEL.IMAGE_SIZE[::-1])
-    images = torch.from_numpy(rng.normal(size=(2, h, w, 3)).astype(np.float32))
+    frames = (len(list(cfg.DATASET.SEQ_IDX)),) if name in TEMPORAL_MODELS else ()
+    images = torch.from_numpy(rng.normal(size=(2, *frames, h, w, 3)).astype(np.float32))
     model = model.to(device)
     for mod in model.modules():
         if isinstance(mod, nn.BatchNorm2d):

@@ -1419,3 +1419,159 @@ def test_hamburger_train_gradient_on_card_matches_cpu(cuda):
     witness = max((cpu32[n] - g).abs().max().item() for n, g in exact.items())
     gap = max((card32[n] - g).abs().max().item() for n, g in exact.items())
     assert gap <= max(1e-3 * gmax, 2 * witness), (gap / gmax, witness / gmax)
+
+
+# -- the temporal family -------------------------------------------------------
+
+def temporal_cfg(name):
+    """small_cfg's HRNet at 64x64 as the temporal model ``name``: 3 frames,
+    dilations 1 and 2, the pose loss, float32."""
+    cfg = small_cfg().clone()
+    cfg.defrost()
+    cfg.merge_from_list(["MODEL.NAME", name, "DATASET.SEQ_IDX", [-1, 0, 1],
+                         "MODEL.DILATION_RATES", [1, 2], "MODEL.HEATMAP_SOFTMAX", True,
+                         "MODEL.TRAINABLE_SOFTMAX", True, "TPU.COMPUTE_DTYPE", "float32",
+                         "LOSS.WITH_HEATMAP_LOSS", False, "LOSS.WITH_POSE2D_LOSS", True])
+    return cfg.freeze()
+
+
+def temporal_frames(b, device, seed=17):
+    return torch.from_numpy(np.random.default_rng(seed).normal(size=(b, 3, 64, 64, 3)).astype(
+        np.float32)).to(device)
+
+
+@pytest.mark.parametrize("dilation", [1, 6])
+def test_deform_conv_on_card_matches_cpu(cuda, dilation):
+    """PoseAggr's grouped deformable conv at its full shape (10 frames of
+    64x64x21, one offset field per joint, offsets of std 3 px) on the card,
+    TF32 off: the output within 1e-5 and the gradients of x, the offsets and
+    the weight within 1e-4 of their largest value of the CPU's."""
+    from hrnet_hand_pose_estimation_tpu_torch.ops.deform_conv import deform_conv2d
+
+    rng = np.random.default_rng(16)
+    arrays = (rng.normal(size=(10, 64, 64, 21)), 3 * rng.normal(size=(10, 64, 64, 21 * 18)),
+              rng.normal(size=(3, 3, 21, 21)) / np.sqrt(189))
+    r = torch.from_numpy(rng.normal(size=(10, 64, 64, 21)).astype(np.float32))
+    outs, grads = [], []
+    for dev in ("cpu", cuda):
+        leaves = [torch.from_numpy(a.astype(np.float32)).to(dev).requires_grad_() for a in arrays]
+        out = deform_conv2d(*leaves, padding=dilation, dilation=dilation, deformable_groups=21)
+        (out * r.to(dev)).sum().backward()
+        outs.append(out.detach().cpu())
+        grads.append([leaf.grad.cpu() for leaf in leaves])
+    assert (outs[1] - outs[0]).abs().max() <= 1e-5 * outs[0].abs().max()
+    for want, got in zip(*grads):
+        assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+
+
+def test_pose_aggr_on_card(cuda):
+    """PoseAggr with a float32 offset chain on the card, TF32 off: the
+    probabilities within 1e-4 of their largest value of the CPU's;
+    ``Evaluator2D`` on the registry's net (its offset chain in bfloat16)
+    decodes a batch with one B4 launch, within 1e-4 px of B4's twin on the
+    same fused logits."""
+    from hrnet_hand_pose_estimation_tpu_torch.core.evaluator import Evaluator2D
+    from hrnet_hand_pose_estimation_tpu_torch.models.hrnet import hrnet_from_cfg
+    from hrnet_hand_pose_estimation_tpu_torch.models.pose_aggr import PoseAggrNet
+
+    cfg = temporal_cfg("pose_hrnet_PoseAggr")
+    state = init_variables(cfg, 0)
+    x = temporal_frames(2, "cpu")
+    outs = []
+    for dev in ("cpu", cuda):
+        net = PoseAggrNet(hrnet_from_cfg(cfg, head="plain"), seq_len=3, dilation_rates=(1, 2),
+                          trainable_softmax=True, offset_dtype=torch.float32)
+        net.load_state_dict(state)
+        with torch.no_grad():
+            outs.append(net.to(dev).eval()(x.to(dev)).heatmaps.cpu())
+    assert (outs[1] - outs[0]).abs().max() <= 1e-4 * outs[0].abs().max()
+
+    model = build_model(cfg)
+    model.load_state_dict(state)
+    model.to(cuda).eval()
+    ev = Evaluator2D(cfg, model, None, device=cuda)
+    assert ev.decode_logits
+    frames = temporal_frames(4, cuda)
+    before = fused_softmax_decode.launches
+    got = ev.forward(frames)
+    torch.cuda.synchronize()
+    assert fused_softmax_decode.launches == before + 1
+    with torch.no_grad():
+        logits, temp = model.forward_logits(frames)
+    assert got.shape == (4, 21, 2)
+    assert (got - softmax_decode_reference(logits, temp)).abs().max().item() <= 1e-4
+
+
+def test_pose_transformer_b4_sites_on_card(cuda):
+    """PoseFormer's forward on the card decodes the backbone's per-frame
+    logits with one B4 launch: its maps within 1e-4 of their largest value
+    and its refined pose within 1e-5 px of the CPU's (the twin's decode;
+    2.7e-6 px on an H100).
+    The C20 train step at one sequence launches B4 forward once and its
+    backward never (the decode enters no loss), every gradient outside the
+    backbone is zero, and two sequences raise C20."""
+    cfg = temporal_cfg("pose_hrnet_transformer")
+    state = init_variables(cfg, 0)
+    models = []
+    for dev in ("cpu", cuda):
+        model = build_model(cfg)
+        model.load_state_dict(state)
+        models.append(model.to(dev).eval())
+    x = temporal_frames(1, "cpu")
+    with torch.no_grad():
+        want = models[0](x)
+        before = fused_softmax_decode.launches
+        got = models[1](x.to(cuda))
+        torch.cuda.synchronize()
+    assert fused_softmax_decode.launches == before + 1
+    assert (got.heatmaps.cpu() - want.heatmaps).abs().max() <= 1e-4 * want.heatmaps.max()
+    gap = (got.pose2d_refined.cpu() - want.pose2d_refined).abs().max().item()
+    print(f"PoseFormer refined pose, card vs CPU: {gap:.3g} px")
+    assert gap <= 1e-5
+
+    model = build_model(cfg)
+    tstate, tx = TS.create_train_state(cfg, model, device=cuda)
+    step = TS.make_train_step(cfg, model, tx)
+    rng = np.random.default_rng(18)
+    batch = {"images": x.to(cuda),
+             "target_heatmaps": torch.zeros(1, 16, 16, 21, device=cuda),
+             "pose2d": torch.from_numpy(rng.uniform(2, 14, size=(1, 21, 2)).astype(
+                 np.float32)).to(cuda),
+             "visibility": torch.ones(1, 21, device=cuda)}
+    before = (fused_softmax_decode.launches, fused_softmax_decode.launches_bwd)
+    tstate, losses = step(tstate, batch)
+    torch.cuda.synchronize()
+    assert (fused_softmax_decode.launches, fused_softmax_decode.launches_bwd) == (
+        before[0] + 1, before[1])
+    assert torch.isfinite(losses["total_loss"]).item()
+    grads = {n: p.grad for n, p in model.named_parameters()}
+    assert any(g.any() for n, g in grads.items() if n.startswith("backbone."))
+    assert not any(g.any() for n, g in grads.items() if not n.startswith("backbone."))
+    two = {k: torch.cat([v, v]) for k, v in batch.items()}
+    two["images"] = temporal_frames(2, cuda)
+    with pytest.raises(ValueError, match="C20"):
+        step(tstate, two)
+
+
+def test_kernel_times_match_key_averages(cuda):
+    """``chip_timing.kernel_times`` reads the profiler's raw device events,
+    which are not public API: on a small callable its sum is
+    ``key_averages()``'s device self time, within 1e-6 (both are the same
+    events, in ns and in float us)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from chip_timing import kernel_times
+
+    a = torch.randn(512, 512, device=cuda)
+    fn = lambda: (a @ a).relu_()
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+    raw = sum(kernel_times(prof, 3).values())
+    averaged = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / 3
+    print(f"kernel ms a step: raw events {raw:.6f}, key_averages {averaged:.6f}")
+    assert raw > 0 and raw == pytest.approx(averaged, rel=1e-6)

@@ -122,9 +122,11 @@ def test_init_variables_seeded_and_folding_relevant(tiny_cfg):
 
 
 def test_registry(tiny_cfg):
-    assert registered_models() == ["CPM", "alg", "multiview_pose_hrnet", "my_pose_transformer",
-                                   "pose_hrnet", "pose_hrnet_hamburger", "pose_hrnet_softmax",
-                                   "pose_hrnet_trainable_softmax", "pose_hrnet_volumetric",
+    assert registered_models() == ["CPM", "HRNet_Emb_TCN", "HRNet_PredRNN", "alg",
+                                   "multiview_pose_hrnet", "my_pose_transformer", "pose_hrnet",
+                                   "pose_hrnet_PoseAggr", "pose_hrnet_hamburger",
+                                   "pose_hrnet_softmax", "pose_hrnet_trainable_softmax",
+                                   "pose_hrnet_transformer", "pose_hrnet_volumetric",
                                    "pose_resnet", "ransac", "swin_transformer", "vol", "vol_CPM"]
     cfg = port_cfg(tiny_cfg)
     model = build_model(cfg)
@@ -135,12 +137,18 @@ def test_registry(tiny_cfg):
     from hrnet_hand_pose_estimation_tpu_torch.models.multiview_hrnet import MultiViewPoseNet
     from hrnet_hand_pose_estimation_tpu_torch.models.pose_resnet import PoseResNet
     from hrnet_hand_pose_estimation_tpu_torch.models.swin import SwinPose
-    from hrnet_hand_pose_estimation_tpu_torch.models.transformers import PoolingTransformer
+    from hrnet_hand_pose_estimation_tpu_torch.models.pose_aggr import PoseAggrNet
+    from hrnet_hand_pose_estimation_tpu_torch.models.temporal import HRNetEmbTCN, HRNetPredRNN
+    from hrnet_hand_pose_estimation_tpu_torch.models.transformers import (PoolingTransformer,
+                                                                          PoseTransformer)
 
     for name, kind in (("CPM", CPM), ("multiview_pose_hrnet", MultiViewPoseNet),
                        ("pose_resnet", PoseResNet), ("swin_transformer", SwinPose),
                        ("pose_hrnet_hamburger", PoseHRNetHamburger),
-                       ("my_pose_transformer", PoolingTransformer)):
+                       ("my_pose_transformer", PoolingTransformer),
+                       ("pose_hrnet_transformer", PoseTransformer),
+                       ("pose_hrnet_PoseAggr", PoseAggrNet), ("HRNet_PredRNN", HRNetPredRNN),
+                       ("HRNet_Emb_TCN", HRNetEmbTCN)):
         other = config_from_dict(cfg.to_dict(), freeze=False)
         other.MODEL.NAME = name
         model = build_model(other.freeze())

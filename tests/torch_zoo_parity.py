@@ -70,16 +70,39 @@ def rel_gap(got, want) -> float:
     return float(np.abs(got - want).max() / np.abs(want).max())
 
 
-def step_parity(jcfg, pcfg, jax_model, variables, batch, monkeypatch):
+def jax_train_step(jcfg, jax_model, monkeypatch):
+    """(JAX's jitted ``make_train_step``, its optimizer), the step made with
+    ``apply_guarded_update`` patched so that it also returns its gradients
+    and new BN statistics (``_grads``, ``_stats``).  ``monkeypatch`` must
+    stay in force until the step's first call has traced it; a step of one
+    module's tests can then be shared by them (one compile)."""
+    import hrnet_hand_pose_estimation_tpu.parallel.train_step as jax_ts
+
+    real = jax_ts.apply_guarded_update
+
+    def returning(cfg, tx, state, grads, new_stats, loss_dict):
+        state, losses = real(cfg, tx, state, grads, new_stats, loss_dict)
+        return state, dict(losses, _grads=grads, _stats=new_stats)
+
+    monkeypatch.setattr(jax_ts, "apply_guarded_update", returning)
+    tx = jax_ts.make_optimizer(jcfg, 1000)
+    return jax_ts.make_train_step(jcfg, jax_model, tx), tx
+
+
+def step_parity(jcfg, pcfg, jax_model, variables, batch, monkeypatch=None, model=None,
+                jax_step=None):
     """One train step of the JAX package's jitted ``make_train_step`` and of
-    the port's ``pick_train_step`` from the same variables and batch.
+    the port's ``pick_train_step`` from the same variables and batch, on
+    ``model`` (by default the registry's model of ``pcfg``).
 
     The JAX step is jitted (op by op, its first step compiles every
-    primitive alone: ~45 s for a ResNet-18); its ``apply_guarded_update`` is
-    wrapped so that the step also returns its gradients and new BN
-    statistics.  Returns {"loss": {key: relative gap}, "grad": (largest
-    gradient gap over max|g|, where), "stats": largest running-statistic
-    gap (0 without BN), "model": the port model after its step}.
+    primitive alone: ~45 s for a ResNet-18); ``jax_step`` is one made by
+    ``jax_train_step`` earlier (else one is made here, with
+    ``monkeypatch``), which returns its gradients and new BN statistics too.
+    Returns {"loss": {key: relative gap}, "grad": (largest gradient gap over
+    max|g|, where), "stats": largest running-statistic gap (0 without BN),
+    "model": the port model after its step, "grads" / "jax_grads": the
+    gradients by the port's names}.
     """
     import jax.numpy as jnp
     import torch
@@ -91,25 +114,17 @@ def step_parity(jcfg, pcfg, jax_model, variables, batch, monkeypatch):
     from hrnet_hand_pose_estimation_tpu_torch.utils.weights import (from_jax_train_state,
                                                                     from_jax_variables)
 
-    real = jax_ts.apply_guarded_update
-
-    def returning(cfg, tx, state, grads, new_stats, loss_dict):
-        state, losses = real(cfg, tx, state, grads, new_stats, loss_dict)
-        return state, dict(losses, _grads=grads, _stats=new_stats)
-
-    monkeypatch.setattr(jax_ts, "apply_guarded_update", returning)
-    tx = jax_ts.make_optimizer(jcfg, 1000)
+    jstep, tx = jax_step or jax_train_step(jcfg, jax_model, monkeypatch)
     params = jax.tree.map(jnp.asarray, variables["params"])
     stats = jax.tree.map(jnp.asarray, variables.get("batch_stats", {}))
     state = jax_ts.TrainState(step=jnp.zeros((), jnp.int32), params=params, batch_stats=stats,
                               opt_state=tx.init(params))
     before = jax.device_get(state)
-    _, out = jax_ts.make_train_step(jcfg, jax_model, tx)(
-        state, {k: jnp.asarray(v) for k, v in batch.items()})
+    _, out = jstep(state, {k: jnp.asarray(v) for k, v in batch.items()})
     out = jax.device_get(out)
     jgrads, jstats = out.pop("_grads"), out.pop("_stats")
 
-    model = build_model(pcfg)
+    model = build_model(pcfg) if model is None else model
     pstate, ptx = port_ts.create_train_state(pcfg, model, device="cpu")
     pstate.load_state_dict(from_jax_train_state(before, model))
     pstate, pl = pick_train_step(pcfg, model, ptx)(
