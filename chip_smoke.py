@@ -122,6 +122,21 @@ one B4 forward and no backward launch and a zero gradient outside the
 backbone, C20 raised at B=2); PredRNN and the TCN at the config defaults
 (T=5, B=2: float32 on the card against the CPU, C19 on their entry points).
 
+Last, FTL at experiments/MHP/MHP_HRNet_w32_softmax_pose2dloss_FTL_v1.yaml's
+widths (w32 at 256/64, 4 views, B=2, a seeded camera rig): the float32
+forward on the card against the CPU's float64 (within 2x the CPU's own
+float32 gap), the registry's net (its convs in bf16) against float32 held
+to the CPU's own bf16 gap on the same inputs, one B4 launch a forward held
+to its twin, the gradient of sum(keypoints_3d) (one B4 backward launch,
+none into the frozen backbone, held to the twin-decoded gradient by a
+witness), the forward's time, and C21 from tools.train and the entry
+points; HourGlass (2 stacks, depth 2, B=8: float32 against the CPU's
+float64, bf16 against float32, C22); and the mesh family on the card
+against the CPU, each timed: HandMeshNet on w32-wide features, LBS at B=64
+on a MANO-sized rig, MeshRenderer at 256 px (1538 faces), nms and soft_nms
+on 2000 boxes (beside JAX's greedy loop run op by op), oks_nms on 200
+poses, scale_aware_gaussian_targets at B=32.
+
     python3 chip_smoke.py
 
 Needs one CUDA card and nvcc; exits non-zero without them.  Prints one line
@@ -4023,6 +4038,507 @@ def predrnn_tcn_phases(smi):
             del card, cpu, model, st
 
 
+# -- FTL, the stacked hourglass and the mesh family --------------------------
+
+FTL_YAML = (Path(__file__).resolve().parent / "experiments" / "MHP"
+            / "MHP_HRNet_w32_softmax_pose2dloss_FTL_v1.yaml")
+FTL_BATCH, FTL_VIEWS = 2, 4   # TEST.IMAGES_PER_GPU of the FTL YAML, DATASET.NUM_VIEWS
+# the float32 card against the CPU's float64: within this many times the
+# CPU's own float32 gap from its float64; the registry's bf16 net against
+# float32: within max(ZOO_FLOOR_PX, this many times the CPU's own bf16 gap)
+OTHER_WITNESS_FACTOR = 2.0
+HG_BATCH = 8
+MESH_FEATURES = (8, 64, 64, 480)   # the w32 HRNet's features at 256 px
+MESH_LIMIT = 1e-5                  # card vs CPU, float32, relative to the largest value
+LBS_BATCH = 64
+MANO_SIZE = dict(n_verts=778, n_joints=16, n_shape=10)
+MANO_FACES = 1538
+RENDER_SIZE = 256
+NMS_BOXES, OKS_POSES = 2000, 200
+SAT_SHAPE = (32, 21, 64)           # scale_aware_gaussian_targets: B, K, res
+
+
+def ftl_cfg(out_dir: str = ""):
+    """experiments/MHP/MHP_HRNet_w32_softmax_pose2dloss_FTL_v1.yaml's MODEL,
+    LOSS and TRAIN sections set in code (the card's machine may lack
+    PyYAML): w32 at 256/64, HEATMAP_SOFTMAX, the temperature frozen, the 2D
+    and 3D pose losses, adam at 1e-3, 4 views, TEST.IMAGES_PER_GPU 2."""
+    cfg = load_config(opts=[
+        "MODEL.NAME", "FTL", "MODEL.IMAGE_SIZE", [ZOO_IMAGE] * 2, "MODEL.HEATMAP_SIZE",
+        [ZOO_HM] * 2, "MODEL.SIGMA", 2, "MODEL.HEATMAP_SOFTMAX", True,
+        "MODEL.TRAINABLE_SOFTMAX", False, "DATASET.NUM_VIEWS", FTL_VIEWS,
+        "DATASET.DATASET", ["MHP_mv"], "DATASET.TEST_DATASET", ["MHP_mv"],
+        "LOSS.WITH_HEATMAP_LOSS", False, "LOSS.WITH_POSE2D_LOSS", True,
+        "LOSS.WITH_POSE3D_LOSS", True, "TRAIN.OPTIMIZER", "adam", "TRAIN.LR", 1e-3,
+        "TRAIN.IMAGES_PER_GPU", 1, "TEST.IMAGES_PER_GPU", FTL_BATCH, "TEST.FLIP_TEST", False,
+        "DEBUG.DEBUG", False, "EXP_NAME", "chip_smoke_ftl", "OUTPUT_DIR", out_dir], freeze=False)
+    cfg.MODEL.EXTRA.merge_from_mapping(POSE_HIGH_RESOLUTION_NET_EXTRA)
+    return cfg.freeze()
+
+
+def witness_gate(label, what, card, cpu32, cpu64, factor=OTHER_WITNESS_FACTOR):
+    """The card's float32 ``card`` (its first samples, on the CPU) against
+    the CPU's float64: within ``factor`` times the CPU's own float32 gap.
+    Returns (gap, witness)."""
+    gap = (card.double() - cpu64).abs().max().item()
+    wit = (cpu32.double() - cpu64).abs().max().item()
+    ok = 0 < wit and gap <= factor * wit
+    print(f"{label} {what}: float32 card vs the CPU's float64 max {gap:.3g} (limit {factor:g} x "
+          f"the witness, the CPU's float32 vs its float64: {wit:.3g}){'' if ok else ' FAILED'}")
+    if not ok:
+        raise AssertionError(f"{label} {what}: {gap} from float64, witness {wit}")
+    return gap, wit
+
+
+def sii64(kp2d, extr, intr):
+    """The float64 SII of (B, V, K, 2) detections (C3's rule: each side held
+    to the float64 triangulation of its own detections)."""
+    from hrnet_hand_pose_estimation_tpu_torch.ops.geometry import (compose_projection,
+                                                                    triangulate_sii)
+
+    b, v, k, _ = kp2d.shape
+    proj = compose_projection(intr.double()[:, None], extr.double())
+    return triangulate_sii(kp2d.double().transpose(1, 2), proj[:, None].expand(b, k, v, 3, 4))
+
+
+def ftl_phases(smi, kernels):
+    """FTL at its YAML's widths: the float32 forward on the card against the
+    CPU's float64, the registry's bf16 net against float32, one B4 launch a
+    forward held to its twin, the gradient of sum(keypoints_3d) (one B4
+    backward launch, none into the backbone, held to the twin-decoded
+    gradient by a witness), the forward's time, and C21."""
+    from hrnet_hand_pose_estimation_tpu_torch.models import ftl
+    from hrnet_hand_pose_estimation_tpu_torch.models.ftl import FTLMultiviewNet, seeded_cameras
+
+    b4 = next(k for k in kernels if k["name"] == "fused_softmax_decode")
+    dev = torch.device("cuda")
+    none = {fn.__name__: 0 for fn in COUNTED}
+    with phase("FTL forward"), tempfile.TemporaryDirectory() as tmp:
+        cfg = ftl_cfg(tmp)
+        state = init_variables(cfg, 0, device=dev)
+        card = build_model(cfg)
+        card.load_state_dict(state)
+        card.to(dev).eval()
+        f32 = FTLMultiviewNet(hrnet_from_cfg(cfg, head="softmax"), num_views=FTL_VIEWS,
+                              dtype=torch.float32)
+        f32.load_state_dict(state)
+        f32.to(dev).eval()
+        x = temporal_frames(70, FTL_BATCH, FTL_VIEWS, dev)
+        extr, intr = (t.to(dev) for t in seeded_cameras(FTL_BATCH, FTL_VIEWS, ZOO_IMAGE, 70))
+        logits = []
+        hook = f32.final_layer.register_forward_hook(lambda m, a, out: logits.append(out))
+        launches = []
+        with torch.no_grad():
+            zero_counters()
+            out32 = f32(x, extr, intr)
+            torch.cuda.synchronize()
+            launches.append(counters())
+            zero_counters()
+            with torch.autocast("cuda", dtype=torch.bfloat16):
+                low = card(x, extr, intr)
+            torch.cuda.synchronize()
+            launches.append(counters())
+        hook.remove()
+        lg = logits[0].permute(0, 2, 3, 1)
+        twin_gap = (fused_softmax_decode(lg, 1.0) - softmax_decode_reference(lg, 1.0)).abs()
+        twin_gap = max(twin_gap.max().item(), (out32.keypoints_2d.reshape(-1, 21, 2)
+                                               - softmax_decode_reference(lg, 1.0)).abs().max()
+                       .item())
+        print(f"FTL forwards B={FTL_BATCH} x {FTL_VIEWS} views (w32 at 256/64, seeded 4-camera "
+              f"rig): CUDA launches float32 { {k: v for k, v in launches[0].items() if v} }, "
+              f"bf16 { {k: v for k, v in launches[1].items() if v} }; the float32 forward's "
+              f"keypoints against its logits decoded by B4's twin max {twin_gap:.3g} px (limit "
+              f"1e-4)")
+        want = dict(none, fused_softmax_decode=1)
+        if launches != [want, want] or not twin_gap <= 1e-4:
+            raise AssertionError(f"FTL forward: launches {launches}, B4 vs twin {twin_gap}")
+
+        # the CPU's float32 and bf16 forwards of the batch, float64 of the
+        # first sample
+        t0 = time.perf_counter()
+        cpu = FTLMultiviewNet(hrnet_from_cfg(cfg, head="softmax"), num_views=FTL_VIEWS,
+                              dtype=torch.float32)
+        cpu.load_state_dict(state)
+        cpu.eval()
+        every = [t.cpu() for t in (x, extr, intr)]
+        args = [t[:1] for t in every]
+        with torch.no_grad():
+            c32_all = cpu(*every)
+            c64 = cpu.double()(*(t.double() for t in args))
+            cpu.float()
+            card.to("cpu")
+            with torch.autocast("cpu", dtype=torch.bfloat16):
+                c16 = card(*every)
+            card.to(dev)
+        cpu_s = time.perf_counter() - t0
+        c32 = c32_all._replace(**{f: getattr(c32_all, f)[:1] for f in (
+            "keypoints_3d", "keypoints_2d", "heatmaps")})
+        first = lambda t: t[:1].cpu()                           # noqa: E731
+        witness_gate("FTL", "keypoints_2d (px)", first(out32.keypoints_2d), c32.keypoints_2d,
+                     c64.keypoints_2d)
+        witness_gate("FTL", "heatmaps", first(out32.heatmaps), c32.heatmaps, c64.heatmaps)
+        scale = c64.keypoints_3d.abs().max().item()
+        gap3 = (first(out32.keypoints_3d).double() - c64.keypoints_3d).abs().max().item()
+        wit3 = (c32.keypoints_3d.double() - c64.keypoints_3d).abs().max().item()
+        own = (first(out32.keypoints_3d).double()
+               - sii64(first(out32.keypoints_2d), *args[1:])).abs().max().item()
+        own_wit = (c32.keypoints_3d.double() - sii64(c32.keypoints_2d, *args[1:])).abs().max(
+            ).item()
+        print(f"FTL keypoints_3d (max |kp3d| {scale:.4g}): float32 card vs the CPU's float64 max "
+              f"{gap3:.3g} (the CPU's float32 vs its float64 {wit3:.3g}); each side against the "
+              f"float64 SII of its own detections: card {own:.3g}, CPU float32 {own_wit:.3g}")
+        if not (gap3 <= OTHER_WITNESS_FACTOR * wit3
+                or own <= OTHER_WITNESS_FACTOR * max(own_wit, 1e-6 * scale)):
+            raise AssertionError(f"FTL keypoints_3d: {gap3} (witness {wit3}), own SII {own} "
+                                 f"(witness {own_wit})")
+        # bf16 on the card against its float32, held to the CPU's own bf16
+        # gap on the same inputs (max and mean over the batch's 8 views)
+        d16 = (low.keypoints_2d - out32.keypoints_2d).abs()
+        wit16 = (c16.keypoints_2d - c32_all.keypoints_2d).abs()
+        limit = max(ZOO_FLOOR_PX, OTHER_WITNESS_FACTOR * wit16.max().item())
+        spread = out32.keypoints_2d.std(dim=(0, 1, 2)).min().item()
+        print(f"FTL the registry's net (its convs in bf16, the backbone under a bf16 autocast) vs "
+              f"float32 on the card, B={FTL_BATCH} x {FTL_VIEWS} views: max "
+              f"{d16.max().item():.4f} px (limit {limit:.4f} = max({ZOO_FLOOR_PX}, "
+              f"{OTHER_WITNESS_FACTOR:g} x the CPU's bf16 vs float32 on the same inputs, "
+              f"{wit16.max().item():.4f})), mean {d16.mean().item():.4f} px (limit "
+              f"{OTHER_WITNESS_FACTOR:g} x the witness's {wit16.mean().item():.4f}); coordinate "
+              f"spread {spread:.3f} px; CPU forwards {cpu_s:.1f} s")
+        if not (d16.max().item() <= limit
+                and d16.mean().item() <= OTHER_WITNESS_FACTOR * wit16.mean().item()
+                and torch.isfinite(low.keypoints_3d).all()):
+            raise AssertionError(f"FTL bf16: {d16.max().item()} px, limit {limit}")
+
+        with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
+            fwd_ms, peak, wall, busy, parts = step_cost(lambda: card(x, extr, intr),
+                                                        B4_KERNEL_NAMES)
+        print(f"FTL bf16 forward B={FTL_BATCH} x {FTL_VIEWS} views: {fwd_ms:.3f} ms (CUDA events), "
+              f"peak memory {peak:.2f} GiB, kernels {busy:.3f} of {wall:.3f} ms ({busy / wall:.1%} "
+              f"busy), B4 {parts[B4_KERNEL_NAMES[0]]:.4f} ms a forward, on {smi}")
+        b4["launches_ftl_forward"] = 1
+        b4["ms_ftl"] = time_ms(lambda: fused_softmax_decode(lg, 1.0), 20)
+        b4["bound_ms_ftl"] = decode_work(lg, out32.keypoints_2d)[0]
+        print(f"B4 at FTL's logits ({tuple(lg.shape)} {lg.dtype}): {b4['ms_ftl']:.4f} ms a call "
+              f"(CUDA events), bound {b4['bound_ms_ftl']:.5f} ms, on {smi}")
+        del card, cpu, logits, lg, low
+
+    with phase("FTL gradient"):
+        head = [n for n, _ in f32.named_parameters() if not n.startswith("backbone.")]
+        runs = {}
+        for name, decode in (("kernel", ftl.softmax_decode), ("twin", softmax_decode_reference),
+                             ("witness", lambda lg_, t: decode_moved(lg_, t))):
+            f32.zero_grad(set_to_none=True)
+            zero_counters()
+            fused_softmax_decode.launches_bwd = 0
+            with patched(ftl, "softmax_decode", decode):
+                f32(x, extr, intr).keypoints_3d.sum().backward()
+            torch.cuda.synchronize()
+            launched = (fused_softmax_decode.launches, fused_softmax_decode.launches_bwd)
+            if launched != ((1, 1) if name == "kernel" else (0, 0)):
+                raise AssertionError(f"FTL gradient: B4 launches {launched} in the {name} run")
+            grads = dict(f32.named_parameters())
+            if any(p.grad is not None for n, p in grads.items() if n.startswith("backbone.")):
+                raise AssertionError("FTL gradient reached the frozen backbone")
+            runs[name] = torch.cat([grads[n].grad.reshape(-1) for n in head])
+        twin = runs["twin"]
+        rel = ((runs["kernel"] - twin).norm() / twin.norm()).item()
+        wit = ((runs["witness"] - twin).norm() / twin.norm()).item()
+        limit = T3_WITNESS_FACTOR * wit + T3_GRAD_FLOOR
+        print(f"FTL gradient of sum(keypoints_3d), float32, eval mode: one B4 forward and one B4 "
+              f"backward launch, no backbone gradient; the head's gradient ({len(head)} tensors) "
+              f"decoded by B4 vs by its twin, relative {rel:.3g} (limit {limit:.3g} = "
+              f"{T3_WITNESS_FACTOR:g} x the witness's {wit:.3g} + {T3_GRAD_FLOOR:g}; the witness: "
+              f"the twin moved by {T3_WITNESS_PX} px)")
+        if not (rel <= limit and torch.isfinite(twin).all() and twin.norm() > 0):
+            raise AssertionError(f"FTL gradient: {rel}, limit {limit}")
+        b4["launches_ftl_grad"] = 1
+        b4["launches_bwd_ftl_grad"] = 1
+        del f32, runs
+
+    with phase("FTL C21"), tempfile.TemporaryDirectory() as tmp:
+        if importlib.util.find_spec("yaml") is not None:
+            cmd = [sys.executable, "-m", "hrnet_hand_pose_estimation_tpu_torch.tools.train",
+                   "--cfg", str(FTL_YAML), "--device", "cuda", "OUTPUT_DIR", tmp]
+            res = subprocess.run(cmd, capture_output=True, text=True,
+                                 cwd=Path(__file__).resolve().parent, timeout=120)
+            last = (res.stderr.strip().splitlines() or [""])[-1]
+            print(f"python -m ...tools.train --cfg {FTL_YAML.name} --device cuda: rc "
+                  f"{res.returncode}; {last[:200]}")
+            if res.returncode == 0 or "NotImplementedError" not in last or "C21" not in last:
+                raise AssertionError(f"tools.train on the FTL YAML did not raise C21:\n"
+                                     f"{res.stderr[-2000:]}")
+        else:
+            print("no PyYAML on this machine: the train tool's Trainer in process on the FTL "
+                  "YAML's tree built in code")
+            refused("FTL tools.train", "C21", {"Trainer": lambda: Trainer(
+                ftl_cfg(tmp), build_model(ftl_cfg(tmp)), {}, device=dev)})
+        model = build_model(cfg)
+        refused("FTL", "C21", {
+            "create_train_state": lambda: TS.create_train_state(cfg, model, device=dev),
+            "make_train_step": lambda: TS.make_train_step(cfg, model, None),
+            "make_eval_step": lambda: TS.make_eval_step(cfg, model),
+            "Evaluator2D": lambda: Evaluator2D(cfg, model, None, device=dev)})
+        del model
+
+
+def hourglass_cfg():
+    """HourGlass (no shipped YAML): NUM_STACKS 2, DEPTH 2, 21 joints, 256 px."""
+    cfg = load_config(opts=["MODEL.NAME", "HourGlass", "MODEL.IMAGE_SIZE", [ZOO_IMAGE] * 2,
+                            "MODEL.HEATMAP_SIZE", [ZOO_HM] * 2, "MODEL.NUM_JOINTS", 21,
+                            "TEST.IMAGES_PER_GPU", HG_BATCH, "OUTPUT_DIR", ""], freeze=False)
+    cfg.MODEL.EXTRA.merge_from_mapping({"NUM_STACKS": 2, "DEPTH": 2})
+    return cfg.freeze()
+
+
+def hourglass_phases(smi):
+    dev = torch.device("cuda")
+    none = {fn.__name__: 0 for fn in COUNTED}
+    with phase("HourGlass forward"):
+        cfg = hourglass_cfg()
+        state = init_variables(cfg, 0, device=dev)
+        card, cpu = build_model(cfg), build_model(cfg)
+        card.load_state_dict(state)
+        cpu.load_state_dict(state)
+        card.to(dev).eval()
+        x = zoo_images(71, HG_BATCH, dev)
+        stack = lambda out: torch.stack(out[0], 0)           # noqa: E731  (S, B, h, w, K)
+        zero_counters()
+        with torch.no_grad():
+            f32 = stack(card(x))
+            with torch.autocast("cuda", dtype=torch.bfloat16):
+                low = stack(card(x))
+            xc = x[:2].cpu()
+            c32 = stack(cpu(xc))
+            with torch.autocast("cpu", dtype=torch.bfloat16):
+                c16 = stack(cpu(xc))
+            c64 = stack(cpu.double()(xc.double()))
+        torch.cuda.synchronize()
+        print(f"HourGlass B={HG_BATCH} (2 stacks, depth 2, conv64 stem, batch norm, 256 px): "
+              f"maps {tuple(f32.shape[1:])} per stack, std {f32.std().item():.3f}")
+        witness_gate("HourGlass", "maps (tanh)", f32[:, :2].cpu(), c32, c64)
+        d16 = (low - f32).abs()
+        wit16 = (c16 - c32).abs().max().item()
+        limit = OTHER_WITNESS_FACTOR * wit16
+        print(f"HourGlass bf16 vs float32 on the card: first two samples max "
+              f"{d16[:, :2].max().item():.4f}, all {d16.max().item():.4f}, mean "
+              f"{d16.mean().item():.5f} (limit {limit:.4f} = {OTHER_WITNESS_FACTOR:g} x the CPU's "
+              f"bf16 vs float32 {wit16:.4f})")
+        if counters() != none or not (0 < wit16 and d16[:, :2].max().item() <= limit):
+            raise AssertionError(f"HourGlass bf16: {d16.max().item()}, limit {limit}, "
+                                 f"{counters()}")
+        with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
+            ms, peak, wall, busy, _ = step_cost(lambda: card(x))
+        print(f"HourGlass bf16 forward B={HG_BATCH}: {ms:.3f} ms (CUDA events), peak memory "
+              f"{peak:.2f} GiB, kernels {busy:.3f} of {wall:.3f} ms ({busy / wall:.1%} busy), "
+              f"on {smi}")
+        model = build_model(cfg)
+        TS.create_train_state(cfg, model, device=dev)
+        refused("HourGlass", "C22", {
+            "make_train_step": lambda: TS.make_train_step(cfg, model, None),
+            "make_eval_step": lambda: TS.make_eval_step(cfg, model),
+            "make_forward_fn": lambda: TS.make_forward_fn(cfg, model),
+            "Evaluator2D": lambda: Evaluator2D(cfg, model, None, device=dev)})
+        del card, cpu, model
+
+
+def rel_max(got, want) -> float:
+    """max |got - want| over max |want| (got on the card, want on the CPU)."""
+    return ((got.cpu().double() - want.double()).abs().max() / want.double().abs().max()).item()
+
+
+def seeded_faces(verts: np.ndarray, n_faces: int, rng) -> np.ndarray:
+    """Triangles joining a vertex to two of its five nearest neighbours."""
+    d = ((verts[:, None] - verts[None]) ** 2).sum(-1)
+    near = np.argsort(d, axis=1)[:, 1:6]
+    a = rng.integers(0, len(verts), n_faces)
+    pick = np.argsort(rng.uniform(size=(n_faces, 5)), axis=1)[:, :2]
+    return np.stack([a, near[a, pick[:, 0]], near[a, pick[:, 1]]], 1).astype(np.int32)
+
+
+def edge_band(verts, faces, f, c, size, near, far, eps=1e-4):
+    """(H, W) pixels within ``eps`` (barycentric, float64) of an edge of a
+    triangle that covers them: there float32 rounding decides coverage."""
+    z = np.maximum(verts[:, 2].astype(np.float64), 1e-6)
+    u, v = f * verts[:, 0] / z + c[0], f * verts[:, 1] / z + c[1]
+    ys, xs = np.mgrid[0:size, 0:size].astype(np.float64)
+    band = np.zeros((size, size), bool)
+    for tri in faces:
+        (x0, x1, x2), (y0, y1, y2) = u[tri], v[tri]
+        den = (x1 - x0) * (y2 - y0) - (y1 - y0) * (x2 - x0)
+        if abs(den) < 1e-8:
+            continue
+        lo, hi = int(max(min(y0, y1, y2) - 1, 0)), int(min(max(y0, y1, y2) + 2, size))
+        le, ri = int(max(min(x0, x1, x2) - 1, 0)), int(min(max(x0, x1, x2) + 2, size))
+        if lo >= hi or le >= ri:
+            continue
+        py, px = ys[lo:hi, le:ri], xs[lo:hi, le:ri]
+        l0 = ((x2 - x1) * (py - y1) - (y2 - y1) * (px - x1)) / den
+        l1 = ((x0 - x2) * (py - y2) - (y0 - y2) * (px - x2)) / den
+        l2 = 1.0 - l0 - l1
+        depth = l0 * verts[tri[0], 2] + l1 * verts[tri[1], 2] + l2 * verts[tri[2], 2]
+        band[lo:hi, le:ri] |= ((np.abs(np.minimum(np.minimum(l0, l1), l2)) <= eps)
+                               & (depth > near) & (depth < far))
+    return band
+
+
+def device_loop_nms(dets, thresh):
+    """The JAX package's greedy scan as written there (a loop over the rows
+    of the sorted IoU matrix), run on the card op by op: the yardstick for
+    the port's host scan."""
+    from hrnet_hand_pose_estimation_tpu_torch.ops.nms import iou_matrix
+
+    order = torch.argsort(-dets[:, 4], stable=True)
+    ious = iou_matrix(dets[:, :4])[order][:, order]
+    n = dets.shape[0]
+    idx = torch.arange(n, device=dets.device)
+    keep = torch.ones(n, dtype=torch.bool, device=dets.device)
+    for i in range(n):
+        keep = keep & ~((idx > i) & (ious[i] > thresh) & keep[i])
+    out = torch.zeros_like(keep)
+    out[order] = keep
+    return out
+
+
+def mesh_phases(smi):
+    """The mesh family on the card against the CPU: HandMeshNet on w32-wide
+    features, LBS on a MANO-sized rig, MeshRenderer at 256 px, NMS,
+    soft-NMS and OKS-NMS, the scale-aware targets; each timed."""
+    from hrnet_hand_pose_estimation_tpu_torch.models.mano import lbs, toy_hand_model
+    from hrnet_hand_pose_estimation_tpu_torch.models.mesh import build_hand_mesh_net
+    from hrnet_hand_pose_estimation_tpu_torch.ops import nms as NMS
+    from hrnet_hand_pose_estimation_tpu_torch.ops.targets import scale_aware_gaussian_targets
+    from hrnet_hand_pose_estimation_tpu_torch.utils.renderer import MeshRenderer
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(80)
+    with phase("mesh family"):
+        # the graph CNN on the bone graph, w32-wide features
+        net = build_hand_mesh_net()
+        TS.init_train_weights(net, 0)
+        with torch.no_grad():
+            for p in net.parameters():
+                if p.dim() == 1:
+                    p.copy_(torch.from_numpy(rng.normal(0, 0.1, p.shape).astype(np.float32)))
+        feats = torch.from_numpy(rng.normal(size=MESH_FEATURES).astype(np.float32))
+        with torch.no_grad():
+            want = net(feats)
+            card, feats = net.to(dev), feats.to(dev)
+            got = card(feats)
+            ms = time_ms(lambda: card(feats), 20)
+        gaps = [rel_max(g, w) for g, w in zip(got, want)]
+        print(f"HandMeshNet (bone graph, 2 coarsening levels, Chebyshev order 3) on "
+              f"{MESH_FEATURES} features: mesh {tuple(got[0].shape)}, pose {tuple(got[1].shape)}; "
+              f"card vs CPU (float32, TF32 off) relative {gaps[0]:.3g} / {gaps[1]:.3g} (limit "
+              f"{MESH_LIMIT:g}); {ms:.4f} ms a call (CUDA events) on {smi}")
+        if not max(gaps) <= MESH_LIMIT:
+            raise AssertionError(f"HandMeshNet card vs CPU: {gaps}")
+
+        # LBS on a MANO-sized rig with nonzero pose blendshapes
+        rig = toy_hand_model(**MANO_SIZE, seed=81, device="cpu")
+        rig = rig._replace(posedirs=torch.from_numpy(rng.normal(
+            scale=0.01, size=tuple(rig.posedirs.shape)).astype(np.float32)))
+        rig_dev = rig._replace(**{f: getattr(rig, f).to(dev) for f in (
+            "v_template", "shapedirs", "posedirs", "j_regressor", "weights")})
+        j = MANO_SIZE["n_joints"]
+        pose = torch.from_numpy(rng.normal(scale=0.4, size=(LBS_BATCH, j, 3)).astype(np.float32))
+        betas = torch.from_numpy(rng.normal(size=(LBS_BATCH, 10)).astype(np.float32))
+        transl = torch.from_numpy(rng.normal(size=(LBS_BATCH, 3)).astype(np.float32))
+        want = lbs(rig, pose, betas, transl)
+        args = [t.to(dev) for t in (pose, betas, transl)]
+        got = lbs(rig_dev, *args)
+        gaps = [rel_max(g, w) for g, w in zip(got, want)]
+        ms = time_ms(lambda: lbs(rig_dev, *args), 20)
+        print(f"lbs B={LBS_BATCH} on a MANO-sized rig ({MANO_SIZE}, 135 pose-blendshape columns): "
+              f"card vs CPU relative vertices {gaps[0]:.3g}, joints {gaps[1]:.3g} (limit "
+              f"{MESH_LIMIT:g}); {ms:.3f} ms a call (CUDA events) on {smi}")
+        if not max(gaps) <= MESH_LIMIT:
+            raise AssertionError(f"lbs card vs CPU: {gaps}")
+
+        # the renderer: the first posed hand, 1538 seeded faces, 256 px
+        verts = want[0][0].numpy() - want[0][0].numpy().mean(0)
+        verts = (verts / np.abs(verts).max() * 0.3 + [0.0, 0.0, 0.6]).astype(np.float32)
+        faces = seeded_faces(verts, MANO_FACES, rng)
+        renders = {}
+        for where in ("cpu", "cuda"):
+            r = MeshRenderer(faces, img_size=RENDER_SIZE, flength=500.0, device=where)
+            renders[where] = r(verts, do_alpha=True)
+        near = max(float(verts[:, 2].min()) - 25.0, 0.1)
+        far = max(float(verts[:, 2].max()) + 25.0, 25.0)
+        band = edge_band(verts, faces, 500.0, (RENDER_SIZE / 2, RENDER_SIZE / 2), RENDER_SIZE,
+                         near, far)
+        cov_c, cov_g = renders["cpu"][..., 3] > 0, renders["cuda"][..., 3] > 0
+        differ = cov_c != cov_g
+        col = np.abs(renders["cpu"][..., :3].astype(int) - renders["cuda"][..., :3].astype(int))
+        r = MeshRenderer(faces, img_size=RENDER_SIZE, flength=500.0, device="cuda")
+        t0 = time.perf_counter()
+        for _ in range(3):
+            r(verts)
+        render_ms = (time.perf_counter() - t0) / 3 * 1e3
+        print(f"MeshRenderer {RENDER_SIZE} px, {len(verts)} vertices, {len(faces)} faces: "
+              f"coverage {cov_c.mean():.1%}; card vs CPU coverage differs on {differ.sum()} "
+              f"pixels ({differ.mean():.3%}, limit 0.5 %), {(differ & ~band).sum()} off the edge "
+              f"band (limit 0); colours off the band max {col[~band].max()} / 255 (limit 1); "
+              f"{render_ms:.2f} ms a render to a uint8 image on the host (host clock) on {smi}")
+        if not (differ.mean() <= 0.005 and not (differ & ~band).any() and col[~band].max() <= 1
+                and cov_c.mean() > 0.05):
+            raise AssertionError("MeshRenderer card vs CPU")
+
+        # NMS, soft-NMS, OKS-NMS
+        n = NMS_BOXES
+        centres = rng.uniform(0, 1000, size=(n // 8, 2))[rng.integers(0, n // 8, n)]
+        xy = centres + rng.normal(scale=15, size=(n, 2))
+        wh = rng.uniform(20, 120, size=(n, 2))
+        dets = torch.from_numpy(np.concatenate([xy, xy + wh, rng.uniform(0.01, 1, (n, 1))],
+                                               1).astype(np.float32))
+        dd = dets.to(dev)
+        keep_c, keep_g = NMS.nms(dets, 0.5), NMS.nms(dd, 0.5)
+        keep_loop = device_loop_nms(dd, 0.5)
+        nms_ms = time_ms(lambda: NMS.nms(dd, 0.5), 5, warmup=1)
+        loop_ms = time_ms(lambda: device_loop_nms(dd, 0.5), 1, warmup=1)
+        soft = {m: (NMS.soft_nms(dets, method=m), NMS.soft_nms(dd, method=m))
+                for m in ("gaussian", "linear")}
+        soft_gap = max((g.cpu() - c).abs().max().item() for c, g in soft.values())
+        soft_ms = time_ms(lambda: NMS.soft_nms(dd), 1, warmup=1)
+        kp = rng.uniform(0, 500, size=(OKS_POSES // 5, 17, 2))[rng.integers(0, OKS_POSES // 5,
+                                                                            OKS_POSES)]
+        kp = np.concatenate([kp + rng.normal(scale=1.5, size=kp.shape),
+                             (rng.uniform(size=(OKS_POSES, 17, 1)) > 0.2)], -1).astype(np.float32)
+        sc = rng.uniform(0.1, 1, OKS_POSES).astype(np.float32)
+        ar = rng.uniform(2000, 20000, OKS_POSES).astype(np.float32)
+        oks = [torch.from_numpy(a) for a in (kp, sc, ar)]
+        oks_c = NMS.oks_nms(oks[0], oks[1], oks[2], 0.9)
+        oks_g = NMS.oks_nms(*(t.to(dev) for t in oks[:2]), oks[2].to(dev), 0.9)
+        print(f"nms on {n} seeded boxes (IoU 0.5): {int(keep_g.sum())} kept, card == CPU "
+              f"{bool((keep_g.cpu() == keep_c).all())}, == the device-loop yardstick "
+              f"{bool((keep_loop.cpu() == keep_c).all())}; {nms_ms:.3f} ms a call (IoU matrix on "
+              f"the card, the scan on the host) vs {loop_ms:.1f} ms for JAX's loop run on the card "
+              f"op by op; soft_nms (gaussian, linear) card vs CPU max {soft_gap:.3g} (limit 1e-5), "
+              f"{soft_ms:.1f} ms a call; oks_nms on {OKS_POSES} 17-keypoint poses: "
+              f"{int(oks_g.sum())} kept, card == CPU {bool((oks_g.cpu() == oks_c).all())}; "
+              f"CUDA events, on {smi}")
+        if not ((keep_g.cpu() == keep_c).all() and (keep_loop.cpu() == keep_c).all()
+                and (oks_g.cpu() == oks_c).all() and soft_gap <= 1e-5
+                and 0 < int(keep_c.sum()) < n and 0 < int(oks_c.sum()) < OKS_POSES):
+            raise AssertionError("nms / soft_nms / oks_nms card vs CPU")
+
+        # the scale-aware targets
+        b, k, res = SAT_SHAPE
+        joints = torch.from_numpy(rng.uniform(-2, res + 2, size=(b, k, 2)).astype(np.float32))
+        vis = torch.from_numpy((rng.uniform(size=(b, k)) > 0.1).astype(np.float32))
+        sig = torch.from_numpy(rng.uniform(1.0, 4.0, size=(b, k)).astype(np.float32))
+        want = scale_aware_gaussian_targets(joints, vis, sig, res)
+        args = [t.to(dev) for t in (joints, vis, sig)]
+        got = scale_aware_gaussian_targets(*args, res)
+        gap = (got.cpu() - want).abs().max().item()
+        ms = time_ms(lambda: scale_aware_gaussian_targets(*args, res), 20)
+        print(f"scale_aware_gaussian_targets B={b}, K={k}, res {res}, sigmas 1-4: card vs CPU max "
+              f"{gap:.3g} (limit 1e-6); {ms:.4f} ms a call, bound "
+              f"{bound(0, 0, got.numel() * 4 + 3 * b * k * 4)[0]:.4f} ms (the maps written once), "
+              f"on {smi}")
+        if not gap <= 1e-6:
+            raise AssertionError(f"scale_aware_gaussian_targets card vs CPU: {gap}")
+
+
 # -- C9: the repo's smoke model served on the card --------------------------
 
 SMOKE_YAML = Path(__file__).resolve().parent / "experiments" / "synthetic_smoke.yaml"
@@ -4376,6 +4892,9 @@ def main() -> int:
     volcpm_phases(smi, kernels)
     zoo_phases(smi, kernels)
     temporal_phases(smi, kernels)
+    ftl_phases(smi, kernels)
+    hourglass_phases(smi)
+    mesh_phases(smi)
 
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -268,16 +268,22 @@ class PoseHRNet(nn.Module):
                 xs = module(xs, branch=branch, name=f"stage{idx + 1}.{m}")
         return xs
 
-    def _logits(self, x: torch.Tensor, layer1=None) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(y, features): the head's NHWK logits, in the dtype the last conv
-        gives, and the concat of the upsampled branches."""
+    def forward_features(self, x: torch.Tensor, layer1=None) -> torch.Tensor:
+        """x: (B, H, W, 3) NHWC image -> the NHWC features, the concat of the
+        four branches upsampled to the first's size (480 channels at w32),
+        without the head."""
         dtype = self.conv1.weight.dtype
         xs = self.forward_backbone(x.to(dtype).permute(0, 3, 1, 2), layer1=layer1)
         xs = [t.permute(0, 2, 3, 1) for t in xs]
         h, w = xs[0].shape[1:3]
         # bilinear(align_corners) upsample branches 1..3 and concat -> 480ch
         feats = [xs[0]] + [upsample_bilinear_align_corners(t, (h, w)) for t in xs[1:]]
-        features = torch.cat(feats, dim=-1)
+        return torch.cat(feats, dim=-1)
+
+    def _logits(self, x: torch.Tensor, layer1=None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(y, features): the head's NHWK logits, in the dtype the last conv
+        gives, and the concat of the upsampled branches."""
+        features = self.forward_features(x, layer1)
         y = self.last_layer(self._context(features.permute(0, 3, 1, 2))).permute(0, 2, 3, 1)
         return y, features
 

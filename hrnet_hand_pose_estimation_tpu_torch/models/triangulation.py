@@ -61,13 +61,20 @@ def _float32(device: torch.device):
     return torch.autocast(device.type, enabled=False)
 
 
+def _fold_views(images: torch.Tensor) -> Tuple[torch.Tensor, int, int]:
+    """(B, V, ...) -> ((B * V, ...), B, V): the views fold into the batch
+    (JAX ``models/triangulation.py:56``)."""
+    b, v = images.shape[:2]
+    return images.reshape(b * v, *images.shape[2:]), b, v
+
+
 def backbone_2d(backbone: PoseHRNet, images: torch.Tensor, use_softmax: bool
                 ) -> Tuple[HRNetOutput, torch.Tensor, torch.Tensor]:
     """(head outputs, heatmaps (B, V, h, w, K), keypoints (B, V, K, 2) in
     heatmap pixels) of (B, V, H, W, 3) images: the views fold into the batch
     (reference triangulation.py:358-359), the logits are decoded as above."""
-    b, v = images.shape[:2]
-    out = backbone.forward_head(images.reshape(b * v, *images.shape[2:]))
+    flat, b, v = _fold_views(images)
+    out = backbone.forward_head(flat)
     with _float32(images.device):
         probs = spatial_softmax(out.heatmaps, out.temperature)
         kp = (softmax_decode(out.heatmaps, out.temperature) if use_softmax

@@ -8,7 +8,8 @@ Machine (``CPM``, JAX ``models/zoo.py:53-58``), the cross-view fusion net
 (``multiview_pose_hrnet``, JAX ``:176-186``), the single-image zoo, the
 temporal family (``pose_hrnet_transformer``, ``pose_hrnet_PoseAggr``,
 ``HRNet_PredRNN``, ``HRNet_Emb_TCN``, JAX ``:99-173``; their frame count is
-``len(DATASET.SEQ_IDX)``), and the 3D triangulation nets
+``len(DATASET.SEQ_IDX)``), FTL (``DATASET.NUM_VIEWS`` views, JAX ``:62``),
+the stacked ``HourGlass`` (JAX ``:82``), and the 3D triangulation nets
 under the reference's ``MODEL.TRIANGULATION_MODEL_NAME`` keys (JAX
 ``:190-217``; ``vol_CPM`` is the CPM-backed volumetric net).
 """
@@ -164,3 +165,20 @@ def _triangulation(kind: str):
 
 for _kind in ("alg", "ransac", "vol", "vol_CPM"):
     register(_kind)(_triangulation(_kind))
+
+
+@register("FTL")
+def _ftl(cfg):
+    """Feature-transform-layer multiview net (reference FTL_encoder_decoder.py:83),
+    its own convs in bfloat16 as the JAX registry builds them."""
+    from .ftl import ftl_from_cfg
+
+    return ftl_from_cfg(cfg)
+
+
+@register("HourGlass")
+def _hourglass(cfg):
+    """Stacked hourglass filter bank (reference lib/models/HourGlass.py:124-226)."""
+    from .hourglass import hourglass_from_cfg
+
+    return hourglass_from_cfg(cfg)

@@ -119,7 +119,8 @@ def triangulate_sii(points2d: torch.Tensor, projs: torch.Tensor, n_iters: int = 
     """Shifted-inverse-iteration DLT, reference-faithful (misc.py:64-97):
     ``b <- normalize(solve(AtA / tr + 1e-3 shift I, b))`` from a fixed 0.5
     vector (the reference starts from ``torch.rand``), ``n_iters`` times."""
-    ata = _unit_trace_gram(_dlt_system(points2d, projs).float())
+    a = _dlt_system(points2d, projs)
+    ata = _unit_trace_gram(a.to(torch.promote_types(a.dtype, torch.float32)))
     eye = torch.eye(4, dtype=ata.dtype, device=ata.device)
     b_mat = ata + (1e-3 * shift) * eye
     bk = torch.full(ata.shape[:-2] + (4,), 0.5, dtype=ata.dtype, device=ata.device) \

@@ -13,6 +13,9 @@ CUDA tensor it launches the hand-written kernel
 plain twin.  ``gaussian_targets_np`` is the numpy copy for the host input
 pipeline (``data/synthetic.py``).
 
+``scale_aware_gaussian_targets`` (JAX ``ops/targets.py:80``) is the
+per-joint-sigma variant, plain PyTorch on the joints' device.
+
 CPM's targets (JAX ``ops/targets.py:107-140``, reference
 MHP_CPMDataset.py:193-224): ``gaussian_centermap``, the centre map that
 ``models/cpm.CPMVolumetric`` makes on the device when it is given none, and
@@ -28,7 +31,7 @@ import torch
 from .kernels.gaussian_targets import fused_gaussian_targets, gaussian_targets_reference
 
 __all__ = ["cpm_heatmaps_np", "gaussian_centermap", "gaussian_targets", "gaussian_targets_np",
-           "gaussian_targets_reference"]
+           "gaussian_targets_reference", "scale_aware_gaussian_targets"]
 
 
 def gaussian_targets(joints: torch.Tensor, visibility: torch.Tensor, output_res: int,
@@ -62,6 +65,28 @@ def gaussian_targets_np(joints: np.ndarray, visibility: np.ndarray, output_res: 
     hm = gy[:, :, None, :] * gx[:, None, :, :]
     hm = hm * valid[:, None, None, :].astype(np.float32)
     return hm[0] if single else hm
+
+
+def scale_aware_gaussian_targets(joints: torch.Tensor, visibility: torch.Tensor,
+                                 sigmas: torch.Tensor, output_res: int) -> torch.Tensor:
+    """The per-joint-sigma variant (reference ScaleAwareHeatmapGenerator
+    :56-92): (B, K, 2) joints, (B, K) visibility and (B, K) sigmas ->
+    (B, res, res, K) float32.  The window follows the same ``3 sigma + 1``
+    rule, per joint."""
+    x = torch.trunc(joints[..., 0]).to(torch.int32)
+    y = torch.trunc(joints[..., 1]).to(torch.int32)
+    in_range = (x >= 0) & (y >= 0) & (x < output_res) & (y < output_res)
+    valid = (visibility > 0) & in_range
+
+    px = torch.arange(output_res, dtype=torch.int32, device=joints.device)
+    dx = px[None, :, None] - x[:, None, :]
+    dy = px[None, :, None] - y[:, None, :]
+    win = torch.trunc(3.0 * sigmas + 1.0)[:, None, :]              # (B, 1, K)
+    sig2 = 2.0 * sigmas[:, None, :] ** 2
+    gx = torch.exp(-(dx.float() ** 2) / sig2) * (dx.abs() <= win)
+    gy = torch.exp(-(dy.float() ** 2) / sig2) * (dy.abs() <= win)
+    hm = gy[:, :, None, :] * gx[:, None, :, :]
+    return hm * valid[:, None, None, :].float()
 
 
 def gaussian_centermap(center: torch.Tensor, res: int, sigma: float = 3.0) -> torch.Tensor:

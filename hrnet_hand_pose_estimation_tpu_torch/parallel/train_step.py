@@ -60,7 +60,7 @@ def compute_dtype(cfg) -> torch.dtype:
 
 
 # Models whose JAX 2D steps fail, by the step that fails: the port raises
-# where JAX does (ROADMAP C16, C17, C19).
+# where JAX does (ROADMAP C16, C17, C19, C21, C22).
 _HAMBURGER = ("pose_hrnet_hamburger has no {what}: JAX's create_train_state keeps only the "
               "params and batch_stats collections, and the model reads its ham_bases "
               "collection (ScopeCollectionNotFound, ROADMAP C16); evaluate it with Evaluator2D, "
@@ -74,8 +74,18 @@ _PREDRNN = ("HRNet_PredRNN has no {what}: the model returns a tuple (refined map
 _TCN = ("HRNet_Emb_TCN has no {what}: the model returns a bare (B, K, 2) array, and the JAX "
         "package's {what} reads its heatmaps (AttributeError, ROADMAP C19); call the model "
         "itself")
-_EVERY = {"my_pose_transformer": _RVT, "HRNet_PredRNN": _PREDRNN, "HRNet_Emb_TCN": _TCN}
+_FTL = ("FTL has no {what}: the net takes (images, extrinsics, intrinsics), and the JAX "
+        "package's create_train_state calls model.init(rng, images, False), which raises "
+        "TypeError (missing 'intrinsics', ROADMAP C21), so its tools.train fails before its first "
+        "step; its 2D steps and Evaluator2D pass images alone, and Evaluator3D builds only the "
+        "alg / ransac / vol nets; call the model itself")
+_HOURGLASS = ("HourGlass has no {what}: HGFilter returns a tuple (outputs, normx), and the JAX "
+              "package's {what} reads its heatmaps (AttributeError, ROADMAP C22); call the model "
+              "itself")
+_EVERY = {"my_pose_transformer": _RVT, "HRNet_PredRNN": _PREDRNN, "HRNet_Emb_TCN": _TCN,
+          "FTL": _FTL, "HourGlass": _HOURGLASS}
 _NO_STEP = {
+    "train state": {"FTL": _FTL},
     "train step": dict(_EVERY, pose_hrnet_hamburger=_HAMBURGER),
     "eval step": dict(_EVERY, pose_hrnet_hamburger=_HAMBURGER),
     "forward function": _EVERY,
@@ -85,8 +95,8 @@ _NO_STEP = {
 
 def refuse_unsupported(cfg, what: str) -> None:
     """Raise ``NotImplementedError`` where the JAX package's ``what`` ('train
-    step', 'eval step', 'forward function', '2D evaluator') fails on
-    MODEL.NAME."""
+    state', 'train step', 'eval step', 'forward function', '2D evaluator')
+    fails on MODEL.NAME."""
     msg = _NO_STEP[what].get(str(cfg.MODEL.NAME))
     if msg is not None:
         raise NotImplementedError(msg.format(what=what))
@@ -444,6 +454,7 @@ def create_train_state(cfg, model: nn.Module, steps_per_epoch: int = 1000,
     """Initialise ``model`` (seed ``TPU.SEED``), move it to ``device`` in
     train mode, and build its optimizer and state."""
     _check_cfg(cfg)
+    refuse_unsupported(cfg, "train state")
     init_train_weights(model, int(cfg.TPU.SEED))
     model.to(device).train()
     tx = make_optimizer(cfg, steps_per_epoch)

@@ -22,9 +22,13 @@ def main() -> None:
     from ..core.trainer import Trainer
     from ..data.build import make_dataloader
     from ..models import build_model
+    from ..parallel.train_step import refuse_unsupported
     from ..utils.summary import model_summary
 
     cfg = load_cfg(args)
+    # a model the JAX package's tools cannot train raises before its data is read
+    refuse_unsupported(cfg, "train state")
+    refuse_unsupported(cfg, "train step")
     model = build_model(cfg)
 
     train_loaders = make_dataloader(cfg, is_train=True)

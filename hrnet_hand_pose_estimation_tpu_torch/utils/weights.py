@@ -6,8 +6,9 @@ or ``vol_CPM``'s CPMVolumetric, under ``backbone``, with
 ``process_features`` and the V2V ``volume_net``), a CPM's, the fusion
 net's (the PoseHRNet under ``backbone`` and ``aggregation/pair_fc``), a
 PoseHRNetHamburger's (with its ``ham_bases`` collection), a PoseResNet's, a
-SwinPose's, an RVT PoolingTransformer's or a temporal model's (PoseAggrNet,
-PoseTransformer, HRNetPredRNN, HRNetEmbTCN) onto the port's ``state_dict``.
+SwinPose's, an RVT PoolingTransformer's, a temporal model's (PoseAggrNet,
+PoseTransformer, HRNetPredRNN, HRNetEmbTCN), an FTLMultiviewNet's, an
+HGFilter's or a HandMeshNet's onto the port's ``state_dict``.
 It keeps its own copy of the name rules of the JAX package's
 ``utils/torch_convert.py`` (reference torch name -> flax path), inverted:
 flax path -> torch name, HWIO / DHWIO kernels -> OIHW / OIDHW weights, a
@@ -19,7 +20,10 @@ W), a 1D conv's (W, I, O) kernel -> (O, I, W), Dense (in, out) -> Linear
 ``weight/bias/running_mean/running_var``.  Swin's, the RVT's and the
 temporal models' own parts have no reference names: their port names are
 the flax paths (PoseAggr's ``offset_feats`` chain keeps the reference's
-``_make_layer`` names, as the HRNet's layer1 does).
+``_make_layer`` names, as the HRNet's layer1 does), and so have FTL's (its
+backbone is the HRNet, under ``backbone``), HGFilter's (the reference's
+``add_module`` names, the norms under ``.norm``) and HandMeshNet's
+(``cheb{l}.w`` / ``.b`` kept as they are).
 
 ``from_jax_train_state`` maps a JAX ``TrainState`` (parameters, BN
 statistics, the optax state, the 3D trainer's per-group one included, and
@@ -190,14 +194,14 @@ def _torch_name(path: str, net: bool = False, conf: str = "vol_confidences",
 
 
 def _zoo_name(path: str, kind: str) -> Optional[str]:
-    """flax module path of a PoseResNet, SwinPose, RVT or temporal model ->
-    the port's name."""
+    """flax module path of a PoseResNet, SwinPose, RVT, temporal model,
+    FTL, HGFilter or HandMeshNet -> the port's name."""
     if kind == "pose_resnet":
         return _match(_POSE_RESNET_RULES, path)
     if kind == "rvt" and path.startswith("backbone/"):
         name = _match(_RESNET_RULES, path)
         return None if name is None else "backbone." + name
-    if kind == "temporal":
+    if kind in ("temporal", "ftl"):
         if path.startswith("backbone/"):
             name = _torch_name(path[len("backbone/"):])
             return None if name is None else "backbone." + name
@@ -206,11 +210,22 @@ def _zoo_name(path: str, kind: str) -> Optional[str]:
     return path.replace("/", ".")
 
 
+# the trees whose names _zoo_name gives
+_ZOO_KINDS = ("swin", "rvt", "pose_resnet", "temporal", "ftl", "hourglass", "mesh")
+
+
 def _tree_kind(params: Mapping) -> str:
     """Which model a JAX params tree (or an optimizer moment shaped like
     one) belongs to."""
     if "patch_embed" in params and "embed_norm" in params:
         return "swin"
+    # FTL has a top-level final_layer: routed before pose_resnet's rule
+    if "encoder_head" in params and "fuse_after_ftl" in params:
+        return "ftl"
+    if "conv4" in params and "m0" in params:
+        return "hourglass"
+    if "lift" in params and "pose_head" in params:
+        return "mesh"
     if any(k in params for k in _TEMPORAL_KEYS):
         return "temporal"
     if "keypoint_tokens" in params:
@@ -237,7 +252,7 @@ def _weight(arr: np.ndarray, name: str) -> np.ndarray:
         if name.endswith(".out"):
             return arr.reshape(-1, arr.shape[-1]).T
         return arr.reshape(arr.shape[0], -1).T
-    if arr.ndim == 4 and "deconv_layers" in name:
+    if arr.ndim == 4 and ("deconv_layers" in name or re.fullmatch(r"deconv\d+", name)):
         # flax's ConvTranspose (transpose_kernel off) is a plain conv over the
         # dilated input: torch's kernel flipped in space, (I, O, H, W)
         return arr[::-1, ::-1].transpose(2, 3, 0, 1)
@@ -261,8 +276,8 @@ def _leaves(tree: Mapping, prefix=()):
 def from_jax_variables(variables: Mapping, model: Optional[nn.Module] = None
                        ) -> Dict[str, torch.Tensor]:
     """JAX PoseHRNet, triangulation-net, CPM, fusion-net, PoseHRNetHamburger,
-    PoseResNet, SwinPose, RVT or temporal-model variables (numpy leaves) ->
-    the port's state_dict.
+    PoseResNet, SwinPose, RVT, temporal-model, FTL, HGFilter or HandMeshNet
+    variables (numpy leaves) -> the port's state_dict.
 
     Raises ``KeyError`` on any leaf it cannot place.  With ``model``, it
     also raises on any key of ``model.state_dict()`` left unfilled and on a
@@ -285,11 +300,12 @@ def from_jax_variables(variables: Mapping, model: Optional[nn.Module] = None
             if coll == "ham_bases" and path == _HAM_BASES[0]:
                 out[_HAM_BASES[1]] = torch.from_numpy(arr.copy())
                 continue
-            if coll == "params" and _OWN_LEAF.match(path[-1]):
+            if coll == "params" and (_OWN_LEAF.match(path[-1])
+                                     or (kind == "mesh" and path[-1] in ("w", "b"))):
                 out[".".join(path)] = torch.from_numpy(arr.copy())
                 continue
             module = "/".join(path[:-1])
-            name = (_zoo_name(module, kind) if kind in ("swin", "rvt", "pose_resnet", "temporal")
+            name = (_zoo_name(module, kind) if kind in _ZOO_KINDS
                     else _torch_name(module, net, conf, cpm))
             field = _FIELD.get((coll, path[-1]))
             if name is None or field is None or coll == "ham_bases":
@@ -456,15 +472,16 @@ def init_variables(cfg, seed: int = 0, device="cpu", damp: bool = True,
     confidence head of ``pose_hrnet_volumetric`` where the config names it;
     the model's own where MODEL.NAME names a model of the zoo: ``CPM``,
     ``multiview_pose_hrnet``, ``pose_resnet``, ``swin_transformer``,
-    ``pose_hrnet_hamburger``, ``my_pose_transformer`` or a temporal model),
+    ``pose_hrnet_hamburger``, ``my_pose_transformer``, a temporal model,
+    ``FTL`` or ``HourGlass``),
     or with ``net`` ('alg', 'ransac', 'vol', 'vol_CPM') the state_dict of
     that triangulation net
     (``models.triangulation.build_triangulation_net``).
 
     Convs, transposed convs, linear layers, PoseAggr's deform kernels and
     PoseFormer's frame weights are He-scaled normals (a transposed conv's
-    fan-in counts the inputs one output sees), BN and LayerNorm affine
-    parameters random around 1 and 0, Swin's relative position biases and
+    fan-in counts the inputs one output sees), BN, LayerNorm and GroupNorm
+    affine parameters random around 1 and 0, Swin's relative position biases and
     PoseFormer's position embeddings normals of std 0.02, the RVT's keypoint
     tokens and the hamburger's bases uniform in [0, 1).  With ``damp``, the
     BNs that close a residual branch in stages 2-4 or feed a fuse layer
@@ -473,7 +490,10 @@ def init_variables(cfg, seed: int = 0, device="cpu", damp: bool = True,
     joints by pixels (``chip_conditioning.py`` measures it).  Layer1 and the
     head are never damped.  The BN running statistics are then set to the
     statistics of one forward of two random images (made from the same seed;
-    for a temporal model two random sequences of its frames) on ``device``,
+    for a temporal model two random sequences of its frames, for FTL two
+    random samples of its views through ``models.ftl.seeded_cameras``, after
+    which FTL's final conv, the end of a decoder without BN, is scaled so its
+    logits vary by 2 a plane) on ``device``,
     so every layer sees normalized activations as in a trained net, and the
     statistics sit well away from 0 and 1, which exercises BN folding; a
     net's V2V statistics to those of one forward of a random non-negative
@@ -495,9 +515,15 @@ def init_variables(cfg, seed: int = 0, device="cpu", damp: bool = True,
         backbone = getattr(model, "backbone", model)
     elif name in ZOO_MODELS:
         model = backbone = build_model(cfg)
-    elif name in TEMPORAL_MODELS:
+    elif name in TEMPORAL_MODELS or name == "HourGlass":
         model = build_model(cfg)
         backbone = model
+    elif name == "FTL":
+        from ..models.ftl import ftl_from_cfg
+
+        # the same state as the registry's net (whose convs run in bf16),
+        # its BN statistics taken in float32
+        model = backbone = ftl_from_cfg(cfg, dtype=torch.float32)
     else:
         conf = {}
         if str(cfg.MODEL.NAME) == "pose_hrnet_volumetric":
@@ -518,7 +544,7 @@ def init_variables(cfg, seed: int = 0, device="cpu", damp: bool = True,
             if mod.bias is not None:
                 mod.bias.copy_(torch.from_numpy(
                     rng.normal(0.0, 0.1, mod.bias.shape).astype(np.float32)))
-        elif isinstance(mod, nn.LayerNorm):
+        elif isinstance(mod, (nn.LayerNorm, nn.GroupNorm)):
             mod.weight.copy_(torch.from_numpy(
                 rng.uniform(0.5, 1.5, mod.weight.shape).astype(np.float32)))
             mod.bias.copy_(torch.from_numpy(
@@ -544,14 +570,28 @@ def init_variables(cfg, seed: int = 0, device="cpu", damp: bool = True,
         elif leaf in ("keypoint_tokens", "bases"):
             tensor.copy_(torch.from_numpy(rng.uniform(0.0, 1.0, tensor.shape).astype(np.float32)))
     h, w = (int(s) for s in cfg.MODEL.IMAGE_SIZE[::-1])
-    frames = (len(list(cfg.DATASET.SEQ_IDX)),) if name in TEMPORAL_MODELS else ()
+    frames = ((len(list(cfg.DATASET.SEQ_IDX)),) if name in TEMPORAL_MODELS
+              else (int(cfg.DATASET.NUM_VIEWS),) if name == "FTL" else ())
     images = torch.from_numpy(rng.normal(size=(2, *frames, h, w, 3)).astype(np.float32))
     model = model.to(device)
     for mod in model.modules():
         if isinstance(mod, nn.BatchNorm2d):
             mod.train()
             mod.momentum = 1.0       # running stats := this batch's stats
-    if any(isinstance(m, nn.BatchNorm2d) for m in backbone.modules()):
+    if name == "FTL" and net is None:
+        from ..models.ftl import seeded_cameras
+
+        extr, intr = seeded_cameras(2, frames[0], w, seed)
+        seen = []
+        hook = model.final_layer.register_forward_hook(lambda m, a, out: seen.append(out))
+        model(images.to(device), extr.to(device), intr.to(device))
+        hook.remove()
+        # FTL's decoder has no BN: its final conv is scaled so the logits
+        # vary by 2 a plane on these inputs, as a trained head's do
+        gain = 2.0 / float(seen[0].std(dim=(2, 3)).mean())
+        model.final_layer.weight.mul_(gain)
+        model.final_layer.bias.mul_(gain)
+    elif any(isinstance(m, nn.BatchNorm2d) for m in backbone.modules()):
         backbone(images.to(device))
     if net in ("vol", "vol_CPM"):
         s = int(cfg.MODEL.VOLUME_SIZE)

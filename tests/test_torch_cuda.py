@@ -1575,3 +1575,151 @@ def test_kernel_times_match_key_averages(cuda):
                    if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / 3
     print(f"kernel ms a step: raw events {raw:.6f}, key_averages {averaged:.6f}")
     assert raw > 0 and raw == pytest.approx(averaged, rel=1e-6)
+
+
+# -- FTL, the stacked hourglass and the mesh family ------------------------------
+
+def test_ftl_b4_forward_and_backward_on_card(cuda):
+    """FTL at a small width (small_cfg's HRNet, 64 px, 2 views), float32
+    with TF32 off: one B4 launch a forward, the maps within 1e-4 and the
+    keypoints within 1e-3 px of the CPU's; the gradient of sum(keypoints_3d)
+    launches B4's forward and backward once each, reaches no backbone
+    parameter, and its head part is within 1e-3 (norm-wise) of the same
+    gradient decoded by B4's twin on the card."""
+    from hrnet_hand_pose_estimation_tpu_torch.models import ftl
+    from hrnet_hand_pose_estimation_tpu_torch.models.ftl import FTLMultiviewNet, seeded_cameras
+    from hrnet_hand_pose_estimation_tpu_torch.models.hrnet import hrnet_from_cfg
+
+    cfg = small_cfg().clone()
+    cfg.defrost()
+    cfg.merge_from_list(["MODEL.NAME", "FTL", "DATASET.NUM_VIEWS", 2])
+    cfg.freeze()
+    state = init_variables(cfg, 0)
+    x = torch.from_numpy(np.random.default_rng(21).normal(size=(2, 2, 64, 64, 3)).astype(
+        np.float32))
+    extr, intr = seeded_cameras(2, 2, 64, 21)
+    nets = []
+    for dev in ("cpu", cuda):
+        net = FTLMultiviewNet(hrnet_from_cfg(cfg), num_views=2, dtype=torch.float32)
+        net.load_state_dict(state)
+        nets.append(net.to(dev).eval())
+    args = [t.to(cuda) for t in (x, extr, intr)]
+    with torch.no_grad():
+        want = nets[0](x, extr, intr)
+        before = fused_softmax_decode.launches
+        got = nets[1](*args)
+        torch.cuda.synchronize()
+    assert fused_softmax_decode.launches == before + 1
+    assert (got.heatmaps.cpu() - want.heatmaps).abs().max() <= 1e-4 * want.heatmaps.max()
+    assert (got.keypoints_2d.cpu() - want.keypoints_2d).abs().max().item() <= 1e-3
+    assert float(want.keypoints_2d.std()) > 0.5
+
+    grads = {}
+    for name, decode in (("kernel", ftl.softmax_decode), ("twin", softmax_decode_reference)):
+        nets[1].zero_grad(set_to_none=True)
+        launched = (fused_softmax_decode.launches, fused_softmax_decode.launches_bwd)
+        orig, ftl.softmax_decode = ftl.softmax_decode, decode
+        try:
+            nets[1](*args).keypoints_3d.sum().backward()
+        finally:
+            ftl.softmax_decode = orig
+        torch.cuda.synchronize()
+        launched = (fused_softmax_decode.launches - launched[0],
+                    fused_softmax_decode.launches_bwd - launched[1])
+        assert launched == ((1, 1) if name == "kernel" else (0, 0)), (name, launched)
+        params = dict(nets[1].named_parameters())
+        assert all(p.grad is None for n, p in params.items() if n.startswith("backbone."))
+        grads[name] = torch.cat([p.grad.reshape(-1) for n, p in params.items()
+                                 if not n.startswith("backbone.")])
+    twin = grads["twin"]
+    assert twin.norm() > 0
+    assert ((grads["kernel"] - twin).norm() / twin.norm()).item() <= 1e-3
+
+
+def test_hourglass_on_card_matches_cpu(cuda):
+    """HGFilter (2 stacks, depth 2, 64 px), batch and group norm, float32
+    with TF32 off: every stack's maps and ``normx`` within 1e-4 of their
+    largest value of the CPU's."""
+    from hrnet_hand_pose_estimation_tpu_torch.models.hourglass import HGFilter
+
+    x = torch.from_numpy(np.random.default_rng(22).normal(size=(2, 64, 64, 3)).astype(
+        np.float32))
+    for norm in ("batch", "group"):
+        torch.manual_seed(0)
+        cpu = HGFilter(num_stacks=2, depth=2, norm=norm).eval()
+        TS.init_train_weights(cpu, 1)
+        card = HGFilter(num_stacks=2, depth=2, norm=norm)
+        card.load_state_dict(cpu.state_dict())
+        card.to(cuda).eval()
+        with torch.no_grad():
+            (w0, w1), wn = cpu(x)
+            (g0, g1), gn = card(x.to(cuda))
+        for g, w in ((g0, w0), (g1, w1), (gn, wn)):
+            assert (g.cpu() - w).abs().max() <= 1e-4 * w.abs().max(), norm
+
+
+def test_lbs_on_card_matches_cpu(cuda):
+    """LBS on a MANO-sized rig (778 vertices, 16 joints, 10 shape and 135
+    pose-blendshape columns) at B = 8: vertices and joints within 1e-5 of
+    their largest value of the CPU's."""
+    from hrnet_hand_pose_estimation_tpu_torch.models.mano import lbs, toy_hand_model
+
+    rng = np.random.default_rng(23)
+    rig = toy_hand_model(n_verts=778, n_joints=16, n_shape=10, device="cpu")
+    rig = rig._replace(posedirs=torch.from_numpy(rng.normal(scale=0.01, size=(778, 3, 135))
+                                                 .astype(np.float32)))
+    card = rig._replace(**{f: getattr(rig, f).to(cuda) for f in (
+        "v_template", "shapedirs", "posedirs", "j_regressor", "weights")})
+    pose = torch.from_numpy(rng.normal(scale=0.4, size=(8, 16, 3)).astype(np.float32))
+    betas = torch.from_numpy(rng.normal(size=(8, 10)).astype(np.float32))
+    want = lbs(rig, pose, betas)
+    got = lbs(card, pose.to(cuda), betas.to(cuda))
+    for g, w in zip(got, want):
+        assert (g.cpu() - w).abs().max() <= 1e-5 * w.abs().max()
+
+
+def test_rasterize_on_card_matches_cpu(cuda):
+    """``MeshRenderer`` at 128 px on a seeded mesh: the card's coverage (the
+    alpha channel) equals the CPU's except on at most 0.5 % of the pixels,
+    and its colours are within 1 / 255 of the CPU's where both cover or
+    neither does."""
+    from hrnet_hand_pose_estimation_tpu_torch.utils.renderer import MeshRenderer
+
+    rng = np.random.default_rng(24)
+    verts = rng.normal(scale=0.25, size=(300, 3)).astype(np.float32)
+    verts[:, 2] += 10.0
+    d = ((verts[:, None] - verts[None]) ** 2).sum(-1)
+    near = np.argsort(d, axis=1)[:, 1:6]
+    a = rng.integers(0, 300, 600)
+    faces = np.stack([a, near[a, 1], near[a, 3]], 1).astype(np.int32)
+    cpu, card = (MeshRenderer(faces, img_size=128, device=dev)(verts, do_alpha=True)
+                 for dev in ("cpu", "cuda"))
+    differ = (cpu[..., 3] > 0) != (card[..., 3] > 0)
+    assert (cpu[..., 3] > 0).mean() > 0.05 and differ.mean() <= 0.005
+    col = np.abs(cpu[..., :3].astype(int) - card[..., :3].astype(int))
+    assert (col[~differ] <= 1).mean() >= 0.995
+
+
+def test_nms_on_card_matches_cpu(cuda):
+    """``nms`` and ``oks_nms`` keep masks equal to the CPU's on 500 seeded
+    boxes and 80 poses; ``soft_nms`` (both methods) within 1e-5."""
+    from hrnet_hand_pose_estimation_tpu_torch.ops import nms
+
+    rng = np.random.default_rng(25)
+    xy = rng.uniform(0, 400, size=(60, 2))[rng.integers(0, 60, 500)] + rng.normal(scale=8, size=(
+        500, 2))
+    dets = torch.from_numpy(np.concatenate([xy, xy + rng.uniform(10, 60, size=(500, 2)),
+                                            rng.uniform(0.01, 1, (500, 1))], 1).astype(
+        np.float32))
+    assert torch.equal(nms.nms(dets.to(cuda), 0.5).cpu(), nms.nms(dets, 0.5))
+    for method in ("gaussian", "linear"):
+        got = nms.soft_nms(dets.to(cuda), method=method).cpu()
+        assert (got - nms.soft_nms(dets, method=method)).abs().max() <= 1e-5
+    kp = rng.uniform(0, 300, size=(16, 17, 2))[rng.integers(0, 16, 80)] + rng.normal(size=(
+        80, 17, 2))
+    kp = torch.from_numpy(np.concatenate([kp, np.ones((80, 17, 1))], -1).astype(np.float32))
+    scores = torch.from_numpy(rng.uniform(size=80).astype(np.float32))
+    areas = torch.from_numpy(rng.uniform(2000, 9000, 80).astype(np.float32))
+    want = nms.oks_nms(kp, scores, areas, 0.9)
+    assert 0 < int(want.sum()) < 80
+    assert torch.equal(nms.oks_nms(kp.to(cuda), scores.to(cuda), areas.to(cuda), 0.9).cpu(), want)

@@ -89,7 +89,9 @@ def test_port_imports_no_jax():
         "             'models.cpm', 'models.multiview_hrnet', 'core.train_variants',\n"
         "             'data.mhp', 'models.pose_resnet', 'models.swin', 'models.hamburger',\n"
         "             'models.transformers', 'ops.precision', 'ops.deform_conv',\n"
-        "             'models.temporal', 'models.pose_aggr'):\n"
+        "             'models.temporal', 'models.pose_aggr', 'models.ftl',\n"
+        "             'models.hourglass', 'models.mesh', 'models.mano', 'utils.graph',\n"
+        "             'utils.renderer', 'ops.nms'):\n"
         "    assert port.__name__ + '.' + name in sys.modules, name\n"
         "assert not any(m.split('.')[0] in ('jax', 'flax', 'cv2', 'yaml') for m in sys.modules"
         " if sys.modules[m] is not None)\n"

@@ -122,7 +122,8 @@ def test_init_variables_seeded_and_folding_relevant(tiny_cfg):
 
 
 def test_registry(tiny_cfg):
-    assert registered_models() == ["CPM", "HRNet_Emb_TCN", "HRNet_PredRNN", "alg",
+    assert registered_models() == ["CPM", "FTL", "HRNet_Emb_TCN", "HRNet_PredRNN", "HourGlass",
+                                   "alg",
                                    "multiview_pose_hrnet", "my_pose_transformer", "pose_hrnet",
                                    "pose_hrnet_PoseAggr", "pose_hrnet_hamburger",
                                    "pose_hrnet_softmax", "pose_hrnet_trainable_softmax",
@@ -133,6 +134,8 @@ def test_registry(tiny_cfg):
     assert isinstance(model, PoseHRNet) and model.head == "softmax" and not model.training
     from hrnet_hand_pose_estimation_tpu_torch.config import config_from_dict
     from hrnet_hand_pose_estimation_tpu_torch.models.cpm import CPM
+    from hrnet_hand_pose_estimation_tpu_torch.models.ftl import FTLMultiviewNet
+    from hrnet_hand_pose_estimation_tpu_torch.models.hourglass import HGFilter
     from hrnet_hand_pose_estimation_tpu_torch.models.hamburger import PoseHRNetHamburger
     from hrnet_hand_pose_estimation_tpu_torch.models.multiview_hrnet import MultiViewPoseNet
     from hrnet_hand_pose_estimation_tpu_torch.models.pose_resnet import PoseResNet
@@ -148,7 +151,8 @@ def test_registry(tiny_cfg):
                        ("my_pose_transformer", PoolingTransformer),
                        ("pose_hrnet_transformer", PoseTransformer),
                        ("pose_hrnet_PoseAggr", PoseAggrNet), ("HRNet_PredRNN", HRNetPredRNN),
-                       ("HRNet_Emb_TCN", HRNetEmbTCN)):
+                       ("HRNet_Emb_TCN", HRNetEmbTCN), ("FTL", FTLMultiviewNet),
+                       ("HourGlass", HGFilter)):
         other = config_from_dict(cfg.to_dict(), freeze=False)
         other.MODEL.NAME = name
         model = build_model(other.freeze())
