@@ -137,6 +137,26 @@ on a MANO-sized rig, MeshRenderer at 256 px (1538 faces), nms and soft_nms
 on 2000 boxes (beside JAX's greedy loop run op by op), oks_nms on 200
 poses, scale_aware_gaussian_targets at B=32.
 
+Last, the dataset readers (``reader_phases``): every format's tree is
+written into a temporary directory without cv2 (tests/torch_reader_trees.py,
+PNG content also under the .jpg / .jpeg names, decoded by the port's own
+PNG decoder), then with the sections of
+experiments/RHD/RHD_HRNet_w32_trainable_softmax_hm-pose2dloss_v1.yaml set in
+code (w32 at 256/64, B=32): ``Trainer.fit`` for one epoch on RHD_kpt (64
+crops of 320x320 frames, 2 steps, finite losses), ``Evaluator2D`` std on
+the raw RHD set (32 crops, the crop-corner rescale, one B4 launch a batch,
+against the same evaluation decoded by B4's twin) and int8 (conv_int8, B3
+and B1 launched); with Frei_HRNet_w32_trainable_softmax_hm-pose2dloss_v1's:
+one FreiHand_kpt batch through the train step, FreiHand through
+Evaluator2D (against the twin) and ``FreiHandDataset.evaluate``; with
+VolTriangulation_MHP_v2's (vol, 4 views of 640x480, B=2): a forward on
+MHP_mv against its twin-decoded forward, ``Evaluator3D.run`` (one B4
+launch a batch) and three Trainer3D steps (one B4 forward and backward
+launch each); then a batch of MHP, MHP_kpt, MHP_CPM_kpt, MHP_CPM_mv,
+MHP_seq (refused by the 2D step, C23), HandGraph_kpt, FHA_kpt, STB, COCO
+(its evaluation with OKS-NMS on the card) and MPII, each loader's images/s
+on the host with its YAML's WORKERS threads.
+
     python3 chip_smoke.py
 
 Needs one CUDA card and nvcc; exits non-zero without them.  Prints one line
@@ -2333,7 +2353,8 @@ SMOKE3D_YAML = Path(__file__).resolve().parent / "experiments" / "synthetic_vol_
 B4_KERNEL_NAMES = ("softmax_decode_kernel", "softmax_decode_bwd_kernel")
 
 
-def train3d_cfg(kind: str, out_dir: str, batch: int, gan: bool = False, dtype: str = "bfloat16"):
+def train3d_cfg(kind: str, out_dir: str, batch: int, gan: bool = False, dtype: str = "bfloat16",
+                dataset: str = "Synthetic_mv", data_dir: str = ""):
     """The MODEL, LOSS and TRAIN sections of experiments/LearnableTriangulation/
     VolTriangulation_MHP_v2.yaml (kind 'vol'), AlgTriangulation_MHP_v1.yaml
     ('alg') or VolTriangulation_MHP_GAN_v1.yaml (gan) set in code (the
@@ -2345,7 +2366,8 @@ def train3d_cfg(kind: str, out_dir: str, batch: int, gan: bool = False, dtype: s
     and VOLUME_NET_LR 1e-3.  HEATMAP_SOFTMAX on for both (the alg YAML
     leaves the default, an argmax decode that gives its DLT loss no
     gradient; the backbone it names was trained with the softmax head).
-    Synthetic_mv with 4 views in place of MHP_mv."""
+    Synthetic_mv with 4 views in place of MHP_mv, unless ``dataset`` (read
+    under ``data_dir``) says otherwise."""
     vol = kind == "vol"
     cfg = load_config(opts=[
         "MODEL.NAME", kind, "MODEL.TRIANGULATION_MODEL_NAME", kind,
@@ -2362,7 +2384,7 @@ def train3d_cfg(kind: str, out_dir: str, batch: int, gan: bool = False, dtype: s
         "TRAIN.OPTIMIZER", "adam", "TRAIN.LR", 1e-4, "TRAIN.PROCESS_FEATURE_LR", 1e-3,
         "TRAIN.VOLUME_NET_LR", 1e-3, "TRAIN.LR_FACTOR", 0.1, "TRAIN.LR_STEP", [8, 16, 24],
         "TRAIN.IMAGES_PER_GPU", batch, "TEST.IMAGES_PER_GPU", batch,
-        "DATASET.DATASET", ["Synthetic_mv"], "DATASET.TEST_DATASET", ["Synthetic_mv"],
+        "DATASET.DATASET", [dataset], "DATASET.TEST_DATASET", [dataset], "DATA_DIR", data_dir,
         "DATASET.NUM_VIEWS", T3_VIEWS, "WORKERS", 4, "PRINT_FREQ", 1,
         "TPU.COMPUTE_DTYPE", dtype, "EXP_NAME", f"chip_smoke_train3d_{kind}",
         "OUTPUT_DIR", out_dir], freeze=False)
@@ -4692,6 +4714,392 @@ def c9_phases(smi):
             print(f"tools.evaluate_2d.evaluate(serving='int8'): {json.dumps(res)}")
 
 
+# -- the dataset readers ------------------------------------------------------
+
+READER_TRAIN = 32           # RHD_kpt / FreiHand_kpt IMAGES_PER_GPU
+READER_3D_BATCH = 2         # VolTriangulation_MHP_v2 IMAGES_PER_GPU
+# what the other readers' trees hold where their formats ship PNG; the rest
+# ship JPEG, and their trees hold PNG content under the JPEG names
+READER_PNG = {"HandGraph_kpt": "PNG, all five filters", "STB": "PNG, Sub rows"}
+# the YAML that names each reader and its WORKERS (threads of the port's
+# loader); STB, COCO and MPII are named by no YAML: the default, 4
+READER_LOADERS = (
+    ("MHP", False, "MHP/MHP_HRNet_w32_softmax_hmloss_v1.yaml", 4),
+    ("MHP_kpt", True, "MHP/MHP_HRNet_w32_trainable_softmax_pose2dloss_v1.yaml", 8),
+    ("MHP_CPM_kpt", True, "MHP/MHP_CPM_v1.yaml", 0),
+    ("MHP_CPM_mv", True, "LearnableTriangulation/VolTriangulation_MHP_CPM_v1.yaml", 8),
+    ("MHP_seq", True, "MHP/MHP_HRNet_w32_trainable_softmax_pose2dloss_PoseAggr_v1.yaml", 2),
+    ("HandGraph_kpt", True, "HandGraph/HG_w32_256x256_adam_lr1e-3.yaml", 4),
+    ("FHA_kpt", True, "FHA/FHA_w32_256x256_adam_lr1e-3.yaml", 0),
+    ("STB", False, "", 4),
+    ("COCO", False, "", 4),
+    ("MPII", False, "", 4),
+)
+
+
+def reader_trees():
+    """tests/torch_reader_trees.py, loaded by path: the CPU reader tests'
+    tree writer (PNG content written with zlib; no cv2, no JAX)."""
+    path = Path(__file__).resolve().parent / "tests" / "torch_reader_trees.py"
+    spec = importlib.util.spec_from_file_location("torch_reader_trees", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def write_reader_trees(root: str):
+    """Every format's tree under ``root``, the writers run in threads (zlib
+    and numpy release the GIL): RHD's 320x320 frames (64 training, 32
+    evaluation crops), FreiHand's 224x224 (32 + 32), MHP's 640x480 x 4
+    cameras (data_1: 10 frames, data_17: 4), HandGraph's 360x360 RGBA, FHA's
+    1920x1080, STB's 640x480, COCO's and MPII's 160x160.  RHD's and
+    HandGraph's PNGs cycle the five row filters (the decoder's slow case);
+    the others, STB's PNGs and the JPEG formats' PNG content under their
+    JPEG names, have Sub rows (cv2.imwrite's default)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    trees = reader_trees()
+    jobs = [lambda: trees.write_rhd(root, "training", 2 * READER_TRAIN, seed=0,
+                                    filters="mixed"),
+            lambda: trees.write_rhd(root, "evaluation", READER_TRAIN, seed=1, filters="mixed"),
+            lambda: trees.write_freihand(root, READER_TRAIN, READER_TRAIN),
+            lambda: trees.write_mhp(root, {"data_1": 10, "data_17": 4}),
+            lambda: trees.write_handgraph(root, 4, 3, filters="mixed"),
+            lambda: trees.write_fha(root, "Subject_1", 4),
+            lambda: trees.write_stb(root, "B1Counting", 8, set_name="evaluation"),
+            lambda: trees.write_coco(root, 8, set_name="evaluation"),
+            lambda: trees.write_mpii(root, 8, set_name="evaluation")]
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        for job in [pool.submit(j) for j in jobs]:
+            job.result()
+    return trees
+
+
+def reader_cfg(data_dir: str, out_dir: str, train: str, test: str, **extra):
+    """The flagship sections of experiments/RHD/RHD_HRNet_w32_trainable_softmax_
+    hm-pose2dloss_v1.yaml set in code (the card's machine may lack PyYAML):
+    pose_hrnet_softmax w32 with the trainable softmax at 256/64, heatmap
+    loss + 0.1 pose2d loss, adam at LR 1e-3, B=32, one epoch; DEBUG off
+    (its image dump needs cv2).  The FreiHand YAML differs in the model name
+    (pose_hrnet_trainable_softmax), the augmentation (on) and WORKERS (0)."""
+    opts = ["MODEL.NAME", "pose_hrnet_softmax", "MODEL.TRAINABLE_SOFTMAX", True,
+            "MODEL.HEATMAP_SOFTMAX", True, "MODEL.IMAGE_SIZE", [256, 256],
+            "MODEL.HEATMAP_SIZE", [64, 64], "MODEL.SIGMA", 2, "DATASET.SIGMA", 2,
+            "LOSS.WITH_HEATMAP_LOSS", True, "LOSS.HEATMAP_LOSS_FACTOR", 1.0,
+            "LOSS.WITH_POSE2D_LOSS", True, "LOSS.POSE2D_LOSS_FACTOR", 0.1,
+            "TRAIN.OPTIMIZER", "adam", "TRAIN.LR", 1e-3, "TRAIN.LR_FACTOR", 0.1,
+            "TRAIN.LR_STEP", [24, 48, 72], "TRAIN.IMAGES_PER_GPU", READER_TRAIN,
+            "TEST.IMAGES_PER_GPU", READER_TRAIN, "TRAIN.BEGIN_EPOCH", 1, "TRAIN.END_EPOCH", 2,
+            "DATASET.DATASET", [train], "DATASET.TEST_DATASET", [test], "WORKERS", 4,
+            "WITH_DATA_AUG", False, "WITHOUT_EVAL", True, "DEBUG.DEBUG", False,
+            "AUTO_RESUME", False, "DATA_DIR", data_dir, "OUTPUT_DIR", out_dir,
+            "EXP_NAME", f"chip_smoke_{train}"]
+    cfg = load_config(opts=opts, freeze=False)
+    cfg.MODEL.EXTRA.merge_from_mapping(POSE_HIGH_RESOLUTION_NET_EXTRA)
+    if extra:
+        cfg.merge_from_list([x for key, val in extra.items()
+                             for x in (key.replace("__", "."), val)])
+    return cfg.freeze()
+
+
+def loader_rate(loader, min_images: int = 16, min_batches: int = 8):
+    """(passes, batches, images, images/s, first batch) of iterating
+    ``loader`` on the host in whole passes, until ``min_images`` images and
+    ``min_batches`` batches or two passes: the images count every view and
+    frame of a sample, and each pass's first batch, which no worker has
+    loaded ahead, stays in the clock."""
+    t = time.perf_counter()
+    passes = n = images = 0
+    first = None
+    while images < min_images or (n < min_batches and passes < 2):
+        for batch in loader:
+            first = batch if first is None else first
+            images += int(np.prod(np.shape(batch["imgs"])[:-3]))
+            n += 1
+        passes += 1
+    return passes, n, images, images / (time.perf_counter() - t), first
+
+
+def rate_line(name, loader, workers, decode, smi):
+    """The loader's rate as a line, and its first batch."""
+    passes, n, imgs, rate, first = loader_rate(loader)
+    return (f"{name} loader (WORKERS {workers}; {decode}): {passes} passes, {n} batches, "
+            f"{imgs} images, {rate:.1f} images/s on the host on {smi}"), first
+
+
+def zero_reader_counters():
+    zero_counters()
+    fused_softmax_decode.launches_bwd = 0
+
+
+def add_reader_launches(by_name):
+    """Adds every counted kernel's launches since zero_reader_counters(),
+    B4's backward too, into its entry's launches_readers."""
+    for name, n in counters().items():
+        by_name[name]["launches_readers"] += n
+    by_name["softmax_decode_backward"]["launches_readers"] += fused_softmax_decode.launches_bwd
+
+
+def decoded_like_twin(label, cfg, model, loader, results, dev):
+    """Evaluator2D's results with B4 against the same evaluation decoded by
+    its twin (<= 1e-3 apart in every metric: the decode parts by <= 1e-4
+    heatmap px, which the crop rescale multiplies by at most 5)."""
+    with patched(EV, "softmax_decode", softmax_decode_reference):
+        twin = Evaluator2D(cfg, model, None, device=dev).run(loader, label)
+    gaps = {k: abs(results[k] - twin[k]) for k in ("EPE_px", "PCK_AUC_30", "PCK_AUC_full")}
+    print(f"{label}: decoded by the twin {json.dumps(twin)}; gaps {json.dumps(gaps)} "
+          f"(limit 1e-3)")
+    if not all(g <= 1e-3 for g in gaps.values()):
+        raise AssertionError(f"{label}: B4 and its twin part: {gaps}")
+
+
+def reader_phases(smi, kernels):
+    """The readers on the card: each format's tree written cv2-free, RHD into
+    Trainer.fit and Evaluator2D (std through B4 with the crop-corner rescale,
+    and int8), FreiHand into a train step, Evaluator2D and its evaluate,
+    MHP_mv into Evaluator3D and three Trainer3D steps (vol), and a batch of
+    every other reader with its loader's images/s on the host."""
+    from hrnet_hand_pose_estimation_tpu_torch.core import trainer3d as T3
+    from hrnet_hand_pose_estimation_tpu_torch.core.evaluator3d import Evaluator3D
+    from hrnet_hand_pose_estimation_tpu_torch.core.trainer import _batch_for_step
+    from hrnet_hand_pose_estimation_tpu_torch.data.build import make_dataloader
+    from hrnet_hand_pose_estimation_tpu_torch.data.pipeline import to_device
+    from hrnet_hand_pose_estimation_tpu_torch.models import triangulation as TRI
+    from hrnet_hand_pose_estimation_tpu_torch.utils.zipreader import IMREAD_UNCHANGED, decode_png
+
+    dev = torch.device("cuda")
+    by_name = {k["name"]: k for k in kernels}
+    for name in [*counters(), "softmax_decode_backward"]:
+        by_name[name]["launches_readers"] = 0
+    with tempfile.TemporaryDirectory() as root, tempfile.TemporaryDirectory() as tmp:
+        with phase("reader trees"):
+            trees = write_reader_trees(root)
+            size = sum(f.stat().st_size for f in Path(root).rglob("*") if f.is_file())
+            print(f"reader trees (PNG content, also under .jpg / .jpeg names): "
+                  f"{sum(1 for _ in Path(root).rglob('*.*'))} files, {size / 2 ** 20:.1f} MiB")
+            frame = trees.image(320, 320, 5)
+            for filters in ("sub", "mixed"):
+                data = trees.png_bytes(frame, filters)
+                t = time.perf_counter()
+                for _ in range(5):
+                    decoded = decode_png(data, IMREAD_UNCHANGED)
+                ms = (time.perf_counter() - t) / 5 * 1e3
+                if not np.array_equal(decoded, frame[..., ::-1]):
+                    raise AssertionError(f"decode_png of a {filters} frame differs")
+                print(f"decode_png, a 320x320 RGB frame with {filters} rows: {ms:.2f} ms on the "
+                      f"host on {smi}")
+
+        with phase("RHD train"):
+            cfg = reader_cfg(root, tmp, "RHD_kpt", "RHD")
+            loaders = make_dataloader(cfg, True)
+            print(rate_line("RHD_kpt", loaders["RHD_kpt"], 4, "PNG, all five filters; crop, "
+                            "warp to 256, targets", smi)[0])
+            trainer = Trainer(cfg, build_model(cfg), loaders, None, output_dir=tmp, device=dev)
+            epochs = []
+            fit_epoch = trainer.train_epoch
+            trainer.train_epoch = lambda e: epochs.append(fit_epoch(e)) or epochs[-1]
+            zero_reader_counters()
+            t = time.perf_counter()
+            trainer.fit()
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t
+            add_reader_launches(by_name)
+            print(f"Trainer.fit on RHD_kpt: 1 epoch, {trainer.train_global_steps} steps at "
+                  f"B={READER_TRAIN} in {sec:.2f} s; epoch averages "
+                  f"{json.dumps({k: round(v, 5) for k, v in epochs[0].items()})}; launches "
+                  f"{ {k: v for k, v in counters().items() if v} }")
+            if trainer.train_global_steps != 2 or not all(np.isfinite(v) for v in
+                                                          epochs[0].values()):
+                raise AssertionError(f"RHD training: {trainer.train_global_steps} steps, "
+                                     f"{epochs}")
+            model = trainer.model
+
+        with phase("RHD eval"):
+            loader = make_test_dataloader(cfg)["RHD"]
+            batch = next(iter(loader))
+            crops = np.asarray(batch["crop_size"])
+            print(f"raw RHD test set: {len(loader.dataset)} crops of {crops.min():.0f}-"
+                  f"{crops.max():.0f} px from 320x320 frames, rescale "
+                  f"{loader.dataset.rescale!r}")
+            if loader.dataset.rescale != "crop_corner" or crops.min() == crops.max():
+                raise AssertionError("RHD's crop-corner rescale is not exercised")
+            ev = Evaluator2D(cfg, model, None, device=dev)
+            zero_reader_counters()
+            results = ev.run(loader, "RHD", tmp)
+            torch.cuda.synchronize()
+            launches = counters()
+            add_reader_launches(by_name)
+            want = {fn.__name__: 0 for fn in COUNTED}
+            want["fused_softmax_decode"] = len(loader)
+            print(f"Evaluator2D std on RHD, {len(loader)} batch of {READER_TRAIN}: launches "
+                  f"{launches}; results {json.dumps(results)}")
+            if launches != want or not all(np.isfinite(v) for v in results.values()):
+                raise AssertionError(f"RHD eval: launches {launches}, results {results}")
+            decoded_like_twin("Evaluator2D std on RHD", cfg, model, loader, results, dev)
+            zero_reader_counters()
+            results8 = Evaluator2D(cfg, model, None, serving="int8", device=dev).run(loader, "RHD")
+            torch.cuda.synchronize()
+            launches8 = counters()
+            add_reader_launches(by_name)
+            print(f"Evaluator2D int8 on RHD: launches {launches8}; results {json.dumps(results8)}")
+            if not (launches8["conv_int8"] and launches8["fused_bottleneck_chain_int8"]
+                    and launches8["fused_head_decode_v2"]) or launches8["fused_softmax_decode"]:
+                raise AssertionError(f"RHD int8 eval launches {launches8}")
+            if not all(np.isfinite(v) for v in results8.values()):
+                raise AssertionError(f"RHD int8 eval results {results8}")
+            del trainer, ev, model
+
+        with phase("FreiHand"):
+            cfg = reader_cfg(root, tmp, "FreiHand_kpt", "FreiHand", MODEL__NAME=
+                             "pose_hrnet_trainable_softmax", WITH_DATA_AUG=True, WORKERS=0,
+                             TRAIN__SHUFFLE=False)
+            # the tree holds the first 32 samples of each split: one batch each
+            loader = make_dataloader(cfg, True)["FreiHand_kpt"]
+            loader.dataset.sample_lst = loader.dataset.sample_lst[:READER_TRAIN]
+            line, batch = rate_line("FreiHand_kpt", loader, 0, "PNG under .jpg names, Sub rows; "
+                                    "augmented", smi)
+            print(line)
+            batch = _batch_for_step(to_device(batch, dev))
+            model = build_model(cfg)
+            state, tx = TS.create_train_state(cfg, model, device=dev)
+            zero_reader_counters()
+            state, losses = TS.make_train_step(cfg, model, tx)(state, batch)
+            torch.cuda.synchronize()
+            add_reader_launches(by_name)
+            host = {k: round(float(v), 5) for k, v in losses.items()}
+            print(f"train step on a FreiHand_kpt batch of {READER_TRAIN}: {host}")
+            if not all(np.isfinite(v) for v in host.values()) or host.get("nonfinite_grads"):
+                raise AssertionError(f"FreiHand step losses {host}")
+            test = make_test_dataloader(cfg)["FreiHand"]
+            test.dataset.sample_lst = test.dataset.sample_lst[:READER_TRAIN]
+            ev = Evaluator2D(cfg, model, None, device=dev)
+            zero_reader_counters()
+            results = ev.run(test, "FreiHand", tmp)
+            torch.cuda.synchronize()
+            launched = counters()["fused_softmax_decode"]
+            add_reader_launches(by_name)
+            print(f"Evaluator2D std on FreiHand: B4 launches {launched}; {json.dumps(results)}")
+            if launched != len(test) or not all(np.isfinite(v) for v in results.values()):
+                raise AssertionError(f"FreiHand eval: {launched} launches, {results}")
+            decoded_like_twin("Evaluator2D std on FreiHand", cfg, model, test, results, dev)
+            tb = next(iter(test))
+            zero_reader_counters()
+            preds = ev.forward(torch.from_numpy(tb["imgs"]).to(dev)).cpu().numpy() * (224 / 64)
+            add_reader_launches(by_name)
+            res = test.dataset.evaluate(cfg, preds, None, tmp)
+            with open(res["res_file"]) as f:
+                records = len(json.load(f))
+            print(f"FreiHandDataset.evaluate: EPE {res['EPE_px']:.3f} px over {len(preds)} "
+                  f"predictions, {records} keypoint records written")
+            if records != len(preds) or not np.isfinite(res["EPE_px"]):
+                raise AssertionError(f"FreiHandDataset.evaluate: {res}")
+            del model, state, ev
+
+        with phase("MHP_mv 3D"):
+            cfg = train3d_cfg("vol", tmp, READER_3D_BATCH, dataset="MHP_mv", data_dir=root)
+            test = make_test_dataloader(cfg)["MHP_mv"]
+            print(rate_line("MHP_mv", test, 4, "4 views of 640x480, PNG under .jpg names, Sub "
+                            "rows; the occlusion disc, warps to 256", smi)[0])
+            net = TRI.build_triangulation_net(cfg)
+            ev = Evaluator3D(cfg, net, init_variables(cfg, 0, device=dev, net="vol"),
+                             mode="model", device=dev)
+            batch = next(iter(test))
+            orig = tuple(test.dataset.orig_img_size)
+            images = torch.from_numpy(batch["imgs"]).to(dev)
+            proj = ev.projections(batch, orig)
+            zero_reader_counters()
+            with torch.no_grad():
+                got = ev.forward(images, proj)
+            torch.cuda.synchronize()
+            add_reader_launches(by_name)
+            if counters()["fused_softmax_decode"] != 1:
+                raise AssertionError(f"MHP_mv vol forward launches {counters()}")
+            with patched(TRI, "softmax_decode", softmax_decode_reference), torch.no_grad():
+                twin = ev.forward(images, proj)
+            mv_gate(f"MHP_mv vol forward B={READER_3D_BATCH} x 4 views, cameras {orig}", "vol",
+                    got, twin)
+            zero_reader_counters()
+            results = ev.run(test)
+            torch.cuda.synchronize()
+            launched = counters()["fused_softmax_decode"]
+            add_reader_launches(by_name)
+            print(f"Evaluator3D vol on MHP_mv, {len(test)} batches: B4 launches {launched}; "
+                  f"{json.dumps(results)}")
+            if launched != len(test) or not all(np.isfinite(v) for v in results.values()):
+                raise AssertionError(f"Evaluator3D on MHP_mv: {launched}, {results}")
+            trainer = T3.Trainer3D(cfg, net, make_dataloader(cfg, True), None, output_dir=tmp,
+                                   device=dev)
+            if trainer.orig_size != (640, 480):
+                raise AssertionError(f"Trainer3D took the cameras of {trainer.orig_size}")
+            it = iter(make_dataloader(cfg, True)["MHP_mv"])
+            for i in range(3):
+                step_batch = T3.batch_for_step(to_device(next(it), dev))
+                zero_reader_counters()
+                trainer.state, losses = trainer.train_step(trainer.state, step_batch,
+                                                           trainer.generator)
+                torch.cuda.synchronize()
+                add_reader_launches(by_name)
+                host = {k: round(float(v), 5) for k, v in losses.items()}
+                fwd, bwd = counters()["fused_softmax_decode"], fused_softmax_decode.launches_bwd
+                print(f"Trainer3D vol step {i} on MHP_mv: {host}; B4 forward {fwd}, "
+                      f"backward {bwd}")
+                if (fwd, bwd) != (1, 1) or not all(np.isfinite(v) for v in host.values()):
+                    raise AssertionError(f"MHP_mv vol step: launches {(fwd, bwd)}, {host}")
+            del trainer, net, ev
+
+        with phase("other readers"):
+            for name, train, yaml, workers in READER_LOADERS:
+                cfg = reader_cfg(root, tmp, name if train else "RHD_kpt",
+                                 "RHD" if train else name, WORKERS=workers,
+                                 TRAIN__IMAGES_PER_GPU=2, TEST__IMAGES_PER_GPU=2,
+                                 DATASET__SEQ_IDX=[-2, -1, 0, 1, 2], DATASET__STRIDE=2,
+                                 DATASET__NUM_VIEWS=4, DATASET__SIGMA=1)
+                loader = make_dataloader(cfg, train)[name]
+                decode = READER_PNG.get(name, "PNG under .jpg / .jpeg names, Sub rows; the "
+                                        "real JPEGs need cv2")
+                line, batch = rate_line(f"{name} ({yaml or 'no YAML'})", loader, workers, decode,
+                                        smi)
+                print(line)
+                batch = to_device(batch, dev)
+                shapes = {k: tuple(v.shape) for k, v in batch.items()
+                          if isinstance(v, torch.Tensor)}
+                print(f"{name}: batch on the card {shapes}")
+                if not all(torch.isfinite(v.float()).all() for v in batch.values()
+                           if isinstance(v, torch.Tensor)):
+                    raise AssertionError(f"{name}: a batch value is not finite")
+                if name == "MHP_seq":
+                    try:
+                        TS.check_frame_targets(_batch_for_step(batch))
+                    except ValueError as err:
+                        print(f"MHP_seq into the 2D step: {str(err)[:96]}...")
+                    else:
+                        raise AssertionError("MHP_seq's folded targets were not refused (C23)")
+                if name == "COCO":
+                    ds = loader.dataset
+                    gt = np.stack([s["keypoints"] for s in ds.samples])
+                    preds = np.concatenate([gt[:, :, :2] + np.random.default_rng(3).normal(
+                        size=gt[:, :, :2].shape) * 2, np.full(gt.shape[:2] + (1,), 0.9)], -1)
+                    preds = np.concatenate([preds, preds[:1] + 0.5]).astype(np.float32)
+                    ids = [s["image_id"] for s in ds.samples] + [ds.samples[0]["image_id"]]
+                    boxes = np.tile(np.array([[80, 80, 0.6, 0.6, 12544, 1.0]], np.float32),
+                                    (len(preds), 1))
+                    zero_reader_counters()
+                    nv, ap = ds.evaluate(preds, boxes, ids, tmp, device=dev)
+                    add_reader_launches(by_name)
+                    print(f"COCO evaluate, OKS-NMS on the card: {nv['num_results']} of "
+                          f"{len(preds)} kept (the duplicate suppressed), OKS-AP {ap:.4f}")
+                    if nv["num_results"] != len(ds) or not ap > 0.5:
+                        raise AssertionError(f"COCO evaluate: {nv}, AP {ap}")
+
+    readers = {name: by_name[name]["launches_readers"]
+               for name in [*counters(), "softmax_decode_backward"]}
+    print(f"launches on the reader paths, all runs: {readers}")
+    for name in ("fused_softmax_decode", "softmax_decode_backward", "conv_int8",
+                 "fused_bottleneck_chain_int8", "fused_head_decode_v2"):
+        if not readers[name]:
+            raise AssertionError(f"no reader path launched {name}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs an NVIDIA card",
@@ -4895,6 +5303,7 @@ def main() -> int:
     ftl_phases(smi, kernels)
     hourglass_phases(smi)
     mesh_phases(smi)
+    reader_phases(smi, kernels)
 
     print(json.dumps({"kernels": kernels}))
     print(smi)

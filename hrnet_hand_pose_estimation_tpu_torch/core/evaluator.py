@@ -14,7 +14,8 @@ tools/evaluate_2D.py:149-296), on one device:
   head, or SimpleBaseline's logits, with ``HEATMAP_SOFTMAX``), or the
   argmax.  The RVT (``my_pose_transformer``), ``HRNet_PredRNN`` and
   ``HRNet_Emb_TCN`` have no maps: the evaluator raises, as JAX's fails
-  (ROADMAP C17, C19);
+  (ROADMAP C17, C19); so does a loader whose targets carry a frame axis
+  (MHP_seq, ROADMAP C23);
 - rescale heatmap-space predictions to the original image, as the reader
   declares (``dataset.rescale``): crop_size/hm + corner, else orig_size/hm;
 - visibility-masked per-joint EPE + PCK over thresholds 1..49 px;
@@ -38,7 +39,7 @@ import torch
 
 from ..ops.decode import decode_heatmaps, softmax_decode
 from ..parallel.checkpoint import join_state_dict
-from ..parallel.train_step import compute_autocast, refuse_unsupported
+from ..parallel.train_step import check_frame_targets, compute_autocast, refuse_unsupported
 from ..utils.weights import TEMPORAL_MODELS, ZOO_MODELS
 from .metrics import PoseMetricState, default_thresholds_2d, pck_at, pck_auc
 
@@ -139,6 +140,7 @@ class Evaluator2D:
 
         infer_time = [0, 0.0]
         for i, batch in enumerate(loader):
+            check_frame_targets(batch)
             images = self._put_images(batch["imgs"])
             if self.serving == "int8" and self._qfn is None:
                 self._build_serving(images)

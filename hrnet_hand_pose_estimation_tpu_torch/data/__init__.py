@@ -1,2 +1,3 @@
-"""Host data for the port's training: the hand legend, synthetic samples,
-the batching loader and the device prefetch."""
+"""Host data for the port's training and evaluation: the dataset readers
+and their image helpers, the hand legend, synthetic samples, the batching
+loader and the device prefetch."""

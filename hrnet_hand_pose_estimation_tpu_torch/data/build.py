@@ -7,9 +7,9 @@ for joint multi-dataset training like the reference (build.py:66-97).
 
 The batch is ``IMAGES_PER_GPU`` for one device: the JAX package multiplies
 it by ``jax.local_device_count()``; multi-GPU data parallelism is ROADMAP
-A11.  The port has the synthetic 2D and multi-view datasets so far: every
-other registered name raises ``NotImplementedError`` naming the ROADMAP
-item that ports its reader.
+A11.  Every name of the JAX package's registry is registered, with the same
+reader; ``FHA`` and ``HandGraph``, which some YAMLs name as their test set,
+are in neither registry and raise ``KeyError`` (ROADMAP C25).
 """
 
 from __future__ import annotations
@@ -19,7 +19,16 @@ from typing import Callable, Dict, Optional
 import numpy as np
 
 from ..ops.targets import gaussian_targets_np
+from .coco_mpii import COCOKeypointsDataset, MPIIDataset
+from .fha import FHADatasetKeypoints
+from .freihand import FreiHandDataset, FreiHandDatasetKeypoints
+from .handgraph import HandGraphDatasetKeypoints
+from .mhp import (MHPCPMDataset, MHPCPMMultiViewDataset, MHPDataset, MHPDatasetKeypoints,
+                  MHPMultiViewDataset, MHPSeqDataset)
 from .pipeline import DataLoader
+from .rhd import (RHDDataset, RHDDatasetKeypoints, RHDFullFrameDataset,
+                  RHDFullFrameDatasetKeypoints)
+from .stb import STBDataset
 from .synthetic import SyntheticDataset, SyntheticMultiViewDataset
 from .transforms import build_transforms
 
@@ -49,25 +58,55 @@ def register_dataset(name: str):
     return deco
 
 
-def _not_ported(name: str, item: str) -> Callable:
+def _raw(cls) -> Callable:
+    """The raw evaluation readers take (root, subset, data format, transforms)."""
     def build(cfg, subset, hm_gen, transforms):
-        raise NotImplementedError(f"dataset {name!r}: its reader is not ported yet "
-                                  f"(ROADMAP {item})")
+        return cls(cfg.DATA_DIR, subset, cfg.DATASET.DATA_FORMAT, transforms)
     return build
 
 
-# keypoint datasets take (cfg, subset, heatmap_generator, transforms); the
-# raw eval datasets of the reference's evaluate_2D.py take the same here
-register_dataset("Synthetic_kpt")(SyntheticDataset)
-register_dataset("Synthetic")(
-    lambda cfg, subset, hm, tr: SyntheticDataset(cfg, subset, hm, tr))
-for _name in ("RHD_kpt", "RHD_twohands_kpt", "RHD_fullframe_kpt", "Frei_kpt", "FreiHand_kpt",
-              "MHP_kpt", "HandGraph_kpt", "FHA_kpt", "MHP_CPM_kpt", "MHP_CPM_mv", "MHP_mv",
-              "MHP_seq", "COCO", "MPII", "RHD", "RHD_twohands", "Frei", "FreiHand", "MHP",
-              "Panoptic", "Panoptic_kpt", "STB"):
-    register_dataset(_name)(_not_ported(_name, "A10"))
-# the calibrated multi-view synthetic set of the 3D stack
-register_dataset("Synthetic_mv")(SyntheticMultiViewDataset)
+def _human_pose(cls) -> Callable:
+    def build(cfg, subset, hm_gen, transforms):
+        return cls(cfg.DATA_DIR, subset, transforms, int(cfg.MODEL.HEATMAP_SIZE[0]),
+                   float(cfg.MODEL.SIGMA))
+    return build
+
+
+_DATASETS.update({
+    # keypoint readers take (cfg, subset, heatmap_generator, transforms)
+    "RHD_kpt": RHDDatasetKeypoints,
+    # the full-frame variant (the reference *_twohands readers' live path)
+    "RHD_twohands_kpt": RHDFullFrameDatasetKeypoints,
+    "RHD_fullframe_kpt": RHDFullFrameDatasetKeypoints,
+    "Frei_kpt": FreiHandDatasetKeypoints,
+    "FreiHand_kpt": FreiHandDatasetKeypoints,
+    "MHP_kpt": MHPDatasetKeypoints,
+    "HandGraph_kpt": HandGraphDatasetKeypoints,
+    "FHA_kpt": FHADatasetKeypoints,
+    "Synthetic_kpt": SyntheticDataset,
+    # CPM variants: (K+1)-channel background targets + centre maps
+    "MHP_CPM_kpt": MHPCPMDataset,
+    "MHP_CPM_mv": MHPCPMMultiViewDataset,
+    # multi-view and sequence readers
+    "MHP_mv": MHPMultiViewDataset,
+    "MHP_seq": MHPSeqDataset,
+    # the calibrated multi-view synthetic set of the 3D stack
+    "Synthetic_mv": SyntheticMultiViewDataset,
+    # the upstream human-pose sets
+    "COCO": _human_pose(COCOKeypointsDataset),
+    "MPII": _human_pose(MPIIDataset),
+    # raw evaluation readers (the reference's evaluate_2D.py uses the non-kpt class)
+    "RHD": _raw(RHDDataset),
+    "RHD_twohands": _raw(RHDFullFrameDataset),
+    "Frei": _raw(FreiHandDataset),
+    "FreiHand": _raw(FreiHandDataset),
+    "MHP": _raw(MHPDataset),
+    # the reference's PanopticDataset.py is a verbatim copy of the MHP class
+    "Panoptic": _raw(MHPDataset),
+    "Panoptic_kpt": MHPDatasetKeypoints,
+    "STB": _raw(STBDataset),
+    "Synthetic": lambda cfg, subset, hm, tr: SyntheticDataset(cfg, subset, hm, tr),
+})
 
 
 def build_dataset(cfg, name: str, is_train: bool):

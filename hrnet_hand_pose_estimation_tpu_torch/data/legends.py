@@ -1,14 +1,34 @@
-"""The 21-joint hand legend's bone tables, as the 2D losses and the
-skeleton overlay use them.
+"""The 21-joint hand legend: the joint names, each dataset's reordering
+into them, and the bone tables the 2D losses and the skeleton overlay use.
 
-The port's own copy of the JAX package's ``data/legends.py:43-73`` (numpy
-only): the kinematic-chain incidence matrix, the anatomical (parent, child)
-bone pairs, and the reference-faithful bone chain of ``BoneLengthLoss``.
+The port's own copy of the JAX package's ``data/legends.py`` (numpy only):
+the standard joint order and the reorder index tables of the readers
+(reference standard_legends.py:4-35), the kinematic-chain incidence matrix,
+the anatomical (parent, child) bone pairs, and the reference-faithful bone
+chain of ``BoneLengthLoss``.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+STD_LEGEND = (
+    "wrist",
+    "thumb palm", "thumb near palm", "thumb near tip", "thumb tip",
+    "index palm", "index near palm", "index near tip", "index tip",
+    "middle palm", "middle near palm", "middle near tip", "middle tip",
+    "ring palm", "ring near palm", "ring near tip", "ring tip",
+    "pinky palm", "pinky near palm", "pinky near tip", "pinky tip",
+)
+
+NUM_JOINTS = 21
+
+# each dataset's native joint order -> the standard legend
+IDX_RHD = np.array([0, 4, 3, 2, 1, 8, 7, 6, 5, 12, 11, 10, 9, 16, 15, 14, 13, 20, 19, 18, 17])
+IDX_FREI = np.arange(21)
+IDX_HANDGRAPH = IDX_FREI
+IDX_FHA = IDX_FREI
+IDX_MHP = np.array([20, 17, 16, 18, 19, 1, 0, 2, 3, 5, 4, 6, 7, 13, 12, 14, 15, 9, 8, 10, 11])
 
 
 def _kc_matrix() -> np.ndarray:

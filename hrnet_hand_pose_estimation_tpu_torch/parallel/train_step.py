@@ -119,6 +119,23 @@ def check_map_batch(heatmaps: torch.Tensor, batch: Dict) -> None:
                 "refined pose enters no loss)")
 
 
+def check_frame_targets(batch: Dict) -> None:
+    """Raise ``ValueError`` (ROADMAP C23) when the 2D targets carry a frame
+    axis: ``MHPSeqDataset`` (MHP_seq) folds its views into frames and gives
+    (B, F*V, K, 2) poses and (B, F*V, h, w, K) maps, against which the JAX
+    package's 2D step and Evaluator2D fail at every batch size (PoseAggr's
+    (B, K, 2) decode meets them in the pose loss; PoseFormer already fails at
+    init, its embedding built for len(SEQ_IDX) frames)."""
+    pose2d = batch.get("pose2d")
+    maps = batch.get("target_heatmaps", batch.get("heatmaps"))
+    if (pose2d is not None and np.ndim(pose2d) == 4) or (maps is not None and np.ndim(maps) == 5):
+        shape = tuple(np.shape(pose2d if pose2d is not None else maps))
+        raise ValueError(
+            f"2D targets of shape {shape} carry a frame axis (ROADMAP C23: MHP_seq folds views "
+            "into frames, (B, F*V, ...), and the JAX package's 2D train step and Evaluator2D "
+            "fail on them at every batch size; the 2D paths take one target per sample)")
+
+
 def check_map_size(cfg, heatmaps: torch.Tensor, targets: Optional[torch.Tensor]) -> None:
     """Raise ``ValueError`` (ROADMAP C18) when the model's maps and the
     targets (or MODEL.HEATMAP_SIZE without targets) differ in size: a Swin
@@ -528,6 +545,7 @@ def make_train_step(cfg, model: nn.Module, tx: Optimizer) -> Callable:
     def step(state: TrainState, batch: Dict) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         if state.model is not model:
             raise ValueError("the state belongs to another model")
+        check_frame_targets(batch)
         model.train()
         images = batch["images"]
         # frames may give per-frame maps, refused after the forward (C20); the

@@ -16,11 +16,7 @@ from typing import Dict
 
 import numpy as np
 
-# the MHP cameras' intrinsics (the port's copy of the JAX package's
-# data/mhp.py INTRINSICS; the MHP reader itself is ROADMAP A10)
-INTRINSICS = np.array([[614.878, 0.0, 313.219],
-                       [0.0, 615.479, 231.288],
-                       [0.0, 0.0, 1.0]], dtype=np.float32)
+from ..data.mhp import INTRINSICS
 
 
 def ring_projections(views: int) -> np.ndarray:

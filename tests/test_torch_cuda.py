@@ -1723,3 +1723,73 @@ def test_nms_on_card_matches_cpu(cuda):
     want = nms.oks_nms(kp, scores, areas, 0.9)
     assert 0 < int(want.sum()) < 80
     assert torch.equal(nms.oks_nms(kp.to(cuda), scores.to(cuda), areas.to(cuda), 0.9).cpu(), want)
+
+
+def reader_cfg(root, test):
+    """small_cfg in float32 reading the tiny trees under ``root``."""
+    cfg = small_cfg().clone()
+    cfg.defrost()
+    cfg.merge_from_list(["DATA_DIR", str(root), "DATASET.TEST_DATASET", [test],
+                         "TEST.IMAGES_PER_GPU", 4, "WORKERS", 0, "MODEL.TRAINABLE_SOFTMAX", True,
+                         "MODEL.HEATMAP_SOFTMAX", True, "TPU.COMPUTE_DTYPE", "float32"])
+    return cfg.freeze()
+
+
+def test_rhd_evaluator_on_card_matches_cpu(cuda, tmp_path):
+    """Evaluator2D on a tiny RHD tree (PNG frames decoded by the port,
+    crop-corner rescale): one B4 launch a batch on the card, every metric
+    within 1e-4 relative of the same evaluation on the CPU (float32, TF32
+    off)."""
+    from hrnet_hand_pose_estimation_tpu_torch.core.evaluator import Evaluator2D
+    from hrnet_hand_pose_estimation_tpu_torch.data.build import make_test_dataloader
+    import torch_reader_trees as trees
+
+    trees.write_rhd(tmp_path, "evaluation", 8, seed=3)
+    cfg = reader_cfg(tmp_path, "RHD")
+    state = init_variables(cfg, 0)
+    runs = {}
+    for dev in ("cpu", cuda):
+        loader = make_test_dataloader(cfg)["RHD"]
+        model = build_model(cfg)
+        model.load_state_dict(state)
+        before = fused_softmax_decode.launches
+        runs[str(dev)] = Evaluator2D(cfg, model, None, device=dev).run(loader, "RHD")
+        launched = fused_softmax_decode.launches - before
+        assert launched == (len(loader) if dev == cuda else 0)
+    for key in ("EPE_px", "PCK_AUC_30", "PCK_AUC_full"):
+        assert runs["cuda"][key] == pytest.approx(runs["cpu"][key], rel=1e-4), key
+
+
+def test_reader_host_helpers_against_their_card_paths(cuda, tmp_path):
+    """The host pipeline's numbers beside the card's: ``gaussian_targets_native``
+    against B5 on the card (1e-6), ``normalize_collate`` against the card's
+    normalisation (1e-6), and COCO's evaluation with its OKS-NMS on the card
+    against the same on the CPU (the same results file)."""
+    import json
+
+    from hrnet_hand_pose_estimation_tpu_torch.data import native
+    from hrnet_hand_pose_estimation_tpu_torch.data.coco_mpii import COCOKeypointsDataset
+    from hrnet_hand_pose_estimation_tpu_torch.ops.image import normalize
+    import torch_reader_trees as trees
+
+    g = np.random.default_rng(21)
+    joints = g.uniform(-2, 66, size=(8, 21, 2)).astype(np.float32)
+    vis = (g.uniform(size=(8, 21)) > 0.2).astype(np.float32)
+    host = native.gaussian_targets_native(joints, vis, 64, 2.0)
+    card = fused_gaussian_targets(f32(joints, cuda), f32(vis, cuda), 64, 2.0)
+    assert (card.cpu() - torch.from_numpy(host)).abs().max().item() <= 1e-6
+    u8 = g.integers(0, 256, size=(4, 32, 32, 3)).astype(np.uint8)
+    on_card = normalize(torch.from_numpy(u8).to(cuda)).cpu()
+    assert (on_card - torch.from_numpy(native.normalize_collate(u8))).abs().max().item() <= 1e-6
+
+    gt = trees.write_coco(tmp_path, 4)
+    ds = COCOKeypointsDataset(str(tmp_path), "val2017")
+    preds = np.stack([np.concatenate([gt[i][:, :2] + 0.3 * i, np.full((17, 1), 0.9)], 1)
+                      for i in (1, 2, 3, 4, 1)]).astype(np.float32)
+    boxes = np.array([[80, 80, 0.6, 0.6, 12544, 1.0]] * 5, np.float32)
+    files = []
+    for dev in ("cpu", cuda):
+        nv, ap = ds.evaluate(preds, boxes, [1, 2, 3, 4, 1], str(tmp_path / str(dev)), device=dev)
+        with open(nv["res_file"]) as f:
+            files.append((json.load(f), ap))
+    assert files[0] == files[1] and len(files[0][0]) == 4

@@ -91,7 +91,9 @@ def test_port_imports_no_jax():
         "             'models.transformers', 'ops.precision', 'ops.deform_conv',\n"
         "             'models.temporal', 'models.pose_aggr', 'models.ftl',\n"
         "             'models.hourglass', 'models.mesh', 'models.mano', 'utils.graph',\n"
-        "             'utils.renderer', 'ops.nms'):\n"
+        "             'utils.renderer', 'ops.nms', 'utils.zipreader', 'data.cv',\n"
+        "             'data.native', 'data.rhd', 'data.freihand', 'data.handgraph', 'data.fha',\n"
+        "             'data.stb', 'data.coco_mpii'):\n"
         "    assert port.__name__ + '.' + name in sys.modules, name\n"
         "assert not any(m.split('.')[0] in ('jax', 'flax', 'cv2', 'yaml') for m in sys.modules"
         " if sys.modules[m] is not None)\n"
