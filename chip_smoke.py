@@ -157,6 +157,18 @@ MHP_seq (refused by the 2D step, C23), HandGraph_kpt, FHA_kpt, STB, COCO
 (its evaluation with OKS-NMS on the card) and MPII, each loader's images/s
 on the host with its YAML's WORKERS threads.
 
+Then the last A8 and A7 modules (``a8_a7_phases``): make_quant_infer's
+``pallas_layer1=False`` on the flagship (no launch of the bf16 chain
+kernel, the gap to the kernel's layer1 printed); the trained-weights int8
+gate of tools/accuracy_gate_full (the flagship trained 300 steps at B=32,
+then the shipped int8 paths of the 'branch' and 'exchange' scopes within
+0.1 heatmap px of the f32 walk on train and held-out samples; conv_int8,
+B3 and B1 launched, no B2); 8 flagship train steps as two K=4
+make_train_multistep calls against 8 single steps, and ms/step at K=1 and
+4; train steps with the BN statistics levers beside the baseline; and
+perf_latency's p50 / p99 at B=8, 32 and 128, flops_of on the flagship and
+tsne_visualization's features on the card against the CPU.
+
     python3 chip_smoke.py
 
 Needs one CUDA card and nvcc; exits non-zero without them.  Prints one line
@@ -5100,6 +5112,224 @@ def reader_phases(smi, kernels):
             raise AssertionError(f"no reader path launched {name}")
 
 
+# -- A8 and A7: the trained-weights int8 gate, multistep training, the BN
+# levers and the tools ------------------------------------------------------
+
+GATE_COUNTED = ("conv_int8", "fused_bottleneck_chain_int8", "fused_head_decode_v2")
+LEVER_BATCH = 32            # the flagship's training batch (perf_bn_levers' default)
+LEVER_STEPS = 5
+MULTI_K = 4
+MULTI_STEPS = 8
+LATENCY_BATCHES = (8, 32, 128)
+LATENCY_ITERS = 50
+TSNE_LIMIT = 1e-4           # float32 features, card vs CPU, TF32 off, relative to max |f|
+
+
+def add_launches(by_name, key):
+    """Adds every counted kernel's launches since zero_counters() into its
+    entry's ``key``; returns them."""
+    now = counters()
+    for name, n in now.items():
+        by_name[name][key] = by_name[name].get(key, 0) + n
+    return now
+
+
+def c26_phase(smi):
+    """make_quant_infer(trunk='f32') on the flagship at B=32 with
+    pallas_layer1=False (the walk's folded bf16 layer1 on cuDNN, the gate's
+    reference) and True (the bf16 chain kernel B2): B2's launches and the
+    gap between the two."""
+    dev = torch.device("cuda")
+    with phase("C26 layer1"), torch.inference_mode():
+        cfg = flagship_cfg()
+        weights = precast_variables(cfg, init_variables(cfg, seed=0, device=dev), device=dev)
+        images = torch.from_numpy(np.random.default_rng(40).normal(
+            size=(CHECK_BATCH, 256, 256, 3)).astype(np.float32)).to(dev)
+        out, ms = {}, {}
+        for flag, want in ((False, 0), (True, 4)):
+            infer = Q.make_quant_infer(cfg, dev, trunk="f32", pallas_layer1=flag)
+            zero_counters()
+            out[flag] = infer(weights, {}, images)
+            torch.cuda.synchronize()
+            got = counters()
+            print(f"make_quant_infer(trunk='f32', pallas_layer1={flag}) B={CHECK_BATCH}: "
+                  f"launches B2 {got['fused_bottleneck_chain']}, B1 {got['fused_head_decode_v2']}")
+            if got["fused_bottleneck_chain"] != want or got["fused_head_decode_v2"] != 1:
+                raise AssertionError(f"pallas_layer1={flag}: {got}")
+            if not torch.isfinite(out[flag]).all():
+                raise AssertionError(f"pallas_layer1={flag}: non-finite coordinates")
+            ms[flag] = time_ms(lambda: infer(weights, {}, images), 5)
+        gap = (out[False] - out[True]).abs()
+        print(f"pallas_layer1 False vs True (cuDNN's folded layer1 vs B2, random full-depth "
+              f"weights, chaotic in bf16): max {gap.max().item():.4f} px, mean "
+              f"{gap.mean().item():.4f} px; {ms[False]:.3f} / {ms[True]:.3f} ms a B="
+              f"{CHECK_BATCH} call on {smi}")
+
+
+def gate_phase(smi, kernels):
+    """tools/accuracy_gate_full.run() at its defaults: the flagship trained
+    300 steps at B=32, then the shipped int8 paths of both scopes against
+    the TF32-off f32 walk; passes only if its gate passes, with conv_int8,
+    B3 and B1 launched and no B2."""
+    from hrnet_hand_pose_estimation_tpu_torch.tools import accuracy_gate_full as GATE
+
+    by_name = {k["name"]: k for k in kernels}
+    with phase("accuracy gate"):
+        zero_counters()
+        results = GATE.run(device="cuda")
+        torch.cuda.synchronize()
+        got = add_launches(by_name, "launches_gate")
+        print(f"launches in the gate: {json.dumps(got)} on {smi}")
+        if not results["pass"]:
+            raise AssertionError(f"the trained-weights int8 gate failed: {json.dumps(results)}")
+        if got["fused_bottleneck_chain"] or not all(got[n] for n in GATE_COUNTED):
+            raise AssertionError(f"the gate's paths did not run their kernels: {got}")
+
+
+def multistep_phase(smi):
+    """The flagship at B=32: 8 single steps and two K=4 make_train_multistep
+    calls from the same seeded state and batches (gaps printed and held
+    within 1e-2 relative: cuDNN's backward need not be deterministic), then
+    ms/step at K=1 and K=4 over 8 steps each, twice in turns."""
+    from hrnet_hand_pose_estimation_tpu_torch.tools.accuracy_gate_full import flagship_train_cfg
+    from hrnet_hand_pose_estimation_tpu_torch.tools.perf_bn_levers import train_batch
+    from hrnet_hand_pose_estimation_tpu_torch.tools.perf_multistep_sweep import sweep_rows
+
+    dev = torch.device("cuda")
+    with phase("multistep"):
+        cfg = flagship_train_cfg()
+        batches = [train_batch(cfg, LEVER_BATCH, dev, seed=50 + i) for i in range(MULTI_STEPS)]
+        model = build_model(cfg)
+        state, tx = TS.create_train_state(cfg, model, device=dev)
+        step = TS.make_train_step(cfg, model, tx)
+        single = []
+        for b in batches:
+            state, losses = step(state, b)
+            single.append(losses["total_loss"])
+        single = torch.stack(single)
+        want = state.params.clone()
+        del model, state, step
+        model = build_model(cfg)
+        state, tx = TS.create_train_state(cfg, model, device=dev)
+        multi = TS.make_train_multistep(cfg, model, tx)
+        calls = []
+        for i in range(0, MULTI_STEPS, MULTI_K):
+            stacked = {k: torch.stack([b[k] for b in batches[i:i + MULTI_K]]) for k in batches[0]}
+            state, losses = multi(state, stacked)
+            calls.append(losses["total_loss"])
+        calls = torch.cat(calls)
+        loss_gap = ((calls - single).abs() / single.abs()).max().item()
+        param_gap = (state.params - want).abs().max().item()
+        print(f"{MULTI_STEPS} steps as {MULTI_STEPS // MULTI_K} K={MULTI_K} calls vs single "
+              f"steps, B={LEVER_BATCH}: losses {[round(v, 4) for v in calls.tolist()]}; largest "
+              f"relative loss gap {loss_gap:.3g}, largest parameter gap {param_gap:.3g} "
+              f"(LR {float(cfg.TRAIN.LR)}); step {int(state.step)}")
+        if int(state.step) != MULTI_STEPS or not torch.isfinite(calls).all():
+            raise AssertionError(f"multistep: step {int(state.step)}, losses {calls.tolist()}")
+        if not loss_gap <= 1e-2:
+            raise AssertionError(f"multistep calls part from single steps: {loss_gap}")
+        del model, state, multi, batches
+        for row in sweep_rows(cfg, LEVER_BATCH, [1, MULTI_K, 1, MULTI_K], steps=MULTI_STEPS,
+                              device=dev):
+            print(f"K={row['k']}: {row['ms_per_step']:.3f} ms/step at B={LEVER_BATCH} "
+                  f"({LEVER_BATCH / row['ms_per_step'] * 1e3:.1f} images/s) on {smi}")
+
+
+def levers_phase(smi):
+    """Train steps of the flagship at B=32 with stat_samples=8, then with
+    stat_dtype='bfloat16', beside the baseline (perf_bn_levers' rows): the
+    losses finite and falling on the fixed batch."""
+    from hrnet_hand_pose_estimation_tpu_torch.models.layers import bn_levers_active
+    from hrnet_hand_pose_estimation_tpu_torch.tools.accuracy_gate_full import flagship_train_cfg
+    from hrnet_hand_pose_estimation_tpu_torch.tools.perf_bn_levers import lever_rows
+
+    with phase("BN levers"):
+        configs = [("baseline (float32 statistics, whole batch)", {}),
+                   ("statistics over 8", {"stat_samples": 8}),
+                   ("bf16 statistics", {"stat_dtype": "bfloat16"})]
+        rows = lever_rows(flagship_train_cfg(), LEVER_BATCH, configs, steps=LEVER_STEPS,
+                          warmup=2, device="cuda")
+        base = rows[0]["ms_per_step"]
+        for row in rows:
+            print(f"{row['label']}: {row['ms_per_step']:.3f} ms/step at B={LEVER_BATCH} "
+                  f"({row['ms_per_step'] / base:.3f} of the baseline) on {smi}; losses "
+                  f"{[round(v, 4) for v in row['losses']]}")
+            losses = np.asarray(row["losses"])
+            if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+                raise AssertionError(f"{row['label']}: losses {row['losses']}")
+        if bn_levers_active():
+            raise AssertionError("the levers stayed on after perf_bn_levers")
+
+
+def a8_tool_phases(smi, kernels):
+    """perf_latency at B=8, 32 and 128 (the shipped int8 path, one call a
+    request); flops_of on the flagship; tsne_visualization's features on
+    the card against the CPU."""
+    from hrnet_hand_pose_estimation_tpu_torch.ops.precision import no_tf32
+    from hrnet_hand_pose_estimation_tpu_torch.tools.perf_latency import latency_rows
+    from hrnet_hand_pose_estimation_tpu_torch.tools.tsne_visualization import embed
+    from hrnet_hand_pose_estimation_tpu_torch.utils.profiling import flops_of
+
+    dev = torch.device("cuda")
+    by_name = {k["name"]: k for k in kernels}
+    with phase("A8 tools"):
+        zero_counters()
+        rows = latency_rows(flagship_cfg(), LATENCY_BATCHES, LATENCY_ITERS, warmup=10,
+                            device=dev)
+        got = add_launches(by_name, "launches_latency")
+        for row in rows:
+            print(f"perf_latency: {json.dumps(row)} on {smi}")
+            if not 0 < row["p50_ms"] <= row["p99_ms"]:
+                raise AssertionError(f"perf_latency: {row}")
+        print(f"launches in perf_latency: {json.dumps(got)}")
+        if not all(got[n] for n in GATE_COUNTED) or got["fused_bottleneck_chain"]:
+            raise AssertionError(f"perf_latency did not serve through the int8 kernels: {got}")
+
+        cfg = flagship_cfg()
+        model = hrnet_from_cfg(cfg).to(dev).eval()
+        model.load_state_dict(init_variables(cfg, seed=0, device=dev))
+        x = torch.zeros(1, 256, 256, 3, device=dev)
+        with torch.no_grad():
+            flops = flops_of(model, x)
+        convs = conv_flops(model, x)
+        print(f"flops_of the flagship forward: {flops / 1e9:.3f} GFLOPs an image (the conv "
+              f"products alone {convs / 1e9:.3f})")
+        if not convs <= flops <= 1.1 * convs:
+            raise AssertionError(f"flops_of {flops} against the convs' {convs}")
+        del model
+
+        scfg, _ = smoke_cfg()
+        scfg = scfg.clone()
+        scfg.defrost()
+        scfg.TPU.COMPUTE_DTYPE = "float32"
+        scfg.freeze()
+        images = torch.from_numpy(np.random.default_rng(41).normal(
+            size=(16, 64, 64, 3)).astype(np.float32))
+        feats = {}
+        for d in (dev, torch.device("cpu")):
+            model = build_model(scfg)
+            model.load_state_dict(init_variables(scfg, seed=0))
+            with no_tf32():
+                feats[d.type] = embed(scfg, model.to(d), images.to(d)).cpu()
+        err = (feats["cuda"] - feats["cpu"]).abs().max().item()
+        scale = feats["cpu"].abs().max().item()
+        print(f"tsne features (smoke model, float32, {tuple(feats['cpu'].shape)}): card vs CPU "
+              f"max |d| {err:.3g} (limit {TSNE_LIMIT} x {scale:.3g})")
+        if not err <= TSNE_LIMIT * scale:
+            raise AssertionError(f"tsne features part on the card: {err}")
+
+
+def a8_a7_phases(smi, kernels):
+    """The phases of the last A8 and A7 modules, in order; each is also
+    callable alone (with ``kernels`` holding an entry ``{"name": n}`` for
+    every name of ``counters()``)."""
+    c26_phase(smi)
+    gate_phase(smi, kernels)
+    multistep_phase(smi)
+    levers_phase(smi)
+    a8_tool_phases(smi, kernels)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs an NVIDIA card",
@@ -5304,6 +5534,7 @@ def main() -> int:
     hourglass_phases(smi)
     mesh_phases(smi)
     reader_phases(smi, kernels)
+    a8_a7_phases(smi, kernels)
 
     print(json.dumps({"kernels": kernels}))
     print(smi)

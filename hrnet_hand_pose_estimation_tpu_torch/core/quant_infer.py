@@ -418,7 +418,8 @@ def calibrate(cfg, weights, batches: Iterable) -> Dict[str, float]:
     return amax
 
 
-def make_quant_infer(cfg, device="cuda", trunk: str = "quant", input_norm=None):
+def make_quant_infer(cfg, device="cuda", trunk: str = "quant", input_norm=None,
+                     pallas_layer1: bool = True):
     """The int8 serving function ``infer(weights, qparams, images) -> (B, K, 2)``
     on ``device``.
 
@@ -426,8 +427,11 @@ def make_quant_infer(cfg, device="cuda", trunk: str = "quant", input_norm=None):
     ``qparams`` from ``prepare_serving_qparams``, both on ``device``.  The
     keys of ``qparams`` route layer1: ``LAYER1_CHAIN_KEY`` -> the W8A8 chain
     kernel; ``layer1/*`` sites -> the walk's per-site int8 layer1; neither
-    -> the bf16 chain kernel.  ``HEAD_SCALES_KEY`` feeds the head int8
-    inputs.  ``trunk='f32'`` runs the same walk unquantized.
+    -> the bf16 chain kernel, or with ``pallas_layer1=False`` the walk's
+    folded bf16 layer1 (the conv rounded, then the bias, as ``calibrate``
+    and the JAX package's ``pallas_layer1=False`` run it; cuDNN on a card).
+    ``HEAD_SCALES_KEY`` feeds the head int8 inputs.  ``trunk='f32'`` runs
+    the same walk unquantized.
 
     ``input_norm=(mean, std)`` makes the entry take raw uint8 images
     (B, H, W, 3) and normalize them on the device: ``mean * 255`` and
@@ -462,7 +466,7 @@ def make_quant_infer(cfg, device="cuda", trunk: str = "quant", input_norm=None):
             x = _stem(model, x, rest)
             x = fused_bottleneck_chain_int8(_nhwc(x), q[LAYER1_CHAIN_KEY], weights.layer1[1])
             xs, _ = apply_stages(cfg, model, x.permute(0, 3, 1, 2), mode=trunk, qparams=rest)
-        elif any(k.startswith("layer1/") for k in q):
+        elif not pallas_layer1 or any(k.startswith("layer1/") for k in q):
             x = _stem(model, x, q)
             xs, _ = apply_trunk(cfg, model, x, mode=trunk, qparams=q, include_layer1=True)
         else:

@@ -8,6 +8,9 @@ device:
   batches copied to the device ahead of the step (``data/pipeline.py``);
 - accumulates the epoch's loss averages on the device and syncs with the
   host only every ``PRINT_FREQ`` steps, to log them;
+- runs ``TPU.STEPS_PER_DISPATCH`` steps a call (``make_train_multistep``,
+  the leftover batches one step each) and arms the BN statistics levers
+  ``TPU.BN_STAT_SAMPLES`` / ``BN_STAT_DTYPE``;
 - skips the batches of a dataset that flags ``exception``;
 - validates with the eval step and ``LossComputer2D``, dumping the first
   validation batch of each epoch as images with ``DEBUG.DEBUG``;
@@ -32,7 +35,9 @@ import torch
 from ..data.pipeline import device_prefetch
 from ..parallel.checkpoint import (CheckpointManager, load_pretrained, load_torch_checkpoint,
                                    merge_pretrained, split_state_dict)
-from ..parallel.train_step import TrainState, create_train_state, make_eval_step
+from ..models.layers import set_bn_levers
+from ..parallel.train_step import (TrainState, create_train_state, make_eval_step,
+                                   make_train_multistep)
 from ..utils.logging_utils import ScalarWriter, create_logger
 from .loss_computer import LossComputer2D
 from .metrics import AverageMeter
@@ -61,10 +66,6 @@ class Trainer:
 
     def __init__(self, cfg, model, train_loaders, val_loaders=None,
                  output_dir: Optional[str] = None, device="cuda"):
-        # CPM and the fusion net keep one step per dispatch, as in JAX
-        if int(cfg.TPU.STEPS_PER_DISPATCH) > 1 and str(cfg.MODEL.NAME) not in _ONE_STEP_MODELS:
-            raise NotImplementedError("TPU.STEPS_PER_DISPATCH > 1 (make_train_multistep) is "
-                                      "not ported yet")
         self.cfg = cfg
         self.model = model
         self.device = torch.device(device)
@@ -87,7 +88,19 @@ class Trainer:
             self.state.load_state_dict(sd)
             self.logger.info("loaded pretrained weights from %s", cfg.MODEL.HRNET_PRETRAINED)
 
+        # the train-mode BN statistics levers (process-wide, as in JAX; off
+        # by default); evaluation uses the running statistics, untouched
+        if int(cfg.TPU.BN_STAT_SAMPLES) or str(cfg.TPU.BN_STAT_DTYPE):
+            set_bn_levers(int(cfg.TPU.BN_STAT_SAMPLES), str(cfg.TPU.BN_STAT_DTYPE) or None)
+            self.logger.info("BN statistics levers active: stat_samples=%s stat_dtype=%s",
+                             cfg.TPU.BN_STAT_SAMPLES, cfg.TPU.BN_STAT_DTYPE or "float32")
         self.train_step = pick_train_step(cfg, model, self.tx)
+        # K train steps a call (the 2D step only; CPM and the fusion net keep
+        # one step a call, as in JAX)
+        self.steps_per_dispatch = (int(cfg.TPU.STEPS_PER_DISPATCH)
+                                   if str(cfg.MODEL.NAME) not in _ONE_STEP_MODELS else 1)
+        self.train_multistep = (make_train_multistep(cfg, model, self.tx)
+                                if self.steps_per_dispatch > 1 else None)
         self.eval_step = make_eval_step(cfg, model)
         self.begin_epoch = int(cfg.TRAIN.BEGIN_EPOCH)
         self.best_loss = float("inf")
@@ -132,8 +145,18 @@ class Trainer:
         # log lines sync with the host
         accum: Optional[Dict[str, torch.Tensor]] = None
         accum_n = 0
+        k_dispatch = self.steps_per_dispatch
+        pending: list = []
+        # log every ~PRINT_FREQ steps (a plain ``i % PRINT_FREQ`` would never
+        # fire with K steps a call when PRINT_FREQ is no multiple of K)
         print_freq = max(int(cfg.PRINT_FREQ), 1)
         last_log = self.train_global_steps - print_freq  # log the first step
+
+        def add(weighted, n):
+            nonlocal accum, accum_n
+            accum = weighted if accum is None else {k: accum[k] + v for k, v in weighted.items()}
+            accum_n += n
+
         for name, loader in self.train_loaders.items():
             loader.set_epoch(epoch)
             for i, batch in enumerate(device_prefetch(iter(loader), self.device,
@@ -141,13 +164,23 @@ class Trainer:
                 if getattr(loader.dataset, "exception", False):
                     continue  # the reference skips flagged samples (function.py:188-190)
                 step_batch = _batch_for_step(batch)
-                self.state, losses = self.train_step(self.state, step_batch)
                 bs = step_batch["images"].shape[0]
-                n_samples += bs
-                self.train_global_steps += 1
-                accum = ({k: v * bs for k, v in losses.items()} if accum is None else
-                         {k: accum[k] + v * bs for k, v in losses.items()})
-                accum_n += bs
+                if self.train_multistep is not None:
+                    pending.append(step_batch)
+                    if len(pending) < k_dispatch:
+                        continue
+                    stacked = {k: torch.stack([b[k] for b in pending]) for k in pending[0]}
+                    pending = []
+                    self.state, losses_k = self.train_multistep(self.state, stacked)
+                    n_samples += bs * k_dispatch
+                    self.train_global_steps += k_dispatch
+                    add({k: v.sum(dim=0) * bs for k, v in losses_k.items()}, bs * k_dispatch)
+                    losses = {k: v[-1] for k, v in losses_k.items()}
+                else:
+                    self.state, losses = self.train_step(self.state, step_batch)
+                    n_samples += bs
+                    self.train_global_steps += 1
+                    add({k: v * bs for k, v in losses.items()}, bs)
                 if self.train_global_steps - last_log >= print_freq:
                     last_log = self.train_global_steps
                     host = {k: float(v) for k, v in losses.items()}
@@ -157,6 +190,13 @@ class Trainer:
                                      " ".join(f"{k}={v:.5f}" for k, v in host.items()))
                     for k, v in host.items():
                         self.writer.add_scalar(f"train/{k}", v, self.train_global_steps)
+        # the leftover batches (< K at the epoch's end) take one step each
+        for step_batch in pending:
+            self.state, losses = self.train_step(self.state, step_batch)
+            bs = step_batch["images"].shape[0]
+            n_samples += bs
+            self.train_global_steps += 1
+            add({k: v * bs for k, v in losses.items()}, bs)
         meter = AverageMeter()
         if accum is not None and accum_n:
             meter.update({k: float(v) / accum_n for k, v in accum.items()}, n=accum_n)

@@ -20,7 +20,7 @@ from torch import nn
 
 from ..ops.decode import spatial_softmax
 from ..ops.upsample import upsample_bilinear_align_corners, upsample_nearest
-from .layers import BLOCK_EXPANSION, ConvBN, ResLayer, batch_norm
+from .layers import BLOCK_EXPANSION, ConvBN, ResLayer, stat_batch_norm
 
 
 class StageCfg(NamedTuple):
@@ -180,9 +180,9 @@ class GlobalAveragePoolingHead(nn.Module):
     def __init__(self, in_channels: int, out_features: int):
         super().__init__()
         self.features = nn.Sequential(
-            nn.Conv2d(in_channels, 512, 3, 1, 1, bias=True), batch_norm(512),
+            nn.Conv2d(in_channels, 512, 3, 1, 1, bias=True), stat_batch_norm(512),
             nn.MaxPool2d(2, 2), nn.ReLU(),
-            nn.Conv2d(512, 256, 3, 1, 1, bias=True), batch_norm(256),
+            nn.Conv2d(512, 256, 3, 1, 1, bias=True), stat_batch_norm(256),
             nn.MaxPool2d(2, 2), nn.ReLU())
         self.head = nn.Sequential(nn.Linear(256, 512), nn.ReLU(), nn.Linear(512, 256),
                                   nn.ReLU(), nn.Linear(256, out_features))
@@ -212,9 +212,9 @@ class PoseHRNet(nn.Module):
         self.head = head
         # stem: two stride-2 3x3 convs -> 1/4 resolution (reference :285-291)
         self.conv1 = nn.Conv2d(3, 64, 3, 2, 1, bias=False)
-        self.bn1 = batch_norm(64)
+        self.bn1 = stat_batch_norm(64)
         self.conv2 = nn.Conv2d(64, 64, 3, 2, 1, bias=False)
-        self.bn2 = batch_norm(64)
+        self.bn2 = stat_batch_norm(64)
         # layer1: 4 bottlenecks -> 256ch (reference :292)
         self.layer1 = ResLayer("BOTTLENECK", 64, 64, 4)
 
@@ -230,7 +230,7 @@ class PoseHRNet(nn.Module):
         pad = 1 if final_conv_kernel == 3 else 0
         self.last_layer = nn.Sequential(
             nn.Conv2d(total, total, 1, 1, 0, bias=True),
-            batch_norm(total),
+            stat_batch_norm(total),
             nn.ReLU(),
             nn.Conv2d(total, num_joints, final_conv_kernel, 1, pad, bias=True),
         )

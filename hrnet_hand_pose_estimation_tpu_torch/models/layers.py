@@ -10,7 +10,7 @@ the public model functions keep NHWC at their boundaries.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -52,6 +52,66 @@ class BatchNorm(nn.BatchNorm2d):
         return y
 
 
+# Train-mode BN statistics levers (the JAX package's ``models/layers.py``
+# ``set_bn_levers``): process-wide, off by default.  They reach only the BNs
+# built by ``stat_batch_norm`` -- those of ``ConvBN``, the residual blocks,
+# the HRNet stem, head and confidence head, as the JAX package's
+# ``layers.batch_norm`` reaches only its ConvBN's -- and only in training.
+_BN_LEVERS: Dict[str, object] = {"stat_samples": 0, "stat_dtype": None}
+_STAT_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def set_bn_levers(stat_samples: int = 0, stat_dtype: Optional[str] = None) -> None:
+    """``stat_samples=n`` takes the batch statistics over the first n
+    samples only (the running averages follow the subsample);
+    ``stat_dtype='bfloat16'`` reduces the mean and the mean square in bf16.
+    With no arguments both are off."""
+    if stat_dtype is not None and stat_dtype not in _STAT_DTYPES:
+        raise ValueError(f"stat_dtype {stat_dtype!r}: want one of {sorted(_STAT_DTYPES)}")
+    _BN_LEVERS["stat_samples"] = int(stat_samples)
+    _BN_LEVERS["stat_dtype"] = stat_dtype
+
+
+def bn_levers_active() -> bool:
+    return bool(_BN_LEVERS["stat_samples"] or _BN_LEVERS["stat_dtype"])
+
+
+def _mean(x: torch.Tensor, dims, dtype: torch.dtype) -> torch.Tensor:
+    """jnp.mean of ``dtype`` values: summed in float32, rounded to ``dtype``."""
+    return x.float().mean(dims).to(dtype)
+
+
+class StatBatchNorm(BatchNorm):
+    """``BatchNorm`` that takes the statistics levers in training (the JAX
+    package's ``StatBatchNorm``, built in place of flax's BatchNorm when a
+    lever is on).  With the levers off every forward is ``BatchNorm``'s.
+    With one on: statistics over ``x[:stat_samples]`` (all of x for 0) in
+    the statistics dtype, ``var = max(E[x^2] - mean^2, 0)``, both rounded
+    to float32; ``y = (x - mean) * (rsqrt(var + eps) * weight) + bias`` in
+    float32, returned in x's dtype; the running averages move by flax's
+    decay toward the (biased) subsample statistics."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or not bn_levers_active():
+            return super().forward(x)
+        n = int(_BN_LEVERS["stat_samples"])
+        dtype = _STAT_DTYPES[_BN_LEVERS["stat_dtype"] or "float32"]
+        xs = (x[:n] if n else x).to(dtype)
+        dims = [0] + list(range(2, x.dim()))
+        mean = _mean(xs, dims, dtype)
+        var = torch.clamp(_mean(xs * xs, dims, dtype) - mean * mean, min=0.0)
+        mean, var = mean.float(), var.float()
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        inv = torch.rsqrt(var + self.eps) * self.weight
+        y = (x.float() - mean.view(shape)) * inv.view(shape) + self.bias.view(shape)
+        with torch.no_grad():
+            decay = 1.0 - self.momentum
+            self.running_mean.copy_(decay * self.running_mean + (1.0 - decay) * mean)
+            self.running_var.copy_(decay * self.running_var + (1.0 - decay) * var)
+            self.num_batches_tracked.add_(1)
+        return y.to(x.dtype)
+
+
 class BatchNorm3d(BatchNorm):
     """``BatchNorm`` over NCDHW volumes (V2V's BatchNorm3d, flax semantics
     in training as ``BatchNorm``)."""
@@ -63,6 +123,11 @@ class BatchNorm3d(BatchNorm):
 
 def batch_norm(features: int) -> BatchNorm:
     return BatchNorm(features, eps=BN_EPS, momentum=BN_MOMENTUM)
+
+
+def stat_batch_norm(features: int) -> StatBatchNorm:
+    """A BN that takes the statistics levers: the JAX package's ConvBN BNs."""
+    return StatBatchNorm(features, eps=BN_EPS, momentum=BN_MOMENTUM)
 
 
 def batch_norm3d(features: int) -> BatchNorm3d:
@@ -91,7 +156,7 @@ class ConvBN(nn.Sequential):
                  stride: int = 1, relu: bool = True, use_bias: bool = False):
         pad = (kernel - 1) // 2
         layers = [nn.Conv2d(in_features, features, kernel, stride, pad, bias=use_bias),
-                  batch_norm(features)]
+                  stat_batch_norm(features)]
         if relu:
             layers.append(nn.ReLU())
         super().__init__(*layers)
@@ -106,9 +171,9 @@ class BasicBlock(nn.Module):
                  use_downsample: bool = False):
         super().__init__()
         self.conv1 = nn.Conv2d(in_features, features, 3, stride, 1, bias=False)
-        self.bn1 = batch_norm(features)
+        self.bn1 = stat_batch_norm(features)
         self.conv2 = nn.Conv2d(features, features, 3, 1, 1, bias=False)
-        self.bn2 = batch_norm(features)
+        self.bn2 = stat_batch_norm(features)
         self.downsample = (ConvBN(in_features, features, 1, stride, relu=False)
                            if use_downsample else None)
 
@@ -128,11 +193,11 @@ class Bottleneck(nn.Module):
                  use_downsample: bool = False):
         super().__init__()
         self.conv1 = nn.Conv2d(in_features, features, 1, 1, 0, bias=False)
-        self.bn1 = batch_norm(features)
+        self.bn1 = stat_batch_norm(features)
         self.conv2 = nn.Conv2d(features, features, 3, stride, 1, bias=False)
-        self.bn2 = batch_norm(features)
+        self.bn2 = stat_batch_norm(features)
         self.conv3 = nn.Conv2d(features, features * 4, 1, 1, 0, bias=False)
-        self.bn3 = batch_norm(features * 4)
+        self.bn3 = stat_batch_norm(features * 4)
         self.downsample = (ConvBN(in_features, features * 4, 1, stride, relu=False)
                            if use_downsample else None)
 

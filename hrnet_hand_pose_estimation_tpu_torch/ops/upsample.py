@@ -63,8 +63,11 @@ def kron_interp(src: int, dst: int) -> np.ndarray:
 @lru_cache(maxsize=32)
 def _device_matrix(src: int, dst: int, device: torch.device) -> torch.Tensor:
     """``align_corners_matrix`` on ``device``, copied there once (a copy
-    from pageable host memory per call would wait for the device)."""
-    return torch.from_numpy(align_corners_matrix(src, dst).copy()).to(device)
+    from pageable host memory per call would wait for the device).  Made
+    outside inference mode whatever the caller's mode: a cached inference
+    tensor could not enter a later autograd forward."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(align_corners_matrix(src, dst).copy()).to(device)
 
 
 def upsample_bilinear_align_corners(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:

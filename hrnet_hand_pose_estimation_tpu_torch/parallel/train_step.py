@@ -2,8 +2,8 @@
 
 Port of the JAX package's ``parallel/train_step.py`` (``TrainState``,
 ``make_lr_schedule``, ``make_optimizer``, ``create_train_state``,
-``apply_guarded_update``, ``make_train_step``, ``make_eval_step``,
-``make_forward_fn``) for one device:
+``apply_guarded_update``, ``make_train_step``, ``make_train_multistep``,
+``make_eval_step``, ``make_forward_fn``) for one device:
 
     state, tx = create_train_state(cfg, model, steps_per_epoch, device="cuda")
     step = make_train_step(cfg, model, tx)
@@ -155,9 +155,6 @@ def _check_cfg(cfg) -> None:
     if str(cfg.TPU.PARAM_DTYPE) != "float32":
         raise NotImplementedError(f"TPU.PARAM_DTYPE {cfg.TPU.PARAM_DTYPE!r}: the port trains "
                                   "float32 parameters only")
-    if int(cfg.TPU.BN_STAT_SAMPLES) or str(cfg.TPU.BN_STAT_DTYPE):
-        raise NotImplementedError("TPU.BN_STAT_SAMPLES / TPU.BN_STAT_DTYPE (the BN statistics "
-                                  "levers) are not ported yet")
 
 
 # -- learning rate and optimizer -------------------------------------------
@@ -577,6 +574,32 @@ def make_train_step(cfg, model: nn.Module, tx: Optimizer) -> Callable:
         return apply_guarded_update(cfg, tx, state, loss_dict, stats_before)
 
     return step
+
+
+def make_train_multistep(cfg, model: nn.Module, tx: Optimizer) -> Callable:
+    """K train steps per call: ``fn(state, batches) -> (state, losses)``.
+
+    ``batches`` is a train-step batch dict whose every tensor carries a
+    leading steps axis (K, B, ...); the K steps of ``make_train_step`` run
+    in order (optimizer, BN statistics and the anomaly guard included), and
+    each loss comes back stacked (K,) as a device tensor, with no host sync
+    (the JAX package's ``lax.scan`` over its step).  Used by the Trainer
+    when ``TPU.STEPS_PER_DISPATCH`` > 1.
+    """
+    step = make_train_step(cfg, model, tx)
+
+    def multi(state: TrainState, batches: Dict) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        k = {v.shape[0] for v in batches.values()}
+        if len(k) != 1:
+            raise ValueError(f"batches disagree on the steps axis: {sorted(k)}")
+        per_step = []
+        for i in range(k.pop()):
+            state, losses = step(state, {name: v[i] for name, v in batches.items()})
+            per_step.append(losses)
+        return state, {name: torch.stack([torch.as_tensor(l[name]) for l in per_step])
+                       for name in per_step[0]}
+
+    return multi
 
 
 def make_cpm_eval_step(cfg, model: nn.Module) -> Callable:

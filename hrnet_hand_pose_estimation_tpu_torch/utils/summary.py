@@ -1,10 +1,10 @@
-"""Model summaries: parameter counts and conv FLOPs.
+"""Model summaries: parameter counts and FLOPs.
 
 Port of the JAX package's ``utils/summary.py`` (reference
-lib/utils/utils.py:117-233).  The JAX package takes FLOPs from XLA's cost
-analysis of the compiled forward; the port counts the convolutions' products
-(2 FLOPs per multiply-add) from their output shapes in one forward, as
-``chip_smoke.conv_flops`` does.
+lib/utils/utils.py:117-233).  The JAX package asks XLA's cost analysis of
+the compiled forward for its FLOPs; the port counts one forward with
+``utils/profiling.flops_of`` (torch's FLOP counter: every matmul and
+convolution of the graph, 2 FLOPs per multiply-add).
 """
 
 from __future__ import annotations
@@ -13,6 +13,8 @@ from typing import Mapping, Union
 
 import torch
 from torch import nn
+
+from .profiling import flops_of
 
 
 def count_params(params: Union[nn.Module, Mapping[str, torch.Tensor]]) -> int:
@@ -23,32 +25,23 @@ def count_params(params: Union[nn.Module, Mapping[str, torch.Tensor]]) -> int:
 
 @torch.no_grad()
 def model_summary(model: nn.Module, cfg, batch: int = 1) -> str:
-    """One line: parameters (in millions) at the input size, and the conv
-    GFLOPs of a forward of ``batch`` images on the model's device (eval
-    mode, so no BN statistic moves).  A model with ``example_inputs(batch,
-    h, w, device)`` (CPM, the fusion net) is given those inputs."""
+    """One line: parameters (in millions) at the input size, and the GFLOPs
+    of a forward of ``batch`` images on the model's device (eval mode, so no
+    BN statistic moves).  A model with ``example_inputs(batch, h, w,
+    device)`` (CPM, the fusion net) is given those inputs."""
     h, w = int(cfg.MODEL.IMAGE_SIZE[1]), int(cfg.MODEL.IMAGE_SIZE[0])
     n_params = count_params(model)
     line = f"Model {type(model).__name__}: {n_params / 1e6:.2f}M params @ {h}x{w}"
-    total = [0]
-
-    def hook(mod, inp, out):
-        total[0] += 2 * out.numel() * (mod.weight.shape[1] * mod.weight.shape[2]
-                                       * mod.weight.shape[3])
-
-    convs = [m for m in model.modules() if isinstance(m, nn.Conv2d)]
-    if not convs:
+    first = next(model.parameters(), None)
+    if first is None:
         return line
-    device = convs[0].weight.device
-    handles = [m.register_forward_hook(hook) for m in convs]
+    device = first.device
     was_training = model.training
     model.eval()
     try:
         inputs = (model.example_inputs(batch, h, w, device) if hasattr(model, "example_inputs")
                   else (torch.zeros((batch, h, w, 3), dtype=torch.float32, device=device),))
-        model(*inputs)
+        flops = flops_of(model, *inputs)
     finally:
         model.train(was_training)
-        for handle in handles:
-            handle.remove()
-    return line + f", {total[0] / 1e9:.2f} GFLOPs/batch (conv products)"
+    return line + f", {flops / 1e9:.2f} GFLOPs/batch (torch FLOP counter)"

@@ -275,8 +275,8 @@ def test_cpm_eval_step_matches_jax(tiny_cfg, shared, softmax):
 
 def test_pick_train_step_routes_by_model_name(tiny_cfg):
     """CPM and the fusion net get their own steps, every other name the
-    standard 2D step; STEPS_PER_DISPATCH > 1 stays unported for the
-    standard step only (JAX keeps CPM and mv at one step per dispatch)."""
+    standard 2D step; STEPS_PER_DISPATCH > 1 batches the standard step only
+    (JAX keeps CPM and mv at one step per dispatch)."""
     routes = {"CPM": "make_train_step_cpm", "multiview_pose_hrnet": "make_train_step_mv",
               "pose_hrnet_softmax": "make_train_step"}
     for name, builder in routes.items():

@@ -750,6 +750,82 @@ def test_two_step_trainer_on_card(cuda, tmp_path):
     assert np.isfinite(trainer.best_loss)
 
 
+def test_multistep_on_card_matches_single_steps(cuda):
+    """K=2 in one make_train_multistep call against two single steps from
+    the same seeded state on the card (bf16 compute, adam), cuDNN
+    deterministic: the losses and every parameter and BN statistic
+    within 1e-6 (the same steps in the same order)."""
+    cfg = train_small_cfg()
+    batches = [small_batch(cuda, seed=s) for s in (0, 1)]
+    prev = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        model = build_model(cfg)
+        state, tx = TS.create_train_state(cfg, model, device=cuda)
+        step = TS.make_train_step(cfg, model, tx)
+        seq = []
+        for b in batches:
+            state, losses = step(state, b)
+            seq.append(losses["total_loss"].clone())
+        want = (state.params.clone(), state.stats.clone())
+        model = build_model(cfg)
+        state, tx = TS.create_train_state(cfg, model, device=cuda)
+        stacked = {k: torch.stack([b[k] for b in batches]) for k in batches[0]}
+        state, losses = TS.make_train_multistep(cfg, model, tx)(state, stacked)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = prev
+    assert losses["total_loss"].shape == (2,) and int(state.step) == 2
+    torch.testing.assert_close(losses["total_loss"], torch.stack(seq), rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(state.params, want[0], rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(state.stats, want[1], rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("levers,stat_atol", [(dict(stat_samples=2), 1e-6),
+                                              (dict(stat_dtype="bfloat16"), 1e-4)])
+def test_lever_step_card_matches_cpu(cuda, levers, stat_atol):
+    """One float32 sgd train step with a BN statistics lever on the card
+    and on the CPU (TF32 off), B=4: the loss at 1e-4 relative, every BN
+    running statistic at 1e-4 relative + ``stat_atol``: 1e-6 for the
+    float32 subsample; 1e-4 for bf16 reductions, whose sums round to
+    other bf16 neighbours in the card's order (measured: 2.4e-5 apart)."""
+    from hrnet_hand_pose_estimation_tpu_torch.models.layers import set_bn_levers
+
+    cfg = train_small_cfg(**{"TPU.COMPUTE_DTYPE": "float32", "TRAIN.OPTIMIZER": "sgd"})
+    batch = {k: v.cpu() for k, v in small_batch(cuda).items()}
+    out = {}
+    set_bn_levers(**levers)
+    try:
+        for dev in (cuda, torch.device("cpu")):
+            model = build_model(cfg)
+            state, tx = TS.create_train_state(cfg, model, device=dev)
+            state, losses = TS.make_train_step(cfg, model, tx)(
+                state, {k: v.to(dev) for k, v in batch.items()})
+            out[dev.type] = (losses["total_loss"].item(), state.stats.cpu())
+    finally:
+        set_bn_levers()
+    assert abs(out["cuda"][0] - out["cpu"][0]) <= 1e-4 * abs(out["cpu"][0])
+    torch.testing.assert_close(out["cuda"][1], out["cpu"][1], rtol=1e-4, atol=stat_atol)
+
+
+def test_quant_infer_layer1_off_launches_no_chain(cuda):
+    """make_quant_infer(pallas_layer1=False) with no layer1 qparams runs the
+    walk's folded bf16 layer1 on cuDNN: no launch of the bf16 chain kernel
+    (B2), one of the head; pallas_layer1=True launches B2 four times."""
+    cfg = small_cfg((32, 64, 96, 128))
+    state = init_variables(cfg, seed=3)
+    weights = precast_variables(cfg, state)
+    x = f32(np.random.default_rng(0).normal(size=(4, 64, 64, 3)), cuda)
+    outs = {}
+    for flag, b2 in ((False, 0), (True, 4)):
+        before = (fused_bottleneck_chain.launches, fused_head_decode_v2.launches)
+        outs[flag] = Q.make_quant_infer(cfg, trunk="f32", pallas_layer1=flag)(weights, {}, x)
+        torch.cuda.synchronize()
+        assert (fused_bottleneck_chain.launches - before[0],
+                fused_head_decode_v2.launches - before[1]) == (b2, 1)
+    assert outs[False].shape == (4, 21, 2) and torch.isfinite(outs[False]).all()
+    assert (outs[False] - outs[True]).abs().max().item() <= 0.25
+
+
 @pytest.mark.parametrize("shape", [(32, 64, 64, 21), (3, 64, 64, 21), (2, 48, 64, 21),
                                    (2, 7, 5, 3), (1, 16, 16, 700)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -93,7 +93,11 @@ def test_port_imports_no_jax():
         "             'models.hourglass', 'models.mesh', 'models.mano', 'utils.graph',\n"
         "             'utils.renderer', 'ops.nms', 'utils.zipreader', 'data.cv',\n"
         "             'data.native', 'data.rhd', 'data.freihand', 'data.handgraph', 'data.fha',\n"
-        "             'data.stb', 'data.coco_mpii'):\n"
+        "             'data.stb', 'data.coco_mpii', 'utils.fold_bn', 'utils.image_util',\n"
+        "             'utils.profiling', 'parallel.precision', 'tools.accuracy_gate_full',\n"
+        "             'tools.perf_latency', 'tools.compare', 'tools.resize_images',\n"
+        "             'tools.generate_videos', 'tools.tsne_visualization', 'tools.record_video',\n"
+        "             'tools.perf_bn_levers', 'tools.perf_multistep_sweep'):\n"
         "    assert port.__name__ + '.' + name in sys.modules, name\n"
         "assert not any(m.split('.')[0] in ('jax', 'flax', 'cv2', 'yaml') for m in sys.modules"
         " if sys.modules[m] is not None)\n"

@@ -20,6 +20,7 @@ from hrnet_hand_pose_estimation_tpu_torch.data.pipeline import (DataLoader, defa
                                                                 device_prefetch)
 from hrnet_hand_pose_estimation_tpu_torch.data.synthetic import SyntheticDataset
 from hrnet_hand_pose_estimation_tpu_torch.models import build_model
+from hrnet_hand_pose_estimation_tpu_torch.models.layers import bn_levers_active, set_bn_levers
 from hrnet_hand_pose_estimation_tpu_torch.parallel import train_step as TS
 from hrnet_hand_pose_estimation_tpu_torch.parallel.checkpoint import (CheckpointManager,
                                                                       load_pretrained,
@@ -133,13 +134,23 @@ def test_warm_start_copies_the_trunk_by_name(tiny_cfg, tmp_path):
 
 
 def test_unported_options_raise(tiny_cfg, tmp_path):
+    """The options that raised before multistep training and the BN levers
+    were ported now train: a Trainer with each fits one epoch (2 steps,
+    finite losses, the levers armed and then put back)."""
     cfg = port_cfg(tiny_cfg, tmp_path)
     train, val = loaders(cfg)
     for opts in ({"TPU__STEPS_PER_DISPATCH": 2}, {"TPU__BN_STAT_SAMPLES": 2},
                  {"TPU__BN_STAT_DTYPE": "bfloat16"}):
-        with pytest.raises(NotImplementedError):
-            Trainer(port_cfg(tiny_cfg, tmp_path, **opts), build_model(cfg), train, val,
-                    output_dir=str(tmp_path), device="cpu")
+        out = tmp_path / next(iter(opts)).lower()
+        try:
+            trainer = Trainer(port_cfg(tiny_cfg, out, TRAIN__END_EPOCH=2, **opts),
+                              build_model(cfg), train, val, output_dir=str(out), device="cpu")
+            assert bn_levers_active() == ("TPU__STEPS_PER_DISPATCH" not in opts)
+            trainer.fit()
+        finally:
+            set_bn_levers()
+        assert trainer.train_global_steps == 2 and trainer.ckpt.epochs() == [1]
+        assert np.isfinite(trainer.best_loss)
     # CPM is ported: its own train and eval steps and samples; JAX keeps it
     # at one step per dispatch, so STEPS_PER_DISPATCH does not apply to it
     cpm = port_cfg(tiny_cfg, tmp_path, MODEL__NAME="CPM", MODEL__HEATMAP_SIZE=[8, 8],
