@@ -168,6 +168,19 @@ make_train_multistep calls against 8 single steps, and ms/step at K=1 and
 4; train steps with the BN statistics levers beside the baseline; and
 perf_latency's p50 / p99 at B=8, 32 and 128, flops_of on the flagship and
 tsne_visualization's features on the card against the CPU.
+Last, this slice's phases (``a11_phases``): A8's three probes through
+their ``run()`` at the JAX tools' shapes (B=128), with fewer repeats:
+perf_int8_probe (B7 and B6 held to their twins at its four branch shapes
+first), perf_quant_e2e and perf_train_profile; serving over a mesh of two
+replicas on cuda:0 (``make_quant_infer(mesh=)`` at B=32 against the
+unsharded call and the two halves served apart, each replica launching
+the path's kernels), ``Evaluator2D(mesh=)`` std and int8 against without;
+two gloo ranks sharing cuda:0 training the flagship at full width for 3
+float32 sgd steps at 16 a rank (bit-equal ranks, held to one process on
+the global batch of 32 within 4x a witness), and one NCCL rank whose
+Trainer fits 2 steps.  The launches of each new path go into each
+kernel's ``launches_probe_int8``, ``launches_probe_quant``,
+``launches_probe_train``, ``launches_sharded`` and ``launches_ddp``.
 
     python3 chip_smoke.py
 
@@ -5330,6 +5343,377 @@ def a8_a7_phases(smi, kernels):
     a8_tool_phases(smi, kernels)
 
 
+# -- A8's three probes, then data parallelism (A11, first part) -----------
+
+PROBE_TWIN_BATCH = 8        # the B7 / B6 twin checks at the probe's shapes
+PROBE_ITERS = 5
+SHARD_LIMIT = 0.25          # px: sharded against unsharded int8 serving at B=32 (C9's limit)
+SHARD_EPE_LIMIT = 0.05      # px of EPE, and 0.005 of each AUC: sharded against plain evaluation
+DDP_BATCH = 16              # a rank's batch; the global batch is 32
+DDP_STEPS = 3
+DDP_LOSS_RTOL = 2e-4        # tests/test_torch_ddp.py's tolerances (JAX's own, scan vs steps)
+DDP_PARAM_ATOL = 1e-3
+# The ranks sum their BN statistics, losses and gradients in another float32
+# order than one process; the witness (one process with native_batch_norm)
+# changes one of those orders.  Measured on an H100 over four runs: the
+# ranks' gaps 1.0-2.0x the witness's (losses 1.8-2.1e-4 against 0.9-1.4e-4,
+# parameters after step 3 1.1-1.2e-2 against 0.9e-2): the limit is 4x the
+# witness.
+DDP_WITNESS_FACTOR = 4.0
+
+
+def ddp_cfg(out_dir: str = ""):
+    """The flagship at full width (w32 softmax at 256/64, heatmap and pose
+    losses) in float32 with sgd (momentum 0.9) at a constant 1e-2: the
+    CPU parity test's step, so two ranks and one process can be held
+    close."""
+    from hrnet_hand_pose_estimation_tpu_torch.tools.accuracy_gate_full import flagship_train_cfg
+
+    cfg = flagship_train_cfg().clone()
+    cfg.defrost()
+    cfg.TPU.COMPUTE_DTYPE = "float32"
+    cfg.TRAIN.OPTIMIZER, cfg.TRAIN.LR, cfg.TRAIN.MOMENTUM = "sgd", 1e-2, 0.9
+    cfg.TRAIN.NESTEROV = False
+    cfg.TRAIN.IMAGES_PER_GPU = DDP_BATCH
+    cfg.OUTPUT_DIR = out_dir
+    return cfg.freeze()
+
+
+def ddp_batches(cfg, dev):
+    """DDP_STEPS seeded global batches of 2 * DDP_BATCH (targets by B5)."""
+    from hrnet_hand_pose_estimation_tpu_torch.tools.perf_bn_levers import train_batch
+
+    return [train_batch(cfg, 2 * DDP_BATCH, dev, seed=60 + i) for i in range(DDP_STEPS)]
+
+
+def ddp_steps(cfg, dev, rank: int, world: int, global_formula: bool = False):
+    """DDP_STEPS train steps on this rank's slice of each global batch:
+    the losses, ms a step (host clock around a synced step), and the
+    parameters after the first and the last step and the final BN
+    statistics, on the host.  ``global_formula`` (one process) takes the BN
+    statistics as the data-parallel step does (flax's S1 / N, S2 / N over
+    the batch, ``synced_batch_stats`` with a one-rank sum) instead of
+    ``native_batch_norm``'s."""
+    from contextlib import nullcontext
+
+    from hrnet_hand_pose_estimation_tpu_torch.models.layers import synced_batch_stats
+
+    model = build_model(cfg)
+    state, tx = TS.create_train_state(cfg, model, device=dev)
+    step = TS.make_train_step(cfg, model, tx)
+    losses, ms, params = [], [], []
+    for batch in ddp_batches(cfg, dev):
+        per = batch["images"].shape[0] // world
+        mine = {k: v[rank * per:(rank + 1) * per] for k, v in batch.items()}
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with synced_batch_stats(lambda x: x) if global_formula else nullcontext():
+            state, out = step(state, mine)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+        losses.append({k: float(v) for k, v in out.items()})
+        if not params:
+            params.append(state.params.cpu())
+    return {"losses": losses, "ms": ms, "params1": params[0], "params": state.params.cpu(),
+            "stats": state.stats.cpu(), "counts": state.counts.cpu()}
+
+
+def ddp_trainer(dev, out_dir: str):
+    """Trainer.fit for one epoch of 2 * DDP_BATCH synthetic samples at
+    DDP_BATCH a step (the flagship in bf16, adam): its steps and epoch
+    averages, and the files it wrote."""
+    from hrnet_hand_pose_estimation_tpu_torch.tools.accuracy_gate_full import flagship_train_cfg
+
+    cfg = flagship_train_cfg().clone()
+    cfg.defrost()
+    cfg.OUTPUT_DIR, cfg.WORKERS, cfg.WITHOUT_EVAL = out_dir, 0, True
+    cfg.DATASET.DATASET = ["Synthetic_kpt"]
+    cfg.TRAIN.BEGIN_EPOCH, cfg.TRAIN.END_EPOCH = 0, 1
+    cfg.freeze()
+    loader = DataLoader(SyntheticDataset(cfg, length=2 * DDP_BATCH), DDP_BATCH, num_workers=0)
+    trainer = Trainer(cfg, build_model(cfg), {"synthetic": loader}, device=dev)
+    averages = []
+    epoch = trainer.train_epoch
+    trainer.train_epoch = lambda e: averages.append(epoch(e)) or averages[-1]
+    trainer.fit()
+    return {"steps": trainer.train_global_steps, "averages": averages[0],
+            "files": sorted(str(p.relative_to(out_dir)) for p in Path(out_dir).rglob("*")
+                            if p.is_file())}
+
+
+def ddp_rank(rank: int, world: int, port: int, backend: str, mode: str, out_path: str):
+    """One rank of the DDP phases, in a process of its own on cuda:0:
+    joins a ``backend`` group of ``world`` ranks on localhost, runs
+    ``ddp_steps`` ('steps') or ``ddp_trainer`` ('trainer'), and saves the
+    result with its kernel launch counts to ``out_path``."""
+    from hrnet_hand_pose_estimation_tpu_torch.parallel import distributed
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    distributed.init_process_group(backend, rank=rank, world_size=world,
+                                   init_method=f"tcp://localhost:{port}")
+    try:
+        zero_counters()
+        if mode == "steps":
+            result = ddp_steps(ddp_cfg(), dev, rank, world)
+        else:
+            one = distributed.sum_(torch.ones(4, device=dev))      # a collective on the backend
+            result = ddp_trainer(dev, str(Path(out_path).parent / f"run{rank}"))
+            result["all_reduce"] = one.tolist()
+        result["launches"] = counters()
+        torch.save(result, out_path)
+    finally:
+        distributed.destroy_process_group()
+
+
+def run_ranks(world: int, backend: str, mode: str, tmp: str):
+    """``world`` spawned processes of ``ddp_rank``; their results."""
+    import socket
+
+    import torch.multiprocessing as mp
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    ctx = mp.get_context("spawn")
+    outs = [str(Path(tmp) / f"{mode}{r}.pt") for r in range(world)]
+    procs = [ctx.Process(target=ddp_rank, args=(r, world, port, backend, mode, outs[r]))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(timeout=600)
+    codes = [p.exitcode for p in procs]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+    if codes != [0] * world:
+        raise AssertionError(f"DDP {backend} {mode}: rank exit codes {codes}")
+    return [torch.load(o, weights_only=False) for o in outs]
+
+
+def probe_twin_checks(smi):
+    """B7 and B6 against their twins at each probe shape (B=8): the probe's
+    weights, 4 blocks, limit 0.02 * max|out|."""
+    from hrnet_hand_pose_estimation_tpu_torch.tools import perf_int8_probe as P
+
+    dev = torch.device("cuda")
+    worst = {}
+    for h, w, c in P.SHAPES:
+        weights, qweights = P.probe_weights(c, P.N_BLOCKS, np.random.default_rng(c), dev)
+        x = torch.from_numpy(np.random.default_rng(c + 1).normal(
+            size=(PROBE_TWIN_BATCH, h, w, c)).astype(np.float32)).to(dev, torch.bfloat16)
+        b7, b6 = P.b7_params(weights), P.b6_params(qweights)
+        for name, got, want in (
+                ("fused_basic_chain", fused_basic_chain(x, b7, P.N_BLOCKS),
+                 basic_chain_reference(x, b7, P.N_BLOCKS)),
+                ("fused_basic_chain_int8", fused_basic_chain_int8(x, b6, P.N_BLOCKS),
+                 basic_chain_int8_reference(x, b6, P.N_BLOCKS))):
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            limit = 0.02 * max(1.0, want.float().abs().max().item())
+            worst[name] = max(worst.get(name, 0.0), err / limit)
+            print(f"probe {h}x{w}x{c} B={PROBE_TWIN_BATCH}: {name} vs its twin max |d| "
+                  f"{err:.4g} (limit {limit:.4g}); bit-equal share "
+                  f"{(got == want).float().mean().item():.4f}")
+            if not err <= limit:
+                raise AssertionError(f"probe {h}x{w}x{c}: {name} disagrees with its twin: {err}")
+    return worst
+
+
+def probe_phases(smi, kernels):
+    """The three A8 probes' ``run()`` at the JAX tools' shapes, with fewer
+    repeats: perf_int8_probe (B7 and B6 held to their twins first),
+    perf_quant_e2e and perf_train_profile; each one's launches in
+    ``launches_probe_*``."""
+    from hrnet_hand_pose_estimation_tpu_torch.tools import perf_int8_probe as P
+    from hrnet_hand_pose_estimation_tpu_torch.tools import perf_quant_e2e as E
+    from hrnet_hand_pose_estimation_tpu_torch.tools import perf_train_profile as T
+
+    by_name = {k["name"]: k for k in kernels}
+    with phase("probe: perf_int8_probe"):
+        probe_twin_checks(smi)
+        zero_counters()
+        result = P.run(batch=P.BATCH, iters=PROBE_ITERS, device="cuda")
+        got = add_launches(by_name, "launches_probe_int8")
+        for row in result["rows"]:
+            print(f"perf_int8_probe{P.format_row(row)} on {smi}")
+        print(f"perf_int8_probe: {json.dumps(result)}; launches {json.dumps(got)}")
+        if not (got["fused_basic_chain"] and got["fused_basic_chain_int8"] and got["conv_int8"]):
+            raise AssertionError(f"perf_int8_probe did not run its kernels: {got}")
+    with phase("probe: perf_quant_e2e"):
+        zero_counters()
+        result = E.run(batch=E.BATCH, iters=3, device="cuda")
+        got = add_launches(by_name, "launches_probe_quant")
+        for line in E.lines(result):
+            print(f"perf_quant_e2e: {line} on {smi}")
+        print(f"perf_quant_e2e: {json.dumps(result)}; launches {json.dumps(got)}")
+        rows = [v for v in result.values() if isinstance(v, dict)]
+        if not all(np.isfinite(r["shift_max"]) and r["fps"] > 0 for r in rows):
+            raise AssertionError(f"perf_quant_e2e: {result}")
+        if not all(got[n] for n in ("conv_int8", "fused_bottleneck_chain_int8",
+                                    "fused_head_decode_v2", "fused_bottleneck_chain")):
+            raise AssertionError(f"perf_quant_e2e did not run its kernels: {got}")
+    with phase("probe: perf_train_profile"):
+        zero_counters()
+        result = T.run(batch=T.BATCH, iters=2, device="cuda")
+        got = add_launches(by_name, "launches_probe_train")
+        for line in T.lines(result, T.BATCH):
+            print(f"perf_train_profile: {line} on {smi}")
+        print(f"perf_train_profile: {json.dumps(result)}; launches {json.dumps(got)}")
+        if len(result) != 10 or not all(v > 0 for v in result.values()):
+            raise AssertionError(f"perf_train_profile: {result}")
+        torch.cuda.empty_cache()
+
+
+def sharded_phases(smi, kernels):
+    """Serving and evaluation over a mesh of two replicas on cuda:0: the
+    shipped int8 path at B=32 against the unsharded call and against the
+    two halves served apart; Evaluator2D std and int8 with the mesh
+    against without; launches in ``launches_sharded``."""
+    from hrnet_hand_pose_estimation_tpu_torch.parallel.mesh import make_mesh
+
+    dev = torch.device("cuda", 0)
+    by_name = {k["name"]: k for k in kernels}
+    mesh = make_mesh(devices=[dev, dev])
+    with phase("sharded serving"), torch.inference_mode():
+        cfg = flagship_cfg()
+        state = {k: v.to(dev) for k, v in init_variables(cfg, seed=0, device=dev).items()}
+        weights = precast_variables(cfg, state, device=dev)
+        u8 = uint8_images(70, CHECK_BATCH, dev)
+        amax = Q.calibrate(cfg, weights, [normalize(u8[:16])])
+        qparams = Q.prepare_serving_qparams(cfg, state, amax)
+        plain = Q.make_quant_infer(cfg, dev, input_norm=NORM)
+        sharded = Q.make_quant_infer(cfg, dev, input_norm=NORM, mesh=mesh)
+        zero_counters()
+        want = plain(weights, qparams, u8)
+        torch.cuda.synchronize()
+        once = counters()
+        zero_counters()
+        got = sharded(weights, qparams, u8)
+        torch.cuda.synchronize()
+        launches = add_launches(by_name, "launches_sharded")
+        halves = torch.cat([plain(weights, qparams, u8[:16]), plain(weights, qparams, u8[16:])])
+        gap = (got - want).abs()
+        print(f"make_quant_infer(mesh=[cuda:0, cuda:0]) B={CHECK_BATCH}: launches "
+              f"{json.dumps(launches)} (one unsharded call: {json.dumps(once)}); against the "
+              f"unsharded call max |d| {gap.max().item():.4g} px, mean "
+              f"{gap.mean().item():.4g} px (limit {SHARD_LIMIT}); against the two halves "
+              f"served apart: bit-equal {torch.equal(got, halves)}")
+        if {k: 2 * v for k, v in once.items()} != launches:
+            raise AssertionError(f"the replicas did not each launch the path's kernels: "
+                                 f"{launches} against {once} a call")
+        if not torch.equal(got, halves) or not gap.max().item() <= SHARD_LIMIT:
+            raise AssertionError(f"sharded serving parts from the unsharded: {gap.max()} px")
+        ms_plain = time_ms(lambda: plain(weights, qparams, u8), 10)
+        ms_sharded = time_ms(lambda: sharded(weights, qparams, u8), 10)
+        print(f"int8 serving B={CHECK_BATCH} on one card: unsharded {ms_plain:.3f} ms, two "
+              f"replicas on cuda:0 {ms_sharded:.3f} ms ({ms_sharded / ms_plain:.3f}x: the "
+              f"overhead of the split on one card, not scaling) on {smi}")
+        del weights, state
+    with phase("sharded evaluation"), tempfile.TemporaryDirectory() as tmp:
+        cfg = eval_cfg(tmp)
+        state = init_variables(cfg, seed=0, device=dev)
+        for serving in ("std", "int8"):
+            results = {}
+            for name, m in (("plain", None), ("mesh", mesh)):
+                loader = make_test_dataloader(cfg)["Synthetic_kpt"]
+                loader.dataset.length = EVAL_BATCH * EVAL_BATCHES
+                ev = Evaluator2D(cfg, build_model(cfg), state, mesh=m, serving=serving,
+                                 device=dev)
+                zero_counters()
+                results[name] = ev.run(loader, "Synthetic")
+                torch.cuda.synchronize()
+                if m is not None:
+                    launches = add_launches(by_name, "launches_sharded")
+            gaps = {k: abs(results["mesh"][k] - results["plain"][k])
+                    for k in ("EPE_px", "PCK_AUC_30", "PCK_AUC_full", "PCK@20px")}
+            print(f"Evaluator2D {serving} with the mesh: {json.dumps(results['mesh'])}; without: "
+                  f"{json.dumps(results['plain'])}; gaps {json.dumps(gaps)} (limits "
+                  f"{SHARD_EPE_LIMIT} px of EPE, 0.005 of each AUC and PCK); launches "
+                  f"{json.dumps(launches)} on {smi}")
+            if not (gaps["EPE_px"] <= SHARD_EPE_LIMIT
+                    and all(v <= 0.005 for k, v in gaps.items() if k != "EPE_px")):
+                raise AssertionError(f"Evaluator2D {serving}: mesh against plain {gaps}")
+            kernel = "fused_softmax_decode" if serving == "std" else "conv_int8"
+            if not launches[kernel]:
+                raise AssertionError(f"Evaluator2D {serving} with the mesh launched no {kernel}")
+
+
+def ddp_phases(smi, kernels):
+    """Two gloo ranks sharing cuda:0 train the flagship at full width for
+    DDP_STEPS steps at DDP_BATCH a rank, against one process stepping the
+    global batch; then one rank of an NCCL group whose Trainer fits an
+    epoch.  The ranks' launches in ``launches_ddp``."""
+    dev = torch.device("cuda", 0)
+    by_name = {k["name"]: k for k in kernels}
+    with phase("DDP, gloo"), tempfile.TemporaryDirectory() as tmp:
+        ranks = run_ranks(2, "gloo", "steps", tmp)
+        for name, n in ranks[0]["launches"].items():
+            by_name[name]["launches_ddp"] = by_name[name].get("launches_ddp", 0) + sum(
+                r["launches"][name] for r in ranks)
+        a, b = ranks
+        equal = all(torch.equal(a[k], b[k]) for k in ("params", "stats", "counts"))
+        print(f"DDP gloo, 2 ranks on cuda:0 x {DDP_BATCH}, {DDP_STEPS} float32 sgd steps: ranks "
+              f"bit-equal {equal}; losses {[round(l['total_loss'], 5) for l in a['losses']]}; "
+              f"launches {json.dumps(a['launches'])} a rank")
+        # one process on the global batch, with the data-parallel step's BN
+        # formula (the reference) and with native_batch_norm (the witness:
+        # the same step in another float32 order)
+        ref, native = (ddp_steps(ddp_cfg(), dev, 0, 1, global_formula=f) for f in (True, False))
+
+        def gaps(x, y):
+            loss = max(abs(p[k] - q[k]) / abs(q[k]) for p, q in zip(x["losses"], y["losses"])
+                       for k in q if q[k])
+            return (loss, (x["params1"] - y["params1"]).abs().max().item(),
+                    (x["params"] - y["params"]).abs().max().item(),
+                    (x["stats"] - y["stats"]).abs().max().item())
+
+        got, witness = gaps(a, ref), gaps(native, ref)
+        limits = (max(DDP_LOSS_RTOL, DDP_WITNESS_FACTOR * witness[0]),
+                  max(DDP_PARAM_ATOL, DDP_WITNESS_FACTOR * witness[1]),
+                  max(DDP_PARAM_ATOL, DDP_WITNESS_FACTOR * witness[2]))
+        for label, g in (("the ranks", got), ("the witness (one process, native BN)", witness)):
+            print(f"  {label} against one process x {2 * DDP_BATCH} with the data-parallel "
+                  f"step's BN formula: largest relative loss gap {g[0]:.3g}; parameters after "
+                  f"step 1 {g[1]:.3g}, after step {DDP_STEPS} {g[2]:.3g}; BN statistics "
+                  f"{g[3]:.3g}")
+        print(f"  limits max(losses {DDP_LOSS_RTOL} / parameters {DDP_PARAM_ATOL}, "
+              f"{DDP_WITNESS_FACTOR:g} x the witness): {', '.join(f'{v:.3g}' for v in limits)}; "
+              f"one process losses "
+              f"{[round(l['total_loss'], 5) for l in ref['losses']]}")
+        print(f"DDP gloo ms a step (host clock, synced): ranks {[round(v, 1) for v in a['ms']]}"
+              f" / {[round(v, 1) for v in b['ms']]}; one process {[round(v, 1) for v in ref['ms']]}"
+              f" (the BN formula), {[round(v, 1) for v in native['ms']]} (native) on {smi} (two "
+              f"ranks share one card: the overhead of the collectives, not scaling)")
+        if not equal or not all(g <= lim for g, lim in zip(got, limits)):
+            raise AssertionError("DDP gloo: the ranks part from each other or from one process")
+        if not a["launches"]["fused_gaussian_targets"]:
+            raise AssertionError("DDP gloo: the ranks made no targets on the card")
+    with phase("DDP, NCCL"), tempfile.TemporaryDirectory() as tmp:
+        (r,) = run_ranks(1, "nccl", "trainer", tmp)
+        for name, n in r["launches"].items():
+            by_name[name]["launches_ddp"] = by_name[name].get("launches_ddp", 0) + n
+        print(f"DDP NCCL, world size 1: all_reduce {r['all_reduce']}; Trainer.fit {r['steps']} "
+              f"steps, epoch averages {json.dumps(r['averages'])}; files {r['files']}")
+        if r["steps"] != 2 or r["all_reduce"] != [1.0] * 4 or not all(
+                np.isfinite(v) for v in r["averages"].values()):
+            raise AssertionError(f"DDP NCCL: {r}")
+        if not any(f.endswith("ckpt_0.pt") for f in r["files"]):
+            raise AssertionError(f"DDP NCCL: rank 0 wrote no checkpoint: {r['files']}")
+
+
+def a11_phases(smi, kernels):
+    """This slice's phases, in order; each is also callable alone (with
+    ``kernels`` holding an entry ``{"name": n}`` for every name of
+    ``counters()``)."""
+    probe_phases(smi, kernels)
+    sharded_phases(smi, kernels)
+    ddp_phases(smi, kernels)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs an NVIDIA card",
@@ -5535,6 +5919,7 @@ def main() -> int:
     mesh_phases(smi)
     reader_phases(smi, kernels)
     a8_a7_phases(smi, kernels)
+    a11_phases(smi, kernels)
 
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -25,7 +25,14 @@ tools/evaluate_2D.py:149-296), on one device:
 
 ``serving='int8'`` evaluates the port's int8 W8A8 serving path instead
 (``core/quant_infer``, the HRNet's only), calibrated on the first eval
-batch or loaded from a saved record.  Multi-GPU evaluation (``mesh=``) is ROADMAP A11.
+batch or loaded from a saved record.
+
+``mesh`` (``parallel/mesh.make_mesh``) evaluates data-parallel, as the JAX
+package's evaluator on a mesh (its ``:60-75``): one replica of the model
+per mesh device, each batch split along axis 0 over the 'data' axis (a
+batch that does not divide raises ``ValueError``), the decoded poses
+gathered on the mesh's first device, which must be ``device``; the int8
+mode serves through ``make_quant_infer(mesh=)``.
 """
 
 from __future__ import annotations
@@ -53,9 +60,6 @@ class Evaluator2D:
         ``serving='int8'`` evaluates the calibrated W8A8 serving path; it
         calibrates on the first eval batch unless ``calib_path`` names a
         saved record (tools/calibrate.py)."""
-        if mesh is not None:
-            raise NotImplementedError("multi-GPU evaluation (mesh=) is not ported yet "
-                                      "(ROADMAP A11)")
         refuse_unsupported(cfg, "2D evaluator")
         if serving not in ("std", "int8"):
             raise ValueError(f"unknown serving mode: {serving!r}")
@@ -71,9 +75,15 @@ class Evaluator2D:
                 "(MODEL.HEATMAP_SOFTMAX: true)")
         self.cfg = cfg
         self.device = torch.device(device)
+        self.mesh = mesh
+        if mesh is not None:
+            from ..parallel.mesh import check_home
+
+            self.device = check_home(mesh, device)
         if variables:
             model.load_state_dict(join_state_dict(variables))
         self.model = model.to(self.device).eval()
+        self._replicas = None
         self.serving = serving
         self.calib_path = calib_path
         self._qfn = None
@@ -88,12 +98,24 @@ class Evaluator2D:
     def forward(self, images: torch.Tensor) -> torch.Tensor:
         """The standard forward: (B, H, W, 3) images (a temporal model's (B, T,
         H, W, 3) frames) on the device -> (B, K, 2) coordinates in heatmap
-        pixels, on the device."""
-        with compute_autocast(self.cfg, self.device):
+        pixels, on the device; with a mesh, over the mesh's replicas."""
+        if self.mesh is None:
+            return self.forward_with(self.model, images)
+        from ..parallel.mesh import replicate, run_sharded
+
+        if self._replicas is None:
+            self._replicas = replicate(self.mesh, self.model)
+        return run_sharded(self.mesh, self.forward_with, self._replicas, images)
+
+    @torch.no_grad()
+    def forward_with(self, model, images: torch.Tensor) -> torch.Tensor:
+        """``forward`` through ``model`` (this evaluator's or a replica of
+        it) on the device of ``images``."""
+        with compute_autocast(self.cfg, images.device):
             if self.decode_logits:
-                logits, temperature = self.model.forward_logits(images)
+                logits, temperature = model.forward_logits(images)
             else:
-                heatmaps = self.model(images).heatmaps
+                heatmaps = model(images).heatmaps
         if self.decode_logits:
             return softmax_decode(logits, temperature)
         return decode_heatmaps(heatmaps, self.use_softmax)
@@ -112,7 +134,7 @@ class Evaluator2D:
         else:
             amax = calibrate(self.cfg, self._weights, [calib_images])
         self._qparams = prepare_serving_qparams(self.cfg, state, amax)
-        self._qfn = make_quant_infer(self.cfg, device=self.device)
+        self._qfn = make_quant_infer(self.cfg, device=self.device, mesh=self.mesh)
 
     def _put_images(self, images) -> torch.Tensor:
         if not isinstance(images, torch.Tensor):

@@ -17,8 +17,14 @@ tools/evaluate_3D.py:143-420), on one device:
 - ``views`` selects a subset of the view axis.
 
 The forward runs under ``TPU.COMPUTE_DTYPE`` autocast, as the 2D
-evaluator's; decoding and geometry run in float32.  Multi-GPU evaluation
-(``mesh=``) is ROADMAP A11.
+evaluator's; decoding and geometry run in float32.
+
+``mesh`` (``parallel/mesh.make_mesh``) evaluates data-parallel, as the JAX
+package's evaluator on a mesh (its ``:60-80``): one replica of the net per
+mesh device, the images (B, V, H, W, 3) and projections (B, V, 3, 4) split
+along B over the 'data' axis (a batch that does not divide raises
+``ValueError``), the keypoints gathered on the mesh's first device, which
+must be ``device``; the dlt mode's triangulation runs there.
 """
 
 from __future__ import annotations
@@ -58,18 +64,21 @@ class Evaluator3D:
         (mode 'dlt'); ``variables`` its weights (a state_dict or {"params",
         "batch_stats"}, loaded strictly; None or empty keeps the model's
         own)."""
-        if mesh is not None:
-            raise NotImplementedError("multi-GPU evaluation (mesh=) is not ported yet "
-                                      "(ROADMAP A11)")
         if mode not in ("model", "dlt"):
             raise ValueError(f"unknown 3D evaluation mode {mode!r}")
         self.cfg = cfg
         self.device = torch.device(device)
+        self.mesh = mesh
+        if mesh is not None:
+            from ..parallel.mesh import check_home
+
+            self.device = check_home(mesh, device)
         if variables:
             model.load_state_dict(join_state_dict(variables))
         self.model = model.to(self.device).eval()
+        self._replicas = None
         # the dlt mode's per-view forward and decode are the 2D evaluator's
-        self._2d = Evaluator2D(cfg, self.model, device=device) if mode == "dlt" else None
+        self._2d = Evaluator2D(cfg, self.model, device=self.device) if mode == "dlt" else None
         self.mode = mode
         self.kind = str(cfg.MODEL.TRIANGULATION_MODEL_NAME)
         self.th2d = default_thresholds_2d()
@@ -79,13 +88,25 @@ class Evaluator3D:
     def forward(self, images: torch.Tensor, proj: torch.Tensor):
         """(B, V, H, W, 3) images and (B, V, 3, 4) projections on the device
         -> (2D keypoints (B, V, K, 2), 3D keypoints (B, K, 3) or None in
-        mode 'dlt'), on the device."""
+        mode 'dlt'), on the device; with a mesh, over the mesh's replicas."""
+        if self.mesh is None:
+            return self.forward_with(self.model, images, proj)
+        from ..parallel.mesh import replicate, run_sharded
+
+        if self._replicas is None:
+            self._replicas = replicate(self.mesh, self.model)
+        return run_sharded(self.mesh, self.forward_with, self._replicas, images, proj)
+
+    @torch.no_grad()
+    def forward_with(self, model, images: torch.Tensor, proj: torch.Tensor):
+        """``forward`` through ``model`` (this evaluator's net or a replica
+        of it) on the device of ``images``."""
         if self.mode == "model":
-            with compute_autocast(self.cfg, self.device):
-                out = self.model(images, proj)
+            with compute_autocast(self.cfg, images.device):
+                out = model(images, proj)
             return out.keypoints_2d, out.keypoints_3d
         b, v = images.shape[:2]
-        kp2d = self._2d.forward(images.reshape(b * v, *images.shape[2:]))
+        kp2d = self._2d.forward_with(model, images.reshape(b * v, *images.shape[2:]))
         return kp2d.reshape(b, v, -1, 2), None
 
     def projections(self, batch: Mapping, orig_size) -> torch.Tensor:

@@ -16,9 +16,14 @@ from . import losses as L
 
 
 class LossComputer2D:
-    """2D losses: heatmap (or OHKM) / pose2d / bone / joint angle."""
+    """2D losses: heatmap (or OHKM) / pose2d / bone / joint angle.
 
-    def __init__(self, cfg):
+    ``count_sum`` (a data-parallel step's ``parallel/distributed.sum_counts``)
+    makes every value this rank's share of the loss over the global batch
+    (``core/losses.py``); the shares sum to the global losses."""
+
+    def __init__(self, cfg, count_sum: L.CountSum = None):
+        self.count_sum = count_sum
         lc = cfg.LOSS
         self.with_heatmap = bool(lc.WITH_HEATMAP_LOSS)
         self.with_pose2d = bool(lc.WITH_POSE2D_LOSS)
@@ -44,14 +49,15 @@ class LossComputer2D:
         if self.with_heatmap:
             if self.use_ohkm:
                 hl = L.joints_ohkm_mse_loss(heatmaps_pred, heatmaps_gt, visibility,
-                                            topk=self.topk)
+                                            topk=self.topk, count_sum=self.count_sum)
             else:
-                hl = L.heatmap_loss(heatmaps_pred, heatmaps_gt)
+                hl = L.heatmap_loss(heatmaps_pred, heatmaps_gt, count_sum=self.count_sum)
             out["heatmap_loss"] = hl
             total = total + self.f_heatmap * hl
 
         if self.with_pose2d:
-            pl = L.joints_mse_loss(pose2d_pred[..., 0:2], pose2d_gt[..., 0:2], visibility)
+            pl = L.joints_mse_loss(pose2d_pred[..., 0:2], pose2d_gt[..., 0:2], visibility,
+                                   count_sum=self.count_sum)
             out["pose2d_loss"] = pl
             total = total + self.f_pose2d * pl
 

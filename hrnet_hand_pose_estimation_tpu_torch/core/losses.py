@@ -8,11 +8,21 @@ included: heatmap losses sum over H, W and average over B, K; the joint
 losses without visibility divide by K, not B*K (loss.py:50).  The 3D losses
 ``joints_3d_mse_loss``, ``volumetric_ce_loss`` and ``kcs_loss`` are the JAX
 package's ``core/losses.py:106-110, 169-206``.
+
+``count_sum`` (the 2D losses that divide by a count of the batch): in a
+data-parallel step each rank holds a slice of the global batch, and the
+loss is this rank's share of the global loss, its own numerator over the
+global denominator ``count_sum(local count)``
+(``parallel/distributed.sum_counts``), so the ranks' shares sum to the loss
+JAX computes on the global batch, ``sum(d * vis) / max(1, sum(vis))`` over
+all of it.  The losses that sum over the batch (the joint losses without
+visibility, the bone and joint-angle losses) are shares as they are.
+Without ``count_sum`` every loss is computed as before.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -25,7 +35,15 @@ def _norm(v: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(torch.sum(v * v, dim=-1))
 
 
-def heatmap_loss(pred: torch.Tensor, gt: torch.Tensor, mode: str = "l2") -> torch.Tensor:
+CountSum = Optional[Callable[[torch.Tensor], torch.Tensor]]
+
+
+def _count(n, like: torch.Tensor) -> torch.Tensor:
+    return torch.tensor(float(n), dtype=torch.float32, device=like.device)
+
+
+def heatmap_loss(pred: torch.Tensor, gt: torch.Tensor, mode: str = "l2",
+                 count_sum: CountSum = None) -> torch.Tensor:
     """HeatmapLoss (reference loss.py:15-28): per-pixel L2 or L1, summed over
     the plane, averaged over batch*joints.  pred/gt: (B, H, W, K)."""
     pred, gt = pred.float(), gt.float()
@@ -35,23 +53,32 @@ def heatmap_loss(pred: torch.Tensor, gt: torch.Tensor, mode: str = "l2") -> torc
         err = torch.abs(pred - gt)
     else:
         raise ValueError(f"unknown heatmap loss mode {mode!r}")
+    if count_sum is not None:
+        return torch.sum(err) / count_sum(_count(pred.shape[0] * pred.shape[3], pred))
     return torch.mean(torch.sum(err, dim=(1, 2)))
 
 
+def _visible_count(vis: torch.Tensor, count_sum: CountSum) -> torch.Tensor:
+    """max(1, sum(vis)), the sum over the global batch with ``count_sum``."""
+    total = torch.sum(vis)
+    return torch.clamp(total if count_sum is None else count_sum(total), min=1.0)
+
+
 def joints_mse_loss(pose_pred: torch.Tensor, pose_gt: torch.Tensor,
-                    visibility: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    visibility: Optional[torch.Tensor] = None,
+                    count_sum: CountSum = None) -> torch.Tensor:
     """JointsMSELoss (reference loss.py:30-50): mean Euclidean distance.
     pose_pred/gt: (B, K, D); visibility: (B, K) or None."""
     d = _norm(pose_pred.float() - pose_gt.float())
     if visibility is not None:
         vis = visibility.float()
-        return torch.sum(d * vis) / torch.clamp(torch.sum(vis), min=1.0)
+        return torch.sum(d * vis) / _visible_count(vis, count_sum)
     return torch.sum(d) / pose_pred.shape[1]
 
 
 def joints_mse_smooth_loss(pose_pred: torch.Tensor, pose_gt: torch.Tensor,
                            visibility: Optional[torch.Tensor] = None,
-                           threshold: float = 400.0) -> torch.Tensor:
+                           threshold: float = 400.0, count_sum: CountSum = None) -> torch.Tensor:
     """JointsMSESmoothLoss (reference loss.py:52-69): squared error, softly
     capped as ``d^0.1 * threshold^0.9`` above the threshold."""
     diff = (pose_gt.float() - pose_pred.float()) ** 2
@@ -59,25 +86,26 @@ def joints_mse_smooth_loss(pose_pred: torch.Tensor, pose_gt: torch.Tensor,
         diff = diff * visibility[..., None].float()
     capped = torch.where(diff > threshold, torch.pow(diff, 0.1) * threshold ** 0.9, diff)
     if visibility is not None:
-        return torch.sum(capped) / torch.clamp(torch.sum(visibility.float()), min=1.0)
+        return torch.sum(capped) / _visible_count(visibility.float(), count_sum)
     return torch.sum(capped) / pose_gt.shape[1]
 
 
 def joints_mae_loss(pose_pred: torch.Tensor, pose_gt: torch.Tensor,
-                    visibility: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    visibility: Optional[torch.Tensor] = None,
+                    count_sum: CountSum = None) -> torch.Tensor:
     """JointsMAELoss (reference loss.py:71-91)."""
     err = torch.abs(pose_gt.float() - pose_pred.float())
     if visibility is not None:
         vis = visibility.float()
         if vis.dim() == err.dim() - 1:
             vis = vis[..., None]
-        return torch.sum(err * vis) / torch.clamp(torch.sum(vis), min=1.0)
+        return torch.sum(err * vis) / _visible_count(vis, count_sum)
     return torch.sum(err) / pose_gt.shape[1]
 
 
 def joints_ohkm_mse_loss(output: torch.Tensor, target: torch.Tensor,
                          target_weight: Optional[torch.Tensor] = None,
-                         topk: int = 8) -> torch.Tensor:
+                         topk: int = 8, count_sum: CountSum = None) -> torch.Tensor:
     """Online hard keypoint mining MSE (reference loss.py:93-135): per-joint
     0.5 * MSE over the plane, then the mean of each sample's top-k joints.
     output/target: (B, H, W, K); target_weight: (B, K) or (B, K, 1)."""
@@ -90,6 +118,8 @@ def joints_ohkm_mse_loss(output: torch.Tensor, target: torch.Tensor,
         gt = gt * tw
     per_joint = 0.5 * torch.mean((pred - gt) ** 2, dim=1)          # (B, K)
     topv, _ = torch.topk(per_joint, topk, dim=1)
+    if count_sum is not None:
+        return torch.sum(torch.sum(topv, dim=1) / topk) / count_sum(_count(b, output))
     return torch.mean(torch.sum(topv, dim=1) / topk)
 
 

@@ -419,7 +419,7 @@ def calibrate(cfg, weights, batches: Iterable) -> Dict[str, float]:
 
 
 def make_quant_infer(cfg, device="cuda", trunk: str = "quant", input_norm=None,
-                     pallas_layer1: bool = True):
+                     pallas_layer1: bool = True, mesh=None):
     """The int8 serving function ``infer(weights, qparams, images) -> (B, K, 2)``
     on ``device``.
 
@@ -438,9 +438,34 @@ def make_quant_infer(cfg, device="cuda", trunk: str = "quant", input_norm=None,
     ``1 / (std * 255)`` in f32, ``(x - mean) * inv_std``, cast to bf16.
     Without it, ``images`` are normalized float images.  On a card every
     kernel launches; on the CPU their plain twins run.
+
+    ``mesh`` (``parallel/mesh.make_mesh``) serves data-parallel, as the JAX
+    package's ``shard_map`` over the 'data' axis (its ``:619-628``): the
+    first call with a pair of ``weights`` and ``qparams`` makes one replica
+    of each per mesh device (the same objects on a device they already
+    live on), every call splits the batch along axis 0 (``ValueError``
+    when it does not divide), runs each chunk through every kernel of the
+    path on its device, and gathers the (B, K, 2) result on the mesh's
+    first device, which must be ``device``.
     """
     if trunk not in ("f32", "quant"):
         raise ValueError(f"trunk must be 'f32' or 'quant', got {trunk!r}")
+    if mesh is not None:
+        from ..parallel.mesh import check_home, replicate, run_sharded
+
+        check_home(mesh, device)
+        per_device = [make_quant_infer(cfg, d, trunk, input_norm, pallas_layer1)
+                      for d in mesh.devices]
+        made: List = []          # [(weights, qparams), replicas]: the pair they were made of
+
+        def sharded(weights, qparams: Params, images: torch.Tensor) -> torch.Tensor:
+            if not made or made[0][0] is not weights or made[0][1] is not qparams:
+                made[:] = [(weights, qparams), list(zip(replicate(mesh, weights),
+                                                        replicate(mesh, qparams)))]
+            replicas = [(fn, w, q) for fn, (w, q) in zip(per_device, made[1])]
+            return run_sharded(mesh, lambda r, x: r[0](r[1], r[2], x), replicas, images)
+
+        return sharded
     device = torch.device(device)
     image_hw = tuple(int(s) for s in cfg.MODEL.IMAGE_SIZE)[::-1]     # (W, H) -> (H, W)
     if input_norm is not None:

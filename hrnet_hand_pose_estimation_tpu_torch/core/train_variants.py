@@ -22,6 +22,7 @@ import torch
 from torch import nn
 
 from ..ops.decode import decode_heatmaps, softmax_decode
+from ..parallel import distributed
 from ..parallel.train_step import (Optimizer, TrainState, _check_cfg, apply_guarded_update,
                                    compute_autocast, make_train_step)
 from . import losses as L
@@ -112,8 +113,12 @@ def make_train_step_mv(cfg, model: nn.Module, tx: Optimizer) -> Callable:
 
 
 def pick_train_step(cfg, model: nn.Module, tx: Optimizer) -> Callable:
-    """Route by MODEL.NAME like the reference's train_helper dispatch."""
+    """Route by MODEL.NAME like the reference's train_helper dispatch.  The
+    CPM and fusion steps run on one process (ROADMAP A11)."""
     name = str(cfg.MODEL.NAME)
+    if name in ("CPM", "multiview_pose_hrnet") and distributed.world_size() > 1:
+        raise NotImplementedError(f"{name}'s train step across {distributed.world_size()} "
+                                  "ranks is not ported (ROADMAP A11); the 2D step is")
     if name == "CPM":
         return make_train_step_cpm(cfg, model, tx)
     if name == "multiview_pose_hrnet":

@@ -2,7 +2,7 @@
 
 Port of the JAX package's ``core/trainer.py:56-301`` (reference
 lib/core/function.py:24-162 and :635-788, tools/train.py:335-405) on one
-device:
+device, or on each rank of a data-parallel process group:
 
 - iterates the {name: loader} dict of training sets each epoch, with the
   batches copied to the device ahead of the step (``data/pipeline.py``);
@@ -17,6 +17,17 @@ device:
 - saves a checkpoint every epoch and a best-model snapshot at the lowest
   validation total, and resumes from the newest checkpoint with
   ``AUTO_RESUME``.
+
+Data parallel: when a process group of several ranks is up
+(``parallel/distributed.py``, one rank a GPU), the loaders give each rank
+its slice of the global batch order, the train step is JAX's step on the
+global batch (``parallel/train_step``: synced BN statistics, global loss
+denominators, summed gradients), the epoch and validation averages are
+the global batches' losses, equal on every rank, and rank 0 alone writes
+logs, TensorBoard scalars, checkpoints and best-model snapshots; every
+rank reads them on ``AUTO_RESUME``.  The ranks start from rank 0's
+weights.  The CPM and fusion steps and the BN statistics levers run on one
+process (ROADMAP A11).
 
 Warm starts: ``MODEL.PRETRAINED`` copies a reference ``.pth`` trunk by name
 (the port's module names are the reference's), filtered by
@@ -36,8 +47,9 @@ from ..data.pipeline import device_prefetch
 from ..parallel.checkpoint import (CheckpointManager, load_pretrained, load_torch_checkpoint,
                                    merge_pretrained, split_state_dict)
 from ..models.layers import set_bn_levers
-from ..parallel.train_step import (TrainState, create_train_state, make_eval_step,
-                                   make_train_multistep)
+from ..parallel import distributed
+from ..parallel.train_step import (TrainState, create_train_state, global_losses,
+                                   make_eval_step, make_train_multistep)
 from ..utils.logging_utils import ScalarWriter, create_logger
 from .loss_computer import LossComputer2D
 from .metrics import AverageMeter
@@ -62,7 +74,8 @@ def _batch_for_step(batch: Dict) -> Dict:
 
 
 class Trainer:
-    """End-to-end 2D trainer on one device: epochs, logging, eval, checkpoints."""
+    """End-to-end 2D trainer on one device or one rank: epochs, logging,
+    eval, checkpoints."""
 
     def __init__(self, cfg, model, train_loaders, val_loaders=None,
                  output_dir: Optional[str] = None, device="cuda"):
@@ -71,10 +84,16 @@ class Trainer:
         self.device = torch.device(device)
         self.train_loaders = train_loaders
         self.val_loaders = val_loaders or {}
-        self.logger, default_out, tb_dir = create_logger(cfg, "train")
+        self.ranks = distributed.world_size()
+        self.main = distributed.rank() == 0          # the rank that writes
+        if self.ranks > 1 and (int(cfg.TPU.BN_STAT_SAMPLES) or str(cfg.TPU.BN_STAT_DTYPE)):
+            raise NotImplementedError("the BN statistics levers over several ranks are not "
+                                      "ported (ROADMAP A11)")
+        self.logger, default_out, tb_dir = create_logger(cfg, "train", write=self.main)
         self.output_dir = output_dir or default_out
-        self.writer = ScalarWriter(tb_dir)
-        self.ckpt = CheckpointManager(os.path.join(self.output_dir, "checkpoints"))
+        self.writer = ScalarWriter(tb_dir if self.main else None)
+        self.ckpt = CheckpointManager(os.path.join(self.output_dir, "checkpoints"),
+                                      create=self.main)
 
         steps_per_epoch = max(sum(len(l) for l in train_loaders.values()), 1)
         self.state, self.tx = create_train_state(cfg, model, steps_per_epoch, device=self.device)
@@ -114,6 +133,10 @@ class Trainer:
                 self.best_loss = float(meta.get("best_loss", float("inf")))
                 self.train_global_steps = int(meta.get("train_global_steps", 0))
                 self.logger.info("AUTO_RESUME from epoch %d", self.begin_epoch)
+        if self.ranks > 1:
+            # every rank from rank 0's weights and statistics
+            for buf in (self.state.params, self.state.stats, self.state.counts):
+                distributed.broadcast_(buf)
 
     def _warm_start(self, path: str) -> None:
         """Partial, layer-filtered, shape-checked trunk warm start (reference
@@ -164,7 +187,7 @@ class Trainer:
                 if getattr(loader.dataset, "exception", False):
                     continue  # the reference skips flagged samples (function.py:188-190)
                 step_batch = _batch_for_step(batch)
-                bs = step_batch["images"].shape[0]
+                bs = step_batch["images"].shape[0] * self.ranks      # the global batch
                 if self.train_multistep is not None:
                     pending.append(step_batch)
                     if len(pending) < k_dispatch:
@@ -193,7 +216,7 @@ class Trainer:
         # the leftover batches (< K at the epoch's end) take one step each
         for step_batch in pending:
             self.state, losses = self.train_step(self.state, step_batch)
-            bs = step_batch["images"].shape[0]
+            bs = step_batch["images"].shape[0] * self.ranks
             n_samples += bs
             self.train_global_steps += 1
             add({k: v * bs for k, v in losses.items()}, bs)
@@ -203,9 +226,13 @@ class Trainer:
         return meter.averages()
 
     def validate(self, epoch: int) -> Dict[str, float]:
-        loss_computer = LossComputer2D(self.cfg)
+        # each rank's loss shares over the global batch, summed: the global
+        # batch's losses, as JAX's validate computes them
+        sync = self.ranks > 1
+        loss_computer = LossComputer2D(self.cfg,
+                                       count_sum=distributed.sum_counts if sync else None)
         meter = AverageMeter()
-        debug_dumped = False
+        debug_dumped = not self.main
         for name, loader in self.val_loaders.items():
             for batch in device_prefetch(iter(loader), self.device, depth=2):
                 step_batch = _batch_for_step(batch)
@@ -231,8 +258,10 @@ class Trainer:
                     heatmaps_pred=out["heatmaps"], heatmaps_gt=hm_gt,
                     pose2d_pred=out["pose2d_pred"], pose2d_gt=step_batch.get("pose2d"),
                     visibility=step_batch.get("visibility"))
+                if sync:
+                    loss_dict = global_losses(loss_dict)
                 meter.update({k: float(v) for k, v in loss_dict.items()},
-                             n=step_batch["images"].shape[0])
+                             n=step_batch["images"].shape[0] * self.ranks)
         avgs = meter.averages()
         for k, v in avgs.items():
             self.writer.add_scalar(f"val/{k}", v, epoch)
@@ -249,12 +278,14 @@ class Trainer:
             total = val.get("total_loss", float("inf"))
             if total < self.best_loss:
                 self.best_loss = total
-                self.ckpt.save_best(self.state)
+                if self.main:
+                    self.ckpt.save_best(self.state)
                 self.logger.info("new best model (val total %.5f)", total)
-            self.ckpt.save(epoch, self.state, extra={
-                "best_loss": self.best_loss,
-                "train_global_steps": self.train_global_steps,
-                "valid_global_steps": epoch,
-            })
+            if self.main:
+                self.ckpt.save(epoch, self.state, extra={
+                    "best_loss": self.best_loss,
+                    "train_global_steps": self.train_global_steps,
+                    "valid_global_steps": epoch,
+                })
         self.writer.close()
         return self.state

@@ -35,6 +35,7 @@ from torch import nn
 
 from ..data.pipeline import device_prefetch
 from ..models.triangulation import VolumetricTriangulationNet
+from ..parallel import distributed
 from ..parallel.checkpoint import CheckpointManager
 from ..parallel.train_step import (Optimizer, TrainState, _check_cfg, apply_guarded_update,
                                    compute_autocast, init_train_weights, make_lr_schedule)
@@ -210,6 +211,11 @@ class Trainer3D:
     def __init__(self, cfg, model: nn.Module, train_loaders, val_loaders=None,
                  output_dir: Optional[str] = None, device="cuda"):
         _check_cfg(cfg)
+        if distributed.world_size() > 1:
+            raise NotImplementedError(
+                f"Trainer3D across {distributed.world_size()} ranks is not ported (ROADMAP "
+                "A11: the JAX package's core/trainer3d.py:180, :235 and trainer3d_gan.py:121 "
+                "train on a mesh); the 2D Trainer is")
         self.cfg = cfg
         self.model = model
         self.device = torch.device(device)

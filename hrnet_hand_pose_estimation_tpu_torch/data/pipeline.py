@@ -1,16 +1,19 @@
 """Input pipeline: batching, shuffling, threaded loading and the copy to
 the device.
 
-Port of the JAX package's ``data/pipeline.py:27-158`` for one process:
+Port of the JAX package's ``data/pipeline.py:27-171``:
 
 - map-style datasets (``__len__``/``__getitem__`` -> dict of numpy arrays);
 - epoch-seeded shuffling (the reference's ``sampler.set_epoch``);
+- per-rank sharding (``host_local_slice``, the reference's
+  DistributedSampler): the global order is seeded by (seed, epoch) alike
+  on every rank, and each rank of a process group
+  (``parallel/distributed.py``) takes its contiguous slice, as each JAX
+  process takes its ``jax.process_index()``'s; ``len()`` and the batches
+  are the rank's;
 - worker threads that overlap the numpy sample work with device compute;
 - ``device_prefetch``: a background thread copies pinned host batches to
   the card with ``non_blocking=True``, ``depth`` batches ahead.
-
-Per-process sharding (the reference's DistributedSampler) comes with
-multi-GPU training.
 """
 
 from __future__ import annotations
@@ -21,6 +24,8 @@ from typing import Callable, Dict, Iterator, Sequence
 
 import numpy as np
 import torch
+
+from ..parallel import distributed
 
 def default_collate(samples: Sequence[Dict[str, np.ndarray]]) -> Dict[str, np.ndarray]:
     out: Dict[str, np.ndarray] = {}
@@ -33,8 +38,22 @@ def default_collate(samples: Sequence[Dict[str, np.ndarray]]) -> Dict[str, np.nd
     return out
 
 
+def host_local_slice(global_indices: np.ndarray, rank: int = 0, world: int = 1) -> np.ndarray:
+    """Rank ``rank``'s contiguous slice of the global index order, ``len //
+    world`` indices (the JAX package's ``host_local_slice`` with
+    ``jax.process_index()`` / ``process_count()``; the last ``len % world``
+    are left out, as there)."""
+    if world == 1:
+        return global_indices
+    per = len(global_indices) // world
+    return global_indices[rank * per:(rank + 1) * per]
+
+
 class DataLoader:
-    """Minimal map-style loader with shuffle and worker threads."""
+    """Minimal map-style loader with shuffle, per-rank slices and worker
+    threads.  The rank and the number of ranks are the process group's
+    (``parallel/distributed.py``; one process without one), read when the
+    loader is iterated or measured, as JAX's reads its process index."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = True, drop_last: bool = True,
                  num_workers: int = 4, collate_fn: Callable = default_collate, seed: int = 0):
@@ -51,14 +70,15 @@ class DataLoader:
         self.epoch = int(epoch)
 
     def __len__(self) -> int:
-        n = len(self.dataset)
+        n = len(self.dataset) // distributed.world_size()
         return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
 
     def _index_order(self) -> np.ndarray:
+        """The epoch-seeded global order, then this rank's slice."""
         idx = np.arange(len(self.dataset))
         if self.shuffle:
             np.random.default_rng((self.seed, self.epoch)).shuffle(idx)
-        return idx
+        return host_local_slice(idx, distributed.rank(), distributed.world_size())
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         idx = self._index_order()

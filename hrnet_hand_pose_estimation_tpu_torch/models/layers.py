@@ -10,7 +10,8 @@ the public model functions keep NHWC at their boundaries.
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from contextlib import contextmanager
+from typing import Callable, Dict, Iterator, Optional
 
 import torch
 import torch.nn.functional as F
@@ -36,11 +37,17 @@ class BatchNorm(nn.BatchNorm2d):
     torch's BN does; the train step's anomaly guard puts them back when the
     step is skipped.  The eval forward, the parameters and the state-dict
     names are ``nn.BatchNorm2d``'s.
+
+    Inside ``synced_batch_stats`` (a data-parallel train step), the train
+    forward takes its statistics over the global batch instead
+    (``_synced_forward``).
     """
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
+        if _BN_SYNC["sum"] is not None:
+            return self._synced_forward(x, _BN_SYNC["sum"])
         y, mean, invstd = torch.native_batch_norm(x, self.weight, self.bias, None, None, True,
                                                   0.0, self.eps)
         with torch.no_grad():
@@ -50,6 +57,52 @@ class BatchNorm(nn.BatchNorm2d):
             self.running_var.copy_(decay * self.running_var + (1.0 - decay) * var)
             self.num_batches_tracked.add_(1)
         return y
+
+    def _synced_forward(self, x: torch.Tensor, total: Callable) -> torch.Tensor:
+        """flax's train-mode BN over the global batch of a data-parallel
+        step, as XLA computes it on a sharded batch: each rank's float32
+        sum, sum of squares and count summed over the ranks by ``total``
+        (differentiable: ``parallel/distributed.all_reduce_sum``), mean =
+        S1 / N, var = max(S2 / N - mean^2, 0) (flax's fast variance), ``y =
+        (x - mean) * (rsqrt(var + eps) * weight) + bias`` in float32,
+        returned in x's dtype; the running averages move toward the global
+        (biased) statistics, equal on every rank."""
+        xf = x.float()
+        dims = [0] + list(range(2, x.dim()))
+        c = x.shape[1]
+        count = torch.full((1,), float(x.numel() // c), dtype=torch.float32, device=x.device)
+        sums = total(torch.cat([xf.sum(dims), (xf * xf).sum(dims), count]))
+        n = sums[2 * c]
+        mean = sums[:c] / n
+        var = torch.clamp(sums[c:2 * c] / n - mean * mean, min=0.0)
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        inv = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean.view(shape)) * inv.view(shape) + self.bias.view(shape)
+        with torch.no_grad():
+            decay = 1.0 - self.momentum
+            self.running_mean.copy_(decay * self.running_mean + (1.0 - decay) * mean)
+            self.running_var.copy_(decay * self.running_var + (1.0 - decay) * var)
+            self.num_batches_tracked.add_(1)
+        return y.to(x.dtype)
+
+
+# The data-parallel train step's cross-rank sum for the BN statistics
+# (``synced_batch_stats``); None outside such a step.
+_BN_SYNC: Dict[str, Optional[Callable]] = {"sum": None}
+
+
+@contextmanager
+def synced_batch_stats(total: Callable[[torch.Tensor], torch.Tensor]) -> Iterator[None]:
+    """Within the block, every ``BatchNorm`` in training takes its
+    statistics over the global batch, summing its per-rank sums with
+    ``total`` (``parallel/distributed.all_reduce_sum``).  The backward of
+    that sum runs later, outside the block, as autograd records it."""
+    prev = _BN_SYNC["sum"]
+    _BN_SYNC["sum"] = total
+    try:
+        yield
+    finally:
+        _BN_SYNC["sum"] = prev
 
 
 # Train-mode BN statistics levers (the JAX package's ``models/layers.py``
@@ -94,6 +147,11 @@ class StatBatchNorm(BatchNorm):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or not bn_levers_active():
             return super().forward(x)
+        if _BN_SYNC["sum"] is not None:
+            raise NotImplementedError(
+                "the BN statistics levers in a data-parallel step: the JAX package's "
+                "StatBatchNorm takes x[:stat_samples] of the global batch, which lies on the "
+                "first ranks only; not ported (ROADMAP A11)")
         n = int(_BN_LEVERS["stat_samples"])
         dtype = _STAT_DTYPES[_BN_LEVERS["stat_dtype"] or "float32"]
         xs = (x[:n] if n else x).to(dtype)
@@ -136,8 +194,15 @@ def batch_norm3d(features: int) -> BatchNorm3d:
 
 def fold_bn(weight: torch.Tensor, conv_bias: Optional[torch.Tensor], bn_weight: torch.Tensor,
             bn_bias: torch.Tensor, mean: torch.Tensor, var: torch.Tensor):
-    """Fold eval-mode BN into the conv before it: (OIHW kernel', bias'), float32."""
-    inv = bn_weight.float() / torch.sqrt(var.float() + BN_EPS)
+    """Fold eval-mode BN into the conv before it: (OIHW kernel', bias'), float32.
+
+    The square root is taken in float64 and rounded once to float32: the
+    correctly rounded root, as XLA and numpy take it.  The CPU's vectorised
+    float32 ``torch.sqrt`` is within 0.5001 ulp and misses it at some
+    values, which moved a folded bf16 weight by one ulp against the JAX
+    package's fold."""
+    std = torch.sqrt((var.float() + BN_EPS).double()).float()
+    inv = bn_weight.float() / std
     kernel = weight.float() * inv[:, None, None, None]
     bias = bn_bias.float() - mean.float() * inv
     if conv_bias is not None:

@@ -30,15 +30,20 @@ class CheckpointManager:
     """One ``ckpt_<epoch>.pt`` per saved epoch, the newest ``max_to_keep``
     kept, and ``best.pt``."""
 
-    def __init__(self, directory: str, max_to_keep: int = 3):
+    def __init__(self, directory: str, max_to_keep: int = 3, create: bool = True):
+        """``create`` False (a data-parallel rank other than 0, which reads
+        but never writes) leaves the directory as it is."""
         self.directory = os.path.abspath(directory)
         self.max_to_keep = int(max_to_keep)
-        os.makedirs(self.directory, exist_ok=True)
+        if create:
+            os.makedirs(self.directory, exist_ok=True)
 
     def _path(self, epoch: int) -> str:
         return os.path.join(self.directory, f"ckpt_{int(epoch)}.pt")
 
     def epochs(self) -> list[int]:
+        if not os.path.isdir(self.directory):
+            return []
         return sorted(int(m[1]) for m in map(_CKPT.match, os.listdir(self.directory)) if m)
 
     def latest_epoch(self) -> Optional[int]:

@@ -3,11 +3,27 @@
 Port of the JAX package's ``parallel/train_step.py`` (``TrainState``,
 ``make_lr_schedule``, ``make_optimizer``, ``create_train_state``,
 ``apply_guarded_update``, ``make_train_step``, ``make_train_multistep``,
-``make_eval_step``, ``make_forward_fn``) for one device:
+``make_eval_step``, ``make_forward_fn``) for one device, or one rank of a
+data-parallel process group:
 
     state, tx = create_train_state(cfg, model, steps_per_epoch, device="cuda")
     step = make_train_step(cfg, model, tx)
     state, losses = step(state, batch)      # losses: 0-d device tensors
+
+Data parallel.  When a process group of several ranks is up
+(``parallel/distributed.py``) as the step is made, each rank steps on its
+slice of the global batch and the step is JAX's SPMD step on the global
+batch: the BN statistics are summed over the ranks in the forward
+(``models/layers.synced_batch_stats``, and their gradient in the
+backward), every loss is this rank's share over the global denominators
+(``LossComputer2D(count_sum=...)``), and one ``all_reduce`` of the flat
+gradient buffer after the backward sums the shares' gradients, XLA's psum,
+before the anomaly guard, so every rank takes the same skip decision.  The
+reported losses are summed too: the global ones, equal on every rank.
+This was chosen over wrapping the model in ``DistributedDataParallel``:
+the gradients already live in one flat buffer, so one collective does
+what DDP's buckets do, and DDP's loss convention (the mean of per-rank
+losses) is not JAX's global normalisation.
 
 Layout.  The parameters live in the model, as views of one flat float32
 buffer (``TrainState.params``); their ``.grad`` are views of a second one
@@ -37,6 +53,7 @@ JAX package has no backward kernel of its own.
 
 from __future__ import annotations
 
+from contextlib import nullcontext
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -44,9 +61,10 @@ import torch
 from torch import nn
 
 from ..core.loss_computer import LossComputer2D
-from ..models.layers import BatchNorm
+from ..models.layers import BatchNorm, synced_batch_stats
 from ..ops.decode import decode_heatmaps
 from ..ops.flip import flip_back, shift_heatmap
+from . import distributed
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 _STAT_FIELDS = ("running_mean", "running_var")
@@ -531,11 +549,15 @@ def make_train_step(cfg, model: nn.Module, tx: Optimizer) -> Callable:
     that neither match the targets' batch nor meet one target raise
     (ROADMAP C20).  The losses are 0-d device
     tensors: the loss dict of ``LossComputer2D``, the temperature (softmax
-    heads) and ``nonfinite_grads`` (with the guard).
+    heads) and ``nonfinite_grads`` (with the guard).  Under a process group
+    of several ranks the step is data-parallel (see the module docstring).
     """
     _check_cfg(cfg)
     refuse_unsupported(cfg, "train step")
-    loss_computer = LossComputer2D(cfg)
+    ranks = distributed.world_size()
+    loss_computer = LossComputer2D(cfg, count_sum=distributed.sum_counts if ranks > 1 else None)
+    global_stats = ((lambda: synced_batch_stats(distributed.all_reduce_sum)) if ranks > 1
+                    else nullcontext)
     use_softmax = bool(cfg.MODEL.HEATMAP_SOFTMAX)
     detect = bool(cfg.TPU.DETECT_ANOMALY)
 
@@ -551,7 +573,7 @@ def make_train_step(cfg, model: nn.Module, tx: Optimizer) -> Callable:
         stats_before = ((state.stats.clone(), state.counts.clone()) if detect or frames
                         else None)
         with torch.enable_grad():
-            with compute_autocast(cfg, images.device):
+            with compute_autocast(cfg, images.device), global_stats():
                 out = model(images)
             try:
                 check_map_batch(out.heatmaps, batch)
@@ -567,13 +589,22 @@ def make_train_step(cfg, model: nn.Module, tx: Optimizer) -> Callable:
                 visibility=batch.get("visibility"))
             state.grads.zero_()
             total.backward()
+        loss_dict = {k: v.detach() for k, v in loss_dict.items()}
+        if ranks > 1:
+            distributed.sum_(state.grads)
+            loss_dict = global_losses(loss_dict)
         if out.temperature is not None:
             # a copy: the parameter itself changes in the update below
             loss_dict["temperature"] = out.temperature.detach().clone()
-        loss_dict = {k: v.detach() for k, v in loss_dict.items()}
         return apply_guarded_update(cfg, tx, state, loss_dict, stats_before)
 
     return step
+
+
+def global_losses(shares: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The ranks' loss shares summed in one collective: the global losses."""
+    total = distributed.sum_(torch.stack([v.float() for v in shares.values()]))
+    return dict(zip(shares, total.unbind()))
 
 
 def make_train_multistep(cfg, model: nn.Module, tx: Optimizer) -> Callable:

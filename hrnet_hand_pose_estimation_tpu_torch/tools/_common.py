@@ -46,3 +46,15 @@ def load_weights(cfg, model, model_path: str = "", device="cpu") -> Dict[str, to
             state.pop("trainable_temp", None)
     model.load_state_dict(state)
     return state
+
+
+def tool_mesh(cfg, device="cuda"):
+    """The data-parallel mesh of ``TPU.MESH_AXES`` / ``MESH_SHAPE`` (the JAX
+    tools' ``make_mesh``), over every visible card for ``device`` 'cuda'
+    and over ``device`` alone otherwise; None for a mesh of one device."""
+    from ..parallel.mesh import make_mesh
+
+    device = torch.device(device)
+    devices = None if device.type == "cuda" and device.index is None else [device]
+    mesh = make_mesh(tuple(cfg.TPU.MESH_AXES), tuple(cfg.TPU.MESH_SHAPE), devices)
+    return None if mesh.size == 1 else mesh

@@ -25,14 +25,17 @@ def evaluate(cfg, state: Optional[Mapping] = None, model_path: str = "", serving
     from ..core.evaluator import Evaluator2D
     from ..data.build import make_test_dataloader
     from ..models import build_model
-    from ._common import load_weights
+    from ._common import load_weights, tool_mesh
 
     model = build_model(cfg)
     loaders = make_test_dataloader(cfg)
     name, loader = next(iter(loaders.items()))
     if state is None:
         state = load_weights(cfg, model, model_path, device=device)
-    evaluator = Evaluator2D(cfg, model, state, serving=serving, calib_path=calib, device=device)
+    # data-parallel over the devices of TPU.MESH_AXES / MESH_SHAPE, as the
+    # JAX tool's (a mesh of one device is none)
+    evaluator = Evaluator2D(cfg, model, state, mesh=tool_mesh(cfg, device), serving=serving,
+                            calib_path=calib, device=device)
     return evaluator.run(loader, dataset_name=name, output_dir=out)
 
 

@@ -32,21 +32,24 @@ def build_evaluator(cfg, dlt: bool = False, state: Optional[Mapping] = None,
     from ..models.triangulation import build_triangulation_net
     from ..parallel.checkpoint import join_state_dict, load_pretrained
     from ..utils.weights import init_variables
-    from ._common import load_weights
+    from ._common import load_weights, tool_mesh
 
+    # data-parallel over the devices of TPU.MESH_AXES / MESH_SHAPE, as the
+    # JAX tool's (a mesh of one device is none)
+    mesh = tool_mesh(cfg, device)
     _, loader = next(iter(make_test_dataloader(cfg).items()))
     if dlt:
         model = build_model(cfg)
         if state is None:
             state = load_weights(cfg, model, model_path, device=device)
-        return Evaluator3D(cfg, model, state, mode="dlt", device=device), loader
+        return Evaluator3D(cfg, model, state, mode="dlt", mesh=mesh, device=device), loader
     model = build_triangulation_net(cfg, dtype=torch.bfloat16 if torch.device(
         device).type == "cuda" else torch.float32)
     if state is None:
         state = (join_state_dict(load_pretrained(model_path)) if model_path else
                  init_variables(cfg, 0, device=device,
                                 net=str(cfg.MODEL.TRIANGULATION_MODEL_NAME)))
-    return Evaluator3D(cfg, model, state, mode="model", device=device), loader
+    return Evaluator3D(cfg, model, state, mode="model", mesh=mesh, device=device), loader
 
 
 def evaluate(cfg, dlt: bool = False, state: Optional[Mapping] = None, model_path: str = "",

@@ -14,12 +14,19 @@ from pathlib import Path
 from typing import Optional
 
 
-def create_logger(cfg, phase: str = "train"):
-    """Returns (logger, final_output_dir, tb_log_dir)."""
+def create_logger(cfg, phase: str = "train", write: bool = True):
+    """Returns (logger, final_output_dir, tb_log_dir).  With ``write``
+    False (a data-parallel rank other than 0) nothing is created on disk
+    and the logger prints warnings only."""
     root = Path(cfg.OUTPUT_DIR or "output")
     dataset = "_".join(list(cfg.DATASET.DATASET)) or "run"
     exp = cfg.EXP_NAME or "exp"
     final_output_dir = root / dataset / exp
+    tb_dir = final_output_dir / "tb"
+    if not write:
+        logger = logging.getLogger(f"{exp}.quiet")
+        logger.setLevel(logging.WARNING)
+        return logger, str(final_output_dir), str(tb_dir)
     final_output_dir.mkdir(parents=True, exist_ok=True)
 
     time_str = time.strftime("%Y-%m-%d-%H-%M")
@@ -39,7 +46,6 @@ def create_logger(cfg, phase: str = "train"):
     logger.addHandler(fh)
     logger.addHandler(sh)
 
-    tb_dir = final_output_dir / "tb"
     tb_dir.mkdir(exist_ok=True)
     return logger, str(final_output_dir), str(tb_dir)
 

@@ -97,7 +97,7 @@ def activated_tiny(tiny_cfg, rng, scale=0.05):
     """A JAX tiny model's variables with random weights (numpy leaves)."""
     model = jax_hrnet_from_cfg(tiny_cfg, head="softmax", dtype=jnp.bfloat16)
     x = rng.normal(size=(2, 64, 64, 3)).astype(np.float32)
-    v = model.init(jax.random.key(0), jnp.asarray(x), False)
+    v = jax.eval_shape(lambda: model.init(jax.random.key(0), jnp.asarray(x), False))
     v = jax.tree.map(
         lambda a: (rng.normal(size=a.shape) * scale).astype(np.float32) if a.ndim > 1 else
         (np.abs(rng.normal(size=a.shape)) * scale + 0.5).astype(np.float32), v)
@@ -188,10 +188,14 @@ def test_stem_layer1_twin_matches_pallas(rng):
     assert err <= limit
 
 
-def test_stem_params_match_jax_fold(tiny_cfg, rng, monkeypatch):
+@pytest.mark.parametrize("seed", [0, 16, 36, 54])
+def test_stem_params_match_jax_fold(tiny_cfg, seed, monkeypatch):
     """prepare_stem_params, fold_layer1_params and space_to_depth equal what
-    JAX's _fused_stem_layer1_apply hands its kernel (see assert_fold_equal)."""
-    v, x = activated_tiny(tiny_cfg, rng)
+    JAX's _fused_stem_layer1_apply hands its kernel (see assert_fold_equal),
+    on weights from the case's own seed.  Seeds 16, 36 and 54 draw a
+    variance whose float32 root the CPU's vectorised ``torch.sqrt`` rounds
+    the wrong way; the fold takes it in float64 (``models.layers.fold_bn``)."""
+    v, x = activated_tiny(tiny_cfg, np.random.default_rng(seed))
     captured = []
     monkeypatch.setattr(jax_fb, "fused_stem_layer1",
                         lambda *args, **kwargs: captured.append(args))

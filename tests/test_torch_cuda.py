@@ -1869,3 +1869,76 @@ def test_reader_host_helpers_against_their_card_paths(cuda, tmp_path):
         with open(nv["res_file"]) as f:
             files.append((json.load(f), ap))
     assert files[0] == files[1] and len(files[0][0]) == 4
+
+
+@pytest.mark.parametrize("int8_head", [False, True])
+def test_sharded_serving_on_card_matches_no_mesh(cuda, int8_head):
+    """make_quant_infer(mesh=[cuda:0, cuda:0]) on the smoke widths at B=4:
+    each replica launches the path's kernels (twice the unsharded call's
+    conv_int8, B3 and B1), the result equals the two halves served apart
+    bit for bit and the unsharded call within C9's 0.25 px."""
+    from hrnet_hand_pose_estimation_tpu_torch.parallel.mesh import make_mesh
+
+    cfg = small_cfg(SMOKE_WIDTHS)
+    state = {k: v.to(cuda) for k, v in init_variables(cfg, seed=3).items()}
+    weights = precast_variables(cfg, state)
+    u8 = torch.from_numpy(np.random.default_rng(9).integers(
+        0, 256, size=(4, 64, 64, 3)).astype(np.uint8)).to(cuda)
+    norm = (Q.IMAGENET_MEAN, Q.IMAGENET_STD)
+    mean = torch.tensor(norm[0], device=cuda) * 255.0
+    std = torch.tensor(norm[1], device=cuda) * 255.0
+    amax = Q.calibrate(cfg, weights, [(u8.float() - mean) / std])
+    qparams = Q.prepare_serving_qparams(cfg, state, amax, int8_head=int8_head)
+    plain = Q.make_quant_infer(cfg, cuda, input_norm=norm)
+    sharded = Q.make_quant_infer(cfg, cuda, input_norm=norm,
+                                 mesh=make_mesh(devices=[cuda, cuda]))
+    kernels = (conv_int8, fused_bottleneck_chain_int8, fused_head_decode_v2)
+    counts = []
+    for fn_call in (lambda: plain(weights, qparams, u8), lambda: sharded(weights, qparams, u8)):
+        for fn in kernels:
+            fn.launches = 0
+        out = fn_call()
+        torch.cuda.synchronize()
+        counts.append([fn.launches for fn in kernels])
+        if len(counts) == 1:
+            want = out
+    assert counts[1] == [2 * n for n in counts[0]] and all(counts[0])
+    halves = torch.cat([plain(weights, qparams, u8[:2]), plain(weights, qparams, u8[2:])])
+    assert torch.equal(out, halves)
+    assert (out - want).abs().max().item() <= 0.25
+
+
+def test_synced_batch_stats_bf16_on_card_matches_cpu(cuda):
+    """The data-parallel step's BN (``BatchNorm._synced_forward``, here with
+    a one-rank sum) on bf16 input on the card against the same on the CPU,
+    forward and backward, and against the one-process BN
+    (``native_batch_norm``): within a bf16 ulp of the largest output (and
+    of the largest input gradient), float32 running statistics within
+    1e-5."""
+    from hrnet_hand_pose_estimation_tpu_torch.models.layers import (batch_norm,
+                                                                    synced_batch_stats)
+
+    rng = np.random.default_rng(12)
+    x0 = torch.from_numpy(rng.normal(1.5, 2.0, size=(4, 24, 9, 7)).astype(np.float32))
+    g0 = torch.from_numpy(rng.normal(size=(4, 24, 9, 7)).astype(np.float32))
+    out = {}
+    for dev, synced in ((cuda, True), (torch.device("cpu"), True), (cuda, False)):
+        bn = batch_norm(24).to(dev).train()
+        with torch.no_grad():
+            bn.weight.copy_(torch.linspace(0.5, 1.5, 24))
+            bn.bias.copy_(torch.linspace(-0.2, 0.2, 24))
+        x = x0.to(dev, torch.bfloat16).requires_grad_(True)
+        if synced:
+            with synced_batch_stats(lambda t: t):
+                y = bn(x)
+        else:
+            y = bn(x)
+        y.backward(g0.to(dev, torch.bfloat16))
+        out[(dev.type, synced)] = (y.float().cpu(), x.grad.float().cpu(),
+                                   bn.running_mean.cpu(), bn.running_var.cpu())
+    ref = out[("cpu", True)]
+    for key in (("cuda", True), ("cuda", False)):
+        y, gx, rm, rv = out[key]
+        assert (y - ref[0]).abs().max() <= 2.0 ** -8 * ref[0].abs().max()
+        assert (gx - ref[1]).abs().max() <= 2.0 ** -8 * ref[1].abs().max()
+        assert torch.allclose(rm, ref[2], atol=1e-5) and torch.allclose(rv, ref[3], atol=1e-5)

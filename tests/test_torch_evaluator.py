@@ -26,11 +26,13 @@ from hrnet_hand_pose_estimation_tpu_torch.models import build_model
 from hrnet_hand_pose_estimation_tpu_torch.models.hrnet import HRNetOutput
 from hrnet_hand_pose_estimation_tpu_torch.ops.kernels.conv_int8 import conv_int8
 from hrnet_hand_pose_estimation_tpu_torch.ops.kernels.softmax_decode import fused_softmax_decode
+from hrnet_hand_pose_estimation_tpu_torch.parallel.mesh import make_mesh
 from hrnet_hand_pose_estimation_tpu_torch.utils.weights import from_jax_variables
 from tests.test_quant_infer import _activated_variables
 
 torch.set_num_threads(1)
 RESULT_KEYS = ("EPE_px", "PCK_AUC_30", "PCK_AUC_full", "PCK@20px")
+CPU2 = ["cpu", "cpu"]
 
 
 def eval_cfg(tiny_cfg, **extra):
@@ -248,8 +250,12 @@ def test_int8_calibrates_on_the_first_batch(tiny_cfg):
 
 def test_entry_checks(tiny_cfg):
     cfg = config_from_dict(eval_cfg(tiny_cfg).to_dict())
+    # mesh= is ported; a 'model' mesh axis (JAX's tensor parallelism) is not
     with pytest.raises(NotImplementedError, match="A11"):
-        Evaluator2D(cfg, build_model(cfg), mesh=object(), device="cpu")
+        Evaluator2D(cfg, build_model(cfg), mesh=make_mesh(("data", "model"), (1, 2), CPU2),
+                    device="cpu")
+    with pytest.raises(ValueError, match="entry point's device"):
+        Evaluator2D(cfg, build_model(cfg), mesh=make_mesh(devices=CPU2), device="cuda")
     with pytest.raises(ValueError, match="unknown serving"):
         Evaluator2D(cfg, build_model(cfg), serving="fp8", device="cpu")
     plain = config_from_dict(eval_cfg(tiny_cfg, MODEL__HEATMAP_SOFTMAX=False).to_dict())

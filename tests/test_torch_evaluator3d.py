@@ -37,6 +37,7 @@ from hrnet_hand_pose_estimation_tpu_torch.core.evaluator3d import Evaluator3D
 from hrnet_hand_pose_estimation_tpu_torch.data.build import make_test_dataloader
 from hrnet_hand_pose_estimation_tpu_torch.models import build_model
 from hrnet_hand_pose_estimation_tpu_torch.models.triangulation import build_triangulation_net
+from hrnet_hand_pose_estimation_tpu_torch.parallel.mesh import make_mesh
 from hrnet_hand_pose_estimation_tpu_torch.utils.weights import from_jax_variables
 from tests.test_torch_triangulation import activate, init_like, jax_eigh64  # noqa: F401
 
@@ -114,8 +115,8 @@ def test_evaluator3d_matches_jax(tiny_cfg, tmp_path, jax_eigh64, mode, kind):
 
 
 def test_views_subset_and_entry_checks(tiny_cfg):
-    """``views`` evaluates a subset of the views, as JAX's; mesh= and an
-    unknown mode raise."""
+    """``views`` evaluates a subset of the views, as JAX's; a 'model' mesh
+    axis and an unknown mode raise."""
     cfg = config_from_dict(eval3d_cfg(tiny_cfg, "alg").to_dict())
     cfg.defrost()
     cfg.DATASET.NUM_VIEWS = 3
@@ -125,8 +126,10 @@ def test_views_subset_and_entry_checks(tiny_cfg):
     ev = Evaluator3D(cfg, build_triangulation_net(cfg, "alg"), None, device="cpu")
     res = ev.run(loader, views=[0, 2])
     assert all(np.isfinite(v) for v in res.values())
+    # mesh= is ported; a 'model' mesh axis (JAX's tensor parallelism) is not
     with pytest.raises(NotImplementedError, match="A11"):
-        Evaluator3D(cfg, build_triangulation_net(cfg, "alg"), None, mesh=object(), device="cpu")
+        Evaluator3D(cfg, build_triangulation_net(cfg, "alg"), None, device="cpu",
+                    mesh=make_mesh(("data", "model"), (1, 2), ["cpu", "cpu"]))
     with pytest.raises(ValueError, match="mode"):
         Evaluator3D(cfg, build_triangulation_net(cfg, "alg"), None, mode="x", device="cpu")
 
