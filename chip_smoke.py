@@ -193,8 +193,10 @@ Any failed check raises.
 
 from __future__ import annotations
 
+import atexit
 import importlib.util
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -256,6 +258,22 @@ PEAK_BYTES = 3.35e12
 NORM = (Q.IMAGENET_MEAN, Q.IMAGENET_STD)
 
 T0 = time.perf_counter()
+_BACKGROUND = []
+
+
+def background(cmd, **kw) -> subprocess.Popen:
+    """A tool's process started beside this one (``subprocess.Popen``); any
+    still running when this script exits is killed then."""
+    proc = subprocess.Popen(cmd, **kw)
+    _BACKGROUND.append(proc)
+    return proc
+
+
+@atexit.register
+def _stop_background():
+    for proc in _BACKGROUND:
+        if proc.poll() is None:
+            proc.kill()
 
 
 @contextmanager
@@ -2186,6 +2204,17 @@ def mv_phases(smi, kernels):
     b4 = next(k for k in kernels if k["name"] == "fused_softmax_decode")
     b4["launches_3d"] = 0
     evs = {}
+    tool_dir = tempfile.TemporaryDirectory()
+    tool = None
+    if importlib.util.find_spec("yaml") is not None:
+        # the evaluate_3d tool's process starts here and runs beside the
+        # checks of "3D main path"; "3D tools" reads it
+        tool = background(
+            [sys.executable, "-m", "hrnet_hand_pose_estimation_tpu_torch.tools.evaluate_3d",
+             "--cfg", str(VOL_YAML), "--device", "cuda", "--out", tool_dir.name,
+             "DATASET.TEST_DATASET", "['Synthetic_mv']", "MODEL.HEATMAP_SOFTMAX", "True",
+             "EXP_NAME", "tool3d"], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            cwd=Path(__file__).resolve().parent)
     with phase("3D main path"), tempfile.TemporaryDirectory() as tmp:
         loader = make_test_dataloader(mv_cfg("vol", tmp))["Synthetic_mv"]
         batch = next(iter(loader))
@@ -2245,20 +2274,15 @@ def mv_phases(smi, kernels):
         if shapes != ((21,), (21,), (2, 49), (2, 50)):
             raise AssertionError(f"eval3D artifacts of shapes {shapes}")
 
-    with phase("3D tools"), tempfile.TemporaryDirectory() as tmp:
-        if importlib.util.find_spec("yaml") is not None:
-            cmd = [sys.executable, "-m", "hrnet_hand_pose_estimation_tpu_torch.tools.evaluate_3d",
-                   "--cfg", str(VOL_YAML), "--device", "cuda", "--out", tmp,
-                   "DATASET.TEST_DATASET", "['Synthetic_mv']", "MODEL.HEATMAP_SOFTMAX", "True",
-                   "EXP_NAME", "tool3d"]
-            res = subprocess.run(cmd, capture_output=True, text=True,
-                                 cwd=Path(__file__).resolve().parent, timeout=300)
-            tail = (res.stdout + res.stderr).strip().splitlines()[-7:]
+    with phase("3D tools"), tool_dir as tmp:
+        if tool is not None:
+            out, err = tool.communicate(timeout=300)
+            tail = (out + err).strip().splitlines()[-7:]
             print(f"python -m ...tools.evaluate_3d --cfg {VOL_YAML.name} --device cuda "
-                  f"(Synthetic_mv, the softmax decode): rc {res.returncode}; " + " ".join(
+                  f"(Synthetic_mv, the softmax decode): rc {tool.returncode}; " + " ".join(
                       line.strip() for line in tail))
-            if res.returncode != 0:
-                raise AssertionError(f"evaluate_3d failed:\n{res.stdout}\n{res.stderr}")
+            if tool.returncode != 0:
+                raise AssertionError(f"evaluate_3d failed:\n{out}\n{err}")
             if np.loadtxt(Path(tmp) / "eval3D_results_tool3d" / "PCK3d.txt").shape != (2, 50):
                 raise AssertionError("evaluate_3d wrote no PCK3d.txt")
         else:
@@ -2664,6 +2688,18 @@ def train3d_phases(smi, kernels):
                   f"PyTorch call computes it, on {smi}")
 
     runs = {}
+    # the train3d tool's process starts here and runs beside the check
+    # phases below; "train3d tool" reads it
+    tool_dir = tempfile.TemporaryDirectory()
+    tool_overrides = ["MODEL.VOLUME_SIZE", "32", "TRAIN.IMAGES_PER_GPU", "8",
+                      "TEST.IMAGES_PER_GPU", "8", "OUTPUT_DIR", tool_dir.name]
+    tool = None
+    if importlib.util.find_spec("yaml") is not None:
+        tool = background([sys.executable, "-m",
+                           "hrnet_hand_pose_estimation_tpu_torch.tools.train3d", "--cfg",
+                           str(SMOKE3D_YAML), "--device", "cuda", *tool_overrides],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                          cwd=Path(__file__).resolve().parent)
     with phase("3D train main path (vol)"), tempfile.TemporaryDirectory() as tmp:
         cfg = train3d_cfg("vol", tmp, T3_VOL_BATCH)
         net = TRI.build_triangulation_net(cfg)
@@ -2827,20 +2863,14 @@ def train3d_phases(smi, kernels):
             b4[f"device_ms_in_train_step_{kind}"] = fwd
         del runs
 
-    with phase("train3d tool"), tempfile.TemporaryDirectory() as tmp:
-        overrides = ["MODEL.VOLUME_SIZE", "32", "TRAIN.IMAGES_PER_GPU", "8",
-                     "TEST.IMAGES_PER_GPU", "8", "OUTPUT_DIR", tmp]
-        if importlib.util.find_spec("yaml") is not None:
-            cmd = [sys.executable, "-m", "hrnet_hand_pose_estimation_tpu_torch.tools.train3d",
-                   "--cfg", str(SMOKE3D_YAML), "--device", "cuda", *overrides]
-            res = subprocess.run(cmd, capture_output=True, text=True,
-                                 cwd=Path(__file__).resolve().parent, timeout=300)
-            log = res.stdout + res.stderr
+    with phase("train3d tool"), tool_dir as tmp:
+        if tool is not None:
+            log, _ = tool.communicate(timeout=300)
             lines = [ln for ln in log.splitlines() if "Epoch[" in ln or "Validate3D" in ln]
             print(f"python -m ...tools.train3d --cfg {SMOKE3D_YAML.name} --device cuda "
-                  f"{' '.join(overrides[:6])}: rc {res.returncode}; " + " | ".join(
+                  f"{' '.join(tool_overrides[:6])}: rc {tool.returncode}; " + " | ".join(
                       ln.split(" ", 2)[-1][:140] for ln in lines[-3:]))
-            if res.returncode != 0 or "Validate3D[0]" not in log:
+            if tool.returncode != 0 or "Validate3D[0]" not in log:
                 raise AssertionError(f"train3d failed:\n{log[-3000:]}")
         else:
             from hrnet_hand_pose_estimation_tpu_torch.tools import train3d as tool_train3d
@@ -2886,6 +2916,7 @@ CPM_CHECK_LR = 1e-5
 CPM_YAML = Path(__file__).resolve().parent / "experiments" / "synthetic_cpm_smoke.yaml"
 FUSION_VIEWS, FUSION_BATCH, FUSION_STEPS = 4, 1, 3     # MHP_HRNet_w48_fusion_v1
 VOLCPM_BATCH = 2            # VolTriangulation_MHP_CPM_v1.yaml has 8: cut to save chip time
+CPM_TOOL_BATCH = 16         # the CPM smoke YAML's 4 a batch cut to 16: 4 steps, not 16
 # the card's float32 CPM forward against the CPU's, relative to the largest
 # belief; the bf16 forward against the card's float32 one (27 bf16 convs in
 # a row, no normalisation: a few % of the largest value)
@@ -2995,6 +3026,17 @@ def cpm_phases(smi, kernels):
 
     dev = torch.device("cuda")
     none = {fn.__name__: 0 for fn in COUNTED}
+    tool_dir = tempfile.TemporaryDirectory()
+    tool = None
+    if importlib.util.find_spec("yaml") is not None:
+        # the train tool's process starts first and runs beside the CPM
+        # phases; "CPM train tool" reads it
+        tool = background([sys.executable, "-m", "hrnet_hand_pose_estimation_tpu_torch.tools.train",
+                           "--cfg", str(CPM_YAML), "--device", "cuda", "TRAIN.IMAGES_PER_GPU",
+                           str(CPM_TOOL_BATCH), "TEST.IMAGES_PER_GPU", str(CPM_TOOL_BATCH),
+                           "OUTPUT_DIR", tool_dir.name], stdout=subprocess.PIPE,
+                          stderr=subprocess.STDOUT, text=True,
+                          cwd=Path(__file__).resolve().parent)
     with phase("CPM forward"), tempfile.TemporaryDirectory() as tmp:
         cfg = cpm_cfg(tmp)
         state = init_variables(cfg, 0)
@@ -3079,18 +3121,14 @@ def cpm_phases(smi, kernels):
             raise AssertionError("CPM eval batch")
         del model, state, tx, step
 
-    with phase("CPM train tool"), tempfile.TemporaryDirectory() as tmp:
-        if importlib.util.find_spec("yaml") is not None:
-            cmd = [sys.executable, "-m", "hrnet_hand_pose_estimation_tpu_torch.tools.train",
-                   "--cfg", str(CPM_YAML), "--device", "cuda", "OUTPUT_DIR", tmp]
-            res = subprocess.run(cmd, capture_output=True, text=True,
-                                 cwd=Path(__file__).resolve().parent, timeout=300)
-            log = res.stdout + res.stderr
+    with phase("CPM train tool"), tool_dir as tmp:
+        if tool is not None:
+            log, _ = tool.communicate(timeout=300)
             lines = [ln for ln in log.splitlines() if "Epoch[" in ln or "Validate[" in ln]
             print(f"python -m ...tools.train --cfg {CPM_YAML.name} --device cuda: rc "
-                  f"{res.returncode}; " + " | ".join(ln.split(" ", 2)[-1][:140]
-                                                      for ln in lines[-2:]))
-            if res.returncode != 0 or "Validate[0]" not in log:
+                  f"{tool.returncode}; " + " | ".join(ln.split(" ", 2)[-1][:140]
+                                                       for ln in lines[-2:]))
+            if tool.returncode != 0 or "Validate[0]" not in log:
                 raise AssertionError(f"tools.train on the CPM smoke config failed:\n{log[-3000:]}")
         else:
             from hrnet_hand_pose_estimation_tpu_torch.core.trainer import Trainer
@@ -3499,6 +3537,19 @@ def swin_phases(smi, b4):
 
     dev = torch.device("cuda")
     none = {fn.__name__: 0 for fn in COUNTED}
+    tool_dir = tempfile.TemporaryDirectory()
+    tool = None
+    if importlib.util.find_spec("yaml") is not None:
+        # the train tool's process starts first and runs beside the swin
+        # phases; "swin train" reads it
+        cmd = [sys.executable, "-m", "hrnet_hand_pose_estimation_tpu_torch.tools.train",
+               "--cfg", str(SWIN_YAML), "--device", "cuda", "DATASET.DATASET",
+               "['Synthetic_kpt']", "DATASET.TEST_DATASET", "['Synthetic_kpt']",
+               "TRAIN.BEGIN_EPOCH", "0", "TRAIN.END_EPOCH", "1", "DEBUG.DEBUG", "False",
+               "WORKERS", "4", "PRINT_FREQ", "1", "AUTO_RESUME", "False", "OUTPUT_DIR",
+               tool_dir.name]
+        tool = background(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                          cwd=Path(__file__).resolve().parent)
     with phase("swin forward"), tempfile.TemporaryDirectory() as tmp:
         cfg = zoo_cfg("swin_transformer", tmp)
         card, cpu, _ = zoo_pair(cfg, dev)
@@ -3520,7 +3571,7 @@ def swin_phases(smi, b4):
         b4["launches_swin"] = launched
         del ev, card
 
-    with phase("swin train"), tempfile.TemporaryDirectory() as tmp:
+    with phase("swin train"), tempfile.TemporaryDirectory() as tmp, tool_dir:
         batch = first_batch(zoo_cfg("swin_transformer", tmp), dev)
         print(f"swin train batch: images {tuple(batch['images'].shape)}, pose2d "
               f"{tuple(batch['pose2d'].shape)}")
@@ -3550,20 +3601,13 @@ def swin_phases(smi, b4):
               f"{busy:.3f} ms ({busy / wall:.1%} busy), on {smi}")
         del model, state, tx, step
 
-        if importlib.util.find_spec("yaml") is not None:
-            cmd = [sys.executable, "-m", "hrnet_hand_pose_estimation_tpu_torch.tools.train",
-                   "--cfg", str(SWIN_YAML), "--device", "cuda", "DATASET.DATASET",
-                   "['Synthetic_kpt']", "DATASET.TEST_DATASET", "['Synthetic_kpt']",
-                   "TRAIN.BEGIN_EPOCH", "0", "TRAIN.END_EPOCH", "1", "DEBUG.DEBUG", "False",
-                   "WORKERS", "4", "PRINT_FREQ", "1", "AUTO_RESUME", "False", "OUTPUT_DIR", tmp]
-            res = subprocess.run(cmd, capture_output=True, text=True,
-                                 cwd=Path(__file__).resolve().parent, timeout=300)
-            log = res.stdout + res.stderr
+        if tool is not None:
+            log, _ = tool.communicate(timeout=300)
             lines = [ln for ln in log.splitlines() if "Epoch[" in ln or "Validate[" in ln]
             print(f"python -m ...tools.train --cfg {SWIN_YAML.name} --device cuda (Synthetic_kpt "
-                  f"by opts): rc {res.returncode}; " + " | ".join(ln.split(" ", 2)[-1][:140]
-                                                                for ln in lines[-2:]))
-            if res.returncode != 0 or "Validate[0]" not in log:
+                  f"by opts): rc {tool.returncode}; " + " | ".join(ln.split(" ", 2)[-1][:140]
+                                                                 for ln in lines[-2:]))
+            if tool.returncode != 0 or "Validate[0]" not in log:
                 raise AssertionError(f"tools.train on the swin YAML failed:\n{log[-3000:]}")
         else:
             from hrnet_hand_pose_estimation_tpu_torch.data.build import make_dataloader
@@ -4709,17 +4753,18 @@ def c9_phases(smi):
             runs = [[tool + "inference", "--serving", mode, "--image_path", str(imgs),
                      "--out_dir", str(Path(tmp) / mode)] for mode in ("fast", "int8")]
             runs.append([tool + "evaluate_2d", "--serving", "int8", "--out", str(Path(tmp) / "ev")])
-            for args in runs:
-                cmd = [sys.executable, "-m", args[0], "--cfg", str(SMOKE_YAML), "--device", "cuda",
-                       *args[1:]]
-                res = subprocess.run(cmd, capture_output=True, text=True,
-                                     cwd=Path(__file__).resolve().parent, timeout=300)
-                tail = (res.stdout + res.stderr).strip().splitlines()[-3:]
+            # the three tool processes at once (each takes seconds to reach the card)
+            procs = [(args, background(
+                [sys.executable, "-m", args[0], "--cfg", str(SMOKE_YAML), "--device", "cuda",
+                 *args[1:]], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                cwd=Path(__file__).resolve().parent)) for args in runs]
+            for args, proc in procs:
+                out, err = proc.communicate(timeout=300)
+                tail = (out + err).strip().splitlines()[-3:]
                 print(f"python -m {args[0]} --cfg {SMOKE_YAML.name} {' '.join(args[1:3])} "
-                      f"--device cuda: rc {res.returncode}; " + " | ".join(tail))
-                if res.returncode != 0:
-                    raise AssertionError(f"{args[0]} {args[1:3]} failed:\n{res.stdout}"
-                                         f"\n{res.stderr}")
+                      f"--device cuda: rc {proc.returncode}; " + " | ".join(tail))
+                if proc.returncode != 0:
+                    raise AssertionError(f"{args[0]} {args[1:3]} failed:\n{out}\n{err}")
         else:
             # no PyYAML or cv2 on this machine: the tools' own functions on the
             # same config, in this process
@@ -5134,7 +5179,7 @@ LEVER_STEPS = 5
 MULTI_K = 4
 MULTI_STEPS = 8
 LATENCY_BATCHES = (8, 32, 128)
-LATENCY_ITERS = 50
+LATENCY_ITERS = 20
 TSNE_LIMIT = 1e-4           # float32 features, card vs CPU, TF32 off, relative to max |f|
 
 
@@ -5179,19 +5224,55 @@ def c26_phase(smi):
               f"{CHECK_BATCH} call on {smi}")
 
 
-def gate_phase(smi, kernels):
+def gate_worker(out_path: str) -> None:
+    """tools/accuracy_gate_full.run() at its defaults, TF32 off as in this
+    script: its results and the kernel launches, saved to ``out_path``."""
+    from hrnet_hand_pose_estimation_tpu_torch.tools import accuracy_gate_full as GATE
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    zero_counters()
+    results = GATE.run(device="cuda")
+    torch.cuda.synchronize()
+    torch.save({"results": results, "launches": counters()}, out_path)
+
+
+def start_gate(tmp: str):
+    """``gate_worker`` in a process of its own, started (the gate's train loop
+    is paced by its host thread, so it runs beside the reader phases)."""
+    import torch.multiprocessing as mp
+
+    out = str(Path(tmp) / "gate.pt")
+    proc = mp.get_context("spawn").Process(target=gate_worker, args=(out,), daemon=True)
+    proc.start()
+    return proc, out
+
+
+def gate_phase(smi, kernels, started=None):
     """tools/accuracy_gate_full.run() at its defaults: the flagship trained
     300 steps at B=32, then the shipped int8 paths of both scopes against
     the TF32-off f32 walk; passes only if its gate passes, with conv_int8,
-    B3 and B1 launched and no B2."""
+    B3 and B1 launched and no B2.  ``started`` (``start_gate``'s): the run
+    a process began earlier, read here; else it runs here."""
     from hrnet_hand_pose_estimation_tpu_torch.tools import accuracy_gate_full as GATE
 
     by_name = {k["name"]: k for k in kernels}
     with phase("accuracy gate"):
-        zero_counters()
-        results = GATE.run(device="cuda")
-        torch.cuda.synchronize()
-        got = add_launches(by_name, "launches_gate")
+        if started is None:
+            zero_counters()
+            results = GATE.run(device="cuda")
+            torch.cuda.synchronize()
+            got = add_launches(by_name, "launches_gate")
+        else:
+            proc, out = started
+            proc.join(timeout=900)
+            if proc.is_alive() or proc.exitcode != 0:
+                proc.kill()
+                raise AssertionError(f"the gate's process failed: exit code {proc.exitcode}")
+            saved = torch.load(out, weights_only=False)
+            results, got = saved["results"], saved["launches"]
+            for name, n in got.items():
+                by_name[name]["launches_gate"] = by_name[name].get("launches_gate", 0) + n
         print(f"launches in the gate: {json.dumps(got)} on {smi}")
         if not results["pass"]:
             raise AssertionError(f"the trained-weights int8 gate failed: {json.dumps(results)}")
@@ -5203,7 +5284,7 @@ def multistep_phase(smi):
     """The flagship at B=32: 8 single steps and two K=4 make_train_multistep
     calls from the same seeded state and batches (gaps printed and held
     within 1e-2 relative: cuDNN's backward need not be deterministic), then
-    ms/step at K=1 and K=4 over 8 steps each, twice in turns."""
+    ms/step at K=1 and K=4 over 8 steps each."""
     from hrnet_hand_pose_estimation_tpu_torch.tools.accuracy_gate_full import flagship_train_cfg
     from hrnet_hand_pose_estimation_tpu_torch.tools.perf_bn_levers import train_batch
     from hrnet_hand_pose_estimation_tpu_torch.tools.perf_multistep_sweep import sweep_rows
@@ -5242,8 +5323,7 @@ def multistep_phase(smi):
         if not loss_gap <= 1e-2:
             raise AssertionError(f"multistep calls part from single steps: {loss_gap}")
         del model, state, multi, batches
-        for row in sweep_rows(cfg, LEVER_BATCH, [1, MULTI_K, 1, MULTI_K], steps=MULTI_STEPS,
-                              device=dev):
+        for row in sweep_rows(cfg, LEVER_BATCH, [1, MULTI_K], steps=MULTI_STEPS, device=dev):
             print(f"K={row['k']}: {row['ms_per_step']:.3f} ms/step at B={LEVER_BATCH} "
                   f"({LEVER_BATCH / row['ms_per_step'] * 1e3:.1f} images/s) on {smi}")
 
@@ -5332,12 +5412,12 @@ def a8_tool_phases(smi, kernels):
             raise AssertionError(f"tsne features part on the card: {err}")
 
 
-def a8_a7_phases(smi, kernels):
+def a8_a7_phases(smi, kernels, gate=None):
     """The phases of the last A8 and A7 modules, in order; each is also
     callable alone (with ``kernels`` holding an entry ``{"name": n}`` for
-    every name of ``counters()``)."""
+    every name of ``counters()``).  ``gate``: ``start_gate``'s process."""
     c26_phase(smi)
-    gate_phase(smi, kernels)
+    gate_phase(smi, kernels, gate)
     multistep_phase(smi)
     levers_phase(smi)
     a8_tool_phases(smi, kernels)
@@ -5348,9 +5428,10 @@ def a8_a7_phases(smi, kernels):
 PROBE_TWIN_BATCH = 8        # the B7 / B6 twin checks at the probe's shapes
 PROBE_ITERS = 5
 SHARD_LIMIT = 0.25          # px: sharded against unsharded int8 serving at B=32 (C9's limit)
+SHARD_EVAL_BATCHES = 2      # Evaluator2D with and without the mesh (EVAL_BATCHES elsewhere)
 SHARD_EPE_LIMIT = 0.05      # px of EPE, and 0.005 of each AUC: sharded against plain evaluation
 DDP_BATCH = 16              # a rank's batch; the global batch is 32
-DDP_STEPS = 3
+DDP_STEPS = 2
 DDP_LOSS_RTOL = 2e-4        # tests/test_torch_ddp.py's tolerances (JAX's own, scan vs steps)
 DDP_PARAM_ATOL = 1e-3
 # The ranks sum their BN statistics, losses and gradients in another float32
@@ -5468,29 +5549,43 @@ def ddp_rank(rank: int, world: int, port: int, backend: str, mode: str, out_path
         distributed.destroy_process_group()
 
 
-def run_ranks(world: int, backend: str, mode: str, tmp: str):
-    """``world`` spawned processes of ``ddp_rank``; their results."""
+def free_port() -> int:
     import socket
 
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def start_ranks(world: int, backend: str, mode: str, tmp: str, target=None):
+    """``world`` spawned processes of ``target`` (``ddp_rank`` by default),
+    started; ``join_ranks`` waits for them."""
     import torch.multiprocessing as mp
 
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        port = s.getsockname()[1]
+    port = free_port()
     ctx = mp.get_context("spawn")
     outs = [str(Path(tmp) / f"{mode}{r}.pt") for r in range(world)]
-    procs = [ctx.Process(target=ddp_rank, args=(r, world, port, backend, mode, outs[r]))
+    # daemons: a rank still running when this script exits is stopped then
+    procs = [ctx.Process(target=target or ddp_rank, args=(r, world, port, backend, mode,
+                                                          outs[r]), daemon=True)
              for r in range(world)]
     for p in procs:
         p.start()
+    return procs, outs, f"DDP {backend} {mode}"
+
+
+def join_ranks(started):
+    """The results of ``start_ranks``' processes, once they end; raises if
+    one failed."""
+    procs, outs, label = started
     for p in procs:
         p.join(timeout=600)
     codes = [p.exitcode for p in procs]
     for p in procs:
         if p.is_alive():
             p.kill()
-    if codes != [0] * world:
-        raise AssertionError(f"DDP {backend} {mode}: rank exit codes {codes}")
+    if codes != [0] * len(procs):
+        raise AssertionError(f"{label}: rank exit codes {codes}")
     return [torch.load(o, weights_only=False) for o in outs]
 
 
@@ -5558,7 +5653,7 @@ def probe_phases(smi, kernels):
             raise AssertionError(f"perf_quant_e2e did not run its kernels: {got}")
     with phase("probe: perf_train_profile"):
         zero_counters()
-        result = T.run(batch=T.BATCH, iters=2, device="cuda")
+        result = T.run(batch=T.BATCH, iters=1, device="cuda")
         got = add_launches(by_name, "launches_probe_train")
         for line in T.lines(result, T.BATCH):
             print(f"perf_train_profile: {line} on {smi}")
@@ -5620,7 +5715,7 @@ def sharded_phases(smi, kernels):
             results = {}
             for name, m in (("plain", None), ("mesh", mesh)):
                 loader = make_test_dataloader(cfg)["Synthetic_kpt"]
-                loader.dataset.length = EVAL_BATCH * EVAL_BATCHES
+                loader.dataset.length = EVAL_BATCH * SHARD_EVAL_BATCHES
                 ev = Evaluator2D(cfg, build_model(cfg), state, mesh=m, serving=serving,
                                  device=dev)
                 zero_counters()
@@ -5643,66 +5738,96 @@ def sharded_phases(smi, kernels):
 
 
 def ddp_phases(smi, kernels):
-    """Two gloo ranks sharing cuda:0 train the flagship at full width for
-    DDP_STEPS steps at DDP_BATCH a rank, against one process stepping the
-    global batch; then one rank of an NCCL group whose Trainer fits an
-    epoch.  The ranks' launches in ``launches_ddp``."""
+    """The data-parallel training phases.  Every process they need starts
+    at once, so that start-ups and one-process references overlap: two gloo
+    ranks sharing cuda:0 (``ddpx_rank``: the flagship at full width for
+    DDP_STEPS steps at DDP_BATCH a rank, then every mode of DDPX_MODES),
+    one rank of an NCCL group of one whose Trainer fits an epoch
+    (``ddp_rank``), and the 3D tools under torchrun's environment; this
+    process runs the one-process references on the global batches
+    meanwhile (their times and the ranks' share the card and the host).
+    Then "DDP, gloo", "DDP, NCCL", "DDP 3D / GAN / CPM / fusion / levers,
+    gloo" and "DDP 3D, NCCL" check them.  The ranks' launches in
+    ``launches_ddp`` (the flagship's steps and the NCCL Trainer) and
+    ``launches_ddpx`` (the modes)."""
     dev = torch.device("cuda", 0)
     by_name = {k["name"]: k for k in kernels}
-    with phase("DDP, gloo"), tempfile.TemporaryDirectory() as tmp:
-        ranks = run_ranks(2, "gloo", "steps", tmp)
-        for name, n in ranks[0]["launches"].items():
-            by_name[name]["launches_ddp"] = by_name[name].get("launches_ddp", 0) + sum(
-                r["launches"][name] for r in ranks)
-        a, b = ranks
-        equal = all(torch.equal(a[k], b[k]) for k in ("params", "stats", "counts"))
-        print(f"DDP gloo, 2 ranks on cuda:0 x {DDP_BATCH}, {DDP_STEPS} float32 sgd steps: ranks "
-              f"bit-equal {equal}; losses {[round(l['total_loss'], 5) for l in a['losses']]}; "
-              f"launches {json.dumps(a['launches'])} a rank")
-        # one process on the global batch, with the data-parallel step's BN
-        # formula (the reference) and with native_batch_norm (the witness:
-        # the same step in another float32 order)
-        ref, native = (ddp_steps(ddp_cfg(), dev, 0, 1, global_formula=f) for f in (True, False))
+    with tempfile.TemporaryDirectory() as tmp:
+        with phase("DDP, gloo"):
+            torch.cuda.empty_cache()
+            tools = start_nccl_tools(tmp)
+            nccl = start_ranks(1, "nccl", "trainer", tmp)
+            gloo = start_ranks(2, "gloo", "modes", tmp, target=ddpx_rank)
+            # one process on the global batch, with the data-parallel step's
+            # BN formula (the reference) and with native BN (the witness: the
+            # same step in another float32 order)
+            t = time.perf_counter()
+            ref, native = (ddp_steps(ddp_cfg(), dev, 0, 1, global_formula=f)
+                           for f in (True, False))
+            refs = ddpx_references(dev)
+            t_refs = time.perf_counter() - t
+            ranks = join_ranks(gloo)
+            print(f"the one-process references took {t_refs:.1f} s; the gloo ranks ended "
+                  f"{time.perf_counter() - t:.1f} s after the processes started")
+            ddp_gloo_check([r["steps"] for r in ranks], ref, native, by_name, smi)
+        with phase("DDP, NCCL"):
+            (r,) = join_ranks(nccl)
+            for name, n in r["launches"].items():
+                by_name[name]["launches_ddp"] = by_name[name].get("launches_ddp", 0) + n
+            print(f"DDP NCCL, world size 1: all_reduce {r['all_reduce']}; Trainer.fit "
+                  f"{r['steps']} steps, epoch averages {json.dumps(r['averages'])}; files "
+                  f"{r['files']}")
+            if r["steps"] != 2 or r["all_reduce"] != [1.0] * 4 or not all(
+                    np.isfinite(v) for v in r["averages"].values()):
+                raise AssertionError(f"DDP NCCL: {r}")
+            if not any(f.endswith("ckpt_0.pt") for f in r["files"]):
+                raise AssertionError(f"DDP NCCL: rank 0 wrote no checkpoint: {r['files']}")
+        with phase("DDP 3D / GAN / CPM / fusion / levers, gloo"):
+            ddpx_check(ranks, refs, by_name, smi)
+        with phase("DDP 3D, NCCL"):
+            nccl_tools_check(tools)
 
-        def gaps(x, y):
-            loss = max(abs(p[k] - q[k]) / abs(q[k]) for p, q in zip(x["losses"], y["losses"])
-                       for k in q if q[k])
-            return (loss, (x["params1"] - y["params1"]).abs().max().item(),
-                    (x["params"] - y["params"]).abs().max().item(),
-                    (x["stats"] - y["stats"]).abs().max().item())
 
-        got, witness = gaps(a, ref), gaps(native, ref)
-        limits = (max(DDP_LOSS_RTOL, DDP_WITNESS_FACTOR * witness[0]),
-                  max(DDP_PARAM_ATOL, DDP_WITNESS_FACTOR * witness[1]),
-                  max(DDP_PARAM_ATOL, DDP_WITNESS_FACTOR * witness[2]))
-        for label, g in (("the ranks", got), ("the witness (one process, native BN)", witness)):
-            print(f"  {label} against one process x {2 * DDP_BATCH} with the data-parallel "
-                  f"step's BN formula: largest relative loss gap {g[0]:.3g}; parameters after "
-                  f"step 1 {g[1]:.3g}, after step {DDP_STEPS} {g[2]:.3g}; BN statistics "
-                  f"{g[3]:.3g}")
-        print(f"  limits max(losses {DDP_LOSS_RTOL} / parameters {DDP_PARAM_ATOL}, "
-              f"{DDP_WITNESS_FACTOR:g} x the witness): {', '.join(f'{v:.3g}' for v in limits)}; "
-              f"one process losses "
-              f"{[round(l['total_loss'], 5) for l in ref['losses']]}")
-        print(f"DDP gloo ms a step (host clock, synced): ranks {[round(v, 1) for v in a['ms']]}"
-              f" / {[round(v, 1) for v in b['ms']]}; one process {[round(v, 1) for v in ref['ms']]}"
-              f" (the BN formula), {[round(v, 1) for v in native['ms']]} (native) on {smi} (two "
-              f"ranks share one card: the overhead of the collectives, not scaling)")
-        if not equal or not all(g <= lim for g, lim in zip(got, limits)):
-            raise AssertionError("DDP gloo: the ranks part from each other or from one process")
-        if not a["launches"]["fused_gaussian_targets"]:
-            raise AssertionError("DDP gloo: the ranks made no targets on the card")
-    with phase("DDP, NCCL"), tempfile.TemporaryDirectory() as tmp:
-        (r,) = run_ranks(1, "nccl", "trainer", tmp)
-        for name, n in r["launches"].items():
-            by_name[name]["launches_ddp"] = by_name[name].get("launches_ddp", 0) + n
-        print(f"DDP NCCL, world size 1: all_reduce {r['all_reduce']}; Trainer.fit {r['steps']} "
-              f"steps, epoch averages {json.dumps(r['averages'])}; files {r['files']}")
-        if r["steps"] != 2 or r["all_reduce"] != [1.0] * 4 or not all(
-                np.isfinite(v) for v in r["averages"].values()):
-            raise AssertionError(f"DDP NCCL: {r}")
-        if not any(f.endswith("ckpt_0.pt") for f in r["files"]):
-            raise AssertionError(f"DDP NCCL: rank 0 wrote no checkpoint: {r['files']}")
+def ddp_gloo_check(ranks, ref, native, by_name, smi):
+    """The flagship's data-parallel steps: the ranks bit-equal, within
+    max(floor, DDP_WITNESS_FACTOR x the witness) of one process."""
+    for name in ranks[0]["launches"]:
+        by_name[name]["launches_ddp"] = by_name[name].get("launches_ddp", 0) + sum(
+            r["launches"][name] for r in ranks)
+    a, b = ranks
+    equal = all(torch.equal(a[k], b[k]) for k in ("params", "stats", "counts"))
+    print(f"DDP gloo, 2 ranks on cuda:0 x {DDP_BATCH}, {DDP_STEPS} float32 sgd steps: ranks "
+          f"bit-equal {equal}; losses {[round(l['total_loss'], 5) for l in a['losses']]}; "
+          f"launches {json.dumps(a['launches'])} a rank")
+
+    def gaps(x, y):
+        loss = max(abs(p[k] - q[k]) / abs(q[k]) for p, q in zip(x["losses"], y["losses"])
+                   for k in q if q[k])
+        return (loss, (x["params1"] - y["params1"]).abs().max().item(),
+                (x["params"] - y["params"]).abs().max().item(),
+                (x["stats"] - y["stats"]).abs().max().item())
+
+    got, witness = gaps(a, ref), gaps(native, ref)
+    limits = (max(DDP_LOSS_RTOL, DDP_WITNESS_FACTOR * witness[0]),
+              max(DDP_PARAM_ATOL, DDP_WITNESS_FACTOR * witness[1]),
+              max(DDP_PARAM_ATOL, DDP_WITNESS_FACTOR * witness[2]))
+    for label, g in (("the ranks", got), ("the witness (one process, native BN)", witness)):
+        print(f"  {label} against one process x {2 * DDP_BATCH} with the data-parallel "
+              f"step's BN formula: largest relative loss gap {g[0]:.3g}; parameters after "
+              f"step 1 {g[1]:.3g}, after step {DDP_STEPS} {g[2]:.3g}; BN statistics "
+              f"{g[3]:.3g}")
+    print(f"  limits max(losses {DDP_LOSS_RTOL} / parameters {DDP_PARAM_ATOL}, "
+          f"{DDP_WITNESS_FACTOR:g} x the witness): {', '.join(f'{v:.3g}' for v in limits)}; "
+          f"one process losses {[round(l['total_loss'], 5) for l in ref['losses']]}")
+    print(f"DDP gloo ms a step (host clock, synced): ranks {[round(v, 1) for v in a['ms']]}"
+          f" / {[round(v, 1) for v in b['ms']]}; one process {[round(v, 1) for v in ref['ms']]}"
+          f" (the BN formula), {[round(v, 1) for v in native['ms']]} (native) on {smi} (all "
+          f"the DDP phases' processes share one card: the overhead of the collectives, not "
+          f"scaling)")
+    if not equal or not all(g <= lim for g, lim in zip(got, limits)):
+        raise AssertionError("DDP gloo: the ranks part from each other or from one process")
+    if not a["launches"]["fused_gaussian_targets"]:
+        raise AssertionError("DDP gloo: the ranks made no targets on the card")
 
 
 def a11_phases(smi, kernels):
@@ -5712,6 +5837,338 @@ def a11_phases(smi, kernels):
     probe_phases(smi, kernels)
     sharded_phases(smi, kernels)
     ddp_phases(smi, kernels)
+
+
+# -- A11, second part: every train step across ranks ---------------------------
+
+# Each mode: two gloo ranks sharing cuda:0 against one process on the
+# global batch, in float32 with TF32 off.  The reference is the one process
+# with the data-parallel step's BN formula, the witness the same process
+# with native BN (the same step in another float32 order); the ranks must
+# be bit-equal and within max(floor, DDP_WITNESS_FACTOR x the witness).
+DDPX_STEPS = 2
+DDPX_3D_BATCH = {"alg": 4, "vol": 2, "gan": 2}   # global samples, T3_VIEWS views each
+DDPX_FUSION_BATCH = 2                            # one sample of 4 views a rank
+DDPX_LEVER_BATCH = 8                             # the flagship's global batch, 4 a rank
+# the subsample on rank 0 alone, spanning both ranks, and in bfloat16
+DDPX_LEVERS = {"rank0": dict(stat_samples=2), "span": dict(stat_samples=6),
+               "span_bf16": dict(stat_samples=6, stat_dtype="bfloat16")}
+DDPX_MODES = ("alg", "vol", "gan", "cpm", "fusion", "levers")
+DDPX_NCCL_TOOLS = (("train3d", 8), ("train3d_gan", 16))  # batch of Synthetic_mv's 16: 2 and 1 steps
+
+
+def ddpx_global(cfg, name: str, n: int, offset: int, dev, trainer3d: bool):
+    """Samples offset..offset+n-1 of the config's ``name`` set, collated and
+    on ``dev``, as the 3D (``trainer3d``) or the 2D Trainer's steps read
+    them: the same global batch in every process."""
+    from hrnet_hand_pose_estimation_tpu_torch.core import trainer as T2
+    from hrnet_hand_pose_estimation_tpu_torch.core import trainer3d as T3
+    from hrnet_hand_pose_estimation_tpu_torch.data.build import build_dataset
+    from hrnet_hand_pose_estimation_tpu_torch.data.pipeline import default_collate, to_device
+
+    ds = build_dataset(cfg, name, True)
+    batch = to_device(default_collate([ds[i] for i in range(offset, offset + n)]), dev)
+    return T3.batch_for_step(batch) if trainer3d else T2._batch_for_step(batch)
+
+
+def ddpx_slice(batch, rank: int, world: int):
+    per = next(iter(batch.values())).shape[0] // world
+    return {k: v[rank * per:(rank + 1) * per] for k, v in batch.items()}
+
+
+def ddpx_kit(mode: str, dev, rank: int, world: int) -> dict:
+    """What a mode builds once in a process: its nets, states, steps and
+    this rank's slices of its global batches, with the states' initial
+    values (``snapshot``) for ``ddpx_steps`` to start from each time."""
+    from hrnet_hand_pose_estimation_tpu_torch.core import trainer3d as T3
+    from hrnet_hand_pose_estimation_tpu_torch.core import trainer3d_gan as PG
+    from hrnet_hand_pose_estimation_tpu_torch.core.train_variants import pick_train_step
+    from hrnet_hand_pose_estimation_tpu_torch.models import triangulation as TRI
+    from hrnet_hand_pose_estimation_tpu_torch.tools.perf_bn_levers import train_batch
+
+    kit = {}
+    if mode in DDPX_3D_BATCH:
+        kind = "alg" if mode == "alg" else "vol"
+        cfg = train3d_cfg(kind, "", DDPX_3D_BATCH[mode], gan=mode == "gan", dtype="float32")
+        net = TRI.build_triangulation_net(cfg, dtype=torch.float32)
+        net.load_state_dict(init_variables(cfg, 0, device=dev, net=kind))
+        net.to(dev).train()
+        tx = T3.make_optimizer_3d(cfg, net, 1000)
+        state = TS.TrainState(net, tx)
+        orig = (256, 256)
+        kit.update(cfg=cfg, state=state, step=T3.make_train_step_3d(cfg, net, tx, orig))
+        n = DDPX_3D_BATCH[mode]
+        kit["batches"] = [ddpx_slice(ddpx_global(cfg, "Synthetic_mv", n, i * n, dev, True),
+                                     rank, world)
+                          for i in range(DDPX_STEPS if mode != "gan" else 1)]
+        if mode == "gan":
+            critic = TRI.Discriminator(PG.CRITIC_FEATURES)
+            PG.init_critic(critic, int(cfg.TPU.SEED) + 2)
+            critic.to(dev).train()
+            critic_tx = PG.make_critic_optimizer()
+            kit.update(cstate=TS.TrainState(critic, critic_tx),
+                       critic_step=PG.make_critic_step(cfg, net, critic, critic_tx, orig,
+                                                       float(cfg.MODEL.CLIP_VALUE)),
+                       adv_step=PG.make_gen_adv_step(cfg, net, critic, tx, orig,
+                                                     float(cfg.LOSS.KCS_LOSS_FACTOR)))
+    elif mode == "levers":
+        cfg = ddp_cfg()
+        model = build_model(cfg)
+        state, tx = TS.create_train_state(cfg, model, device=dev)
+        kit.update(cfg=cfg, state=state, step=TS.make_train_step(cfg, model, tx),
+                   batches=[ddpx_slice(train_batch(cfg, DDPX_LEVER_BATCH, dev, seed=80),
+                                       rank, world)])
+    else:
+        if mode == "cpm":
+            cfg = cpm_cfg("", **{"TPU.COMPUTE_DTYPE": "float32", "TRAIN.LR": CPM_CHECK_LR})
+            name, n = "Synthetic_kpt", CPM_BATCH
+        else:
+            cfg, name, n = fusion_cfg("", dtype="float32"), "Synthetic_mv", DDPX_FUSION_BATCH
+        model = build_model(cfg)
+        state, tx = TS.create_train_state(cfg, model, 1000, device=dev)
+        kit.update(cfg=cfg, state=state, step=pick_train_step(cfg, model, tx),
+                   batches=[ddpx_slice(ddpx_global(cfg, name, n, i * n, dev, False), rank,
+                                       world) for i in range(DDPX_STEPS)])
+    kit["init"] = {k: snapshot(kit[k]) for k in ("state", "cstate") if k in kit}
+    return kit
+
+
+def ddpx_steps(mode: str, kit: dict, dev, timed):
+    """The mode's steps from the kit's initial states: alg / vol DDPX_STEPS
+    3D steps; gan one TrainerGAN3D batch (N_CRITIC critic steps on one
+    angle, the supervised step, the adversarial step); cpm / fusion
+    DDPX_STEPS steps of the 2D Trainer's step; levers one flagship step
+    under each of DDPX_LEVERS.  Returns (losses, [states], extra)."""
+    from hrnet_hand_pose_estimation_tpu_torch.models import layers as LY
+    from hrnet_hand_pose_estimation_tpu_torch.models import triangulation as TRI
+
+    for key, snap in kit["init"].items():
+        restore(kit[key], snap)
+    state, step, losses = kit["state"], kit["step"], []
+    if mode == "levers":
+        params = []
+        for levers in DDPX_LEVERS.values():
+            restore(state, kit["init"]["state"])
+            LY.set_bn_levers(**levers)
+            try:
+                losses.append(timed(lambda: step(state, kit["batches"][0]))[1])
+            finally:
+                LY.set_bn_levers()
+            params.append(snapshot(state))
+        return losses, params, {}
+    if mode not in DDPX_3D_BATCH:
+        for batch in kit["batches"]:
+            losses.append(timed(lambda: step(state, batch))[1])
+        return losses, [snapshot(state)], {}
+    gen = torch.Generator(device=dev).manual_seed(0)
+    angles, real = [], TRI.cuboid_angles
+
+    def record(*args):
+        out = real(*args)
+        angles.append(out.cpu())
+        return out
+
+    TRI.cuboid_angles = record
+    try:
+        extra = {}
+        if mode != "gan":
+            for batch in kit["batches"]:
+                losses.append(timed(lambda: step(state, batch, gen))[1])
+        else:
+            batch, angle, cstate = kit["batches"][0], gen.get_state(), kit["cstate"]
+            for _ in range(int(kit["cfg"].MODEL.N_CRITIC)):
+                gen.set_state(angle)
+                losses.append({"critic_loss": timed(
+                    lambda: kit["critic_step"](cstate, state, batch, gen))[1]})
+            losses.append(timed(lambda: step(state, batch, gen))[1])
+            losses.append(timed(lambda: kit["adv_step"](state, batch, gen))[1])
+            extra["critic"] = cstate.params.cpu()
+    finally:
+        TRI.cuboid_angles = real
+    return losses, [snapshot(state)], dict(extra, angles=angles)
+
+
+def ddpx_run(mode: str, kit: dict, dev, formula: bool = False):
+    """One mode's steps on the kit's batches (one process: with the
+    data-parallel step's BN formula when ``formula``): the losses, the
+    states' parameters and BN statistics, the ms of each step (host clock
+    around a synced step), the vol net's angles and the critic's
+    weights."""
+    from contextlib import nullcontext
+
+    from hrnet_hand_pose_estimation_tpu_torch.models.layers import synced_batch_stats
+
+    ms = []
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with synced_batch_stats(lambda x: x) if formula else nullcontext():
+            out = fn()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+        return out[0], {k: float(v) for k, v in out[1].items()} if isinstance(out[1], dict) \
+            else float(out[1])
+
+    losses, snaps, extra = ddpx_steps(mode, kit, dev, timed)
+    return dict(extra, losses=losses, ms=ms,
+                params=torch.cat([snap[0].cpu() for snap in snaps]),
+                stats=torch.cat([snap[2].cpu() for snap in snaps]))
+
+
+def ddpx_rank(rank: int, world: int, port: int, backend: str, mode: str, out_path: str):
+    """One gloo rank of the A11 phases, in a process of its own on cuda:0:
+    ``ddp_steps`` (the "DDP, gloo" phase's), then every mode of DDPX_MODES
+    in turn, each with its kernel launch counts (B4's backward as
+    ``softmax_decode_backward``)."""
+    from hrnet_hand_pose_estimation_tpu_torch.parallel import distributed
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    distributed.init_process_group(backend, rank=rank, world_size=world,
+                                   init_method=f"tcp://localhost:{port}")
+    try:
+        zero_counters()
+        result = {"steps": ddp_steps(ddp_cfg(), dev, rank, world)}   # the "DDP, gloo" phase's
+        result["steps"]["launches"] = counters()
+        for name in DDPX_MODES:
+            zero_counters()
+            fused_softmax_decode.launches_bwd = 0
+            result[name] = ddpx_run(name, ddpx_kit(name, dev, rank, world), dev)
+            result[name]["launches"] = dict(
+                counters(), softmax_decode_backward=fused_softmax_decode.launches_bwd)
+            torch.cuda.empty_cache()
+        torch.save(result, out_path)
+    finally:
+        distributed.destroy_process_group()
+
+
+def ddpx_losses(run) -> np.ndarray:
+    out = []
+    for entry in run["losses"]:
+        out += list(entry.values()) if isinstance(entry, dict) else [entry]
+    return np.array(out, np.float64)
+
+
+def ddpx_gaps(x, y):
+    """(largest relative loss gap, largest parameter gap, largest BN
+    statistic gap) of run ``x`` from run ``y``."""
+    lx, ly = ddpx_losses(x), ddpx_losses(y)
+    nz = ly != 0
+    loss = float(np.max(np.abs(lx - ly)[nz] / np.abs(ly[nz]))) if nz.any() else 0.0
+    params = (x["params"] - y["params"]).abs().max().item()
+    if "critic" in y:
+        params = max(params, (x["critic"] - y["critic"]).abs().max().item())
+    stats = (x["stats"] - y["stats"]).abs().max().item() if y["stats"].numel() else 0.0
+    return loss, params, stats
+
+
+def ddpx_references(dev) -> dict:
+    """{mode: (reference, witness)}: each mode's steps in this process on
+    the global batches, with the data-parallel step's BN formula and with
+    native BN, from one kit."""
+    refs = {}
+    for mode in DDPX_MODES:
+        kit = ddpx_kit(mode, dev, 0, 1)
+        refs[mode] = (ddpx_run(mode, kit, dev, formula=True),
+                      ddpx_run(mode, kit, dev, formula=False))
+        del kit
+        torch.cuda.empty_cache()
+    return refs
+
+
+def ddpx_check(ranks, refs, by_name, smi):
+    """Each mode's ranks bit-equal, within max(floor, DDP_WITNESS_FACTOR x
+    the witness) of one process, their cuboid angles one process's draw,
+    B4 forward and backward run by the 3D, WGAN and fusion modes, B5 by
+    the levers'."""
+    failed = []
+    for mode in DDPX_MODES:
+        a, b = ranks[0][mode], ranks[1][mode]
+        for r in ranks:
+            for name, n in r[mode]["launches"].items():
+                if name in by_name:
+                    by_name[name]["launches_ddpx"] = by_name[name].get("launches_ddpx", 0) + n
+        equal = (a["losses"] == b["losses"] and torch.equal(a["params"], b["params"])
+                 and torch.equal(a["stats"], b["stats"])
+                 and ("critic" not in a or torch.equal(a["critic"], b["critic"])))
+        ref, native = refs[mode]
+        got, witness = ddpx_gaps(a, ref), ddpx_gaps(native, ref)
+        limits = (max(DDP_LOSS_RTOL, DDP_WITNESS_FACTOR * witness[0]),
+                  max(DDP_PARAM_ATOL, DDP_WITNESS_FACTOR * witness[1]))
+        launches = a["launches"]
+        print(f"DDP {mode}, 2 gloo ranks on cuda:0 (float32): ranks bit-equal {equal}; "
+              f"against one process on the global batch (the data-parallel BN formula): "
+              f"loss gap {got[0]:.3g}, parameters {got[1]:.3g}, BN statistics {got[2]:.3g}; "
+              f"witness (one process, native BN) {witness[0]:.3g} / {witness[1]:.3g} / "
+              f"{witness[2]:.3g}; limits {limits[0]:.3g} / {limits[1]:.3g}; a rank's "
+              f"launches: B4 forward {launches['fused_softmax_decode']}, backward "
+              f"{launches['softmax_decode_backward']}, B5 {launches['fused_gaussian_targets']}")
+        print(f"DDP {mode} ms a step (host clock, synced): ranks "
+              f"{[round(v, 1) for v in a['ms']]} / {[round(v, 1) for v in b['ms']]}; one "
+              f"process {[round(v, 1) for v in native['ms']]} (native BN) on {smi} (all the "
+              f"DDP phases' processes share one card: the collectives' cost, not scaling)")
+        if a.get("angles"):
+            both = [torch.cat([x, y]) for x, y in zip(a["angles"], b["angles"])]
+            ok = len(both) == len(ref["angles"]) and all(
+                torch.equal(x, z) for x, z in zip(both, ref["angles"]))
+            print(f"DDP {mode}: the two ranks' cuboid angles, call by call, "
+                  f"{[[round(v, 4) for v in x.tolist()] for x in both]}, are one process's "
+                  f"draw on the global batch: {ok}")
+            if not ok:
+                failed.append(f"{mode} angles")
+        if not equal or not (got[0] <= limits[0] and got[1] <= limits[1]):
+            failed.append(mode)
+        if not (np.isfinite(ddpx_losses(a)).all() and torch.isfinite(a["params"]).all()):
+            failed.append(f"{mode} not finite")
+    for mode in ("alg", "vol", "gan", "fusion"):
+        n = ranks[0][mode]["launches"]
+        if not (n["fused_softmax_decode"] and n["softmax_decode_backward"]):
+            failed.append(f"{mode} did not run B4 forward and backward: {n}")
+    if not ranks[0]["levers"]["launches"]["fused_gaussian_targets"]:
+        failed.append("the levers' ranks made no targets with B5")
+    if failed:
+        raise AssertionError(f"DDP modes failed: {failed}")
+
+
+def start_nccl_tools(tmp: str) -> dict:
+    """tools.train3d and tools.train3d_gan on synthetic_vol_smoke.yaml, each
+    in the environment torchrun gives one rank (RANK 0, WORLD_SIZE 1) with
+    ``--dist_backend nccl``, started: {tool: (process, output dir, batch)}."""
+    procs = {}
+    for tool, batch in DDPX_NCCL_TOOLS:
+        env = dict(os.environ, RANK="0", LOCAL_RANK="0", WORLD_SIZE="1",
+                   MASTER_ADDR="localhost", MASTER_PORT=str(free_port()))
+        out = Path(tmp) / tool
+        cmd = [sys.executable, "-m", f"hrnet_hand_pose_estimation_tpu_torch.tools.{tool}",
+               "--cfg", str(SMOKE3D_YAML), "--device", "cuda", "--dist_backend", "nccl",
+               "MODEL.VOLUME_SIZE", "32", "TRAIN.IMAGES_PER_GPU", str(batch),
+               "TEST.IMAGES_PER_GPU", "8", "OUTPUT_DIR", str(out)]
+        procs[tool] = (background(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                  text=True, env=env, cwd=Path(__file__).resolve().parent),
+                       out, batch)
+    return procs
+
+
+def nccl_tools_check(procs: dict) -> None:
+    """Both tools exit 0 after their steps, with rank 0's log, checkpoint
+    and best model written."""
+    for tool, (proc, out, batch) in procs.items():
+        log, _ = proc.communicate(timeout=600)
+        steps = [ln for ln in log.splitlines() if "Epoch[" in ln]
+        files = sorted(str(p.relative_to(out)) for p in out.rglob("*") if p.is_file())
+        print(f"torchrun's environment (RANK 0, WORLD_SIZE 1), python -m ...tools.{tool} "
+              f"--cfg {SMOKE3D_YAML.name} --dist_backend nccl TRAIN.IMAGES_PER_GPU {batch}: "
+              f"rc {proc.returncode}; {len(steps)} logged steps; "
+              + " | ".join(ln.split(" ", 2)[-1][:120] for ln in log.splitlines()
+                           if "rank 0 of 1" in ln or "Validate3D" in ln)
+              + f"; rank 0's files {files}")
+        if (proc.returncode != 0 or "rank 0 of 1" not in log or "Validate3D[0]" not in log
+                or not any(f.endswith("ckpt_0.pt") for f in files)
+                or len(steps) != 16 // batch):
+            raise AssertionError(f"{tool} under NCCL failed:\n{log[-3000:]}")
 
 
 def main() -> int:
@@ -5917,8 +6374,10 @@ def main() -> int:
     ftl_phases(smi, kernels)
     hourglass_phases(smi)
     mesh_phases(smi)
-    reader_phases(smi, kernels)
-    a8_a7_phases(smi, kernels)
+    with tempfile.TemporaryDirectory() as tmp:
+        gate = start_gate(tmp)          # beside the host-paced reader phases
+        reader_phases(smi, kernels)
+        a8_a7_phases(smi, kernels, gate)
     a11_phases(smi, kernels)
 
     print(json.dumps({"kernels": kernels}))

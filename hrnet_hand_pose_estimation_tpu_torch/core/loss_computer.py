@@ -81,11 +81,13 @@ class LossComputer2D:
 
 class LossComputer3D:
     """3D losses: pose3d + volumetric CE + KCS, with the 2D terms of
-    ``LossComputer2D`` (reference function3D.py:159-198)."""
+    ``LossComputer2D`` (reference function3D.py:159-198).  ``count_sum``
+    as ``LossComputer2D``'s: every value this rank's share."""
 
-    def __init__(self, cfg):
+    def __init__(self, cfg, count_sum: L.CountSum = None):
         lc = cfg.LOSS
-        self.loss2d = LossComputer2D(cfg)
+        self.count_sum = count_sum
+        self.loss2d = LossComputer2D(cfg, count_sum=count_sum)
         self.with_pose3d = bool(lc.WITH_POSE3D_LOSS)
         self.with_vce = bool(lc.WITH_VOLUMETRIC_CE_LOSS)
         self.with_kcs = bool(lc.WITH_KCS_LOSS)
@@ -111,12 +113,13 @@ class LossComputer3D:
             total = total + self.f_pose3d * p3
 
         if self.with_vce and volumes_pred is not None:
-            v = L.volumetric_ce_loss(coord_volumes, volumes_pred, pose3d_gt, validity)
+            v = L.volumetric_ce_loss(coord_volumes, volumes_pred, pose3d_gt, validity,
+                                     count_sum=self.count_sum)
             out["volumetric_ce_loss"] = v
             total = total + self.f_vce * v
 
         if self.with_kcs and pose3d_pred is not None:
-            k = L.kcs_loss(pose3d_pred, pose3d_gt)
+            k = L.kcs_loss(pose3d_pred, pose3d_gt, count_sum=self.count_sum)
             out["kcs_loss"] = k
             total = total + self.f_kcs * k
 

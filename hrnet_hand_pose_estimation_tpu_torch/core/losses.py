@@ -15,9 +15,12 @@ loss is this rank's share of the global loss, its own numerator over the
 global denominator ``count_sum(local count)``
 (``parallel/distributed.sum_counts``), so the ranks' shares sum to the loss
 JAX computes on the global batch, ``sum(d * vis) / max(1, sum(vis))`` over
-all of it.  The losses that sum over the batch (the joint losses without
-visibility, the bone and joint-angle losses) are shares as they are.
-Without ``count_sum`` every loss is computed as before.
+all of it.  The 3D losses that average over the batch take it too:
+``volumetric_ce_loss`` (over B*K) and ``kcs_loss`` (over the B Gram
+matrices' entries, each sample's own).  The losses that sum over the batch
+(the joint losses without visibility, ``joints_3d_mse_loss``, the bone and
+joint-angle losses) are shares as they are.  Without ``count_sum`` every
+loss is computed as before.
 """
 
 from __future__ import annotations
@@ -186,7 +189,8 @@ def scale_pose(pose: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
 
 
 def volumetric_ce_loss(coord_volumes: torch.Tensor, volumes_pred: torch.Tensor,
-                       keypoints_gt: torch.Tensor, validity: torch.Tensor) -> torch.Tensor:
+                       keypoints_gt: torch.Tensor, validity: torch.Tensor,
+                       count_sum: CountSum = None) -> torch.Tensor:
     """VolumetricCELoss (reference loss.py:225-256), loop-free: per joint,
     -log(prob + 1e-6) of the voxel whose centre is nearest the ground truth,
     weighted by validity and averaged over B*K.
@@ -208,16 +212,23 @@ def volumetric_ce_loss(coord_volumes: torch.Tensor, volumes_pred: torch.Tensor,
     vols = volumes_pred.reshape(b, -1, k).float()
     probs = torch.gather(vols, 1, nearest[:, None, :])[:, 0, :]        # (B, K)
     val = validity.reshape(b, k).float()
-    return torch.sum(val * (-torch.log(probs + 1e-6))) / (b * k)
+    nll = torch.sum(val * (-torch.log(probs + 1e-6)))
+    return nll / (b * k) if count_sum is None else nll / count_sum(_count(b * k, nll))
 
 
-def kcs_loss(pose3d_pred: torch.Tensor, pose3d_gt: torch.Tensor) -> torch.Tensor:
+def kcs_loss(pose3d_pred: torch.Tensor, pose3d_gt: torch.Tensor,
+             count_sum: CountSum = None) -> torch.Tensor:
     """Kinematic-chain-space loss (reference function3D.py:159-189): the MSE
-    between the Gram matrices of ``KC_MATRIX @ pose3d`` (the bone vectors)."""
+    between the Gram matrices of ``KC_MATRIX @ pose3d`` (the bone vectors),
+    each sample's matrix its own, so a rank's share is its squared errors'
+    sum over the global count of entries."""
     kc = torch.as_tensor(KC_MATRIX, dtype=torch.float32, device=pose3d_pred.device)
 
     def gram(p):
         bones = torch.einsum("jk,bkc->bjc", kc, p.float())
         return torch.einsum("bjc,bkc->bjk", bones, bones)
 
-    return torch.mean((gram(pose3d_pred) - gram(pose3d_gt)) ** 2)
+    err = (gram(pose3d_pred) - gram(pose3d_gt)) ** 2
+    if count_sum is None:
+        return torch.mean(err)
+    return torch.sum(err) / count_sum(_count(err.numel(), err))

@@ -12,6 +12,13 @@ The fusion step decodes the raw heatmaps from the backbone's logits with
 and, through autograd, one of its backward per step.  The fused heatmaps are
 a linear mix of probabilities, not a softmax, so they are decoded by the
 plain ``soft_argmax``, as in JAX.
+
+Both steps are data-parallel under a process group of several ranks, as
+``make_train_step`` (JAX runs them inside the 2D Trainer's mesh): the BN
+statistics of the global batch, each loss this rank's share over the
+global denominators, the gradients summed in one all-reduce, the losses
+reported global.  The fusion net folds views within a sample, so a rank's
+slice of the batch holds whole samples.
 """
 
 from __future__ import annotations
@@ -24,7 +31,8 @@ from torch import nn
 from ..ops.decode import decode_heatmaps, softmax_decode
 from ..parallel import distributed
 from ..parallel.train_step import (Optimizer, TrainState, _check_cfg, apply_guarded_update,
-                                   compute_autocast, make_train_step)
+                                   compute_autocast, count_sum, global_batch_stats,
+                                   make_train_step, reduce_step)
 from . import losses as L
 from .loss_computer import LossComputer2D
 
@@ -45,12 +53,14 @@ def make_train_step_cpm(cfg, model: nn.Module, tx: Optimizer) -> Callable:
     'nonfinite_grads' with the guard)."""
     _check_cfg(cfg)
     detect = bool(cfg.TPU.DETECT_ANOMALY)
+    ranks = distributed.world_size()
+    counts = count_sum(ranks)
 
     def step(state: TrainState, batch: Dict) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         stats_before = _begin(model, state, detect)
         images = batch["images"]
         with torch.enable_grad():
-            with compute_autocast(cfg, images.device):
+            with compute_autocast(cfg, images.device), global_batch_stats(ranks):
                 pred = model(images, batch["centermaps"])[-1]
             gt = batch["target_heatmaps"]
             if gt.shape[-1] == pred.shape[-1] - 1:
@@ -60,10 +70,11 @@ def make_train_step_cpm(cfg, model: nn.Module, tx: Optimizer) -> Callable:
                 raise ValueError(f"CPM belief maps {tuple(pred.shape[1:])} and targets "
                                  f"{tuple(gt.shape[1:])} differ: MODEL.HEATMAP_SIZE must be "
                                  "MODEL.IMAGE_SIZE / 8 for CPM")
-            total = L.heatmap_loss(pred, gt)
+            total = L.heatmap_loss(pred, gt, count_sum=counts)
             state.grads.zero_()
             total.backward()
-        return apply_guarded_update(cfg, tx, state, {"total_loss": total.detach()}, stats_before)
+        losses = reduce_step(ranks, state.grads, {"total_loss": total.detach()})
+        return apply_guarded_update(cfg, tx, state, losses, stats_before)
 
     return step
 
@@ -79,7 +90,8 @@ def make_train_step_mv(cfg, model: nn.Module, tx: Optimizer) -> Callable:
     backbone's logits and temperature (JAX: ``soft_argmax`` of their
     spatial softmax); without it both branches take the argmax."""
     _check_cfg(cfg)
-    loss_computer = LossComputer2D(cfg)
+    ranks = distributed.world_size()
+    loss_computer = LossComputer2D(cfg, count_sum=count_sum(ranks))
     use_softmax = bool(cfg.MODEL.HEATMAP_SOFTMAX)
     detect = bool(cfg.TPU.DETECT_ANOMALY)
 
@@ -89,7 +101,7 @@ def make_train_step_mv(cfg, model: nn.Module, tx: Optimizer) -> Callable:
         b, v = images.shape[:2]
         flat = lambda t: t.reshape(b * v, *t.shape[2:])
         with torch.enable_grad():
-            with compute_autocast(cfg, images.device):
+            with compute_autocast(cfg, images.device), global_batch_stats(ranks):
                 out = model(images)
             with torch.autocast(images.device.type, enabled=False):
                 raw, fused = flat(out.raw_heatmaps), flat(out.fused_heatmaps)
@@ -105,20 +117,17 @@ def make_train_step_mv(cfg, model: nn.Module, tx: Optimizer) -> Callable:
                 total = t_raw + t_fused
             state.grads.zero_()
             total.backward()
-        losses = {"total_loss": total.detach(), "raw_loss": t_raw.detach(),
-                  "fused_loss": t_fused.detach()}
+        losses = reduce_step(ranks, state.grads,
+                             {"total_loss": total.detach(), "raw_loss": t_raw.detach(),
+                              "fused_loss": t_fused.detach()})
         return apply_guarded_update(cfg, tx, state, losses, stats_before)
 
     return step
 
 
 def pick_train_step(cfg, model: nn.Module, tx: Optimizer) -> Callable:
-    """Route by MODEL.NAME like the reference's train_helper dispatch.  The
-    CPM and fusion steps run on one process (ROADMAP A11)."""
+    """Route by MODEL.NAME like the reference's train_helper dispatch."""
     name = str(cfg.MODEL.NAME)
-    if name in ("CPM", "multiview_pose_hrnet") and distributed.world_size() > 1:
-        raise NotImplementedError(f"{name}'s train step across {distributed.world_size()} "
-                                  "ranks is not ported (ROADMAP A11); the 2D step is")
     if name == "CPM":
         return make_train_step_cpm(cfg, model, tx)
     if name == "multiview_pose_hrnet":

@@ -26,8 +26,9 @@ denominators, summed gradients), the epoch and validation averages are
 the global batches' losses, equal on every rank, and rank 0 alone writes
 logs, TensorBoard scalars, checkpoints and best-model snapshots; every
 rank reads them on ``AUTO_RESUME``.  The ranks start from rank 0's
-weights.  The CPM and fusion steps and the BN statistics levers run on one
-process (ROADMAP A11).
+weights.  The CPM and fusion steps are data-parallel alike, and the BN
+statistics levers take the global batch's subsample
+(``models/layers.StatBatchNorm``).
 
 Warm starts: ``MODEL.PRETRAINED`` copies a reference ``.pth`` trunk by name
 (the port's module names are the reference's), filtered by
@@ -48,8 +49,8 @@ from ..parallel.checkpoint import (CheckpointManager, load_pretrained, load_torc
                                    merge_pretrained, split_state_dict)
 from ..models.layers import set_bn_levers
 from ..parallel import distributed
-from ..parallel.train_step import (TrainState, create_train_state, global_losses,
-                                   make_eval_step, make_train_multistep)
+from ..parallel.train_step import (TrainState, broadcast_state, count_sum, create_train_state,
+                                   global_losses, make_eval_step, make_train_multistep)
 from ..utils.logging_utils import ScalarWriter, create_logger
 from .loss_computer import LossComputer2D
 from .metrics import AverageMeter
@@ -86,9 +87,6 @@ class Trainer:
         self.val_loaders = val_loaders or {}
         self.ranks = distributed.world_size()
         self.main = distributed.rank() == 0          # the rank that writes
-        if self.ranks > 1 and (int(cfg.TPU.BN_STAT_SAMPLES) or str(cfg.TPU.BN_STAT_DTYPE)):
-            raise NotImplementedError("the BN statistics levers over several ranks are not "
-                                      "ported (ROADMAP A11)")
         self.logger, default_out, tb_dir = create_logger(cfg, "train", write=self.main)
         self.output_dir = output_dir or default_out
         self.writer = ScalarWriter(tb_dir if self.main else None)
@@ -133,10 +131,7 @@ class Trainer:
                 self.best_loss = float(meta.get("best_loss", float("inf")))
                 self.train_global_steps = int(meta.get("train_global_steps", 0))
                 self.logger.info("AUTO_RESUME from epoch %d", self.begin_epoch)
-        if self.ranks > 1:
-            # every rank from rank 0's weights and statistics
-            for buf in (self.state.params, self.state.stats, self.state.counts):
-                distributed.broadcast_(buf)
+        broadcast_state(self.state)     # every rank from rank 0's weights and statistics
 
     def _warm_start(self, path: str) -> None:
         """Partial, layer-filtered, shape-checked trunk warm start (reference
@@ -229,8 +224,7 @@ class Trainer:
         # each rank's loss shares over the global batch, summed: the global
         # batch's losses, as JAX's validate computes them
         sync = self.ranks > 1
-        loss_computer = LossComputer2D(self.cfg,
-                                       count_sum=distributed.sum_counts if sync else None)
+        loss_computer = LossComputer2D(self.cfg, count_sum=count_sum(self.ranks))
         meter = AverageMeter()
         debug_dumped = not self.main
         for name, loader in self.val_loaders.items():

@@ -1,7 +1,8 @@
 """3D multi-view training and validation engine.
 
 Port of the JAX package's ``core/trainer3d.py`` (reference
-lib/core/function3D.py:18-513 and tools/train3D.py) on one device:
+lib/core/function3D.py:18-513 and tools/train3D.py) on one device, or on
+each rank of a data-parallel process group:
 
 - the nets: 'alg' and 'ransac' triangulate at the original image scale
   (their ``pose2d`` ground truth scaled up to it, function3D.py:69-74),
@@ -22,6 +23,16 @@ cuboid turns by an angle drawn from ``generator`` (a ``torch.Generator`` on
 the device), where JAX draws it from its ``aug`` key.  The 2D keypoints of
 the softmax nets come from ``ops.decode.softmax_decode``, i.e. one launch
 of kernel B4 forward and one of its backward per step on the card.
+
+Data parallel, as the 2D step (``parallel/train_step``): under a process
+group of several ranks each rank steps on its slice of the global batch
+and the step is JAX's on the global batch, sharded over its mesh -- the BN
+statistics summed over the ranks, every loss this rank's numerator over
+the global denominator (``LossComputer3D(count_sum=...)``), one all-reduce
+of the flat gradient buffer, the losses reported global; the cuboid turns
+are the global batch's draw, sliced (``models/triangulation.cuboid_angles``).
+``Trainer3D`` starts every rank from rank 0's weights, sums the
+validation error over the ranks, and writes its files on rank 0 alone.
 """
 
 from __future__ import annotations
@@ -38,7 +49,9 @@ from ..models.triangulation import VolumetricTriangulationNet
 from ..parallel import distributed
 from ..parallel.checkpoint import CheckpointManager
 from ..parallel.train_step import (Optimizer, TrainState, _check_cfg, apply_guarded_update,
-                                   compute_autocast, init_train_weights, make_lr_schedule)
+                                   broadcast_state, compute_autocast, count_sum,
+                                   global_batch_stats, init_train_weights, make_lr_schedule,
+                                   reduce_step)
 from ..utils.logging_utils import ScalarWriter, create_logger
 from .evaluator3d import build_projections
 from .loss_computer import LossComputer3D
@@ -135,10 +148,13 @@ def make_train_step_3d(cfg, model: nn.Module, tx: Optimizer, orig_size) -> Calla
     batch: {'images': (B, V, H, W, 3), 'pose2d': (B, V, K, 2) heatmap px,
     'pose3d': (B, K, 3) mm, 'visibility', 'extrinsic_matrices' (B, V, 3, 4),
     'intrinsic_matrix' (B, 3, 3), optionally 'heatmaps'}, on the model's
-    device.  The update goes through ``apply_guarded_update``.
+    device.  The update goes through ``apply_guarded_update``.  Under a
+    process group of several ranks the step is data-parallel (see the
+    module docstring).
     """
     _check_cfg(cfg)
-    loss_computer = LossComputer3D(cfg)
+    ranks = distributed.world_size()
+    loss_computer = LossComputer3D(cfg, count_sum=count_sum(ranks))
     detect = bool(cfg.TPU.DETECT_ANOMALY)
 
     def step(state: TrainState, batch: Dict, generator: Optional[torch.Generator]
@@ -149,7 +165,8 @@ def make_train_step_3d(cfg, model: nn.Module, tx: Optimizer, orig_size) -> Calla
         proj, pose2d_gt, vis2d = _step_inputs(cfg, batch, orig_size)
         stats_before = (state.stats.clone(), state.counts.clone()) if detect else None
         with torch.enable_grad():
-            out = forward_3d(cfg, model, batch["images"], proj, generator)
+            with global_batch_stats(ranks):
+                out = forward_3d(cfg, model, batch["images"], proj, generator)
             pose3d_gt = batch["pose3d"].float()
             kwargs = dict(pose3d_pred=out.keypoints_3d, pose3d_gt=pose3d_gt,
                           validity=torch.ones_like(pose3d_gt[..., :1]))
@@ -167,7 +184,8 @@ def make_train_step_3d(cfg, model: nn.Module, tx: Optimizer, orig_size) -> Calla
             total, loss_dict = loss_computer(**kwargs)
             state.grads.zero_()
             total.backward()
-        loss_dict = {key: val.detach() for key, val in loss_dict.items()}
+        loss_dict = reduce_step(ranks, state.grads,
+                                {key: val.detach() for key, val in loss_dict.items()})
         return apply_guarded_update(cfg, tx, state, loss_dict, stats_before)
 
     return step
@@ -204,27 +222,29 @@ def batch_for_step(batch: Dict) -> Dict:
 
 
 class Trainer3D:
-    """Epoch orchestration for the 3D nets on one device (tools/train3D.py:342-429):
-    train epochs, EPE3D validation, a checkpoint each epoch and a best-model
-    snapshot, AUTO_RESUME."""
+    """Epoch orchestration for the 3D nets on one device or one rank
+    (tools/train3D.py:342-429): train epochs, EPE3D validation, a
+    checkpoint each epoch and a best-model snapshot, AUTO_RESUME.  Across
+    ranks the loaders give each its slice, every rank starts from rank 0's
+    weights and reads the checkpoints on AUTO_RESUME, EPE3D is the global
+    batches' (equal on every rank, and so is the best-model choice), and
+    rank 0 alone writes logs, scalars and checkpoints."""
 
     def __init__(self, cfg, model: nn.Module, train_loaders, val_loaders=None,
                  output_dir: Optional[str] = None, device="cuda"):
         _check_cfg(cfg)
-        if distributed.world_size() > 1:
-            raise NotImplementedError(
-                f"Trainer3D across {distributed.world_size()} ranks is not ported (ROADMAP "
-                "A11: the JAX package's core/trainer3d.py:180, :235 and trainer3d_gan.py:121 "
-                "train on a mesh); the 2D Trainer is")
         self.cfg = cfg
         self.model = model
         self.device = torch.device(device)
         self.train_loaders = train_loaders
         self.val_loaders = val_loaders or {}
-        self.logger, default_out, tb_dir = create_logger(cfg, "train3d")
+        self.ranks = distributed.world_size()
+        self.main = distributed.rank() == 0          # the rank that writes
+        self.logger, default_out, tb_dir = create_logger(cfg, "train3d", write=self.main)
         self.output_dir = output_dir or default_out
-        self.writer = ScalarWriter(tb_dir)
-        self.ckpt = CheckpointManager(os.path.join(self.output_dir, "checkpoints"))
+        self.writer = ScalarWriter(tb_dir if self.main else None)
+        self.ckpt = CheckpointManager(os.path.join(self.output_dir, "checkpoints"),
+                                      create=self.main)
         self.generator = torch.Generator(device=self.device).manual_seed(int(cfg.TPU.SEED))
 
         loader = next(iter(train_loaders.values()))
@@ -245,6 +265,7 @@ class Trainer3D:
                 self.begin_epoch = int(restored["meta"]["epoch"]) + 1
                 self.best_loss = float(restored["meta"].get("best_loss", float("inf")))
                 self.logger.info("AUTO_RESUME from epoch %d", self.begin_epoch)
+        broadcast_state(self.state)
 
     def _batches(self, loader):
         return device_prefetch(iter(loader), self.device, depth=int(self.cfg.TPU.PREFETCH))
@@ -259,7 +280,7 @@ class Trainer3D:
             for i, batch in enumerate(self._batches(loader)):
                 self.state, losses = self.train_step(self.state, batch_for_step(batch),
                                                      self.generator)
-                bs = batch["imgs"].shape[0]
+                bs = batch["imgs"].shape[0] * self.ranks      # the global batch
                 n += bs
                 if i % print_freq == 0:
                     host = {k: float(v) for k, v in losses.items()}
@@ -278,6 +299,10 @@ class Trainer3D:
                                                - batch["pose3d"].float(), dim=2)
                 err_sum += float(err.sum())
                 count += err.numel()
+        if self.ranks > 1:
+            # the global batches' error, equal on every rank
+            err_sum, count = distributed.sum_(torch.tensor(
+                [err_sum, count], dtype=torch.float64, device=self.device)).tolist()
         epe3d = err_sum / max(count, 1)
         self.logger.info("Validate3D[%d] EPE3D=%.3f mm", epoch, epe3d)
         self.writer.add_scalar("val/epe3d_mm", epe3d, epoch)
@@ -290,7 +315,9 @@ class Trainer3D:
             total = val.get("total_loss", float("inf"))
             if total < self.best_loss:
                 self.best_loss = total
-                self.ckpt.save_best(self.state)
-            self.ckpt.save(epoch, self.state, extra={"best_loss": self.best_loss})
+                if self.main:
+                    self.ckpt.save_best(self.state)
+            if self.main:
+                self.ckpt.save(epoch, self.state, extra={"best_loss": self.best_loss})
         self.writer.close()
         return self.state

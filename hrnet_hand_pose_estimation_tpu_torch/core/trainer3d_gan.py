@@ -15,6 +15,13 @@ statistics as they were (JAX throws the forward's ``batch_stats`` away;
 the port's BN writes them during the forward, so they are restored), and
 the N_CRITIC critic steps of a batch turn the cuboid by one angle (JAX
 reuses one key; here the generator's state is reset before each).
+
+Data parallel (a process group of several ranks, as ``Trainer3D``): every
+generator forward takes the global batch's BN statistics, the critic and
+adversarial losses are global means (each rank's sum over the global
+count), their gradients are summed over the ranks before rmsprop, the clip
+and adam, which then give every rank the same weights; the critic starts
+from rank 0's.
 """
 
 from __future__ import annotations
@@ -25,7 +32,10 @@ import torch
 
 from ..data.legends import KC_MATRIX
 from ..models.triangulation import Discriminator
-from ..parallel.train_step import Optimizer, TrainState
+from ..parallel import distributed
+from ..parallel.train_step import (Optimizer, TrainState, broadcast_state, count_sum,
+                                   global_batch_stats, reduce_step)
+from . import losses as L
 from .metrics import AverageMeter
 from .trainer3d import Trainer3D, _step_inputs, batch_for_step, forward_3d, make_train_step_3d
 
@@ -77,30 +87,42 @@ class _KeepStats:
         return False
 
 
+def batch_mean(scores: torch.Tensor, counts: L.CountSum) -> torch.Tensor:
+    """The mean of the critic's scores over the batch; with ``counts`` (a
+    data-parallel step's) this rank's share of the global batch's mean."""
+    if counts is None:
+        return scores.mean()
+    return scores.sum() / counts(L._count(scores.numel(), scores))
+
+
 def make_critic_step(cfg, model, critic: Discriminator, critic_tx: Optimizer, orig_size,
                      clip: float):
     """``step(critic_state, gen_state, batch, generator) -> (critic_state, loss)``
     (JAX core/trainer3d_gan.py:64-88): the WGAN critic loss
     mean(critic(fake)) - mean(critic(real)), an rmsprop update, every critic
-    weight clipped to [-clip, clip]."""
+    weight clipped to [-clip, clip]; data-parallel across ranks (see the
+    module docstring)."""
+    ranks = distributed.world_size()
+    counts = count_sum(ranks)
 
     def step(critic_state: TrainState, gen_state: TrainState, batch: Dict,
              generator: Optional[torch.Generator]) -> Tuple[TrainState, torch.Tensor]:
         model.train()
         proj, _, _ = _step_inputs(cfg, batch, orig_size)
-        with torch.no_grad(), _KeepStats(gen_state):
+        with torch.no_grad(), _KeepStats(gen_state), global_batch_stats(ranks):
             fake = forward_3d(cfg, model, batch["images"], proj, generator).keypoints_3d
         with torch.enable_grad():
-            loss = (critic(critic_features(fake)).mean()
-                    - critic(critic_features(batch["pose3d"])).mean())
+            loss = (batch_mean(critic(critic_features(fake)), counts)
+                    - batch_mean(critic(critic_features(batch["pose3d"])), counts))
             critic_state.grads.zero_()
             loss.backward()
+        loss = reduce_step(ranks, critic_state.grads, {"loss": loss.detach()})["loss"]
         with torch.no_grad():
             updates, critic_state.opt_state = critic_tx.update(
                 critic_state.grads, critic_state.opt_state, critic_state.params)
             critic_state.params.add_(updates).clamp_(-clip, clip)
         critic_state.step = critic_state.step + 1
-        return critic_state, loss.detach()
+        return critic_state, loss
 
     return step
 
@@ -110,7 +132,10 @@ def make_gen_adv_step(cfg, model, critic: Discriminator, tx: Optimizer, orig_siz
     """``step(gen_state, batch, generator) -> (gen_state, {'adv_loss'})``
     (JAX core/trainer3d_gan.py:92-111): the generator's adam update on
     ``-gan_factor * mean(critic(pose3d))``, the critic fixed, no guard, the
-    running statistics kept."""
+    running statistics kept; data-parallel across ranks (see the module
+    docstring)."""
+    ranks = distributed.world_size()
+    counts = count_sum(ranks)
 
     def step(gen_state: TrainState, batch: Dict, generator: Optional[torch.Generator]
              ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
@@ -118,16 +143,18 @@ def make_gen_adv_step(cfg, model, critic: Discriminator, tx: Optimizer, orig_siz
         proj, _, _ = _step_inputs(cfg, batch, orig_size)
         params = list(model.parameters())
         with torch.enable_grad(), _KeepStats(gen_state):
-            pose3d = forward_3d(cfg, model, batch["images"], proj, generator).keypoints_3d
-            adv = -gan_factor * critic(critic_features(pose3d)).mean()
+            with global_batch_stats(ranks):
+                pose3d = forward_3d(cfg, model, batch["images"], proj, generator).keypoints_3d
+            adv = -gan_factor * batch_mean(critic(critic_features(pose3d)), counts)
             gen_state.grads.zero_()
             adv.backward(inputs=params)
+        adv = reduce_step(ranks, gen_state.grads, {"adv_loss": adv.detach()})["adv_loss"]
         with torch.no_grad():
             updates, gen_state.opt_state = tx.update(gen_state.grads, gen_state.opt_state,
                                                      gen_state.params)
             gen_state.params.add_(updates)
         gen_state.step = gen_state.step + 1
-        return gen_state, {"adv_loss": adv.detach()}
+        return gen_state, {"adv_loss": adv}
 
     return step
 
@@ -145,6 +172,7 @@ class TrainerGAN3D(Trainer3D):
         self.critic.to(self.device).train()
         self.critic_tx = make_critic_optimizer()
         self.critic_state = TrainState(self.critic, self.critic_tx)
+        broadcast_state(self.critic_state)
         self._critic_step = make_critic_step(cfg, model, self.critic, self.critic_tx,
                                              self.orig_size, self.clip_value)
         self._gen_adv_step = make_gen_adv_step(cfg, model, self.critic, self.tx,

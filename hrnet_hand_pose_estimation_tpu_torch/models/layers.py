@@ -86,23 +86,30 @@ class BatchNorm(nn.BatchNorm2d):
         return y.to(x.dtype)
 
 
-# The data-parallel train step's cross-rank sum for the BN statistics
-# (``synced_batch_stats``); None outside such a step.
-_BN_SYNC: Dict[str, Optional[Callable]] = {"sum": None}
+# The data-parallel train step's cross-rank sum for the BN statistics and
+# this rank's place in the global batch (``synced_batch_stats``); the sum is
+# None outside such a step.
+_BN_SYNC: Dict[str, object] = {"sum": None, "rank": 0}
 
 
 @contextmanager
-def synced_batch_stats(total: Callable[[torch.Tensor], torch.Tensor]) -> Iterator[None]:
+def synced_batch_stats(total: Callable[[torch.Tensor], torch.Tensor],
+                       rank: int = 0) -> Iterator[None]:
     """Within the block, every ``BatchNorm`` in training takes its
     statistics over the global batch, summing its per-rank sums with
     ``total`` (``parallel/distributed.all_reduce_sum``).  The backward of
-    that sum runs later, outside the block, as autograd records it."""
-    prev = _BN_SYNC["sum"]
-    _BN_SYNC["sum"] = total
+    that sum runs later, outside the block, as autograd records it.
+    ``rank``: this rank's slice is the ``rank``-th of equal contiguous
+    slices of the global batch (``data/pipeline.host_local_slice``), so a
+    BN input of n rows holds the global rows [rank * n, (rank + 1) * n)
+    (views and frames fold into the batch sample-major); the statistics
+    levers' subsample reads it."""
+    prev = dict(_BN_SYNC)
+    _BN_SYNC.update(sum=total, rank=int(rank))
     try:
         yield
     finally:
-        _BN_SYNC["sum"] = prev
+        _BN_SYNC.update(prev)
 
 
 # Train-mode BN statistics levers (the JAX package's ``models/layers.py``
@@ -142,22 +149,26 @@ class StatBatchNorm(BatchNorm):
     the statistics dtype, ``var = max(E[x^2] - mean^2, 0)``, both rounded
     to float32; ``y = (x - mean) * (rsqrt(var + eps) * weight) + bias`` in
     float32, returned in x's dtype; the running averages move by flax's
-    decay toward the (biased) subsample statistics."""
+    decay toward the (biased) subsample statistics.
+
+    Inside ``synced_batch_stats`` the subsample is the global batch's first
+    ``stat_samples`` rows, as JAX's on a sharded batch: this rank adds the
+    float32 sums and count of its rows below that index (none on a later
+    rank, which still joins the sum), and the summed moments are rounded
+    to the statistics dtype once (``_synced_moments``)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or not bn_levers_active():
             return super().forward(x)
-        if _BN_SYNC["sum"] is not None:
-            raise NotImplementedError(
-                "the BN statistics levers in a data-parallel step: the JAX package's "
-                "StatBatchNorm takes x[:stat_samples] of the global batch, which lies on the "
-                "first ranks only; not ported (ROADMAP A11)")
         n = int(_BN_LEVERS["stat_samples"])
         dtype = _STAT_DTYPES[_BN_LEVERS["stat_dtype"] or "float32"]
-        xs = (x[:n] if n else x).to(dtype)
         dims = [0] + list(range(2, x.dim()))
-        mean = _mean(xs, dims, dtype)
-        var = torch.clamp(_mean(xs * xs, dims, dtype) - mean * mean, min=0.0)
+        if _BN_SYNC["sum"] is not None:
+            mean, var = self._synced_moments(x, n, dtype, dims)
+        else:
+            xs = (x[:n] if n else x).to(dtype)
+            mean = _mean(xs, dims, dtype)
+            var = torch.clamp(_mean(xs * xs, dims, dtype) - mean * mean, min=0.0)
         mean, var = mean.float(), var.float()
         shape = (1, -1) + (1,) * (x.dim() - 2)
         inv = torch.rsqrt(var + self.eps) * self.weight
@@ -168,6 +179,26 @@ class StatBatchNorm(BatchNorm):
             self.running_var.copy_(decay * self.running_var + (1.0 - decay) * var)
             self.num_batches_tracked.add_(1)
         return y.to(x.dtype)
+
+    @staticmethod
+    def _synced_moments(x: torch.Tensor, n: int, dtype: torch.dtype, dims):
+        """(mean, var) in ``dtype`` of the global batch's rows below ``n``
+        (all rows for 0): this rank's rows [rank * m, (rank + 1) * m) of
+        them, their float32 sum, sum of squares (each square in ``dtype``,
+        as ``_mean(xs * xs)``) and count summed over the ranks
+        (differentiable), then each moment S / N rounded to ``dtype``."""
+        rows = x.shape[0]
+        take = rows if not n else min(max(n - int(_BN_SYNC["rank"]) * rows, 0), rows)
+        xs = x[:take].to(dtype)
+        c = x.shape[1]
+        count = torch.full((1,), float(take * (x.numel() // (rows * c))), dtype=torch.float32,
+                           device=x.device)
+        sums = _BN_SYNC["sum"](torch.cat([xs.float().sum(dims), (xs * xs).float().sum(dims),
+                                          count]))
+        total = sums[2 * c]
+        mean = (sums[:c] / total).to(dtype)
+        var = torch.clamp((sums[c:2 * c] / total).to(dtype) - mean * mean, min=0.0)
+        return mean, var
 
 
 class BatchNorm3d(BatchNorm):

@@ -40,6 +40,7 @@ from ..ops.decode import hard_argmax, softmax_decode, spatial_softmax
 from ..ops.geometry import triangulate_batch, triangulate_eigh, triangulate_ransac
 from ..ops.volumetric import (build_coord_volume, integrate_volumes_with_coordinates,
                               rotate_coord_volume, unproject_heatmaps)
+from ..parallel import distributed
 from .hrnet import HRNetOutput, PoseHRNet, hrnet_from_cfg
 from .v2v import V2VModel
 
@@ -191,9 +192,7 @@ class VolumetricTriangulationNet(nn.Module):
             # the cuboid around it, turned about y in training (:407-456)
             coord_volumes = build_coord_volume(base, self.cuboid_size, self.volume_size)
             if self.training:
-                if generator is None:
-                    raise ValueError("training needs a torch.Generator for the cuboid's turn")
-                theta = torch.rand(b, generator=generator, device=dev) * (2.0 * math.pi)
+                theta = cuboid_angles(b, generator, dev)
             else:
                 theta = torch.zeros(b, device=dev)
             coord_volumes = rotate_coord_volume(coord_volumes, theta, (0, 1, 0), center=base)
@@ -212,6 +211,20 @@ class VolumetricTriangulationNet(nn.Module):
         return Triangulation3DOutput(
             keypoints_3d=kp3d, keypoints_2d=kp2d, heatmaps=hm, confidences=vol_conf,
             volumes=volumes, coord_volumes=coord_volumes, base_points=base)
+
+
+def cuboid_angles(b: int, generator: Optional[torch.Generator], device) -> torch.Tensor:
+    """The training-time cuboid turns of this rank's ``b`` samples: the
+    global batch's angles, uniform in [0, 2 pi), drawn at once from
+    ``generator`` (seeded alike on every rank), and this rank's slice of
+    them (``parallel/distributed.py``; all of them for one process), so
+    N ranks turn their cuboids as one process does the global batch, as
+    JAX's one ``jax.random.uniform`` over the sharded batch does."""
+    if generator is None:
+        raise ValueError("training needs a torch.Generator for the cuboid's turn")
+    rank = distributed.rank()
+    u = torch.rand(distributed.world_size() * b, generator=generator, device=device)
+    return u[rank * b:(rank + 1) * b] * (2.0 * math.pi)
 
 
 class Discriminator(nn.Module):

@@ -555,9 +555,7 @@ def make_train_step(cfg, model: nn.Module, tx: Optimizer) -> Callable:
     _check_cfg(cfg)
     refuse_unsupported(cfg, "train step")
     ranks = distributed.world_size()
-    loss_computer = LossComputer2D(cfg, count_sum=distributed.sum_counts if ranks > 1 else None)
-    global_stats = ((lambda: synced_batch_stats(distributed.all_reduce_sum)) if ranks > 1
-                    else nullcontext)
+    loss_computer = LossComputer2D(cfg, count_sum=count_sum(ranks))
     use_softmax = bool(cfg.MODEL.HEATMAP_SOFTMAX)
     detect = bool(cfg.TPU.DETECT_ANOMALY)
 
@@ -573,7 +571,7 @@ def make_train_step(cfg, model: nn.Module, tx: Optimizer) -> Callable:
         stats_before = ((state.stats.clone(), state.counts.clone()) if detect or frames
                         else None)
         with torch.enable_grad():
-            with compute_autocast(cfg, images.device), global_stats():
+            with compute_autocast(cfg, images.device), global_batch_stats(ranks):
                 out = model(images)
             try:
                 check_map_batch(out.heatmaps, batch)
@@ -589,10 +587,7 @@ def make_train_step(cfg, model: nn.Module, tx: Optimizer) -> Callable:
                 visibility=batch.get("visibility"))
             state.grads.zero_()
             total.backward()
-        loss_dict = {k: v.detach() for k, v in loss_dict.items()}
-        if ranks > 1:
-            distributed.sum_(state.grads)
-            loss_dict = global_losses(loss_dict)
+        loss_dict = reduce_step(ranks, state.grads, {k: v.detach() for k, v in loss_dict.items()})
         if out.temperature is not None:
             # a copy: the parameter itself changes in the update below
             loss_dict["temperature"] = out.temperature.detach().clone()
@@ -605,6 +600,42 @@ def global_losses(shares: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     """The ranks' loss shares summed in one collective: the global losses."""
     total = distributed.sum_(torch.stack([v.float() for v in shares.values()]))
     return dict(zip(shares, total.unbind()))
+
+
+def broadcast_state(state: TrainState) -> None:
+    """Rank 0's parameters and BN statistics on every rank of a process
+    group of several ranks; nothing for one process."""
+    if distributed.world_size() > 1:
+        for buf in (state.params, state.stats, state.counts):
+            if buf.numel():
+                distributed.broadcast_(buf)
+
+
+def count_sum(ranks: int):
+    """The loss denominators' sum over ``ranks`` ranks
+    (``distributed.sum_counts``); None for one process."""
+    return distributed.sum_counts if ranks > 1 else None
+
+
+def global_batch_stats(ranks: int):
+    """A data-parallel forward's context over ``ranks`` ranks: the BN
+    statistics of the global batch (``synced_batch_stats`` with this
+    rank's place in it); nothing for one process."""
+    if ranks > 1:
+        return synced_batch_stats(distributed.all_reduce_sum, rank=distributed.rank())
+    return nullcontext()
+
+
+def reduce_step(ranks: int, grads: torch.Tensor, shares: Dict[str, torch.Tensor]
+                ) -> Dict[str, torch.Tensor]:
+    """After a data-parallel backward over ``ranks`` ranks: ``grads`` summed
+    over the ranks in place (XLA's psum of the gradient) and the global
+    losses of the ranks' ``shares``; the shares as they are for one
+    process."""
+    if ranks == 1:
+        return shares
+    distributed.sum_(grads)
+    return global_losses(shares)
 
 
 def make_train_multistep(cfg, model: nn.Module, tx: Optimizer) -> Callable:

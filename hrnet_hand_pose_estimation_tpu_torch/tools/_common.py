@@ -1,9 +1,11 @@
 """Shared CLI plumbing for the port's tools (port of the JAX package's
-``tools/_common.py``): the common flags, the config, and the weights."""
+``tools/_common.py``): the common flags, the config, the weights, and the
+process group of a data-parallel training tool."""
 
 from __future__ import annotations
 
 import argparse
+import os
 from typing import Dict
 
 import torch
@@ -58,3 +60,31 @@ def tool_mesh(cfg, device="cuda"):
     devices = None if device.type == "cuda" and device.index is None else [device]
     mesh = make_mesh(tuple(cfg.TPU.MESH_AXES), tuple(cfg.TPU.MESH_SHAPE), devices)
     return None if mesh.size == 1 else mesh
+
+
+def add_dist_flags(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
+    """``--dist_backend`` of the training tools."""
+    p.add_argument("--dist_backend", default="nccl", choices=["nccl", "gloo"],
+                   help="process-group backend when launched by torchrun")
+    return p
+
+
+def start_ranks(args) -> torch.device:
+    """The device of this process.  Launched by torchrun (``WORLD_SIZE`` in
+    the environment, 1 included): this rank's card (``LOCAL_RANK``, made
+    current) or the CPU, and the default process group joined with
+    ``args.dist_backend`` (nccl for ranks on cards; gloo for ranks on the
+    CPU, or asked for); the caller ends it with
+    ``parallel.distributed.destroy_process_group``."""
+    from ..parallel import distributed
+
+    device = torch.device(args.device)
+    if "WORLD_SIZE" in os.environ:
+        if args.dist_backend == "nccl" and device.type != "cuda":
+            raise ValueError("--dist_backend nccl runs ranks on cards; with --device cpu pass "
+                             "--dist_backend gloo")
+        device = distributed.local_device(device)
+        if device.type == "cuda":
+            torch.cuda.set_device(device)
+        distributed.init_process_group(args.dist_backend)
+    return device

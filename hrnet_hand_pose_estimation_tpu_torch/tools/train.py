@@ -15,23 +15,18 @@ N x TRAIN.IMAGES_PER_GPU, rank 0 writes the run's files):
     torchrun --nproc_per_node=N -m hrnet_hand_pose_estimation_tpu_torch.tools.train \\
         --cfg <exp.yaml>
 
-torchrun's ``WORLD_SIZE`` > 1 starts the process group with
-``--dist_backend`` (nccl, the default, for ranks on cards; gloo for ranks
-on the CPU, ``--device cpu --dist_backend gloo``).
+Under torchrun (its ``WORLD_SIZE`` in the environment) the tool starts the
+process group with ``--dist_backend`` (nccl, the default, for ranks on
+cards; gloo for ranks on the CPU, ``--device cpu --dist_backend gloo``).
 """
 
 from __future__ import annotations
 
-import os
-
-from ._common import base_parser, load_cfg
+from ._common import add_dist_flags, base_parser, load_cfg, start_ranks
 
 
 def main() -> None:
-    p = base_parser(__doc__)
-    p.add_argument("--dist_backend", default="nccl", choices=["nccl", "gloo"],
-                   help="process-group backend when launched with WORLD_SIZE > 1")
-    args = p.parse_args()
+    args = add_dist_flags(base_parser(__doc__)).parse_args()
 
     import torch
 
@@ -42,31 +37,22 @@ def main() -> None:
     from ..parallel.train_step import refuse_unsupported
     from ..utils.summary import model_summary
 
-    device = torch.device(args.device)
-    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        if args.dist_backend == "nccl" and device.type != "cuda":
-            raise ValueError("--dist_backend nccl runs ranks on cards; with --device cpu pass "
-                             "--dist_backend gloo")
-        device = distributed.local_device(device)
-        if device.type == "cuda":
-            torch.cuda.set_device(device)
-        distributed.init_process_group(args.dist_backend)
-
-    cfg = load_cfg(args)
-    # a model the JAX package's tools cannot train raises before its data is read
-    refuse_unsupported(cfg, "train state")
-    refuse_unsupported(cfg, "train step")
-    model = build_model(cfg)
-
-    train_loaders = make_dataloader(cfg, is_train=True)
-    val_loaders = {} if cfg.WITHOUT_EVAL else make_dataloader(cfg, is_train=False)
-
-    trainer = Trainer(cfg, model, train_loaders, val_loaders, device=device)
-    trainer.logger.info("device: %s; rank %d of %d", torch.cuda.get_device_name(device)
-                        if device.type == "cuda" else "cpu", distributed.rank(),
-                        distributed.world_size())
-    trainer.logger.info("%s", model_summary(model, cfg))
+    device = start_ranks(args)
     try:
+        cfg = load_cfg(args)
+        # a model the JAX package's tools cannot train raises before its data is read
+        refuse_unsupported(cfg, "train state")
+        refuse_unsupported(cfg, "train step")
+        model = build_model(cfg)
+
+        train_loaders = make_dataloader(cfg, is_train=True)
+        val_loaders = {} if cfg.WITHOUT_EVAL else make_dataloader(cfg, is_train=False)
+
+        trainer = Trainer(cfg, model, train_loaders, val_loaders, device=device)
+        trainer.logger.info("device: %s; rank %d of %d", torch.cuda.get_device_name(device)
+                            if device.type == "cuda" else "cpu", distributed.rank(),
+                            distributed.world_size())
+        trainer.logger.info("%s", model_summary(model, cfg))
         trainer.fit()
     finally:
         distributed.destroy_process_group()

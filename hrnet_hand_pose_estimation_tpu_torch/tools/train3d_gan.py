@@ -6,18 +6,19 @@ tools/train3D_GAN.py:96-440): ``tools/train3d`` with the critic loop of
 
     python -m hrnet_hand_pose_estimation_tpu_torch.tools.train3d_gan \\
         --cfg experiments/LearnableTriangulation/VolTriangulation_MHP_GAN_v1.yaml
+
+Across N GPUs as ``tools/train3d`` (``torchrun --nproc_per_node=N -m
+hrnet_hand_pose_estimation_tpu_torch.tools.train3d_gan --cfg <exp.yaml>``;
+``--device cpu --dist_backend gloo`` for ranks on the CPU).
 """
 
 from __future__ import annotations
 
-from ._common import base_parser, load_cfg
-
 
 def main() -> None:
-    from .train3d import train
+    from .train3d import cli
 
-    args = base_parser(__doc__).parse_args()
-    train(load_cfg(args), args.device, gan=True)
+    cli(__doc__, gan=True)
 
 
 if __name__ == "__main__":

@@ -1274,6 +1274,50 @@ def test_train_step_3d_on_card_matches_cpu(cuda, kind):
     assert out[1][1].abs().max() > 0 and np.isfinite(out[1][0])
 
 
+def test_vol_step_draws_the_sliced_global_angles_on_card(cuda):
+    """One process's vol train step on the card (world size 1): the cuboid
+    turns are ``cuboid_angles``' global draw from the step's generator,
+    sliced to this rank, which for one rank is the whole draw: the angles
+    ``torch.rand(b)`` gives a generator seeded alike, times 2 pi."""
+    import math
+
+    from hrnet_hand_pose_estimation_tpu_torch.core import trainer3d as T3
+    from hrnet_hand_pose_estimation_tpu_torch.models import triangulation as TRI
+
+    cfg = small_3d_cfg(**{"MODEL.TRIANGULATION_MODEL_NAME": "vol",
+                          "LOSS.WITH_HEATMAP_LOSS": False, "LOSS.WITH_POSE2D_LOSS": True,
+                          "LOSS.WITH_POSE3D_LOSS": True, "LOSS.WITH_VOLUMETRIC_CE_LOSS": True,
+                          "TRAIN.OPTIMIZER": "adam"})
+    rng = np.random.default_rng(19)
+    K = torch.tensor([[60.0, 0, 30.0], [0, 60.0, 30.0], [0, 0, 1]])
+    batch = {"images": torch.from_numpy(rng.normal(size=(2, 2, 64, 64, 3)).astype(np.float32)),
+             "pose2d": torch.from_numpy(rng.uniform(2, 14, size=(2, 2, 21, 2)).astype(np.float32)),
+             "pose3d": torch.from_numpy(rng.uniform(-100, 100, size=(2, 21, 3)).astype(np.float32)),
+             "visibility": torch.ones(2, 2, 21), "intrinsic_matrix": K.expand(2, 3, 3).clone(),
+             "extrinsic_matrices": mv_cameras(2, 2, 1.0, (0.0, 0.0))}
+    net = TRI.build_triangulation_net(cfg, "vol", dtype=torch.float32)
+    net.load_state_dict(init_variables(cfg, 0, net="vol"))
+    net.to(cuda).train()
+    tx = T3.make_optimizer_3d(cfg, net, 1000)
+    step = T3.make_train_step_3d(cfg, net, tx, (64, 64))
+    drawn, real = [], TRI.cuboid_angles
+
+    def record(*args):
+        drawn.append(real(*args))
+        return drawn[-1]
+
+    TRI.cuboid_angles = record
+    try:
+        _, losses = step(TS.TrainState(net, tx), {k: v.to(cuda) for k, v in batch.items()},
+                         torch.Generator(device=cuda).manual_seed(5))
+    finally:
+        TRI.cuboid_angles = real
+    want = torch.rand(2, generator=torch.Generator(device=cuda).manual_seed(5),
+                      device=cuda) * (2.0 * math.pi)
+    assert len(drawn) == 1 and drawn[0].device.type == "cuda"
+    assert torch.equal(drawn[0], want) and np.isfinite(float(losses["total_loss"]))
+
+
 # -- CPM, the fusion net and vol_CPM ------------------------------------------
 
 def test_cpm_forward_on_card_matches_cpu(cuda):
