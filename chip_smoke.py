@@ -6171,6 +6171,273 @@ def nccl_tools_check(procs: dict) -> None:
             raise AssertionError(f"{tool} under NCCL failed:\n{log[-3000:]}")
 
 
+# -- A11.2: the 'model' mesh axis -------------------------------------------
+
+# A (2, 2) grid on one card: two data rows of two model positions, each a
+# share of cuda:0 (the gloo ranks share it too; NCCL takes one card a rank).
+TP_GRID = (2, 2)
+TP_BATCH = 4                # a data rank's batch in training; the global batch is 8
+TP_STEPS = 2                # every split module all-gathers through the host
+TP_EVAL_FLOOR = 1e-3        # px: the grid against the data-only mesh in float32
+
+
+def tp_meshes(dev):
+    from hrnet_hand_pose_estimation_tpu_torch.parallel.mesh import make_mesh
+
+    return (make_mesh(("data", "model"), TP_GRID, [dev] * 4),
+            make_mesh(("data",), (TP_GRID[0],), [dev] * TP_GRID[0]))
+
+
+def tp_steps(cfg, dev, batches, global_formula: bool = False):
+    """TP_STEPS train steps on this data rank's slice of each global batch
+    (the whole batch without a process group): the losses, ms a step
+    (host clock around a synced step), this rank's own flat parameters (its
+    shards) and the gathered whole parameters and BN statistics, flat in
+    name order.  ``global_formula`` as ``ddp_steps``'s."""
+    from contextlib import nullcontext
+
+    from hrnet_hand_pose_estimation_tpu_torch.models.layers import synced_batch_stats
+    from hrnet_hand_pose_estimation_tpu_torch.parallel import distributed
+
+    model = build_model(cfg)
+    state, tx = TS.create_train_state(cfg, model, device=dev)
+    step = TS.make_train_step(cfg, model, tx)
+    rank, world = distributed.data_rank(), distributed.data_size()
+    losses, ms = [], []
+    for batch in batches:
+        per = batch["images"].shape[0] // world
+        mine = {k: v[rank * per:(rank + 1) * per] for k, v in batch.items()}
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with synced_batch_stats(lambda x: x) if global_formula else nullcontext():
+            state, out = step(state, mine)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+        losses.append({k: float(v) for k, v in out.items()})
+    whole = state.state_dict()          # gathers the shards (every rank of a model group)
+    flat = lambda d: torch.cat([v.flatten().float() for v in d.values()])
+    stats = {k: v for k, v in whole["batch_stats"].items()
+             if not k.endswith("num_batches_tracked")}
+    return {"losses": losses, "ms": ms, "local": state.params.cpu(),
+            "params": flat(whole["params"]), "stats": flat(stats), "whole": whole,
+            "split": TS.state_shardings(distributed.model_size(), state)["params"]}
+
+
+def tp_batches(cfg, dev):
+    from hrnet_hand_pose_estimation_tpu_torch.tools.perf_bn_levers import train_batch
+
+    return [train_batch(cfg, TP_GRID[0] * TP_BATCH, dev, seed=80 + i) for i in range(TP_STEPS)]
+
+
+def tp_rank(rank: int, world: int, port: int, backend: str, mode: str, out_path: str):
+    """One gloo rank of the (2, 2) grid, in a process of its own on cuda:0:
+    the flagship at full width in float32 (``ddp_cfg``), TP_STEPS steps at
+    TP_BATCH a data rank, with cuDNN deterministic; then rank 0 writes the
+    gathered state as the Trainer's checkpoint and reads it back."""
+    from hrnet_hand_pose_estimation_tpu_torch.parallel import distributed
+    from hrnet_hand_pose_estimation_tpu_torch.parallel.checkpoint import CheckpointManager
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    dev = torch.device("cuda", 0)
+    distributed.init_process_group(backend, rank=rank, world_size=world,
+                                   init_method=f"tcp://localhost:{port}")
+    try:
+        distributed.init_grid(("data", "model"), TP_GRID)
+        zero_counters()
+        fused_softmax_decode.launches_bwd = 0
+        cfg = ddp_cfg()
+        result = tp_steps(cfg, dev, tp_batches(cfg, dev))
+        result["launches"] = dict(counters(),
+                                  softmax_decode_backward=fused_softmax_decode.launches_bwd)
+        result["grid"] = (distributed.data_rank(), distributed.model_rank())
+        whole = result.pop("whole")
+        if rank == 0:
+            ckpt = CheckpointManager(str(Path(out_path).parent / "tp_ckpt"))
+            ckpt.save(0, whole)
+            saved = torch.load(os.path.join(ckpt.directory, "ckpt_0.pt"), map_location="cpu",
+                               weights_only=True)["state"]
+            full = build_model(cfg).state_dict()
+            result["ckpt_full"] = all(tuple(saved["params"][n].shape) == tuple(full[n].shape)
+                                      for n in saved["params"]) and all(
+                tuple(saved["opt_state"]["trace"][n].shape) == tuple(full[n].shape)
+                for n in saved["params"])
+            result["ckpt_n"] = len(saved["params"])
+        torch.save(result, out_path)
+    finally:
+        distributed.destroy_process_group()
+
+
+def tp_eval_phase(smi, by_name, dev):
+    """Evaluator2D over the (2, 2) grid against the data-only (2,) mesh on
+    the flagship at 256, float32, TF32 off, cuDNN deterministic."""
+    from hrnet_hand_pose_estimation_tpu_torch.parallel import tensor_parallel as TP
+
+    grid, data = tp_meshes(dev)
+    with phase("model axis: evaluation"), tempfile.TemporaryDirectory() as tmp:
+        cfg = eval_cfg(tmp).clone()
+        cfg.defrost()
+        cfg.TPU.COMPUTE_DTYPE = "float32"
+        cfg.freeze()
+        state = init_variables(cfg, seed=0, device=dev)
+        images = torch.from_numpy(np.random.default_rng(90).normal(
+            size=(EVAL_BATCH, 256, 256, 3)).astype(np.float32)).to(dev)
+        evs = {name: Evaluator2D(cfg, build_model(cfg), state, mesh=m, device=dev)
+               for name, m in (("plain", None), ("data", data), ("grid", grid))}
+        coords, ms = {}, {}
+        for name, ev in evs.items():
+            coords[name] = ev.forward(images)
+            ms[name] = time_ms(lambda: ev.forward(images), 3, warmup=1)
+        zero_counters()
+        evs["grid"].forward(images)
+        torch.cuda.synchronize()
+        once = add_launches(by_name, "launches_model_axis")
+        gap = (coords["grid"] - coords["data"]).abs().max().item()
+        witness = (coords["data"] - coords["plain"]).abs().max().item()
+        limit = max(TP_EVAL_FLOOR, DDP_WITNESS_FACTOR * witness)
+        rep = evs["grid"]._replicas[0]
+        split = {n: d for n, d in TP.info(rep).split.items() if d is not None}
+        position = TP.position_bytes(rep)
+        whole = sum(p.numel() * p.element_size() for p in evs["plain"].model.parameters())
+        results = {}
+        for name in ("data", "grid"):
+            loader = make_test_dataloader(cfg)["Synthetic_kpt"]
+            loader.dataset.length = EVAL_BATCH * SHARD_EVAL_BATCHES
+            results[name] = evs[name].run(loader, "Synthetic")
+        gaps = {k: abs(results["grid"][k] - results["data"][k])
+                for k in ("EPE_px", "PCK_AUC_30", "PCK_AUC_full", "PCK@20px")}
+        print(f"Evaluator2D over the {TP_GRID} grid on cuda:0, flagship w32 at 256, float32, "
+              f"B={EVAL_BATCH}: {len(split)} split leaves; against the data-only mesh max |d| "
+              f"{gap:.4g} px (limit {limit:.4g} = max({TP_EVAL_FLOOR}, "
+              f"{DDP_WITNESS_FACTOR:g} x the witness {witness:.4g} px: the data-only mesh "
+              f"against no mesh), bit-equal {torch.equal(coords['grid'], coords['data'])}; "
+              f"metric gaps {json.dumps(gaps)}; B4 launches a forward "
+              f"{once['fused_softmax_decode']} (one a data row)")
+        print(f"parameter bytes at each model position of a data row: {position} (whole model "
+              f"replicated: {whole}); forward ms (host clock, synced): no mesh "
+              f"{ms['plain']:.2f}, data-only mesh {ms['data']:.2f}, grid {ms['grid']:.2f} on "
+              f"{smi} (every position shares one card: the split's overhead, not scaling)")
+        if len(split) != 40 or position[1] >= whole or position[0] >= whole:
+            raise AssertionError(f"the grid's replicas do not hold the flagship's 40 split "
+                                 f"leaves as shards: {len(split)}, {position}")
+        if once["fused_softmax_decode"] != TP_GRID[0]:
+            raise AssertionError(f"B4 did not decode once a data row: {once}")
+        if not (gap <= limit and all(v <= 0.005 for k, v in gaps.items() if k != "EPE_px")
+                and gaps["EPE_px"] <= SHARD_EPE_LIMIT):
+            raise AssertionError(f"the grid parts from the data-only mesh: {gap} px, {gaps}")
+        del evs, state
+
+
+def tp_int8_phase(smi, by_name, dev):
+    """make_quant_infer over the (2, 2) grid: the weights replicate over
+    'model', so it is the data-only mesh's call bit for bit, with the same
+    launches (B3, conv_int8 and B1 once a data row)."""
+    grid, data = tp_meshes(dev)
+    with phase("model axis: int8 serving"), torch.inference_mode():
+        cfg = flagship_cfg()
+        state = {k: v.to(dev) for k, v in init_variables(cfg, seed=0, device=dev).items()}
+        weights = precast_variables(cfg, state, device=dev)
+        u8 = uint8_images(71, CHECK_BATCH, dev)
+        amax = Q.calibrate(cfg, weights, [normalize(u8[:16])])
+        qparams = Q.prepare_serving_qparams(cfg, state, amax)
+        on_data = Q.make_quant_infer(cfg, dev, input_norm=NORM, mesh=data)
+        on_grid = Q.make_quant_infer(cfg, dev, input_norm=NORM, mesh=grid)
+        zero_counters()
+        want = on_data(weights, qparams, u8)
+        torch.cuda.synchronize()
+        launches_data = counters()
+        zero_counters()
+        got = on_grid(weights, qparams, u8)
+        torch.cuda.synchronize()
+        launches = add_launches(by_name, "launches_model_axis")
+        print(f"make_quant_infer over the {TP_GRID} grid, B={CHECK_BATCH}: bit-equal to the "
+              f"data-only mesh {torch.equal(got, want)}; launches {json.dumps(launches)} "
+              f"(data-only mesh: {json.dumps(launches_data)}) on {smi}")
+        if not torch.equal(got, want) or launches != launches_data:
+            raise AssertionError("int8 serving over the grid is not the data-only mesh's")
+        if not all(launches[k] for k in ("fused_bottleneck_chain_int8", "conv_int8",
+                                         "fused_head_decode_v2")):
+            raise AssertionError(f"int8 serving over the grid skipped a kernel: {launches}")
+        del weights, state
+
+
+def tp_train_check(ranks, ref, native, by_name, smi):
+    """The grid's steps against one process on the global batch, within
+    max(floor, DDP_WITNESS_FACTOR x the witness); the ranks bit-equal where
+    they must be."""
+    for r in ranks:
+        for name, n in r["launches"].items():
+            if name in by_name:
+                by_name[name]["launches_model_axis"] = (
+                    by_name[name].get("launches_model_axis", 0) + n)
+    equal = all(torch.equal(r["params"], ranks[0]["params"])
+                and torch.equal(r["stats"], ranks[0]["stats"])
+                and r["losses"] == ranks[0]["losses"] for r in ranks)
+    by_model = {j: [r for r in ranks if r["grid"][1] == j] for j in range(TP_GRID[1])}
+    shards = all(torch.equal(rs[0]["local"], r["local"]) for rs in by_model.values()
+                 for r in rs)
+    differ = not torch.equal(by_model[0][0]["local"], by_model[1][0]["local"])
+    n_split = sum(d is not None for d in ranks[0]["split"].values())
+    print(f"grid {TP_GRID} of gloo ranks on cuda:0, {TP_BATCH} a data rank, {TP_STEPS} float32 "
+          f"sgd steps of the flagship: gathered states and losses bit-equal on all four "
+          f"{equal}; shards bit-equal within a model index {shards}, different across "
+          f"{differ}; {n_split} split leaves; this rank's flat buffer "
+          f"{ranks[0]['local'].numel()} of {ranks[0]['params'].numel()} parameters; rank 0's "
+          f"checkpoint has full shapes {ranks[0].get('ckpt_full')} ({ranks[0].get('ckpt_n')} "
+          f"parameters); launches a rank {json.dumps(ranks[0]['launches'])}")
+
+    def gaps(x, y):
+        loss = max(abs(p[k] - q[k]) / abs(q[k]) for p, q in zip(x["losses"], y["losses"])
+                   for k in q if q[k])
+        return (loss, (x["params"] - y["params"]).abs().max().item(),
+                (x["stats"] - y["stats"]).abs().max().item())
+
+    got, witness = gaps(ranks[0], ref), gaps(native, ref)
+    limits = (max(DDP_LOSS_RTOL, DDP_WITNESS_FACTOR * witness[0]),
+              max(DDP_PARAM_ATOL, DDP_WITNESS_FACTOR * witness[1]))
+    for label, g in (("the grid", got), ("the witness (one process, native BN)", witness)):
+        print(f"  {label} against one process x {TP_GRID[0] * TP_BATCH} with the "
+              f"data-parallel step's BN formula: largest relative loss gap {g[0]:.3g}; "
+              f"parameters after step {TP_STEPS} {g[1]:.3g}; BN statistics {g[2]:.3g}")
+    print(f"  limits: {limits[0]:.3g} (losses), {limits[1]:.3g} (parameters); ms a step: "
+          f"grid {[round(v, 1) for v in ranks[0]['ms']]}, one process "
+          f"{[round(v, 1) for v in ref['ms']]} on {smi} (four ranks and this process share "
+          f"one card, and every split module all-gathers through the host)")
+    if not (equal and shards and differ and n_split == 40 and ranks[0].get("ckpt_full")):
+        raise AssertionError("the grid's ranks disagree, or its checkpoint is not whole")
+    if not (got[0] <= limits[0] and got[1] <= limits[1]):
+        raise AssertionError(f"the grid parts from one process: {got} against {limits}")
+    if not ranks[0]["launches"]["fused_gaussian_targets"]:
+        raise AssertionError("the grid's ranks made no targets on the card")
+
+
+def tp_phases(smi, kernels):
+    """A11.2's phases: the four gloo ranks of the (2, 2) grid start first,
+    then this process runs the evaluation and int8 serving phases and the
+    one-process references while they train, then "model axis: training,
+    gloo" checks them.  Launches in ``launches_model_axis``."""
+    dev = torch.device("cuda", 0)
+    by_name = {k["name"]: k for k in kernels}
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.empty_cache()
+        ranks = start_ranks(4, "gloo", "grid", tmp, target=tp_rank)
+        deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            tp_eval_phase(smi, by_name, dev)
+            tp_int8_phase(smi, by_name, dev)
+            with phase("model axis: training, gloo"):
+                cfg = ddp_cfg()
+                batches = tp_batches(cfg, dev)
+                ref, native = (tp_steps(cfg, dev, batches, global_formula=f)
+                               for f in (True, False))
+                tp_train_check(join_ranks(ranks), ref, native, by_name, smi)
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs an NVIDIA card",
@@ -6379,6 +6646,7 @@ def main() -> int:
         reader_phases(smi, kernels)
         a8_a7_phases(smi, kernels, gate)
     a11_phases(smi, kernels)
+    tp_phases(smi, kernels)
 
     print(json.dumps({"kernels": kernels}))
     print(smi)

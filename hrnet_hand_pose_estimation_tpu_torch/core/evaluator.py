@@ -29,10 +29,13 @@ batch or loaded from a saved record.
 
 ``mesh`` (``parallel/mesh.make_mesh``) evaluates data-parallel, as the JAX
 package's evaluator on a mesh (its ``:60-75``): one replica of the model
-per mesh device, each batch split along axis 0 over the 'data' axis (a
+per data row, each batch split along axis 0 over the 'data' axis (a
 batch that does not divide raises ``ValueError``), the decoded poses
 gathered on the mesh's first device, which must be ``device``; the int8
-mode serves through ``make_quant_infer(mesh=)``.
+mode serves through ``make_quant_infer(mesh=)``.  With a 'model' axis the
+replicas are the rows' split models (``parallel/tensor_parallel.row_replicas``:
+shard j of each wide weight on the row's model device j, the shards'
+outputs joined on the row's first device, where B4 decodes them).
 """
 
 from __future__ import annotations
@@ -101,10 +104,11 @@ class Evaluator2D:
         pixels, on the device; with a mesh, over the mesh's replicas."""
         if self.mesh is None:
             return self.forward_with(self.model, images)
-        from ..parallel.mesh import replicate, run_sharded
+        from ..parallel.mesh import run_sharded
+        from ..parallel.tensor_parallel import row_replicas
 
         if self._replicas is None:
-            self._replicas = replicate(self.mesh, self.model)
+            self._replicas = row_replicas(self.mesh, self.model)
         return run_sharded(self.mesh, self.forward_with, self._replicas, images)
 
     @torch.no_grad()

@@ -21,10 +21,13 @@ evaluator's; decoding and geometry run in float32.
 
 ``mesh`` (``parallel/mesh.make_mesh``) evaluates data-parallel, as the JAX
 package's evaluator on a mesh (its ``:60-80``): one replica of the net per
-mesh device, the images (B, V, H, W, 3) and projections (B, V, 3, 4) split
+data row, the images (B, V, H, W, 3) and projections (B, V, 3, 4) split
 along B over the 'data' axis (a batch that does not divide raises
 ``ValueError``), the keypoints gathered on the mesh's first device, which
-must be ``device``; the dlt mode's triangulation runs there.
+must be ``device``; the dlt mode's triangulation runs there.  With a
+'model' axis the replicas are the rows' split nets
+(``parallel/tensor_parallel.row_replicas``), as JAX puts the net's
+variables on ``param_shardings`` (its ``:60-88``).
 """
 
 from __future__ import annotations
@@ -91,10 +94,11 @@ class Evaluator3D:
         mode 'dlt'), on the device; with a mesh, over the mesh's replicas."""
         if self.mesh is None:
             return self.forward_with(self.model, images, proj)
-        from ..parallel.mesh import replicate, run_sharded
+        from ..parallel.mesh import run_sharded
+        from ..parallel.tensor_parallel import row_replicas
 
         if self._replicas is None:
-            self._replicas = replicate(self.mesh, self.model)
+            self._replicas = row_replicas(self.mesh, self.model)
         return run_sharded(self.mesh, self.forward_with, self._replicas, images, proj)
 
     @torch.no_grad()

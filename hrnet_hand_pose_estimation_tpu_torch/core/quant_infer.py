@@ -446,14 +446,19 @@ def make_quant_infer(cfg, device="cuda", trunk: str = "quant", input_norm=None,
     live on), every call splits the batch along axis 0 (``ValueError``
     when it does not divide), runs each chunk through every kernel of the
     path on its device, and gathers the (B, K, 2) result on the mesh's
-    first device, which must be ``device``.
+    first device, which must be ``device``.  A 'model' axis replicates the
+    weights over it, as JAX's ``shard_map`` does with its ``P()`` weights:
+    each data row runs once, on its first device
+    (``parallel/mesh.data_mesh``), so the result equals the data-only
+    mesh's.
     """
     if trunk not in ("f32", "quant"):
         raise ValueError(f"trunk must be 'f32' or 'quant', got {trunk!r}")
     if mesh is not None:
-        from ..parallel.mesh import check_home, replicate, run_sharded
+        from ..parallel.mesh import check_home, data_mesh, replicate, run_sharded
 
         check_home(mesh, device)
+        mesh = data_mesh(mesh)
         per_device = [make_quant_infer(cfg, d, trunk, input_norm, pallas_layer1)
                       for d in mesh.devices]
         made: List = []          # [(weights, qparams), replicas]: the pair they were made of

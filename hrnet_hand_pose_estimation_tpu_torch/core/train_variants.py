@@ -53,7 +53,7 @@ def make_train_step_cpm(cfg, model: nn.Module, tx: Optimizer) -> Callable:
     'nonfinite_grads' with the guard)."""
     _check_cfg(cfg)
     detect = bool(cfg.TPU.DETECT_ANOMALY)
-    ranks = distributed.world_size()
+    ranks = distributed.data_size()
     counts = count_sum(ranks)
 
     def step(state: TrainState, batch: Dict) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
@@ -90,7 +90,7 @@ def make_train_step_mv(cfg, model: nn.Module, tx: Optimizer) -> Callable:
     backbone's logits and temperature (JAX: ``soft_argmax`` of their
     spatial softmax); without it both branches take the argmax."""
     _check_cfg(cfg)
-    ranks = distributed.world_size()
+    ranks = distributed.data_size()
     loss_computer = LossComputer2D(cfg, count_sum=count_sum(ranks))
     use_softmax = bool(cfg.MODEL.HEATMAP_SOFTMAX)
     detect = bool(cfg.TPU.DETECT_ANOMALY)

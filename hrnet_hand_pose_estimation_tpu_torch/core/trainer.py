@@ -30,6 +30,17 @@ weights.  The CPM and fusion steps are data-parallel alike, and the BN
 statistics levers take the global batch's subsample
 (``models/layers.StatBatchNorm``).
 
+The ranks form the grid ``TPU.MESH_AXES`` / ``MESH_SHAPE`` over the
+process group's world (``distributed.init_grid``, the JAX trainer's
+``make_mesh``; a shape that does not cover the world raises
+``ValueError``).  With a 'model' axis larger than 1 each rank keeps its
+shard of the wide weights (``parallel/tensor_parallel.py``), the data
+ranks of one model index sum their gradients and statistics, and a
+checkpoint holds the gathered whole state -- parameters, moments, BN
+statistics -- so it loads into a one-process ``Trainer``, and a resume
+under the grid splits it again.  The CPM and fusion steps split alike
+(the fusion net's ``pair_fc`` is gathered at its use).
+
 Warm starts: ``MODEL.PRETRAINED`` copies a reference ``.pth`` trunk by name
 (the port's module names are the reference's), filtered by
 ``MODEL.EXTRA.PRETRAINED_LAYERS`` and shape-checked; ``MODEL.HRNET_PRETRAINED``
@@ -85,7 +96,8 @@ class Trainer:
         self.device = torch.device(device)
         self.train_loaders = train_loaders
         self.val_loaders = val_loaders or {}
-        self.ranks = distributed.world_size()
+        distributed.init_grid(tuple(cfg.TPU.MESH_AXES), tuple(cfg.TPU.MESH_SHAPE))
+        self.ranks = distributed.data_size()        # the global batch is ranks x the local
         self.main = distributed.rank() == 0          # the rank that writes
         self.logger, default_out, tb_dir = create_logger(cfg, "train", write=self.main)
         self.output_dir = output_dir or default_out
@@ -270,13 +282,16 @@ class Trainer:
             self.train_epoch(epoch)
             val = {} if cfg.WITHOUT_EVAL else self.validate(epoch)
             total = val.get("total_loss", float("inf"))
+            # under a model axis every rank gathers the shards with the others
+            gather = self.main or distributed.model_size() > 1
+            payload = self.state.state_dict() if gather else None
             if total < self.best_loss:
                 self.best_loss = total
                 if self.main:
-                    self.ckpt.save_best(self.state)
+                    self.ckpt.save_best(payload)
                 self.logger.info("new best model (val total %.5f)", total)
             if self.main:
-                self.ckpt.save(epoch, self.state, extra={
+                self.ckpt.save(epoch, payload, extra={
                     "best_loss": self.best_loss,
                     "train_global_steps": self.train_global_steps,
                     "valid_global_steps": epoch,

@@ -33,6 +33,10 @@ of the flat gradient buffer, the losses reported global; the cuboid turns
 are the global batch's draw, sliced (``models/triangulation.cuboid_angles``).
 ``Trainer3D`` starts every rank from rank 0's weights, sums the
 validation error over the ranks, and writes its files on rank 0 alone.
+It is data-parallel only, as JAX's (``core/trainer3d.py:180`` builds
+``make_mesh(("data",))`` whatever ``TPU.MESH_AXES`` says): it lays out no
+grid, so under a world of several ranks every rank is a data rank, and no
+weight splits over a 'model' axis (the GAN trainer likewise).
 """
 
 from __future__ import annotations

@@ -70,15 +70,16 @@ class DataLoader:
         self.epoch = int(epoch)
 
     def __len__(self) -> int:
-        n = len(self.dataset) // distributed.world_size()
+        n = len(self.dataset) // distributed.data_size()
         return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
 
     def _index_order(self) -> np.ndarray:
-        """The epoch-seeded global order, then this rank's slice."""
+        """The epoch-seeded global order, then this rank's slice: its data
+        rank's, so the model ranks of one data row read the same rows."""
         idx = np.arange(len(self.dataset))
         if self.shuffle:
             np.random.default_rng((self.seed, self.epoch)).shuffle(idx)
-        return host_local_slice(idx, distributed.rank(), distributed.world_size())
+        return host_local_slice(idx, distributed.data_rank(), distributed.data_size())
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         idx = self._index_order()

@@ -93,6 +93,8 @@ class Aggregation(nn.Module):
                              f"{tuple(heatmaps.shape)}")
         with torch.autocast(heatmaps.device.type, enabled=False):
             planes = heatmaps.float().permute(0, 1, 4, 2, 3).reshape(b, v, k, h * w)
+            # read once: split over a 'model' axis, each read gathers the shards
+            pair_fc = self.pair_fc
             outputs, idx = [], 0
             for i in range(v):
                 acc = planes[:, i] * self.weights[0]
@@ -100,7 +102,7 @@ class Aggregation(nn.Module):
                 for j in range(v):
                     if j == i:
                         continue
-                    warped = _Float32MatMul.apply(planes[:, j], self.pair_fc[idx])
+                    warped = _Float32MatMul.apply(planes[:, j], pair_fc[idx])
                     acc = acc + warped * self.weights[wi]
                     idx += 1
                     wi += 1

@@ -51,10 +51,12 @@ class CheckpointManager:
         return epochs[-1] if epochs else None
 
     def save(self, epoch: int, state, extra: Optional[Dict] = None) -> None:
+        """``state``: a train state, or its ``state_dict()`` payload (made on
+        every rank of a model group, which gathers the shards)."""
         meta = {"epoch": int(epoch), "best_loss": float("inf"), "train_global_steps": 0,
                 "valid_global_steps": 0}
         meta.update(extra or {})
-        _atomic_save({"state": state.state_dict(), "meta": meta}, self._path(epoch))
+        _atomic_save({"state": _payload(state), "meta": meta}, self._path(epoch))
         for old in self.epochs()[:-self.max_to_keep]:
             os.remove(self._path(old))
 
@@ -70,9 +72,13 @@ class CheckpointManager:
         return {"state": state, "meta": payload["meta"]}
 
     def save_best(self, state) -> None:
-        sd = state.state_dict()
+        sd = _payload(state)
         _atomic_save({"params": sd["params"], "batch_stats": sd["batch_stats"]},
                      os.path.join(self.directory, "best.pt"))
+
+
+def _payload(state) -> Dict:
+    return state if isinstance(state, dict) else state.state_dict()
 
 
 def merge_pretrained(dst: Mapping[str, torch.Tensor], src: Mapping[str, torch.Tensor]

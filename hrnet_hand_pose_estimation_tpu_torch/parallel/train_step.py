@@ -20,7 +20,12 @@ backward), every loss is this rank's share over the global denominators
 gradient buffer after the backward sums the shares' gradients, XLA's psum,
 before the anomaly guard, so every rank takes the same skip decision.  The
 reported losses are summed too: the global ones, equal on every rank.
-This was chosen over wrapping the model in ``DistributedDataParallel``:
+Under a data x model grid of ranks (``distributed.init_grid``) the sums run
+over the data group, and each rank keeps only its shard of the wide
+weights JAX splits over its 'model' axis (``state_shardings``,
+``parallel/tensor_parallel.py``): the flat buffers hold the shards, so the
+optimizer's moments are shard-shaped, and the anomaly guard's finite flag
+is reduced over the world.  This was chosen over wrapping the model in ``DistributedDataParallel``:
 the gradients already live in one flat buffer, so one collective does
 what DDP's buckets do, and DDP's loss convention (the mean of per-rank
 losses) is not JAX's global normalisation.
@@ -65,6 +70,7 @@ from ..models.layers import BatchNorm, synced_batch_stats
 from ..ops.decode import decode_heatmaps
 from ..ops.flip import flip_back, shift_heatmap
 from . import distributed
+from . import tensor_parallel as tp
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 _STAT_FIELDS = ("running_mean", "running_var")
@@ -372,7 +378,8 @@ class TrainState:
         for name, p in named:
             if p.dtype != torch.float32:
                 raise ValueError(f"{name}: float32 parameters only, got {p.dtype}")
-        self.param_names = [n for n, _ in named]
+        # a split model (tensor_parallel) holds its shards; names are the unsplit model's
+        self.param_names = [tp.public_name(n) for n, _ in named]
         self.params, views = _flatten([p for _, p in named], torch.float32, device)
         self.grads = torch.zeros_like(self.params)
         grads = _split(self.grads, self.param_names, [p.shape for _, p in named]).values()
@@ -399,8 +406,11 @@ class TrainState:
 
     def state_dict(self) -> Dict:
         """{"step", "params", "batch_stats", "opt_state"} with per-name
-        tensors (moments by parameter name), cloned to the CPU."""
-        cpu = lambda d: {k: v.detach().cpu().clone() for k, v in d.items()}
+        tensors (moments by parameter name), cloned to the CPU.  A split
+        model's shards are gathered whole (a collective: every rank of the
+        model group calls it)."""
+        cpu = lambda d: {k: tp.gather_full(self.model, k, v).detach().cpu().clone()
+                         for k, v in d.items()}
         shapes = self._param_shapes()
         opt = {}
         for key, val in self.opt_state.items():
@@ -408,14 +418,15 @@ class TrainState:
                         else val.detach().cpu().clone())
         buffers = dict(self.model.named_buffers())
         return {"step": self.step.detach().cpu().clone(),
-                "params": cpu(dict(self.model.named_parameters())),
+                "params": cpu(_split(self.params, self.param_names, shapes)),
                 "batch_stats": cpu({n: buffers[n] for n in self.stat_names + self.count_names}),
                 "opt_state": opt}
 
     @torch.no_grad()
     def load_state_dict(self, payload: Dict) -> None:
         """Copy a ``state_dict()`` payload in place; raises on a key or shape
-        that does not match this state (optimizer kind included)."""
+        that does not match this state (optimizer kind included).  A split
+        model takes its shard of each whole leaf."""
         shapes = self._param_shapes()
 
         def fill(flat, names, shapes_, src, what):
@@ -423,10 +434,11 @@ class TrainState:
                 missing, extra = sorted(set(names) - set(src)), sorted(set(src) - set(names))
                 raise KeyError(f"{what}: missing {missing[:5]}, unexpected {extra[:5]}")
             for name, view in _split(flat, names, shapes_).items():
-                if tuple(src[name].shape) != tuple(view.shape):
+                val = tp.local_slice(self.model, name, torch.as_tensor(src[name]))
+                if tuple(val.shape) != tuple(view.shape):
                     raise ValueError(f"{what} {name}: want {tuple(view.shape)}, "
                                      f"got {tuple(src[name].shape)}")
-                view.copy_(src[name])
+                view.copy_(val)
 
         fill(self.params, self.param_names, shapes, payload["params"], "params")
         stats = payload["batch_stats"]
@@ -484,13 +496,39 @@ def init_train_weights(model: nn.Module, seed: int) -> None:
 def create_train_state(cfg, model: nn.Module, steps_per_epoch: int = 1000,
                        device="cuda") -> Tuple[TrainState, Optimizer]:
     """Initialise ``model`` (seed ``TPU.SEED``), move it to ``device`` in
-    train mode, and build its optimizer and state."""
+    train mode, and build its optimizer and state.  Under a grid of ranks
+    with a model axis (``distributed.init_grid``) every rank builds the
+    whole model from the seed and keeps its model rank's shard of each
+    split leaf (``state_shardings``)."""
     _check_cfg(cfg)
     refuse_unsupported(cfg, "train state")
     init_train_weights(model, int(cfg.TPU.SEED))
     model.to(device).train()
+    size = distributed.model_size()
+    if size > 1:
+        from .mesh import param_shardings
+
+        tp.shard_for_rank(model, param_shardings(size, model), distributed.model_rank(), size,
+                          distributed.model_group())
     tx = make_optimizer(cfg, steps_per_epoch)
     return TrainState(model, tx), tx
+
+
+def state_shardings(mesh, state: TrainState) -> Dict:
+    """Where each part of ``state`` splits over the 'model' axis (the JAX
+    package's ``state_shardings``): {"step": None, "params": {name: dim or
+    None} (``mesh.param_shardings``), "batch_stats": {name: None},
+    "opt_state": {key: the params' map for a moment shaped like the
+    parameters, None for a count}}.  Moments follow their parameters by
+    name, never by shape; the step counter and the BN statistics are
+    replicated.  ``mesh`` is a ``Mesh`` or a model size."""
+    from .mesh import param_shardings
+
+    params = param_shardings(mesh, state.model)
+    return {"step": None, "params": params,
+            "batch_stats": {n: None for n in state.stat_names + state.count_names},
+            "opt_state": {k: (dict(params) if v.dim() else None)
+                          for k, v in state.opt_state.items()}}
 
 
 # -- the guarded update and the steps --------------------------------------
@@ -503,8 +541,9 @@ def apply_guarded_update(cfg, tx: Optimizer, state: TrainState,
     """Optimizer update from ``state.grads`` with the TPU.DETECT_ANOMALY guard.
 
     Guard (the reference trains under set_detect_anomaly(True),
-    tools/train.py:335): the probe is the float32 sum of every gradient; when
-    it is not finite the step is skipped whole -- parameters, optimizer state
+    tools/train.py:335): the probe is the float32 sum of every gradient (of
+    every rank's shards, under a model axis); when it is not finite the
+    step is skipped whole -- parameters, optimizer state
     (counts included, so the LR schedule does not advance) and the BN
     statistics (``stats_before``, taken before the forward) stay
     bit-identical -- and ``loss_dict['nonfinite_grads']`` is 1 (else 0).
@@ -514,6 +553,10 @@ def apply_guarded_update(cfg, tx: Optimizer, state: TrainState,
     grads, params = state.grads, state.params
     if detect:
         finite = torch.isfinite(grads.sum(dtype=torch.float32))
+        if distributed.model_size() > 1:
+            # the ranks hold different shards: one skip decision for all
+            bad = distributed.sum_((~finite).to(torch.float32).reshape(1))
+            finite = bad[0] == 0
         grads = torch.where(finite, grads, torch.zeros((), dtype=grads.dtype,
                                                        device=grads.device))
         loss_dict = dict(loss_dict)
@@ -554,7 +597,7 @@ def make_train_step(cfg, model: nn.Module, tx: Optimizer) -> Callable:
     """
     _check_cfg(cfg)
     refuse_unsupported(cfg, "train step")
-    ranks = distributed.world_size()
+    ranks = distributed.data_size()
     loss_computer = LossComputer2D(cfg, count_sum=count_sum(ranks))
     use_softmax = bool(cfg.MODEL.HEATMAP_SOFTMAX)
     detect = bool(cfg.TPU.DETECT_ANOMALY)
@@ -597,44 +640,57 @@ def make_train_step(cfg, model: nn.Module, tx: Optimizer) -> Callable:
 
 
 def global_losses(shares: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-    """The ranks' loss shares summed in one collective: the global losses."""
-    total = distributed.sum_(torch.stack([v.float() for v in shares.values()]))
+    """The data ranks' loss shares summed in one collective over the data
+    group: the global losses."""
+    total = distributed.sum_(torch.stack([v.float() for v in shares.values()]),
+                             distributed.data_group())
     return dict(zip(shares, total.unbind()))
 
 
 def broadcast_state(state: TrainState) -> None:
-    """Rank 0's parameters and BN statistics on every rank of a process
-    group of several ranks; nothing for one process."""
-    if distributed.world_size() > 1:
+    """Data rank 0's parameters (its shards, under a model axis) and BN
+    statistics on every rank of its data group; nothing for one process."""
+    if distributed.data_size() > 1:
+        group = distributed.data_group()
+        src = distributed.group_rank0(group)
         for buf in (state.params, state.stats, state.counts):
             if buf.numel():
-                distributed.broadcast_(buf)
+                distributed.broadcast_(buf, src, group)
+
+
+def _over_data(fn: Callable) -> Callable:
+    """``fn`` (a sum over the world) over this rank's data group instead;
+    ``fn`` itself without a model axis, where the data group is the world."""
+    group = distributed.data_group()
+    return fn if group is None else (lambda x: fn(x, group))
 
 
 def count_sum(ranks: int):
-    """The loss denominators' sum over ``ranks`` ranks
-    (``distributed.sum_counts``); None for one process."""
-    return distributed.sum_counts if ranks > 1 else None
+    """The loss denominators' sum over ``ranks`` data ranks
+    (``distributed.sum_counts`` over the data group); None for one."""
+    return _over_data(distributed.sum_counts) if ranks > 1 else None
 
 
 def global_batch_stats(ranks: int):
-    """A data-parallel forward's context over ``ranks`` ranks: the BN
-    statistics of the global batch (``synced_batch_stats`` with this
-    rank's place in it); nothing for one process."""
+    """A data-parallel forward's context over ``ranks`` data ranks: the BN
+    statistics of the global batch (``synced_batch_stats`` over the data
+    group, with this rank's place in the batch, its data rank); nothing for
+    one."""
     if ranks > 1:
-        return synced_batch_stats(distributed.all_reduce_sum, rank=distributed.rank())
+        return synced_batch_stats(_over_data(distributed.all_reduce_sum),
+                                  rank=distributed.data_rank())
     return nullcontext()
 
 
 def reduce_step(ranks: int, grads: torch.Tensor, shares: Dict[str, torch.Tensor]
                 ) -> Dict[str, torch.Tensor]:
-    """After a data-parallel backward over ``ranks`` ranks: ``grads`` summed
-    over the ranks in place (XLA's psum of the gradient) and the global
-    losses of the ranks' ``shares``; the shares as they are for one
-    process."""
+    """After a data-parallel backward over ``ranks`` data ranks: ``grads``
+    summed over the data group in place (XLA's psum of the gradient) and
+    the global losses of the ranks' ``shares``; the shares as they are for
+    one data rank."""
     if ranks == 1:
         return shares
-    distributed.sum_(grads)
+    distributed.sum_(grads, distributed.data_group())
     return global_losses(shares)
 
 

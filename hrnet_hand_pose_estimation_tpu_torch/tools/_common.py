@@ -8,6 +8,7 @@ import argparse
 import os
 from typing import Dict
 
+import numpy as np
 import torch
 
 
@@ -51,14 +52,22 @@ def load_weights(cfg, model, model_path: str = "", device="cpu") -> Dict[str, to
 
 
 def tool_mesh(cfg, device="cuda"):
-    """The data-parallel mesh of ``TPU.MESH_AXES`` / ``MESH_SHAPE`` (the JAX
-    tools' ``make_mesh``), over every visible card for ``device`` 'cuda'
-    and over ``device`` alone otherwise; None for a mesh of one device."""
+    """The mesh of ``TPU.MESH_AXES`` / ``MESH_SHAPE`` (the JAX tools'
+    ``make_mesh``: ``[data, model]`` / ``[4, 2]`` splits the batch over four
+    data rows and the wide weights over two model devices a row), over every
+    visible card for ``device`` 'cuda' and over ``device`` alone otherwise;
+    None for a mesh of one device.  A shape that does not cover the devices
+    raises ``ValueError``.  On one named device (the CPU, 'cuda:0') a shape
+    puts that many mesh positions on it, as JAX's host devices do on the
+    CPU: ``--device cpu TPU.MESH_AXES "['data', 'model']" TPU.MESH_SHAPE
+    "[4, 2]"``."""
     from ..parallel.mesh import make_mesh
 
     device = torch.device(device)
-    devices = None if device.type == "cuda" and device.index is None else [device]
-    mesh = make_mesh(tuple(cfg.TPU.MESH_AXES), tuple(cfg.TPU.MESH_SHAPE), devices)
+    shape = tuple(int(s) for s in cfg.TPU.MESH_SHAPE)
+    devices = (None if device.type == "cuda" and device.index is None
+               else [device] * max(int(np.prod(shape)), 1))
+    mesh = make_mesh(tuple(cfg.TPU.MESH_AXES), shape, devices)
     return None if mesh.size == 1 else mesh
 
 

@@ -18,6 +18,16 @@ N x TRAIN.IMAGES_PER_GPU, rank 0 writes the run's files):
 Under torchrun (its ``WORLD_SIZE`` in the environment) the tool starts the
 process group with ``--dist_backend`` (nccl, the default, for ranks on
 cards; gloo for ranks on the CPU, ``--device cpu --dist_backend gloo``).
+
+A grid of data x model ranks splits the wide weights over the model axis
+(``parallel/tensor_parallel.py``), from the config, data-major over the
+world: four CPU ranks as two data rows of two model ranks each,
+
+    torchrun --nproc_per_node=4 -m hrnet_hand_pose_estimation_tpu_torch.tools.train \\
+        --cfg <exp.yaml> --device cpu --dist_backend gloo \\
+        TPU.MESH_AXES "['data', 'model']" TPU.MESH_SHAPE "[2, 2]"
+
+(ranks sharing one card run gloo too; NCCL takes one card a rank).
 """
 
 from __future__ import annotations
@@ -49,9 +59,12 @@ def main() -> None:
         val_loaders = {} if cfg.WITHOUT_EVAL else make_dataloader(cfg, is_train=False)
 
         trainer = Trainer(cfg, model, train_loaders, val_loaders, device=device)
-        trainer.logger.info("device: %s; rank %d of %d", torch.cuda.get_device_name(device)
-                            if device.type == "cuda" else "cpu", distributed.rank(),
-                            distributed.world_size())
+        # the Trainer lays the ranks out on TPU.MESH_AXES / MESH_SHAPE
+        trainer.logger.info("device: %s; rank %d of %d (data %d of %d, model %d of %d)",
+                            torch.cuda.get_device_name(device) if device.type == "cuda"
+                            else "cpu", distributed.rank(), distributed.world_size(),
+                            distributed.data_rank(), distributed.data_size(),
+                            distributed.model_rank(), distributed.model_size())
         trainer.logger.info("%s", model_summary(model, cfg))
         trainer.fit()
     finally:

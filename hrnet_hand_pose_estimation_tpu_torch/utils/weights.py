@@ -38,7 +38,7 @@ triangulation nets) from a numpy seed, for runs on a machine without JAX
 from __future__ import annotations
 
 import re
-from typing import Dict, Mapping, Optional
+from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -263,6 +263,37 @@ def _weight(arr: np.ndarray, name: str) -> np.ndarray:
         # its kernel is torch's flipped in space (torch_convert.py:77-84)
         return arr[::-1, ::-1, ::-1].transpose(3, 4, 0, 1, 2)
     return arr.transpose(4, 3, 0, 1, 2)                    # DHWIO -> OIDHW
+
+
+_PROBE = (2, 3, 5, 7, 11)      # distinct sizes: each axis found again after _weight
+
+
+def jax_last_axis(name: str, shape, heads: int = 0) -> Tuple[int, int, Optional[int]]:
+    """The JAX leaf of the port parameter ``name`` of ``shape``: (its number
+    of dims, the size of its last axis, the port dim that axis becomes).
+
+    A kernel (``name`` ending in '.weight', two dims or more) is read off
+    ``_weight``'s own conversion, run on a probe of distinct sizes: HWIO /
+    DHWIO -> dim 0, a transposed conv's (I, O, ...) -> dim 1, Dense ->
+    Linear's dim 0.  ``heads`` > 0 marks a flax attention ``DenseGeneral``
+    (the port's ``MultiHead``): a three-dim kernel, whose (heads, head_dim,
+    out) out projection lands on dim 0, while the (in, heads, head_dim)
+    projections and their (heads, head_dim) biases fold head_dim into
+    Linear's out dim (port dim None).  Every other leaf is copied as it is
+    (PoseAggr's HWIO deform kernels, the fusion net's ``pair_fc``): its last
+    dim."""
+    shape = tuple(int(s) for s in shape)
+    attention = heads and not name.endswith(".out.weight") and not name.endswith(".out.bias")
+    if attention and name.endswith(".bias"):
+        return 2, shape[0] // heads, None
+    if len(shape) < 2 or not name.endswith(".weight"):
+        return len(shape), (shape[-1] if shape else 1), (len(shape) - 1 if shape else None)
+    ndim = 3 if heads else len(shape)
+    probe = _weight(np.zeros(_PROBE[:ndim]), name[:-len(".weight")]).shape
+    last = _PROBE[ndim - 1]
+    if last in probe:
+        return ndim, shape[probe.index(last)], probe.index(last)
+    return ndim, shape[0] // heads, None
 
 
 def _leaves(tree: Mapping, prefix=()):

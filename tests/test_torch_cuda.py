@@ -1986,3 +1986,57 @@ def test_synced_batch_stats_bf16_on_card_matches_cpu(cuda):
         assert (y - ref[0]).abs().max() <= 2.0 ** -8 * ref[0].abs().max()
         assert (gx - ref[1]).abs().max() <= 2.0 ** -8 * ref[1].abs().max()
         assert torch.allclose(rm, ref[2], atol=1e-5) and torch.allclose(rv, ref[3], atol=1e-5)
+
+
+def test_model_axis_on_card_matches_data_mesh(cuda):
+    """Evaluator2D over a (2, 2) grid of cuda:0 positions (the small
+    HRNet's layer1 convs split their output channels, shard j at model
+    position j) against the data-only (2,) mesh in float32 with cuDNN
+    deterministic: the decoded coordinates within 1e-4 px, B4 launched once
+    a data row; each split weight's shards on the card, half the channels
+    each; make_quant_infer over the grid bit-equal to the data-only mesh."""
+    from hrnet_hand_pose_estimation_tpu_torch.core.evaluator import Evaluator2D
+    from hrnet_hand_pose_estimation_tpu_torch.parallel import tensor_parallel as TP
+    from hrnet_hand_pose_estimation_tpu_torch.parallel.mesh import make_mesh
+
+    cfg = small_cfg(SMOKE_WIDTHS).clone()
+    cfg.defrost()
+    cfg.MODEL.HEATMAP_SOFTMAX, cfg.TPU.COMPUTE_DTYPE = True, "float32"
+    cfg.freeze()
+    state = init_variables(cfg, seed=3)
+    grid = make_mesh(("data", "model"), (2, 2), [cuda] * 4)
+    data = make_mesh(("data",), (2,), [cuda] * 2)
+    images = torch.from_numpy(np.random.default_rng(5).normal(
+        size=(4, 64, 64, 3)).astype(np.float32)).to(cuda)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        out = {}
+        for name, mesh in (("grid", grid), ("data", data)):
+            ev = Evaluator2D(cfg, build_model(cfg), state, mesh=mesh, device=cuda)
+            fused_softmax_decode.launches = 0
+            out[name] = ev.forward(images)
+            torch.cuda.synchronize()
+            assert fused_softmax_decode.launches == 2
+            if name == "grid":
+                rep = ev._replicas[0]
+                split = {n: d for n, d in TP.info(rep).split.items() if d is not None}
+                assert split and all(n.startswith("layer1.") for n in split)
+                for n, d in split.items():
+                    shards = TP.shards_of(rep, n)
+                    assert [s.device.type for s in shards] == ["cuda", "cuda"]
+                    assert shards[0].shape[d] == shards[1].shape[d] == 128
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    assert (out["grid"] - out["data"]).abs().max().item() <= 1e-4
+    weights = precast_variables(cfg, {k: v.to(cuda) for k, v in state.items()})
+    u8 = torch.from_numpy(np.random.default_rng(9).integers(
+        0, 256, size=(4, 64, 64, 3)).astype(np.uint8)).to(cuda)
+    norm = (Q.IMAGENET_MEAN, Q.IMAGENET_STD)
+    mean = torch.tensor(norm[0], device=cuda) * 255.0
+    std = torch.tensor(norm[1], device=cuda) * 255.0
+    amax = Q.calibrate(cfg, weights, [(u8.float() - mean) / std])
+    qparams = Q.prepare_serving_qparams(cfg, {k: v.to(cuda) for k, v in state.items()}, amax)
+    got, want = (Q.make_quant_infer(cfg, cuda, input_norm=norm, mesh=m)(weights, qparams, u8)
+                 for m in (grid, data))
+    assert torch.equal(got, want)

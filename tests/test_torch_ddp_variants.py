@@ -99,27 +99,43 @@ def jax_state(jcfg, variables):
                              opt_state=tx.init(params)), tx
 
 
-def run_cases(tiny_cfg, work, names):
-    """The ranks' runs of the named cases ('cpm', 'mv'), started first, then
-    JAX's SPMD steps: ([rank 0's, rank 1's results], {name: JAX's steps})."""
-    makers = {"cpm": cpm_case, "mv": mv_case}
-    setups = {name: makers[name](tiny_cfg) for name in names}
+def port_cases(setups, witnesses: bool = True):
+    """The ranks' cases of ``setups`` ({name: a ``*_case`` result})."""
     cases = []
     for name, (jcfg, pcfg, jm, variables, batches) in setups.items():
         state, _ = jax_state(jcfg, variables)
         init = from_jax_train_state(jax.device_get(state), build_model(pcfg))
         cases.append(dict(name=name, kind="step2d", cfg=pcfg.to_dict(), params=init["params"],
                           batch_stats=init["batch_stats"], keep=KEEP[name], batches=batches,
-                          modes=["global", *WITNESSES] if name == "mv" else ["global"]))
-    procs = spawn(cases, work)
+                          modes=(["global", *WITNESSES] if name == "mv" and witnesses
+                                 else ["global"])))
+    return cases
 
-    mesh = Mesh(np.array(jax.devices()[:WORLD]), ("data",))
+
+def run_cases(tiny_cfg, work, names, grid=None, also=None):
+    """The ranks' runs of the named cases ('cpm', 'mv'), started first, then
+    JAX's SPMD steps: ([each rank's results], {name: JAX's steps}).  With a
+    ``grid`` (data, model) the ranks form it, and JAX's mesh is that grid
+    of host devices with the state on its ``state_shardings``; ``also``, a
+    directory, runs the same cases on WORLD data ranks there too, whose
+    results come third."""
+    makers = {"cpm": cpm_case, "mv": mv_case}
+    setups = {name: makers[name](tiny_cfg) for name in names}
+    procs = spawn(port_cases(setups, grid is None), work, grid)
+    data_only = spawn(port_cases(setups, False), also) if also is not None else None
+
+    if grid is None:
+        mesh = Mesh(np.array(jax.devices()[:WORLD]), ("data",))
+    else:
+        mesh = Mesh(np.array(jax.devices()[:grid[0] * grid[1]]).reshape(grid),
+                    ("data", "model"))
     data, rep = NamedSharding(mesh, PartitionSpec("data")), NamedSharding(mesh, PartitionSpec())
     makers = {"cpm": jax_tv.make_train_step_cpm, "mv": jax_tv.make_train_step_mv}
     ref = {}
     for name, (jcfg, pcfg, jm, variables, batches) in setups.items():
         state, tx = jax_state(jcfg, variables)
-        state = jax.device_put(state, rep)
+        state = jax.device_put(state, rep if grid is None
+                               else jax_ts.state_shardings(mesh, state))
         step = makers[name](jcfg, jm, tx)
         model = build_model(pcfg)
         ref[name] = []
@@ -128,6 +144,8 @@ def run_cases(tiny_cfg, work, names):
                                          for k, v in batch.items()})
             ref[name].append({"losses": {k: float(v) for k, v in losses.items()},
                               "state": from_jax_train_state(jax.device_get(state), model)})
+    if data_only is not None:
+        return collect(procs, work), ref, collect(data_only, also)
     return collect(procs, work), ref
 
 

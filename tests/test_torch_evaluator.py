@@ -250,10 +250,10 @@ def test_int8_calibrates_on_the_first_batch(tiny_cfg):
 
 def test_entry_checks(tiny_cfg):
     cfg = config_from_dict(eval_cfg(tiny_cfg).to_dict())
-    # mesh= is ported; a 'model' mesh axis (JAX's tensor parallelism) is not
-    with pytest.raises(NotImplementedError, match="A11"):
-        Evaluator2D(cfg, build_model(cfg), mesh=make_mesh(("data", "model"), (1, 2), CPU2),
-                    device="cpu")
+    # a 'model' mesh axis (JAX's tensor parallelism) is taken: the row's split model
+    ev = Evaluator2D(cfg, build_model(cfg), mesh=make_mesh(("data", "model"), (1, 2), CPU2),
+                     device="cpu")
+    assert ev.forward(torch.zeros(2, 64, 64, 3)).shape == (2, 21, 2)
     with pytest.raises(ValueError, match="entry point's device"):
         Evaluator2D(cfg, build_model(cfg), mesh=make_mesh(devices=CPU2), device="cuda")
     with pytest.raises(ValueError, match="unknown serving"):

@@ -115,8 +115,8 @@ def test_evaluator3d_matches_jax(tiny_cfg, tmp_path, jax_eigh64, mode, kind):
 
 
 def test_views_subset_and_entry_checks(tiny_cfg):
-    """``views`` evaluates a subset of the views, as JAX's; a 'model' mesh
-    axis and an unknown mode raise."""
+    """``views`` evaluates a subset of the views, as JAX's, also over a
+    'model' mesh axis; an unknown mode raises."""
     cfg = config_from_dict(eval3d_cfg(tiny_cfg, "alg").to_dict())
     cfg.defrost()
     cfg.DATASET.NUM_VIEWS = 3
@@ -126,10 +126,10 @@ def test_views_subset_and_entry_checks(tiny_cfg):
     ev = Evaluator3D(cfg, build_triangulation_net(cfg, "alg"), None, device="cpu")
     res = ev.run(loader, views=[0, 2])
     assert all(np.isfinite(v) for v in res.values())
-    # mesh= is ported; a 'model' mesh axis (JAX's tensor parallelism) is not
-    with pytest.raises(NotImplementedError, match="A11"):
-        Evaluator3D(cfg, build_triangulation_net(cfg, "alg"), None, device="cpu",
-                    mesh=make_mesh(("data", "model"), (1, 2), ["cpu", "cpu"]))
+    # a 'model' mesh axis (JAX's tensor parallelism) is taken: the row's split net
+    ev = Evaluator3D(cfg, build_triangulation_net(cfg, "alg"), None, device="cpu",
+                     mesh=make_mesh(("data", "model"), (1, 2), ["cpu", "cpu"]))
+    assert all(np.isfinite(v) for v in ev.run(loader, views=[0, 2]).values())
     with pytest.raises(ValueError, match="mode"):
         Evaluator3D(cfg, build_triangulation_net(cfg, "alg"), None, mode="x", device="cpu")
 

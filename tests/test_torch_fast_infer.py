@@ -99,7 +99,7 @@ def test_port_imports_no_jax():
         "             'tools.generate_videos', 'tools.tsne_visualization', 'tools.record_video',\n"
         "             'tools.perf_bn_levers', 'tools.perf_multistep_sweep',\n"
         "             'tools.perf_int8_probe', 'tools.perf_quant_e2e', 'tools.perf_train_profile',\n"
-        "             'parallel.mesh', 'parallel.distributed'):\n"
+        "             'parallel.mesh', 'parallel.distributed', 'parallel.tensor_parallel'):\n"
         "    assert port.__name__ + '.' + name in sys.modules, name\n"
         "assert not any(m.split('.')[0] in ('jax', 'flax', 'cv2', 'yaml') for m in sys.modules"
         " if sys.modules[m] is not None)\n"

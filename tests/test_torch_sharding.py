@@ -3,7 +3,7 @@ its per-rank loader slices, against the JAX package's.
 
 - ``make_mesh`` / ``shard_batch`` refuse what JAX refuses: a shape that
   does not cover the devices, a batch that does not divide the 'data' axis
-  (``shard_map``'s error), and the 'model' axis (not ported, ROADMAP A11);
+  (``shard_map``'s error); a 'model' axis is taken (tests/test_torch_tp_eval.py);
 - ``make_quant_infer(mesh=two CPU replicas)`` against the port without a
   mesh and against JAX's ``make_quant_infer(mesh=Mesh(devices[:2]))``
   (built directly: JAX's ``make_mesh`` takes all 8 of conftest's host
@@ -83,8 +83,7 @@ def test_make_mesh_and_shard_batch_refuse_what_jax_refuses():
     assert make_mesh(("data", "model"), (2, 1), CPU2).shape == (2, 1)
     with pytest.raises(ValueError, match="does not cover"):
         make_mesh(("data",), (4,), CPU2)
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        make_mesh(("data", "model"), (1, 2), CPU2)
+    assert make_mesh(("data", "model"), (1, 2), CPU2).model_size == 2
     with pytest.raises(ValueError, match="'data' axis"):
         make_mesh(("batch",), (), CPU2)
     x = torch.arange(12.0).reshape(6, 2)

@@ -31,13 +31,16 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def spawn(cases: List[Dict], work) -> List[subprocess.Popen]:
-    """Write the cases to ``work/input.pt`` and start the ranks."""
-    torch.save({"cases": cases}, os.path.join(work, "input.pt"))
+def spawn(cases: List[Dict], work, grid=None) -> List[subprocess.Popen]:
+    """Write the cases to ``work/input.pt`` and start the ranks: WORLD of
+    them, or a ``grid`` (data, model) of them."""
+    world = WORLD if grid is None else grid[0] * grid[1]
+    torch.save({"cases": cases} if grid is None else {"cases": cases, "grid": tuple(grid)},
+               os.path.join(work, "input.pt"))
     port = free_port()
     env = dict(os.environ, PYTHONPATH=REPO)
-    return [subprocess.Popen([sys.executable, CHILD, str(r), str(WORLD), str(port), str(work)],
-                             env=env) for r in range(WORLD)]
+    return [subprocess.Popen([sys.executable, CHILD, str(r), str(world), str(port), str(work)],
+                             env=env) for r in range(world)]
 
 
 def collect(procs: List[subprocess.Popen], work, timeout: int = 300) -> List[Dict]:
@@ -48,9 +51,9 @@ def collect(procs: List[subprocess.Popen], work, timeout: int = 300) -> List[Dic
         for p in procs:
             if p.poll() is None:
                 p.kill()
-    assert codes == [0] * WORLD, f"rank exit codes {codes}"
+    assert codes == [0] * len(procs), f"rank exit codes {codes}"
     return [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=False)
-            for r in range(WORLD)]
+            for r in range(len(procs))]
 
 
 def bit_equal(a, b) -> bool:

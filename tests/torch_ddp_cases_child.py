@@ -4,7 +4,8 @@ _levers}.py (JAX-free, in the manner of tests/torch_ddp_child.py).
 
 Usage: torch_ddp_cases_child.py <rank> <world_size> <port> <workdir>
 
-Reads ``workdir/input.pt``: {"cases": [case, ...]}.  A case is a dict:
+Reads ``workdir/input.pt``: {"cases": [case, ...], optionally "grid": (data,
+model), a grid of ranks with a 'model' axis}.  A case is a dict:
 "name"; "kind" ('step3d', 'gan', 'step2d' or 'trainer3d'); "cfg" (the
 port config as a dict); "model" (the net's initial state_dict) or
 "params" and "batch_stats" (a 2D state's, by name) with "keep" (the
@@ -49,12 +50,16 @@ distributed.init_process_group("gloo", rank=rank, world_size=world,
                                init_method=f"tcp://localhost:{port}")
 assert "jax" not in sys.modules
 payload = torch.load(os.path.join(workdir, "input.pt"), weights_only=False)
+if "grid" in payload:
+    distributed.init_grid(("data", "model"), payload["grid"])
 
 
 def mine(batch):
-    """This rank's contiguous slice of a global batch, as torch tensors."""
-    per = len(next(iter(batch.values()))) // world
-    return {k: torch.from_numpy(np.ascontiguousarray(v[rank * per:(rank + 1) * per]))
+    """This rank's contiguous slice of a global batch (its data rank's), as
+    torch tensors."""
+    data, n = distributed.data_rank(), distributed.data_size()
+    per = len(next(iter(batch.values()))) // n
+    return {k: torch.from_numpy(np.ascontiguousarray(v[data * per:(data + 1) * per]))
             for k, v in batch.items()}
 
 
